@@ -8,9 +8,9 @@ Phases, each of which fails the run on any error:
 1. build    — compile every CUDA kernel of the port from
                ``lasp_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at
                once) into ``build/lasp_tpu_torch``;
-2. parity   — hold each kernel bit-for-bit against its plain PyTorch
-               version on the card (tolerance zero: every value is a bit or
-               an integer), changed flags included;
+2. parity   — hold each kernel (K1, K2, K3) bit-for-bit against its plain
+               PyTorch version on the card (tolerance zero: every value is
+               a bit or an integer), changed flags included;
 3. headline — ``bench_scenarios.orset_anti_entropy`` at 2**18 replicas of
                the 8 KiB packed OR-Set (128 elems x 64 actors x 4 tokens),
                random 3-regular gossip, fused blocks of 4;
@@ -18,9 +18,17 @@ Phases, each of which fails the run on any error:
                replicas on ``random_regular(100_000, 3)``: an OR-Set and a
                G-Counter written with ``update_batch``, converged by a dense
                twin and a frontier twin that must agree bit for bit;
-5. kernels  — each kernel timed at the shapes phases 3-4 gave it (device
+5. plan     — the grouped dispatch plan at 100,000 replicas on
+               ``random_regular(100_000, 3, seed=23)``: 48 variables cycling
+               G-Set / G-Counter / OR-SWOT (16 of each), 16 writers each and
+               one hot G-Set, converged by ``plan="off"`` and ``plan="auto"``
+               frontier twins and a dense twin that must agree bit for bit;
+               K2 and K3 must launch with G > 1; a fourth ``plan="auto"``
+               twin converges under ``torch.profiler`` for the card's busy
+               share;
+6. kernels  — each kernel timed at the shapes phases 3-5 gave it (device
                time, and host time per wrapper call), beside its plain
-               version and its bound, with its launches on phases 3-4
+               version and its bound, with its launches on phases 3-5
                (counts zeroed before each phase, read after).
 
 Prints the card's name and power limit, one JSON line of kernels, and as
@@ -142,7 +150,7 @@ def phase_parity(torch, cg) -> None:
     }
     cases = 0
     for label, (dtype, op, row, n_leaves) in leaf_kinds.items():
-        for g in (1, 3):
+        for g in (1, 3, 16):
             if dtype == torch.bool:
                 leaves = [torch.randint(0, 2, (g, r) + row, device="cuda",
                                         generator=gen).bool()
@@ -164,16 +172,88 @@ def phase_parity(torch, cg) -> None:
                     rows[:, -1] = rows[:, 0]  # a duplicate pad slot
                     got, ch = cg.gossip_round_rows(op, leaves, nb, rows, mask)
                     want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
+                    # the members as separate tensors, as the plan passes them
+                    got_m, ch_m = cg.gossip_round_rows(
+                        op, [[m.clone() for m in x.unbind(0)] for x in leaves],
+                        nb, rows, mask)
                     torch.cuda.synchronize()
                     if not (all(torch.equal(a, b) for a, b in zip(got, want))
-                            and torch.equal(ch, ch_w)):
+                            and all(torch.equal(a, b) for a, b in zip(got_m, want))
+                            and torch.equal(ch, ch_w) and torch.equal(ch_m, ch_w)):
                         raise RuntimeError(
                             f"K2 disagrees with its plain version: {label} "
                             f"G={g} masked={masked} bucket={bucket}"
                         )
                     cases += 1
     _log("parity", f"K2 gossip_round_rows: {cases} cases bit-identical to plain "
-                   "(rows and changed flags)")
+                   "(rows and changed flags, stacked and member-list leaves)")
+    _log("parity", f"K3 gossip_round_rows_vclock: {_parity_k3(torch, cg, gen)} "
+                   "cases bit-identical to plain (clock, dots and changed flags)")
+
+
+def _parity_k3(torch, cg, gen) -> int:
+    """K3 against its plain version: A x E x K x mask x bucket x G, random
+    clocks and dots (both versions skip dead edges, so any data will do),
+    duplicate rows; then the grouped wrapper with ``valid`` on the card
+    against itself on the CPU, with one quiescent member whose slots are
+    all invalid."""
+    from lasp_tpu_torch.lattice import ORSWOT, ORSWOTState
+
+    r = 1000
+    cases = 0
+    for a in (4, 16):
+        for e in (8, 64):
+            for g in (1, 3, 16):
+                clock = torch.randint(0, 7, (g, r, a), dtype=torch.int32,
+                                      device="cuda", generator=gen)
+                dots = torch.randint(0, 7, (g, r, e, a), dtype=torch.int32,
+                                     device="cuda", generator=gen)
+                dots = dots * (torch.rand((g, r, e, 1), device="cuda",
+                                          generator=gen) < 0.5)
+                if g > 1:  # a quiescent member: every replica holds one state
+                    clock[-1] = clock[-1, :1]
+                    dots[-1] = dots[-1, :1]
+                for k in (2, 3, 8):
+                    nb = torch.randint(0, r, (r, k), dtype=torch.int32,
+                                       device="cuda", generator=gen)
+                    for masked in (False, True):
+                        mask = (torch.rand((r, k), device="cuda", generator=gen) > 0.4
+                                if masked else None)
+                        for bucket in (5, 16, 33):
+                            rows = torch.randint(0, r, (g, bucket), device="cuda",
+                                                 generator=gen)
+                            rows[:, -1] = rows[:, 0]  # a duplicate pad slot
+                            got, ch = cg.gossip_round_rows_vclock(
+                                clock, dots, nb, rows, mask)
+                            want, ch_w = cg.gossip_round_rows_vclock_plain(
+                                clock, dots, nb, rows, mask)
+                            torch.cuda.synchronize()
+                            if not (all(torch.equal(x, y) for x, y in zip(got, want))
+                                    and torch.equal(ch, ch_w)):
+                                raise RuntimeError(
+                                    f"K3 disagrees with its plain version: A={a} "
+                                    f"E={e} K={k} G={g} masked={masked} "
+                                    f"bucket={bucket}")
+                            cases += 1
+                if g > 1:
+                    valid = torch.ones((g, 33), dtype=torch.bool, device="cuda")
+                    valid[-1] = False
+                    valid[0, 20:] = False
+                    st = ORSWOTState(clock, dots)
+                    got_s, got_c = cg.cuda_gossip_round_rows_grouped(
+                        ORSWOT, None, st, nb, rows, valid, mask)
+                    want_s, want_c = cg.cuda_gossip_round_rows_grouped(
+                        ORSWOT, None, ORSWOTState(clock.cpu(), dots.cpu()),
+                        nb.cpu(), rows.cpu(), valid.cpu(),
+                        None if mask is None else mask.cpu())
+                    if not (all(torch.equal(x.cpu(), y) for x, y in zip(got_s, want_s))
+                            and torch.equal(got_c.cpu(), want_c)):
+                        raise RuntimeError(f"K3 grouped round disagrees at G={g}")
+                    if got_c[-1].any() or not (torch.equal(got_s.clock[-1], clock[-1])
+                                               and torch.equal(got_s.dots[-1], dots[-1])):
+                        raise RuntimeError("K3: the all-invalid quiescent member moved")
+                    cases += 1
+    return cases
 
 
 def _engine(torch, n, nbrs):
@@ -200,6 +280,202 @@ def _engine(torch, n, nbrs):
     rt.update_batch(views, [(int(r), ("increment", a + 1), f"w{a}")
                             for a, r in enumerate(writers)])
     return rt, (ads, views), expected, sum(range(1, 17))
+
+
+#: the plan cell's variable kinds, cycled over v0..v47 (the JAX package's
+#: ``bench_scenarios.many_vars`` schedule)
+_PLAN_KINDS = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot")
+
+
+def _plan_twin(n, nbrs, plan):
+    """A ``Store(n_actors=16)`` of 48 variables over ``n`` replicas, written
+    with ``update_batch`` from ``RandomState(23)``: each variable at 16
+    distinct rows, row i by actor ``w{i}``; ``v0`` also takes adds at
+    ``n // 8`` hot rows. Returns ``(runtime, ids, expected coverage)``."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime
+    from lasp_tpu_torch.store import Store
+
+    store = Store(n_actors=16)
+    ids = []
+    for i in range(48):
+        kind = _PLAN_KINDS[i % 3]
+        caps = ({"n_elems": 64} if kind == "lasp_gset" else
+                {"n_actors": 16} if kind == "riak_dt_gcounter" else
+                {"n_elems": 64, "n_actors": 16})
+        ids.append(store.declare(id=f"v{i}", type=kind, **caps))
+    rt = ReplicatedRuntime(store, Graph(store), n, nbrs, plan=plan)
+    rng = np.random.RandomState(23)
+    expected = {}
+    for j, v in enumerate(ids):
+        kind = _PLAN_KINDS[j % 3]
+        rows = rng.choice(n, 16, replace=False)
+        if kind == "lasp_gset":
+            ops = [(int(r), ("add", f"g{i}"), f"w{i}") for i, r in enumerate(rows)]
+            expected[v] = {f"g{i}" for i in range(16)}
+            if j == 0:  # the hot variable
+                hot = rng.choice(n, n // 8, replace=False)
+                ops += [(int(r), ("add", f"h{r % 48}"), f"h{r}") for r in hot]
+                expected[v] |= {f"h{r % 48}" for r in hot}
+        elif kind == "riak_dt_gcounter":
+            ops = [(int(r), ("increment", i + 1), f"w{i}") for i, r in enumerate(rows)]
+            expected[v] = sum(range(1, 17))
+        else:
+            ops, expected[v] = [], set()
+            for i, r in enumerate(rows):
+                mine = [f"e{2 * i}", f"e{2 * i + 1}"]
+                ops.append((int(r), ("add_all", mine), f"w{i}"))
+                if i % 4 == 0:  # the writer removes its first element again
+                    ops.append((int(r), ("remove", mine[0]), f"w{i}"))
+                    mine = mine[1:]
+                expected[v].update(mine)
+        rt.update_batch(v, ops)
+    return rt, ids, expected
+
+
+def _device_busy(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: wall seconds (host clock,
+    synchronized), device seconds (the CUDA kernels' and copies' own time)
+    and the five device activities that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_s": wall, "device_s": busy, "device_share": busy / wall,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def phase_plan(torch, cg, n: int) -> dict:
+    """Three twins of the 48-variable store: frontier with ``plan="off"``,
+    frontier with ``plan="auto"`` and dense; then a fourth, ``plan="auto"``
+    frontier twin converged under the profiler for the device's busy share.
+    Returns what the kernels phase needs: the auto twin, its widest planned
+    sparse round per kernel and the launches."""
+    from lasp_tpu_torch.mesh import random_regular
+
+    nbrs = random_regular(n, 3, seed=23)
+    runs, widest = {}, {}
+    cg.reset_launches()
+    for label, plan, mode in (("off", "off", "frontier"), ("auto", "auto", "frontier"),
+                              ("dense", "auto", "dense")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt, ids, expected = _plan_twin(n, nbrs, plan)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if label == "auto":
+            rows_round = rt._rows_round
+
+            def recording(var_ids, row_idx, mask, _rt=rt, _inner=rows_round):
+                codec, spec = _rt._mesh_meta(var_ids[0])
+                kind = cg.rows_plan_of(codec, spec, _rt.states[var_ids[0]]).kind
+                g, f = row_idx.shape
+                if g * f > widest.get(kind, {}).get("slots", 0):
+                    widest[kind] = {"slots": g * f, "G": g, "F": f,
+                                    "var_ids": tuple(var_ids), "rows": row_idx.clone()}
+                widest.setdefault(f"{kind}_max_G", 0)
+                widest[f"{kind}_max_G"] = max(widest[f"{kind}_max_G"], g)
+                return _inner(var_ids, row_idx, mask)
+
+            rt._rows_round = recording
+        rounds = rt.run_to_convergence(mode=mode)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs[label] = {"rt": rt, "rounds": rounds, "seconds": t2 - t0,
+                       "setup_s": t1 - t0, "converge_s": t2 - t1}
+    launches = dict(cg.LAUNCHES)
+    off, auto, dense = runs["off"]["rt"], runs["auto"]["rt"], runs["dense"]["rt"]
+    if not runs["off"]["rounds"] == runs["auto"]["rounds"] == runs["dense"]["rounds"]:
+        raise RuntimeError(f"plan: round counts differ: "
+                           f"{ {k: v['rounds'] for k, v in runs.items()} }")
+    if off.round_residuals != auto.round_residuals:
+        raise RuntimeError("plan: per-round residuals differ between plan=off and auto")
+    for v in ids:
+        for other in (off, dense):
+            if not all(torch.equal(a, b) for a, b in zip(auto.states[v], other.states[v])):
+                raise RuntimeError(f"plan: states of {v} differ between twins")
+        if auto.divergence(v) != 0:
+            raise RuntimeError(f"plan: {v} did not converge")
+        if auto.coverage_value(v) != expected[v]:
+            raise RuntimeError(f"plan: coverage of {v} is {auto.coverage_value(v)!r}, "
+                               f"expected {expected[v]!r}")
+    describe = auto._ensure_plan().describe()
+    del off, dense
+    for label in ("off", "dense"):
+        del runs[label]["rt"]
+    probe, _ids, _expected = _plan_twin(n, nbrs, "auto")
+    busy = _device_busy(torch, lambda: probe.run_to_convergence(mode="frontier"))
+    del probe
+    cg.LAUNCHES.update(launches)  # the profiled twin's launches are not counted
+    _log("plan", json.dumps({
+        "replicas": n, "vars": len(ids), "rounds": runs["auto"]["rounds"],
+        "seconds": {k: v["seconds"] for k, v in runs.items()},
+        "setup_s": {k: v["setup_s"] for k, v in runs.items()},
+        "converge_s": {k: v["converge_s"] for k, v in runs.items()},
+        "profiled_auto_converge": busy,
+        "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "residuals": auto.round_residuals, "describe": describe,
+        "widest_sparse": {k: {"G": w["G"], "F": w["F"]} for k, w in widest.items()
+                          if isinstance(w, dict)},
+        "max_G": {k: w for k, w in widest.items() if not isinstance(w, dict)},
+    }))
+    if launches["gossip_round_rows_vclock"] == 0:
+        raise RuntimeError("the plan phase never launched K3")
+    for kind in ("leafwise", "vclock"):
+        if widest.get(f"{kind}_max_G", 0) < 2:
+            raise RuntimeError(f"the plan phase never launched the {kind} kernel at G > 1")
+    return {"rt": auto, "widest": widest, "launches": launches,
+            "nbrs": nbrs, "ids": ids}
+
+
+def _k3_at_plan_shape(torch, cg, plan, bw) -> dict:
+    """K3 at the widest planned OR-SWOT round of the plan phase: the same
+    members and row table, on the converged populations (the kernel's work
+    does not depend on the values). Returns the kernels-line fields."""
+    w3 = plan["widest"]["vclock"]
+    rt = plan["rt"]
+    members = [rt.states[v] for v in w3["var_ids"]]
+    clocks = [m.clock for m in members]
+    dotss = [m.dots for m in members]
+    rows, nb = w3["rows"], rt.neighbors
+    got, ch = cg.gossip_round_rows_vclock(clocks, dotss, nb, rows)
+    stacked_c, stacked_d = torch.stack(clocks), torch.stack(dotss)
+    want, ch_w = cg.gossip_round_rows_vclock_plain(stacked_c, stacked_d, nb, rows)
+    err = max(_max_abs_err(torch, got, want), int((ch.int() - ch_w.int()).abs().max()))
+    del got, want
+    ms = _time_ms(torch, lambda: cg.gossip_round_rows_vclock(clocks, dotss, nb, rows), 20)
+    call_ms = _call_ms(
+        torch, lambda: cg.gossip_round_rows_vclock(clocks, dotss, nb, rows), 20)
+    plain_ms = _time_ms(
+        torch, lambda: cg.gossip_round_rows_vclock_plain(stacked_c, stacked_d, nb, rows), 3)
+    del stacked_c, stacked_d
+    g, f = rows.shape
+    k = nb.shape[1]
+    a, e = clocks[0].shape[1], dotss[0].shape[1]
+    row_bytes = 4 * (a + e * a)
+    rows_np, nbrs = rows.cpu().numpy(), plan["nbrs"]
+    # each distinct row a member's round reads (own and neighbours), once
+    distinct = sum(np.unique(np.concatenate([r, nbrs[np.unique(r)].ravel()])).size
+                   for r in rows_np)
+    bound_bytes = (distinct * row_bytes + g * f * 4
+                   + sum(np.unique(r).size for r in rows_np) * k * 4
+                   + g * f * row_bytes + g * f * 4)
+    gather_bytes = (k + 2) * g * f * row_bytes + g * f * 4 * (k + 1)
+    return {
+        "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        "bound_ms": float(bound_bytes) / bw * 1e3, "bound_by": "bytes",
+        "gather_model_bound_ms": gather_bytes / bw * 1e3,
+        "shape": {"G": int(g), "F": int(f), "R": rt.n_replicas, "A": int(a),
+                  "E": int(e), "K": int(k)},
+    }
 
 
 def main() -> int:
@@ -306,7 +582,12 @@ def main() -> int:
         raise RuntimeError("the engine path never launched K2")
     del rt_d, rt_f
 
-    # 5. kernels at the main path's shapes ----------------------------------------
+    # 5. plan ---------------------------------------------------------------------
+    plan = phase_plan(torch, cg, n)
+    launches["plan"] = plan["launches"]
+    _log("launches", f"plan: {launches['plan']}")
+
+    # 6. kernels at the main path's shapes ----------------------------------------
     bw = peak_gbps * 1e9
     # K1 at the headline shape: R = 2**18, D = 128 elems x 8 words, K = 3
     r, d, k = 1 << 18, 128 * 8, 3
@@ -352,6 +633,8 @@ def main() -> int:
     k2_bytes = (distinct.size * row2 + f * 4 + np.unique(padded).size * k * 4
                 + f * row2 + f * 4)
     k2_gather_bytes = (k + 2) * f * row2 + f * 4 * (k + 1)
+    del states, leaves, got, want, widest
+    k3 = _k3_at_plan_shape(torch, cg, plan, bw)
     cg.LAUNCHES.update(base)  # timing launches are not main-path launches
 
     def total_launches(name):
@@ -385,13 +668,22 @@ def main() -> int:
             "shape": {"G": 1, "F": int(f), "R": n, "W_words": int(w2),
                       "leaves": 2, "K": k},
         },
+        {
+            "name": "gossip_round_rows_vclock", "route": "cuda",
+            "source": "lasp_tpu_torch/ops/csrc/gossip_round_rows.cu",
+            "replaces": "lasp_tpu/ops/pallas_gossip.py:439",
+            "launches": total_launches("gossip_round_rows_vclock"),
+            "launches_by_phase": {p: c["gossip_round_rows_vclock"]
+                                  for p, c in launches.items()},
+            **k3, "library_ms": None,
+        },
     ]
-    if k1_err or k2_err:
+    if k1_err or k2_err or k3["max_abs_err"]:
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": kind, "count": 1,  # the cards this run used
     }}), flush=True)
     return 0
 

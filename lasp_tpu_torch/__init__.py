@@ -9,11 +9,11 @@ held bit-for-bit against it by ``tests/test_torch_*.py``. It imports
 Layer map (the slice ported so far):
 
 - ``lasp_tpu_torch.lattice`` — CRDT tensor codecs (G-Set, G-Counter, I-Var,
-  OR-Set)
+  OR-Set, OR-SWOT)
 - ``lasp_tpu_torch.ops``     — packed / flat OR-Sets, the hand-written CUDA
   gossip kernels (``ops.cuda_gossip``) and the fused round loops
-- ``lasp_tpu_torch.mesh``    — topologies, gossip rounds, the
-  ``ReplicatedRuntime`` dense and frontier engines
+- ``lasp_tpu_torch.mesh``    — topologies, gossip rounds, the dispatch plan
+  and the ``ReplicatedRuntime`` dense and frontier engines
 - ``lasp_tpu_torch.store``   — the variable store
 - ``lasp_tpu_torch.dataflow``— a ``Graph`` stand-in with no edges
 - ``lasp_tpu_torch.bench_scenarios`` — the OR-Set anti-entropy headline

@@ -23,6 +23,8 @@ from .lattice import (
     IVarState,
     ORSet,
     ORSetState,
+    ORSWOT,
+    ORSWOTState,
 )
 from .ops.flatpack import FlatORSet, FlatORSetState
 from .ops.packed import PackedORSet, PackedORSetState
@@ -31,6 +33,7 @@ from .ops.packed import PackedORSet, PackedORSetState
 CODECS = {
     "lasp_gset": (GSet, GSetState),
     "riak_dt_gcounter": (GCounter, GCounterState),
+    "riak_dt_orswot": (ORSWOT, ORSWOTState),
     "lasp_ivar": (IVar, IVarState),
     "lasp_orset": (ORSet, ORSetState),
     "lasp_orset_gbtree": (ORSet, ORSetState),

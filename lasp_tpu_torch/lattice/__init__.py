@@ -1,6 +1,5 @@
 """Lattice layer: dense CRDT codecs over torch tensors (port of
-``lasp_tpu.lattice``). ``riak_dt_orswot`` and ``riak_dt_map`` are not
-ported yet."""
+``lasp_tpu.lattice``). ``riak_dt_map`` is not ported yet."""
 
 from .base import (
     CrdtType,
@@ -14,11 +13,12 @@ from .gcounter import GCounter, GCounterSpec, GCounterState
 from .gset import GSet, GSetSpec, GSetState
 from .ivar import IVar, IVarSpec, IVarState
 from .orset import ORSet, ORSetSpec, ORSetState
+from .orswot import ORSWOT, ORSWOTSpec, ORSWOTState
 
 #: ``lasp_orset_gbtree`` is semantically identical to ``lasp_orset``
 ORSetGbtree = type("ORSetGbtree", (ORSet,), {"name": "lasp_orset_gbtree"})
 
-REGISTRY = TypeRegistry(types=(IVar, GSet, ORSet, ORSetGbtree, GCounter))
+REGISTRY = TypeRegistry(types=(IVar, GSet, ORSet, ORSetGbtree, GCounter, ORSWOT))
 
 
 def get_type(name: str):
@@ -46,6 +46,9 @@ __all__ = [
     "GCounter",
     "GCounterSpec",
     "GCounterState",
+    "ORSWOT",
+    "ORSWOTSpec",
+    "ORSWOTState",
     "REGISTRY",
     "get_type",
 ]

@@ -1,6 +1,6 @@
-"""Mesh layer: replication, gossip / anti-entropy and reads over a leading
-replica axis (port of ``lasp_tpu.mesh``; sharding, quorum FSMs and the
-grouped dispatch plan are later slices)."""
+"""Mesh layer: replication, gossip / anti-entropy, the dispatch plan and
+reads over a leading replica axis (port of ``lasp_tpu.mesh``; sharding,
+quorum FSMs and grouped ingest are later slices)."""
 
 from .gossip import (
     converged,

@@ -6,9 +6,15 @@ and joins them in, all replicas at once. ``neighbors`` is an ``int32[R, K]``
 tensor on the population's device. A leafwise-"or" codec held as two
 32-bit word planes (the packed and flat OR-Sets) runs its unmasked round
 through the CUDA kernel K1 (``ops.cuda_gossip.gossip_round_dense``); every
-other round is plain PyTorch, as the JAX package leaves it to XLA. On a
-ring the gather over the neighbour table gives the JAX roll's result.
-The shift and grouped variants are a later slice.
+other round is plain PyTorch, as the JAX package leaves it to XLA.
+
+The shift variants (:func:`gossip_round_shift`, ``torch.roll`` per
+constant-offset column) and the grouped variants (a leading group dimension
+``[G, R, ...]`` written out where JAX vmaps) are here as functions of their
+own. The runtime keeps gathering over the neighbour table on every topology
+(on a ring the gather gives the roll's result), so packed OR-Sets keep
+running through K1; and its planned rounds step each member population in
+place rather than stacking members into ``[G, R, ...]`` copies.
 """
 
 from __future__ import annotations
@@ -96,6 +102,117 @@ def gossip_round(codec, spec, states, neighbors, edge_mask=None, out=None):
             nbr = _tree_where(edge_mask[:, k], nbr, states)
         acc = codec.merge(spec, acc, nbr)
     return acc
+
+
+def gossip_round_shift(codec, spec, states, offsets, edge_mask=None):
+    """:func:`gossip_round` for a shift-structured topology (every
+    neighbour column ``k`` the constant offset ``offsets[k]``,
+    ``topology.shift_offsets``): the column gather ``x[(r + off) % R]`` is
+    ``torch.roll(x, -off, 0)``."""
+    return _shift_round(codec, spec, states, offsets, edge_mask, dim=0)
+
+
+def _shift_round(codec, spec, states, offsets, edge_mask, dim: int):
+    op = _leafwise_op(codec)
+    if op is not None and edge_mask is None:
+
+        def leaf(x):
+            acc = x
+            for off in offsets:
+                acc = op(acc, torch.roll(x, -int(off), dims=dim))
+            return acc
+
+        return tree_map(leaf, states)
+    acc = states
+    for k, off in enumerate(offsets):
+        nbr = tree_map(lambda x: torch.roll(x, -int(off), dims=dim), states)
+        if edge_mask is not None:
+            nbr = _tree_where(_replica_pred(edge_mask[:, k], dim), nbr, states)
+        acc = codec.merge(spec, acc, nbr)
+    return acc
+
+
+def _replica_pred(pred, dim: int):
+    """A ``bool[R]`` predicate placed on the replica axis ``dim`` (1 under a
+    leading group axis), broadcast from the left by :func:`_tree_where`."""
+    return pred if dim == 0 else pred.reshape((1,) * dim + tuple(pred.shape))
+
+
+# -- grouped rounds: a leading group axis [G, R, ...] -------------------------
+#
+# The JAX package vmaps the per-variable rounds over a stacked group; here
+# the group axis is written out: every gather indexes dim 1 and the codecs'
+# merges are batch-polymorphic. Same computation, same bits per member.
+
+
+def gossip_round_grouped(codec, spec, states, neighbors, edge_mask=None):
+    """:func:`gossip_round` over ``[G, R, ...]`` leaves; ``neighbors`` and
+    ``edge_mask`` are shared by every member (one topology, one mask)."""
+    nb = neighbors.long()
+    op = _leafwise_op(codec)
+    if op is not None and edge_mask is None:
+
+        def leaf(x):
+            acc = x
+            for k in range(nb.shape[1]):
+                acc = op(acc, x[:, nb[:, k]])
+            return acc
+
+        return tree_map(leaf, states)
+    acc = states
+    for k in range(nb.shape[1]):
+        nbr = tree_map(lambda x: x[:, nb[:, k]], states)
+        if edge_mask is not None:
+            nbr = _tree_where(_replica_pred(edge_mask[:, k], 1), nbr, states)
+        acc = codec.merge(spec, acc, nbr)
+    return acc
+
+
+def gossip_round_shift_grouped(codec, spec, states, offsets, edge_mask=None):
+    """:func:`gossip_round_shift` over ``[G, R, ...]`` leaves (the rolls run
+    along the replica axis, dim 1)."""
+    return _shift_round(codec, spec, states, offsets, edge_mask, dim=1)
+
+
+def gossip_round_rows_grouped(codec, spec, states, neighbors, rows, valid,
+                              edge_mask=None):
+    """:func:`gossip_round_rows` over ``[G, R, ...]`` leaves: ``rows:
+    int[G, F]`` (each member's reachable rows, padded to the group bucket),
+    ``valid: bool[G, F]`` (which slots are real). Returns ``(new_states,
+    changed: bool[G, F])``. A member with no valid slot reports no change,
+    and at its fixed point rides through bit-unchanged."""
+    dev = states[0].device
+    rows = torch.as_tensor(rows, device=dev).long()
+    g_idx = torch.arange(rows.shape[0], device=dev)[:, None]
+    nbr_idx = neighbors.long()[rows]  # [G, F, K]
+    old = tree_map(lambda x: x[g_idx, rows], states)
+    op = _leafwise_op(codec)
+    if op is not None and edge_mask is None:
+
+        def leaf(x, o):
+            acc = o
+            for k in range(nbr_idx.shape[-1]):
+                acc = op(acc, x[g_idx, nbr_idx[..., k]])
+            return acc
+
+        new_rows = tree_map(leaf, states, old)
+    else:
+        acc = old
+        for k in range(nbr_idx.shape[-1]):
+            nbr = tree_map(lambda x: x[g_idx, nbr_idx[..., k]], states)
+            if edge_mask is not None:
+                nbr = _tree_where(edge_mask[rows, k], nbr, old)
+            acc = codec.merge(spec, acc, nbr)
+        new_rows = acc
+    changed = ~codec.equal(spec, old, new_rows)
+    changed = changed & torch.as_tensor(valid, dtype=torch.bool, device=dev)
+
+    def scatter(x, nr):
+        out = x.clone()
+        out[g_idx, rows] = nr
+        return out
+
+    return tree_map(scatter, states, new_rows), changed
 
 
 def frontier_reach(frontier, neighbors, include_self: bool = False):

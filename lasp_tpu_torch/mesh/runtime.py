@@ -7,22 +7,31 @@ bulk-synchronous gossip rounds spread them. Ported for a graph with no
 dataflow edges:
 
 - construction, including ``packed=True`` (OR-Set families held in the flat
-  bit-packed wire format, ``ops.flatpack``);
-- ``update_at``, the per-variable arm of ``update_batch``, ``seed_tokens``;
+  bit-packed wire format, ``ops.flatpack``) and ``plan="auto" | "off"``;
+- ``update_at``, the per-variable arm of ``update_batch`` (OR-SWOT
+  included), ``seed_tokens``;
 - the dense engine: ``step``, ``fused_steps``, ``run_to_convergence(block=)``
-  — unmasked rounds of packed OR-Sets run through the CUDA kernel K1;
-- the per-variable frontier scheduler (the JAX ``plan="off"`` semantics):
-  ``mark_dirty``, ``frontier_step``, sparse rounds through the CUDA kernel
-  K2 (its plain version for a population on the CPU), the dense crossover,
-  ``run_to_convergence(mode="frontier" | "auto")``;
+  — unmasked rounds of packed OR-Sets run through the CUDA kernel K1. The
+  dense step stays per variable under either plan mode (the JAX step is
+  grouped; the results are the same by construction);
+- the frontier scheduler: ``mark_dirty``, ``frontier_step``,
+  ``run_to_convergence(mode="frontier" | "auto")``. With ``plan="off"``
+  every variable takes its own round; with ``plan="auto"`` (the default,
+  as in JAX) same-signature variables share one row-sparse kernel launch
+  per group per round (``mesh.plan``). Sparse rounds run through the CUDA
+  kernels K2 (leafwise codecs) and K3 (OR-SWOT), their plain versions for
+  a population on the CPU; the dense crossover is decided per variable;
 - reads: ``coverage_value``, ``replica_value``, ``quorum_value``,
   ``divergence``, ``read_at``.
 
 Rows are updated in place (client writes, sparse-round scatters) where the
 JAX runtime rebinds donated buffers: do not hold ``rt.states[v]`` leaves
-across a write or a round and expect the old values. Dataflow edges,
-triggers, programs, sharding and membership are later slices and raise
-``NotImplementedError``; telemetry is not carried.
+across a write or a round and expect the old values. A planned round reads
+each member population where it lies (the kernels take a table of member
+base pointers) and never stacks a group's populations. Dataflow edges,
+triggers, programs, sharding, membership and grouped ingest are later
+slices and raise ``NotImplementedError`` or take the per-variable arm;
+telemetry is not carried.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..ops.flatpack import FlatORSet, FlatORSetSpec
 from ..store.store import PreconditionError
 from ..utils.interning import CapacityError
 from .gossip import divergence, frontier_reach, gossip_round, gossip_round_rows, join_all, quorum_read
+from .plan import compile_plan
 
 #: store types held flat-bit-packed on the mesh when ``packed=True``
 _PACKABLE = ("lasp_orset", "lasp_orset_gbtree")
@@ -89,7 +99,9 @@ class ReplicatedRuntime:
     _FRONTIER_MIN_BUCKET = 16
 
     def __init__(self, store, graph, n_replicas: int, neighbors,
-                 packed: bool = False, device=None):
+                 packed: bool = False, plan: str = "auto", device=None):
+        if plan not in ("auto", "off"):
+            raise ValueError(f"unknown plan mode {plan!r} ('auto' or 'off')")
         if graph.edges:
             _not_ported("dataflow edges")
         self.device = resolve_device(device)
@@ -127,6 +139,11 @@ class ReplicatedRuntime:
         self.frontier_rows_last = 0
         self.frontier_dense_falls_last = 0
         self._elem_masks: dict = {}
+        #: "auto" groups same-signature variables into one kernel launch per
+        #: group per frontier round; "off" steps every variable on its own
+        self.plan_mode = plan
+        #: the compiled DispatchPlan, or None until the next stepping call
+        self._plan = None
         self._sync_graph()
 
     def _sync_graph(self) -> None:
@@ -144,6 +161,25 @@ class ReplicatedRuntime:
         for v in self.states:
             self._frontier.setdefault(v, np.zeros(self.n_replicas, dtype=bool))
         self.var_ids = tuple(self.states)
+        # a late-declared variable changes the census and maybe a signature
+        self._invalidate_plan("var_set")
+
+    # -- dispatch plan ---------------------------------------------------------
+    def _invalidate_plan(self, reason: str) -> None:
+        """Drop the compiled dispatch plan so the next stepping call
+        regroups. ``reason``: ``var_set`` (late declare) or ``mask_change``
+        (edge-mask identity changed), the port's triggers of the JAX set
+        (which also counts them by reason; telemetry is not carried)."""
+        self._plan = None
+
+    def _ensure_plan(self):
+        """The current :class:`~.plan.DispatchPlan`, or None with planning
+        off; compiled lazily (a host-only grouping walk)."""
+        if self.plan_mode == "off":
+            return None
+        if self._plan is None:
+            self._plan = compile_plan(self)
+        return self._plan
 
     # -- mesh-side codec selection -------------------------------------------
     def _mesh_meta(self, var_id: str):
@@ -283,6 +319,8 @@ class ReplicatedRuntime:
             self._gset_batch(var, states, ops)
         elif tn in _PACKABLE:
             self._orset_batch(var, ops)
+        elif tn == "riak_dt_orswot":
+            self._orswot_batch(var, ops)
         elif tn == "lasp_ivar":
             self._ivar_batch(var, states, ops)
         else:
@@ -462,6 +500,110 @@ class ReplicatedRuntime:
                 return i, PreconditionError(f"not_present: {term!r}")
             seen.add(key)
         return len(items), None
+
+    def _orswot_batch(self, var, ops) -> None:
+        """Batched OR-SWOT adds/removes with sequential, per-op-atomic
+        semantics: ``add`` bumps the (replica, actor) clock and replaces the
+        element's dots with the fresh single dot; ``remove`` requires
+        presence (not_present otherwise). A failing op applies nothing of
+        itself, every op before it persists. A term-level precheck walks the
+        ops first, before any interning (so a failing batch leaves the
+        interners as the per-op loop would); the surviving prefix is then
+        simulated on a host overlay of only the touched entries and lands in
+        O(batch) device scatters, in place."""
+        fail_op, err = self._orswot_precheck(var, ops)
+        if err is not None:
+            err.batch_index = fail_op  # ops[fail_op:] never applied
+            ops = ops[:fail_op]
+        if not ops:
+            if err is not None:
+                raise err
+            return
+        # flat (kind, replica, elem_idx, actor_idx) items: every op of the
+        # prefix is known to succeed
+        flat: list[tuple] = []
+        for r, op, actor in ops:
+            verb = op[0]
+            if verb in ("add", "add_all"):
+                a = var.actors.intern(actor)
+                terms = op[1] if verb == "add_all" else [op[1]]
+                flat.extend(("add", int(r), var.elems.intern(e), a) for e in terms)
+            else:
+                terms = op[1] if verb == "remove_all" else [op[1]]
+                flat.extend(
+                    ("remove", int(r), var.elems.index_of(e), -1) for e in terms
+                )
+        if flat:  # an add_all / remove_all of no terms touches nothing
+            self._orswot_apply(var.id, flat)
+        if err is not None:
+            raise err
+
+    def _orswot_apply(self, var_id: str, flat) -> None:
+        """Land validated ``(kind, replica, elem, actor)`` items: gather the
+        touched dots rows and clock lanes once, replay the items in order on
+        the host, scatter the results back in place."""
+        states = self.states[var_id]
+        pairs = sorted({(r, e) for _k, r, e, _a in flat})
+        actors = sorted({(r, a) for _k, r, _e, a in flat if a >= 0})
+        pr, pe = self._index([p[0] for p in pairs]), self._index([p[1] for p in pairs])
+        dot_rows = dict(zip(pairs, states.dots[pr, pe].cpu().numpy().copy()))
+        cr = self._index([a[0] for a in actors])
+        ca = self._index([a[1] for a in actors])
+        clocks = dict(zip(actors, states.clock[cr, ca].cpu().numpy().tolist()))
+        for kind, r, e, a in flat:
+            if kind == "add":
+                clocks[(r, a)] += 1
+                row = np.zeros_like(dot_rows[(r, e)])
+                row[a] = clocks[(r, a)]
+                dot_rows[(r, e)] = row
+            else:
+                dot_rows[(r, e)][:] = 0
+        states.dots[pr, pe] = torch.as_tensor(
+            np.stack([dot_rows[p] for p in pairs]), device=self.device
+        )
+        if actors:
+            states.clock[cr, ca] = torch.as_tensor(
+                np.asarray([clocks[a] for a in actors], dtype=np.int32),
+                device=self.device,
+            )
+
+    def _orswot_precheck(self, var, ops):
+        """``(fail_op, err)``: walk the ops at term level (no interning, no
+        state change) tracking element presence, and report the first op
+        whose remove would fail not_present. Initial presence of known terms
+        comes from one gather; unknown terms are absent by definition."""
+        states = self.states[var.id]
+        probe: list[tuple] = []
+        for r, op, _actor in ops:
+            if op[0] in ("remove", "remove_all"):
+                terms = op[1] if op[0] == "remove_all" else [op[1]]
+                probe.extend((int(r), t) for t in terms if t in var.elems)
+        probe = sorted(set(probe), key=lambda p: (p[0], repr(p[1])))
+        live: dict = {}
+        if probe:
+            rs = np.asarray([p[0] for p in probe], dtype=np.int64)
+            es = np.asarray([var.elems.index_of(p[1]) for p in probe], dtype=np.int64)
+            present = (self._take_pairs(states.dots, rs, es) > 0).any(axis=-1)
+            live = {p: bool(v) for p, v in zip(probe, present)}
+        for k, (r, op, _actor) in enumerate(ops):
+            verb = op[0]
+            if verb in ("add", "add_all"):
+                for t in op[1] if verb == "add_all" else [op[1]]:
+                    live[(int(r), t)] = True
+            elif verb in ("remove", "remove_all"):
+                for t in op[1] if verb == "remove_all" else [op[1]]:
+                    if not live.get((int(r), t), False):
+                        return k, PreconditionError(f"not_present: {t!r}")
+                    live[(int(r), t)] = False
+            else:
+                raise ValueError(f"update_batch: unsupported op {op!r}")
+        return len(ops), None
+
+    def _take_pairs(self, plane, rs, es) -> np.ndarray:
+        """``plane[rs, es]`` of an ``[R, E, ...]`` plane as one flat gather,
+        pulled to the host (the port's copy of ``mesh.ingest.take_pairs``)."""
+        flat = rs * int(plane.shape[1]) + es
+        return plane.reshape((-1,) + tuple(plane.shape[2:]))[self._index(flat)].cpu().numpy()
 
     def _elem_word_masks(self, var_id: str) -> np.ndarray:
         """uint32[E, W]: per-element word masks of the flat bit layout."""
@@ -677,6 +819,7 @@ class ReplicatedRuntime:
             for v in list(self._frontier):
                 self._frontier_fill(v, True)
             self._frontier_mask_ref = edge_mask
+            self._invalidate_plan("mask_change")
 
     def _frontier_fill(self, var_id: str, value: bool) -> None:
         f = self._frontier.get(var_id)
@@ -705,19 +848,136 @@ class ReplicatedRuntime:
         rows, and reseed the frontier with the rows that inflated. A
         variable with an empty frontier is skipped; one whose reachable
         set exceeds ``frontier_crossover * n_replicas`` runs the dense round.
-        Returns the total (replica, variable) states changed — the
-        :meth:`step` contract, with identical per-round states."""
+        Under the dispatch plan (``plan="auto"``) the sparse rounds of a
+        group's active members share one kernel launch. Returns the total
+        (replica, variable) states changed — the :meth:`step` contract,
+        with identical per-round states."""
         self._frontier_sync_mask(edge_mask)
-        total = rows_touched = dense_falls = 0
-        for v in self.var_ids:
-            changed, touched, dense = self._frontier_round_onevar(v, edge_mask)
-            total += changed
-            rows_touched += touched
-            dense_falls += dense
-        self.frontier_rows_last = rows_touched
-        self.frontier_dense_falls_last = dense_falls
+        plan = self._ensure_plan()
+        if plan is None:
+            stats = self._frontier_round_pervar(edge_mask)
+        else:
+            stats = self._frontier_round_planned(plan, edge_mask)
+        total = sum(stats["per_var_changed"])
+        self.frontier_rows_last = stats["rows_touched"]
+        self.frontier_dense_falls_last = stats["dense_falls"]
         self.round_residuals.append(total)
         return total
+
+    def _frontier_round_pervar(self, edge_mask) -> dict:
+        """One round with one dispatch per variable (``plan="off"``)."""
+        per_var, rows_touched, dense_falls = [], 0, 0
+        for v in self.var_ids:
+            changed, touched, dense = self._frontier_round_onevar(v, edge_mask)
+            per_var.append(changed)
+            rows_touched += touched
+            dense_falls += dense
+        return {"per_var_changed": per_var, "rows_touched": rows_touched,
+                "dense_falls": dense_falls}
+
+    def _frontier_round_planned(self, plan, edge_mask) -> dict:
+        """One round under the dispatch plan: per group, the active members'
+        reachable rows ride ONE row-sparse launch (members pad to the group
+        bucket with invalid slots); a quiescent member is skipped and rides
+        through bit-unchanged; the dense crossover is decided per member, so
+        one hot member promotes only itself. Singleton groups take the
+        per-variable round. Per-member states and residuals are those of
+        the per-variable round."""
+        changed_of: dict = {}
+        rows_touched = dense_falls = 0
+        for group in plan.groups:
+            if len(group) == 1:
+                v = group.var_ids[0]
+                changed_of[v], touched, dense = self._frontier_round_onevar(
+                    v, edge_mask
+                )
+                rows_touched += touched
+                dense_falls += dense
+                continue
+            active = []  # (var_id, reachable rows)
+            for v in group.var_ids:
+                f = self._frontier_mask_of(v)
+                if not f.any():
+                    continue
+                rows = self._frontier_reach_rows(f, edge_mask)
+                if rows.size == 0:
+                    self._frontier[v] = np.zeros(self.n_replicas, bool)
+                    continue
+                active.append((v, rows))
+            thresh = self.frontier_crossover * self.n_replicas
+            dense_subset = [(v, r) for v, r in active if r.size > thresh]
+            sparse_subset = [(v, r) for v, r in active if r.size <= thresh]
+            dense_ids = [v for v, _r in dense_subset]
+            for v, mask in zip(dense_ids, self._plan_dense_round(dense_ids, edge_mask)):
+                self._frontier[v] = mask
+                changed_of[v] = int(mask.sum())
+            dense_falls += len(dense_subset)
+            rows_touched += self.n_replicas * len(dense_subset)
+            if sparse_subset:
+                max_rows = max(r.size for _v, r in sparse_subset)
+                bucket = max(self._frontier_bucket(max_rows), max_rows)
+                rows_mat = np.zeros((len(sparse_subset), bucket), dtype=np.int64)
+                valid = np.zeros((len(sparse_subset), bucket), dtype=bool)
+                for i, (_v, rows) in enumerate(sparse_subset):
+                    rows_mat[i, : rows.size] = rows
+                    rows_mat[i, rows.size:] = rows[0]
+                    valid[i, : rows.size] = True
+                    rows_touched += int(rows.size)
+                changed = self._plan_sparse_round(
+                    [v for v, _r in sparse_subset], rows_mat, valid, edge_mask
+                )
+                for i, (v, rows) in enumerate(sparse_subset):
+                    mask = np.zeros(self.n_replicas, dtype=bool)
+                    mask[rows[changed[i, : rows.size]]] = True
+                    self._frontier[v] = mask
+                    changed_of[v] = int(mask.sum())
+        return {
+            "per_var_changed": [changed_of.get(v, 0) for v in self.var_ids],
+            "rows_touched": rows_touched,
+            "dense_falls": dense_falls,
+        }
+
+    def _plan_dense_round(self, var_ids, edge_mask) -> list:
+        """Dense crossover arm for a group's hot members: each member's full
+        round and per-row change mask. The JAX plan stacks the members and
+        vmaps one round; here each member steps where it lies (a stack would
+        copy every member population), with the same values."""
+        return [self._frontier_dense_round(v, edge_mask) for v in var_ids]
+
+    def _plan_sparse_round(self, var_ids, rows_mat: np.ndarray,
+                           valid: np.ndarray, edge_mask) -> np.ndarray:
+        """One group's row-sparse round over its active members (``rows_mat``
+        ``[G, F]``, bucket-padded); returns ``changed: bool[G, F]`` on the
+        host, valid slots only."""
+        _host, mask = self._masks(edge_mask)
+        changed = self._rows_round(var_ids, self._index(rows_mat), mask)
+        return changed.cpu().numpy() & valid
+
+    def _rows_round(self, var_ids, row_idx: torch.Tensor, mask) -> torch.Tensor:
+        """The row-sparse round of same-signature members ``var_ids`` over
+        ``row_idx: [G, F]``: K2 or K3 (their plain versions on the CPU) read
+        the member populations where they lie, and the joined rows are
+        scattered back into each member in place. A codec with no kernel
+        plan takes the plain per-member round. Returns the raw ``changed:
+        bool[G, F]`` (device)."""
+        codec, spec = self._mesh_meta(var_ids[0])
+        members = [self.states[v] for v in var_ids]
+        plan = cuda_gossip.rows_plan_of(codec, spec, members[0])
+        if plan is None:
+            changed = []
+            for v, rows in zip(var_ids, row_idx):
+                self.states[v], ch = gossip_round_rows(
+                    codec, spec, self.states[v], self.neighbors, rows, mask
+                )
+                changed.append(ch)
+            return torch.stack(changed)
+        leaves = [list(ls) for ls in zip(*members)]  # per leaf, G members
+        joined, changed = cuda_gossip.rows_round(
+            plan, leaves, self.neighbors, row_idx, mask
+        )
+        for ms, j in zip(leaves, joined):
+            cuda_gossip.scatter_rows(ms, row_idx, j)
+        return changed
 
     def _frontier_mask_of(self, var_id: str) -> np.ndarray:
         f = self._frontier.get(var_id)
@@ -763,32 +1023,16 @@ class ReplicatedRuntime:
                                edge_mask) -> np.ndarray:
         """The row-sparse round for one variable over the reachable rows,
         padded to a power-of-two bucket with repeats of the first row (one
-        kernel shape per bucket). Leafwise codecs run through K2 and
-        scatter the joined rows back in place; returns the new frontier
-        (the rows that inflated)."""
+        kernel shape per bucket): K2 or K3 at G=1 (:meth:`_rows_round`).
+        Returns the new frontier (the rows that inflated)."""
         bucket = self._frontier_bucket(rows.size)
         if bucket < rows.size:  # n_replicas-capped bucket
             padded = rows
         else:
             padded = np.full(bucket, rows[0], dtype=np.int64)
             padded[: rows.size] = rows
-        codec, spec = self._mesh_meta(var_id)
-        states = self.states[var_id]
         _host, mask = self._masks(edge_mask)
-        row_idx = self._index(padded)
-        plan = cuda_gossip.rows_plan_of(codec, spec, states)
-        if plan is not None and plan.kind == "leafwise":
-            leaves = [x[None] for x in states]  # [1, R, ...] views
-            joined, changed = cuda_gossip.gossip_round_rows(
-                plan.op, leaves, self.neighbors, row_idx[None], mask
-            )
-            for leaf, j in zip(leaves, joined):
-                cuda_gossip.scatter_rows(leaf, row_idx[None], j, inplace=True)
-            changed = changed[0]
-        else:
-            self.states[var_id], changed = gossip_round_rows(
-                codec, spec, states, self.neighbors, row_idx, mask
-            )
+        changed = self._rows_round((var_id,), self._index(padded)[None], mask)[0]
         out = np.zeros(self.n_replicas, dtype=bool)
         out[rows[changed[: rows.size].cpu().numpy()]] = True
         return out

@@ -1,7 +1,7 @@
 """The CUDA gossip kernels and their plain PyTorch versions (port of
 ``lasp_tpu.ops.pallas_gossip``).
 
-Two kernels, hand-written for Hopper in ``csrc/`` and bound with ctypes:
+Three kernels, hand-written for Hopper in ``csrc/`` and bound with ctypes:
 
 - **K1** :func:`gossip_round_dense` (``csrc/gossip_round_dense.cu``)
   replaces ``pallas_gossip_round``: a dense pull round over the two packed
@@ -9,18 +9,25 @@ Two kernels, hand-written for Hopper in ``csrc/`` and bound with ctypes:
 - **K2** :func:`gossip_round_rows` (``csrc/gossip_round_rows.cu``)
   replaces ``pallas_gossip_round_rows[_grouped]``, leafwise family: the
   row-sparse frontier round's gather + join, returning the joined rows
-  ``[G, F, ...]`` and the raw per-slot changed flags. The scatter back into
-  the population stays outside the kernel, as on the TPU.
+  ``[G, F, ...]`` and the raw per-slot changed flags.
+- **K3** :func:`gossip_round_rows_vclock` (same source) replaces the vclock
+  family of that entry point (``_vclock_join``): the same round with the
+  OR-SWOT join ``lattice.dots.merge_dots`` over ``(clock, dots)``.
 
-Each wrapper runs its plain version for a tensor on the CPU, and only
-there: for a CUDA tensor it launches the kernel or raises. Each launch adds
-one to :data:`LAUNCHES`.
+K2 and K3 take each leaf of a group either as one ``[G, R, ...]`` tensor or
+as the G member tensors ``[R, ...]`` themselves; the kernels read members
+through a table of base pointers, so the runtime's planned rounds never
+stack member populations. The scatter of the joined rows back into the
+population stays outside the kernels, as on the TPU.
+
+Each wrapper runs its plain version for tensors on the CPU, and only there:
+for CUDA tensors it launches the kernel or raises. Each launch adds one to
+:data:`LAUNCHES`.
 
 The TPU-only helpers are not ported: ``tuned_rows_block`` sized blocks for
 2 MiB of VMEM (the CUDA launch shape comes from the card's limits inside
 the launchers), and ``flatten_plane`` / ``unflatten_plane`` padded rows to
-the TPU's 128-lane width, which the CUDA kernels do not need. The vclock
-family (K3, OR-SWOT) waits for the OR-SWOT codec.
+the TPU's 128-lane width, which the CUDA kernels do not need.
 """
 
 from __future__ import annotations
@@ -33,10 +40,14 @@ import math
 import torch
 
 from ..lattice.base import any_trailing
+from ..lattice.dots import merge_dots
 from . import _build
 
 #: kernel launches since the last :func:`reset_launches`, by kernel name
-LAUNCHES = {"gossip_round_dense": 0, "gossip_round_rows": 0}
+LAUNCHES = {
+    "gossip_round_dense": 0, "gossip_round_rows": 0,
+    "gossip_round_rows_vclock": 0,
+}
 
 #: the most neighbour columns the dense kernel stages in shared memory
 MAX_FANOUT = 32
@@ -144,21 +155,21 @@ def gossip_round_dense(exists, removed, neighbors, out=None):
 
 
 # ---------------------------------------------------------------------------
-# K2: row-sparse frontier round (leafwise family)
+# K2 / K3: row-sparse frontier round
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class RowsPlan:
-    """How one codec's state maps onto the row-sparse kernel."""
+    """How one codec's state maps onto the row-sparse kernels."""
 
-    kind: str  # "leafwise" | "vclock"
+    kind: str  # "leafwise" (K2) | "vclock" (K3)
     op: "str | None" = None  # leafwise op ("or" | "max")
 
 
 def rows_plan_of(codec, spec, states) -> "RowsPlan | None":
     """The kernel plan for ``codec``'s states, or None when this codec
-    cannot ride the row-sparse kernel (its merge has structure)."""
+    cannot ride the row-sparse kernels (its merge has other structure)."""
     del spec
     kind = getattr(codec, "leafwise_join", None)
     if kind in ("or", "max"):
@@ -168,24 +179,48 @@ def rows_plan_of(codec, spec, states) -> "RowsPlan | None":
     return None
 
 
+def _members(leaf) -> list:
+    """The G member tensors ``[R, ...]`` of one leaf given as a ``[G, R,
+    ...]`` tensor (views of it) or as the members themselves."""
+    return list(leaf.unbind(0)) if isinstance(leaf, torch.Tensor) else list(leaf)
+
+
+def _stacked(leaf) -> torch.Tensor:
+    """One leaf as ``[G, R, ...]``: the plain versions' layout (stacking a
+    member list copies it — fine for the CPU and for parity checks)."""
+    return leaf if isinstance(leaf, torch.Tensor) else torch.stack(list(leaf))
+
+
+def _is_cpu(leaf) -> bool:
+    first = leaf if isinstance(leaf, torch.Tensor) else leaf[0]
+    return first.device.type == "cpu"
+
+
 def _join(op: str):
     return torch.bitwise_or if op == "or" else torch.maximum
 
 
-def gossip_round_rows_plain(op, leaves, neighbors, rows, edge_mask=None):
-    """Plain PyTorch K2: for leaves ``[G, R, ...]`` and ``rows: int[G, F]``,
-    fold ``op`` over each slot's own row and its K neighbour rows in k
-    order, skipping dead edges under ``edge_mask: bool[R, K]``. Returns
-    ``(joined rows [G, F, ...] per leaf, changed: bool[G, F])`` with
-    ``changed = any(acc != own)`` over every leaf."""
-    join = _join(op)
+def _gather_plan(neighbors, rows, edge_mask):
+    """Shared index work of the plain versions: ``(g_idx [G, 1], rows
+    [G, F], neighbour rows [G, F, K], live edges [G, F, K] or None)``."""
     rows = rows.long()
     g_idx = torch.arange(rows.shape[0], device=rows.device)[:, None]
-    nb = neighbors.long()[rows]  # [G, F, K]
+    nb = neighbors.long()[rows]
     live = edge_mask[rows] if edge_mask is not None else None
+    return g_idx, rows, nb, live
+
+
+def gossip_round_rows_plain(op, leaves, neighbors, rows, edge_mask=None):
+    """Plain PyTorch K2: for leaves ``[G, R, ...]`` (or G member lists) and
+    ``rows: int[G, F]``, fold ``op`` over each slot's own row and its K
+    neighbour rows in k order, skipping dead edges under ``edge_mask:
+    bool[R, K]``. Returns ``(joined rows [G, F, ...] per leaf, changed:
+    bool[G, F])`` with ``changed = any(acc != own)`` over every leaf."""
+    join = _join(op)
+    g_idx, rows, nb, live = _gather_plan(neighbors, rows, edge_mask)
     outs = []
     changed = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
-    for leaf in leaves:
+    for leaf in map(_stacked, leaves):
         own = leaf[g_idx, rows]
         acc = own
         extra = (1,) * (own.dim() - 2)
@@ -201,7 +236,34 @@ def gossip_round_rows_plain(op, leaves, neighbors, rows, edge_mask=None):
     return outs, changed
 
 
-#: kernel element-type codes of the launcher (csrc/gossip_round_rows.cu)
+def gossip_round_rows_vclock_plain(clock, dots, neighbors, rows, edge_mask=None):
+    """Plain PyTorch K3: ``clock [G, R, A]``, ``dots [G, R, E, A]`` (or G
+    member lists), ``rows: int[G, F]``; folds ``merge_dots`` over each
+    slot's own row and its K neighbour rows in k order, skipping dead
+    edges. Returns ``((clock [G, F, A], dots [G, F, E, A]), changed:
+    bool[G, F])`` with ``changed = any(acc != own)`` over both leaves.
+
+    Skipping a dead edge equals the XLA round's own-state substitution only
+    on reachable states (``dots <= own clock`` pointwise), which is all a
+    runtime ever holds."""
+    clock, dots = _stacked(clock), _stacked(dots)
+    g_idx, rows, nb, live = _gather_plan(neighbors, rows, edge_mask)
+    own_c, own_d = clock[g_idx, rows], dots[g_idx, rows]
+    ca, da = own_c, own_d
+    for k in range(nb.shape[-1]):
+        idx = nb[..., k]
+        mc, md = merge_dots(ca, da, clock[g_idx, idx], dots[g_idx, idx])
+        if live is None:
+            ca, da = mc, md
+        else:
+            lk = live[..., k]
+            ca = torch.where(lk[..., None], mc, ca)
+            da = torch.where(lk[..., None, None], md, da)
+    changed = any_trailing(ca != own_c, 1) | any_trailing(da != own_d, 2)
+    return (ca, da), changed
+
+
+#: kernel element-type codes of the K2 launcher (csrc/gossip_round_rows.cu)
 _U8, _I32, _U32 = 0, 1, 2
 
 
@@ -221,73 +283,155 @@ def _rows_dtype_code(dtype: torch.dtype, op: str) -> int:
 def _rows_fn():
     fn = _build.library("gossip_round_rows").lasp_gossip_round_rows
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
+        ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def gossip_round_rows(op, leaves, neighbors, rows, edge_mask=None):
-    """K2. ``leaves``: one or two ``[G, R, ...]`` tensors of one dtype and
-    row shape (bool for ``"or"``, int32 for ``"or"`` on packed words or
-    ``"max"``); ``neighbors``: ``int32[R, K]``; ``rows: int[G, F]`` (pad
-    slots may repeat a row); ``edge_mask``: optional ``bool[R, K]``.
-    Returns ``(joined rows [G, F, ...] per leaf, changed: bool[G, F])``."""
-    if leaves[0].device.type == "cpu":
-        return gossip_round_rows_plain(op, leaves, neighbors, rows, edge_mask)
-    name = "gossip_round_rows"
-    if not 1 <= len(leaves) <= 2:
-        raise ValueError(f"{name}: one or two leaves, got {len(leaves)}")
-    first = leaves[0]
-    for leaf in leaves:
-        if leaf.dtype != first.dtype or leaf.shape != first.shape:
-            raise ValueError(f"{name}: leaves must share dtype and shape")
-    code = _rows_dtype_code(first.dtype, op)
+@functools.cache
+def _vclock_fn():
+    fn = _build.library("gossip_round_rows").lasp_gossip_round_rows_vclock
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _pointer_table(members):
+    """Host array of the members' base pointers (the launchers copy it into
+    a kernel parameter; no device table is allocated)."""
+    return (ctypes.c_void_p * len(members))(*(m.data_ptr() for m in members))
+
+
+def _rows_launch_args(name, member_leaves, neighbors, rows, edge_mask):
+    """Checks shared by the K2 and K3 wrappers: one CUDA device, contiguous
+    members of one dtype and row shape per leaf, ``rows [G, F]`` and an
+    ``int32[R, K]`` table. Returns ``(device, rows int32, mask uint8 or
+    None, G, R, F, K)``."""
+    first = member_leaves[0][0]
+    g = len(member_leaves[0])
     rows = rows.to(device=first.device, dtype=torch.int32).contiguous()
     mask = (
         edge_mask.to(device=first.device, dtype=torch.uint8).contiguous()
         if edge_mask is not None else None
     )
+    flat = [m for leaf in member_leaves for m in leaf]
     dev = _require_cuda(
-        name, *leaves, neighbors, rows, *(() if mask is None else (mask,))
+        name, *flat, neighbors, rows, *(() if mask is None else (mask,))
     )
-    if first.dim() < 2 or rows.dim() != 2 or rows.shape[0] != first.shape[0]:
-        raise ValueError(f"{name}: leaves [G, R, ...] need rows [G, F]")
-    g, r = first.shape[:2]
-    f = rows.shape[1]
-    width = math.prod(first.shape[2:])
+    for leaf in member_leaves:
+        if len(leaf) != g or any(
+            m.dtype != leaf[0].dtype or m.shape != leaf[0].shape for m in leaf
+        ):
+            raise ValueError(f"{name}: members of a leaf must share dtype and shape")
+    if g == 0 or first.dim() < 1 or rows.dim() != 2 or rows.shape[0] != g:
+        raise ValueError(f"{name}: G members [R, ...] need rows [G, F]")
+    r = first.shape[0]
     if neighbors.dtype != torch.int32 or neighbors.dim() != 2 or neighbors.shape[0] != r:
         raise ValueError(f"{name}: neighbors must be int32[{r}, K]")
-    k = neighbors.shape[1]
     if mask is not None and mask.shape != neighbors.shape:
         raise ValueError(f"{name}: edge_mask must be bool{tuple(neighbors.shape)}")
-    outs = [torch.empty((g, f) + tuple(first.shape[2:]), dtype=first.dtype,
-                        device=dev) for _ in leaves]
+    return dev, rows, mask, g, r, rows.shape[1], neighbors.shape[1]
+
+
+def gossip_round_rows(op, leaves, neighbors, rows, edge_mask=None):
+    """K2. ``leaves``: one or two leaves, each a ``[G, R, ...]`` tensor or
+    the G member tensors ``[R, ...]``, all of one dtype and row shape (bool
+    for ``"or"``, int32 for ``"or"`` on packed words or ``"max"``);
+    ``neighbors``: ``int32[R, K]``; ``rows: int[G, F]`` (pad slots may
+    repeat a row); ``edge_mask``: optional ``bool[R, K]``. Returns
+    ``(joined rows [G, F, ...] per leaf, changed: bool[G, F])``."""
+    if _is_cpu(leaves[0]):
+        return gossip_round_rows_plain(op, leaves, neighbors, rows, edge_mask)
+    name = "gossip_round_rows"
+    if not 1 <= len(leaves) <= 2:
+        raise ValueError(f"{name}: one or two leaves, got {len(leaves)}")
+    members = [_members(leaf) for leaf in leaves]
+    row_shape = tuple(members[0][0].shape[1:])
+    if any(tuple(ms[0].shape[1:]) != row_shape or ms[0].dtype != members[0][0].dtype
+           for ms in members):
+        raise ValueError(f"{name}: leaves must share dtype and row shape")
+    code = _rows_dtype_code(members[0][0].dtype, op)
+    dev, rows, mask, g, _r, f, k = _rows_launch_args(
+        name, members, neighbors, rows, edge_mask
+    )
+    width = math.prod(row_shape)
+    outs = [torch.empty((g, f) + row_shape, dtype=members[0][0].dtype, device=dev)
+            for _ in members]
     changed = torch.empty((g, f), dtype=torch.int32, device=dev)
     if f == 0 or width == 0:
         return outs, changed.zero_() != 0
-    second_in = leaves[-1]
-    second_out = outs[-1]
     with torch.cuda.device(dev):
         rc = _rows_fn()(
             code, 0 if op == "or" else 1,
-            first.data_ptr(), second_in.data_ptr(),
-            outs[0].data_ptr(), second_out.data_ptr(), len(leaves),
+            _pointer_table(members[0]), _pointer_table(members[-1]),
+            outs[0].data_ptr(), outs[-1].data_ptr(), len(members),
             rows.data_ptr(), neighbors.data_ptr(),
             None if mask is None else mask.data_ptr(), changed.data_ptr(),
-            g, r, f, width, k, _stream_ptr(dev),
+            g, f, width, k, _stream_ptr(dev),
         )
     _check_launch(name, rc)
     return outs, changed != 0
 
 
-def scatter_rows(leaf, rows, joined, inplace: bool = False):
-    """Write ``joined[g, f]`` back at ``leaf[g, rows[g, f]]`` — the epilogue
-    every row-sparse round owes. Duplicate pad slots write identical values
-    (the join is idempotent)."""
-    out = leaf if inplace else leaf.clone()
+def gossip_round_rows_vclock(clock, dots, neighbors, rows, edge_mask=None):
+    """K3. ``clock``: ``int32[G, R, A]`` or G members ``[R, A]``; ``dots``:
+    ``int32[G, R, E, A]`` or G members ``[R, E, A]``; ``neighbors``,
+    ``rows`` and ``edge_mask`` as for K2. Returns ``((clock [G, F, A],
+    dots [G, F, E, A]), changed: bool[G, F])``."""
+    if _is_cpu(clock):
+        return gossip_round_rows_vclock_plain(clock, dots, neighbors, rows, edge_mask)
+    name = "gossip_round_rows_vclock"
+    clocks, dotss = _members(clock), _members(dots)
+    dev, rows, mask, g, r, f, k = _rows_launch_args(
+        name, [clocks, dotss], neighbors, rows, edge_mask
+    )
+    c0, d0 = clocks[0], dotss[0]
+    if c0.dtype != torch.int32 or d0.dtype != torch.int32 or c0.dim() != 2 or (
+        d0.dim() != 3 or d0.shape[0] != r or d0.shape[2] != c0.shape[1]
+    ):
+        raise ValueError(
+            f"{name}: members need clock int32[R, A] and dots int32[R, E, A]"
+        )
+    n_elems, n_actors = d0.shape[1], d0.shape[2]
+    out_c = torch.empty((g, f, n_actors), dtype=torch.int32, device=dev)
+    out_d = torch.empty((g, f, n_elems, n_actors), dtype=torch.int32, device=dev)
+    changed = torch.empty((g, f), dtype=torch.int32, device=dev)
+    if f == 0 or n_elems * n_actors == 0:
+        return (out_c, out_d), changed.zero_() != 0
+    with torch.cuda.device(dev):
+        rc = _vclock_fn()(
+            _pointer_table(clocks), _pointer_table(dotss),
+            out_c.data_ptr(), out_d.data_ptr(), rows.data_ptr(),
+            neighbors.data_ptr(), None if mask is None else mask.data_ptr(),
+            changed.data_ptr(), g, f, n_elems, n_actors, k, _stream_ptr(dev),
+        )
+    _check_launch(name, rc)
+    return (out_c, out_d), changed != 0
+
+
+def rows_round(plan: RowsPlan, leaves, neighbors, rows, edge_mask=None):
+    """The plan's kernel (K2 or K3) over ``leaves`` (a state's leaves, each
+    stacked or as member lists): ``(joined rows per leaf, changed)``."""
+    if plan.kind == "vclock":
+        return gossip_round_rows_vclock(*leaves, neighbors, rows, edge_mask)
+    return gossip_round_rows(plan.op, list(leaves), neighbors, rows, edge_mask)
+
+
+def scatter_rows(leaf, rows, joined):
+    """Write ``joined[g, f]`` back at row ``rows[g, f]`` of member g — the
+    epilogue every row-sparse round owes. ``leaf`` is a ``[G, R, ...]``
+    tensor (copied) or the G member tensors (written in place). Duplicate
+    pad slots write identical values (the join is idempotent)."""
+    rows = rows.long()
+    if not isinstance(leaf, torch.Tensor):
+        for member, r, j in zip(leaf, rows, joined):
+            member[r] = j
+        return leaf
+    out = leaf.clone()
     g_idx = torch.arange(rows.shape[0], device=rows.device)[:, None]
-    out[g_idx, rows.long()] = joined
+    out[g_idx, rows] = joined
     return out
 
 
@@ -298,21 +442,16 @@ def cuda_gossip_round_rows_grouped(codec, spec, states, neighbors, rows,
     ``[G, R, ...]``, ``rows: int[G, F]``, ``valid: bool[G, F]``; returns
     ``(new_states, changed: bool[G, F])``. The raw-inequality changed flag
     equals ``~codec.equal`` on reachable states (``removed`` is a subset of
-    ``exists`` under every op and merge)."""
+    ``exists`` under every op and merge; OR-SWOT's ``equal`` is raw
+    equality)."""
     plan = rows_plan_of(codec, spec, states)
     if plan is None:
         raise ValueError(
             f"{getattr(codec, 'name', codec)}: no row-sparse kernel plan "
             "(codec is neither leafwise nor a (clock, dots) pair)"
         )
-    if plan.kind == "vclock":
-        raise NotImplementedError(
-            "the vclock join family (OR-SWOT, K3) is not ported yet"
-        )
     rows = torch.as_tensor(rows, device=states[0].device).long()
-    joined, changed = gossip_round_rows(
-        plan.op, list(states), neighbors, rows, edge_mask
-    )
+    joined, changed = rows_round(plan, states, neighbors, rows, edge_mask)
     new_states = type(states)(
         *(scatter_rows(leaf, rows, j) for leaf, j in zip(states, joined))
     )

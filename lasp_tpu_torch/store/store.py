@@ -4,11 +4,11 @@
 Ported: ``declare`` (``src/lasp_core.erl:209-218``), ``update`` — apply a
 CRDT op, then merge + inflation gate + write (``:283-312``) — ``value`` and
 ``variable`` for ``lasp_ivar``, ``lasp_gset``, ``lasp_orset``,
-``lasp_orset_gbtree`` and ``riak_dt_gcounter``.
+``lasp_orset_gbtree``, ``riak_dt_gcounter`` and ``riak_dt_orswot``.
 
-Not ported yet: ``riak_dt_map`` / ``riak_dt_orswot`` declarations and the
-threshold-watch layer (``bind``, ``read``, ``read_any``, ``wait_needed``)
-raise ``NotImplementedError``.
+Not ported yet: ``riak_dt_map`` declarations and the threshold-watch layer
+(``bind``, ``read``, ``read_any``, ``wait_needed``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..lattice import (
     GSetSpec,
     IVarSpec,
     ORSetSpec,
+    ORSWOTSpec,
     Threshold,
     get_type,
 )
@@ -43,6 +44,9 @@ DEFAULT_SPECS = {
         n_elems=n_elems, n_actors=n_actors, tokens_per_actor=tokens_per_actor
     ),
     "riak_dt_gcounter": lambda n_actors=16, **kw: GCounterSpec(n_actors=n_actors),
+    "riak_dt_orswot": lambda n_elems=64, n_actors=16, **kw: ORSWOTSpec(
+        n_elems=n_elems, n_actors=n_actors
+    ),
 }
 
 #: capacity kwargs each ported type's declare() accepts
@@ -52,10 +56,11 @@ ALLOWED_CAPS = {
     "lasp_orset": {"n_elems", "n_actors", "tokens_per_actor"},
     "lasp_orset_gbtree": {"n_elems", "n_actors", "tokens_per_actor"},
     "riak_dt_gcounter": {"n_actors"},
+    "riak_dt_orswot": {"n_elems", "n_actors"},
 }
 
 #: types the JAX store has and this port does not (yet)
-NOT_PORTED = ("riak_dt_map", "riak_dt_orswot")
+NOT_PORTED = ("riak_dt_map",)
 
 
 class PreconditionError(RuntimeError):
@@ -102,7 +107,7 @@ class Store:
             raise NotImplementedError(
                 f"declare({type}): not ported to lasp_tpu_torch yet "
                 "(this slice carries lasp_ivar, lasp_gset, lasp_orset, "
-                "lasp_orset_gbtree and riak_dt_gcounter)"
+                "lasp_orset_gbtree, riak_dt_gcounter and riak_dt_orswot)"
             )
         if id is None:
             id = f"v{next(self._id_counter)}"
@@ -212,6 +217,26 @@ class Store:
                 for e in op[1]:
                     state = codec.add(spec, state, var.elems.intern(e))
                 return state
+        elif var.type_name == "riak_dt_orswot":
+            if verb == "add":
+                return codec.add(
+                    spec, state, var.elems.intern(op[1]), var.actors.intern(actor)
+                )
+            if verb == "add_all":
+                a = var.actors.intern(actor)
+                for e in op[1]:
+                    state = codec.add(spec, state, var.elems.intern(e), a)
+                return state
+            if verb in ("remove", "remove_all"):
+                elems = op[1] if verb == "remove_all" else [op[1]]
+                for e in elems:
+                    # against the EVOLVING state: a duplicate removal in one
+                    # batch is a precondition error too
+                    member = codec.member_mask(spec, state)
+                    if e not in var.elems or not bool(member[var.elems.index_of(e)]):
+                        raise PreconditionError(f"not_present: {e!r}")
+                    state = codec.remove(spec, state, var.elems.index_of(e))
+                return state
         elif var.type_name == "riak_dt_gcounter":
             if verb == "increment":
                 by = op[1] if len(op) > 1 else 1
@@ -257,7 +282,8 @@ class Store:
         return self._decode_value(var, var.state)
 
     def _decode_value(self, var: Variable, state):
-        if var.type_name in ("lasp_orset", "lasp_orset_gbtree", "lasp_gset"):
+        if var.type_name in ("lasp_orset", "lasp_orset_gbtree", "lasp_gset",
+                             "riak_dt_orswot"):
             mask = var.codec.value(var.spec, state).cpu().numpy()
             return var.elems.decode_mask(np.asarray(mask))
         if var.type_name == "riak_dt_gcounter":

@@ -5,9 +5,14 @@ productive rounds per fused block. Only counts are compared; a time taken
 on the CPU says nothing about the card."""
 
 import pytest
+import torch
 
 import lasp_tpu.bench_scenarios as jb
 import lasp_tpu_torch.bench_scenarios as tb
+
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("fanout,block,seed", [(3, 4, 7), (2, 3, 1)])

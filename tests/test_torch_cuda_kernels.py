@@ -65,3 +65,27 @@ def test_rows_kernel_matches_plain_on_card(cuda, dtype, op, row, n_leaves,
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(ch, ch_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,e", [(4, 8), (16, 64)])
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("g", [1, 3, 16])
+def test_vclock_kernel_matches_plain_on_card(cuda, a, e, k, masked, g):
+    """K3 (OR-SWOT join) against its plain version, bucket 33 with a
+    duplicate slot; the leaves as stacked tensors and as member lists."""
+    gen = torch.Generator(device=cuda).manual_seed(a * e + k + g)
+    r = 500
+    clock = torch.randint(0, 7, (g, r, a), dtype=torch.int32, device=cuda, generator=gen)
+    dots = torch.randint(0, 7, (g, r, e, a), dtype=torch.int32, device=cuda, generator=gen)
+    nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
+    mask = torch.rand((r, k), device=cuda, generator=gen) > 0.4 if masked else None
+    rows = torch.randint(0, r, (g, 33), device=cuda, generator=gen)
+    rows[:, -1] = rows[:, 0]
+    want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
+    for c, d in ((clock, dots), (list(clock.unbind(0)), list(dots.unbind(0)))):
+        got, ch = cg.gossip_round_rows_vclock(c, d, nb, rows, mask)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert torch.equal(ch, ch_w)

@@ -12,6 +12,10 @@ from lasp_tpu.mesh import random_regular, ring
 from lasp_tpu_torch.ops import fused as tf
 from tests.test_torch_gossip import N, _pair, _same
 
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("name,topology,masked", [
     ("lasp_orset_packed", "random", False),

@@ -18,6 +18,10 @@ import lasp_tpu_torch.mesh.topology as ttopo
 import lasp_tpu_torch.ops as tops
 from lasp_tpu_torch import bridge_state
 
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
+
 N, K = 96, 3
 
 
@@ -34,6 +38,12 @@ def _population(name, rng):
     if name == "lasp_ivar":
         leaves = [rows.copy(), (rng.randint(0, 3, size=N) * rows).astype(np.int32)]
         return jl.IVar, tl.IVar, jl.IVarSpec(), tl.IVarSpec(), leaves
+    if name == "riak_dt_orswot":
+        clock = (rng.randint(0, 5, size=(N, 4)) * rows[:, None]).astype(np.int32)
+        dots = np.minimum(rng.randint(0, 6, size=(N, 6, 4)), clock[:, None, :])
+        dots = (dots * (rng.rand(N, 6, 1) < 0.5)).astype(np.int32)
+        return (jl.ORSWOT, tl.ORSWOT, jl.ORSWOTSpec(6, 4), tl.ORSWOTSpec(6, 4),
+                [clock, dots])
     ex = (rng.rand(N, 4, 6) < 0.3) & rows[:, None, None]
     rm = ex & (rng.rand(N, 4, 6) < 0.4)
     dj = jl.ORSetSpec(n_elems=4, n_actors=3, tokens_per_actor=2)
@@ -52,7 +62,7 @@ def _population(name, rng):
 
 
 NAMES = ("lasp_gset", "riak_dt_gcounter", "lasp_ivar", "lasp_orset",
-         "lasp_orset_flat", "lasp_orset_packed")
+         "lasp_orset_flat", "lasp_orset_packed", "riak_dt_orswot")
 
 
 def _pair(name, seed=0):
@@ -119,6 +129,50 @@ def test_rows_round_join_all_and_reads_match_jax(name):
     assert not bool(tg.converged(tc, ts, tst))
     assert tg.round_traffic_bytes(tst, K) == jg.round_traffic_bytes(jst, K)
     assert tg.rows_traffic_bytes(tst, 9, K) == jg.rows_traffic_bytes(jst, 9, K)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_grouped_and_shift_rounds_match_jax(name):
+    """``gossip_round_grouped`` / ``gossip_round_rows_grouped`` (a leading
+    group axis written out) and ``gossip_round_shift[_grouped]``
+    (``torch.roll``) against JAX's vmapped and rolled rounds, with and
+    without an edge mask."""
+    pairs = [_pair(name, seed) for seed in (5, 6, 7)]
+    jc, tc, js, ts = pairs[0][:4]
+    jstack = type(pairs[0][4])(*(jnp.stack(x) for x in zip(*(p[4] for p in pairs))))
+    tstack = type(pairs[0][5])(*(torch.stack(x) for x in zip(*(p[5] for p in pairs))))
+    nbrs = jtopo.random_regular(N, K, seed=9)
+    ring = jtopo.ring(N, 4)
+    offsets = jtopo.shift_offsets(ring, N)
+    assert offsets is not None
+    rng = np.random.RandomState(10)
+    rows = rng.randint(0, N, size=(3, 12))
+    rows[:, -1] = rows[:, 0]  # a duplicate pad slot
+    valid = np.stack([np.ones(12, bool), np.arange(12) < 5, np.zeros(12, bool)])
+    for masked in (False, True):
+        mask = jtopo.edge_failure_mask(N, K, 0.3, seed=11, neighbors=nbrs) if masked else None
+        jm = None if mask is None else jnp.asarray(mask)
+        tm = None if mask is None else torch.as_tensor(mask)
+        _same(tg.gossip_round_grouped(tc, ts, tstack, torch.as_tensor(nbrs), tm),
+              jg.gossip_round_grouped(jc, js, jstack, jnp.asarray(nbrs), jm))
+        jnew, jch = jg.gossip_round_rows_grouped(
+            jc, js, jstack, jnp.asarray(nbrs), jnp.asarray(rows),
+            jnp.asarray(valid), jm)
+        tnew, tch = tg.gossip_round_rows_grouped(
+            tc, ts, tstack, torch.as_tensor(nbrs), torch.as_tensor(rows),
+            torch.as_tensor(valid), tm)
+        _same(tnew, jnew)
+        assert np.array_equal(tch.numpy(), np.asarray(jch))
+        assert not tch[2].any()
+        rmask = jtopo.edge_failure_mask(N, 4, 0.3, seed=12, neighbors=ring) if masked else None
+        jrm = None if rmask is None else jnp.asarray(rmask)
+        trm = None if rmask is None else torch.as_tensor(rmask)
+        tshift = tg.gossip_round_shift(tc, ts, pairs[0][5], offsets, trm)
+        _same(tshift, jg.gossip_round_shift(jc, js, pairs[0][4], offsets, jrm))
+        # on a ring the roll is the gather over the neighbour table
+        _same(tshift, jg.gossip_round(jc, js, pairs[0][4], jnp.asarray(ring), jrm))
+        _same(tg.gossip_round_shift_grouped(tc, ts, tstack, offsets, trm),
+              jg.gossip_round_shift_grouped(jc, js, jstack, offsets, jrm))
 
 
 def test_frontier_reach_matches_jax():

@@ -28,12 +28,16 @@ from lasp_tpu.ops.pallas_gossip import (
     unflatten_plane,
 )
 from lasp_tpu_torch import bridge_state
-from lasp_tpu_torch.lattice import GCounterSpec, GSetSpec
+from lasp_tpu_torch.lattice import GCounterSpec, GSetSpec, ORSWOTSpec
 from lasp_tpu_torch.mesh import gossip as tgossip
 from lasp_tpu_torch.ops import cuda_gossip as cg
 from lasp_tpu_torch.ops.packed import PackedORSet, PackedORSetSpec
 from tests.ops.test_pallas_gossip import seeded_states
 from tests.ops.test_pallas_rows import K, N, seeded
+
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
 
 CPU = "cpu"
 _PORT = {
@@ -42,6 +46,8 @@ _PORT = {
     "packed": ("lasp_orset_packed", lambda s: PackedORSetSpec(
         n_elems=s.n_elems, n_actors=s.n_actors,
         tokens_per_actor=s.tokens_per_actor)),
+    "orswot": ("riak_dt_orswot", lambda s: ORSWOTSpec(
+        n_elems=s.n_elems, n_actors=s.n_actors)),
 }
 
 
@@ -61,9 +67,10 @@ def assert_same(port_state_, jax_state) -> None:
 
 
 def port_codec(kind):
-    from lasp_tpu_torch.lattice import GCounter, GSet
+    from lasp_tpu_torch.lattice import ORSWOT, GCounter, GSet
 
-    return {"gset": GSet, "gcounter": GCounter, "packed": PackedORSet}[kind]
+    return {"gset": GSet, "gcounter": GCounter, "packed": PackedORSet,
+            "orswot": ORSWOT}[kind]
 
 
 # -- K1: dense round ----------------------------------------------------------
@@ -111,10 +118,10 @@ def test_wrappers_refuse_tensors_off_the_cpu_and_cuda():
                              torch.zeros((1, 2), dtype=torch.int32))
 
 
-# -- K2: row-sparse round -----------------------------------------------------
+# -- K2 / K3: row-sparse round (K3 is the "orswot" kind) -----------------------
 
 
-@pytest.mark.parametrize("kind", ("gset", "gcounter", "packed"))
+@pytest.mark.parametrize("kind", ("gset", "gcounter", "packed", "orswot"))
 @pytest.mark.parametrize("bucket", [5, 16, 33])
 def test_rows_plain_matches_pallas_across_codecs_and_buckets(kind, bucket):
     codec, spec, st = seeded(kind)
@@ -132,7 +139,7 @@ def test_rows_plain_matches_pallas_across_codecs_and_buckets(kind, bucket):
         assert np.array_equal(got_c.numpy(), np.asarray(want_c))
 
 
-@pytest.mark.parametrize("kind", ("gset", "packed"))
+@pytest.mark.parametrize("kind", ("gset", "packed", "orswot"))
 def test_rows_plain_matches_pallas_under_edge_mask(kind):
     codec, spec, st = seeded(kind)
     nbrs = random_regular(N, K, seed=5)
@@ -153,7 +160,7 @@ def test_rows_plain_matches_pallas_under_edge_mask(kind):
         assert np.array_equal(got_c.numpy(), np.asarray(want_c))
 
 
-@pytest.mark.parametrize("kind", ("gset", "gcounter", "packed"))
+@pytest.mark.parametrize("kind", ("gset", "gcounter", "packed", "orswot"))
 def test_grouped_plain_matches_pallas_with_valid_masks(kind):
     """G=3: a dense member, a pad tail, a fully invalid (quiescent) member."""
     codec, spec, st = seeded(kind)
@@ -218,20 +225,76 @@ def test_raw_changed_flag_equals_codec_equal_on_packed():
         state = tgossip.gossip_round(PackedORSet, pspec, state, nbrs)
 
 
-def test_vclock_family_is_not_ported_yet():
-    from lasp_tpu_torch.lattice.base import CrdtType
-    from typing import NamedTuple
+def test_vclock_grouped_plain_matches_pallas_with_edge_mask_and_duplicates():
+    """K3's plain version, grouped, under an edge mask with duplicate row
+    slots and a member whose slots are all invalid."""
+    codec, spec, st = seeded("orswot")
+    stacked = jax.tree_util.tree_map(lambda x: jnp.stack([x, x[::-1], x]), st)
+    nbrs = random_regular(N, K, seed=13)
+    mask = np.random.RandomState(17).rand(N, K) > 0.3
+    rows = np.asarray([[1, 1, 4, 9, 9, 9, 20, 33]] * 3)
+    valid = np.asarray([[True] * 8, [True, True, True, False] + [False] * 4,
+                        [False] * 8])
+    args = (jnp.asarray(nbrs), jnp.asarray(rows), jnp.asarray(valid),
+            jnp.asarray(mask))
+    ref = jax_rows_grouped(codec, spec, stacked, *args)
+    pal = pallas_gossip_round_rows_grouped(codec, spec, stacked, *args,
+                                           interpret=True)
+    got_s, got_c = cg.cuda_gossip_round_rows_grouped(
+        port_codec("orswot"), None, port_state("orswot", spec, stacked),
+        torch.as_tensor(nbrs), torch.as_tensor(rows), torch.as_tensor(valid),
+        torch.as_tensor(mask),
+    )
+    for want_s, want_c in (ref, pal):
+        assert_same(got_s, want_s)
+        assert np.array_equal(got_c.numpy(), np.asarray(want_c))
+    assert not got_c[2].any()
 
-    class VState(NamedTuple):
-        clock: torch.Tensor
-        dots: torch.Tensor
 
-    st = VState(torch.zeros((1, 4, 2), dtype=torch.int32),
-                torch.zeros((1, 4, 3, 2), dtype=torch.int32))
-    assert cg.rows_plan_of(CrdtType, None, st).kind == "vclock"
-    with pytest.raises(NotImplementedError, match="vclock"):
-        cg.cuda_gossip_round_rows_grouped(
-            CrdtType, None, st, torch.zeros((4, 2), dtype=torch.int32),
-            torch.zeros((1, 2), dtype=torch.int64),
-            torch.ones((1, 2), dtype=torch.bool),
-        )
+def test_vclock_plain_skip_equals_substitution_round_after_round():
+    """K3 skips dead edges; the contract round (``mesh.gossip``'s, with the
+    codec's merge) substitutes the own state. On states built by add /
+    remove / merge they agree, states and changed flags, as the
+    population gossips under a mask."""
+    from lasp_tpu_torch.lattice import ORSWOT
+
+    _codec, spec, st = seeded("orswot")
+    pspec = _PORT["orswot"][1](spec)
+    state = port_state("orswot", spec, st)
+    nbrs = torch.as_tensor(random_regular(N, K, seed=19))
+    rng = np.random.RandomState(29)
+    mask = torch.as_tensor(rng.rand(N, K) > 0.35)
+    for _ in range(5):
+        rows = torch.as_tensor(rng.randint(0, N, size=16))
+        a, ca = cg.cuda_gossip_round_rows(ORSWOT, pspec, state, nbrs, rows, mask)
+        b, cb = tgossip.gossip_round_rows(ORSWOT, pspec, state, nbrs, rows, mask)
+        assert torch.equal(ca, cb)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(ca, ~ORSWOT.equal(pspec, *(
+            type(state)(*(x[rows] for x in s)) for s in (state, a))))
+        state = tgossip.gossip_round(ORSWOT, pspec, state, nbrs, mask)
+
+
+def test_member_lists_match_stacked_leaves():
+    """K2 and K3 take a leaf as one [G, R, ...] tensor or as its G member
+    tensors; both give the same joined rows and changed flags, and the
+    member scatter writes each member in place."""
+    rng = np.random.RandomState(31)
+    nbrs = torch.as_tensor(random_regular(N, K, seed=37))
+    rows = torch.as_tensor(rng.randint(0, N, size=(3, 9)))
+    mask = torch.as_tensor(rng.rand(N, K) > 0.3)
+    for kind in ("gcounter", "orswot"):
+        _codec, spec, st = seeded(kind)
+        stacked = port_state(kind, spec, jax.tree_util.tree_map(
+            lambda x: jnp.stack([x, x[::-1], x]), st))
+        plan = cg.rows_plan_of(port_codec(kind), None, stacked)
+        members = [[x.clone() for x in leaf.unbind(0)] for leaf in stacked]
+        want, want_c = cg.rows_round(plan, list(stacked), nbrs, rows, mask)
+        got, got_c = cg.rows_round(plan, members, nbrs, rows, mask)
+        assert torch.equal(got_c, want_c)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        for leaf, ms, j in zip(stacked, members, got):
+            before = [m.data_ptr() for m in ms]
+            cg.scatter_rows(ms, rows, j)
+            assert [m.data_ptr() for m in ms] == before
+            assert torch.equal(torch.stack(ms), cg.scatter_rows(leaf, rows, j))

@@ -16,6 +16,10 @@ import lasp_tpu_torch.lattice as tl
 import lasp_tpu_torch.ops as tops
 from lasp_tpu_torch import bridge_state
 
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
+
 R = 64
 
 
@@ -117,6 +121,43 @@ def _flat(rng):
     b = pack(_orset_planes(rng, 5, 6))
     b = [np.where(rng.rand(R, 1) < 0.3, x, y) for x, y in zip(a, b)]
     return jops.FlatORSet, tops.FlatORSet, js, ts, a, b
+
+
+def _orswot_ops(rng, clock, dots, n_ops):
+    """Apply ``n_ops`` rounds of random OR-SWOT adds (each row's own actor
+    lane bumped, the element's dots replaced by the fresh dot) and removes
+    to every row: states a replica can reach."""
+    clock, dots = clock.copy(), dots.copy()
+    r, e, a = dots.shape
+    idx = np.arange(r)
+    for _ in range(n_ops):
+        el, ac = rng.randint(0, e, size=r), rng.randint(0, a, size=r)
+        add = rng.rand(r) >= 0.3
+        ia, ea, aa = idx[add], el[add], ac[add]
+        clock[ia, aa] += 1
+        dots[ia, ea, :] = 0
+        dots[ia, ea, aa] = clock[ia, aa]
+        dots[idx[~add], el[~add], :] = 0
+    return clock, dots
+
+
+def _orswot_reachable(rng, e, a, n_ops, r=R):
+    zero = (np.zeros((r, a), np.int32), np.zeros((r, e, a), np.int32))
+    return _orswot_ops(rng, *zero, n_ops)
+
+
+@_case("riak_dt_orswot")
+def _orswot(rng):
+    js = jl.ORSWOTSpec(n_elems=7, n_actors=4)
+    ts = tl.ORSWOTSpec(n_elems=7, n_actors=4)
+    a = list(_orswot_reachable(rng, 7, 4, 6))
+    grown = _orswot_ops(rng, *a, 3)
+    other = _orswot_reachable(rng, 7, 4, 5)
+    pick = rng.randint(0, 3, size=R)
+    b = [np.where(pick.reshape((R,) + (1,) * (x.ndim - 1)) == 1, g,
+                  np.where(pick.reshape((R,) + (1,) * (x.ndim - 1)) == 2, o, x))
+         for x, g, o in zip(a, grown, other)]
+    return jl.ORSWOT, tl.ORSWOT, js, ts, a, b
 
 
 def _vmap(fn, *states):
@@ -282,3 +323,71 @@ def test_flat_scatter_tokens_matches_jax():
                                         jnp.asarray(elems), jnp.asarray(toks))
     tst = tops.FlatORSet.scatter_tokens(ts, tst, rows, elems, toks)
     _leaves_equal(tst, jst)
+
+
+def test_orswot_ops_and_stats_match_jax():
+    """``add`` / ``remove`` / ``value`` / ``member_mask`` / ``stats`` one op
+    at a time, and ``merge`` of the evolving state with a second replica's."""
+    rng = np.random.RandomState(12)
+    js, ts = jl.ORSWOTSpec(n_elems=5, n_actors=3), tl.ORSWOTSpec(n_elems=5, n_actors=3)
+    jo, to = jl.ORSWOT.new(js), tl.ORSWOT.new(ts, device="cpu")
+    jp, tp = jl.ORSWOT.new(js), tl.ORSWOT.new(ts, device="cpu")
+    for step in range(40):
+        e, a = int(rng.randint(5)), int(rng.randint(3))
+        if rng.rand() < 0.3:
+            jo, to = jl.ORSWOT.remove(js, jo, e), tl.ORSWOT.remove(ts, to, e)
+        else:
+            jo, to = jl.ORSWOT.add(js, jo, e, a), tl.ORSWOT.add(ts, to, e, a)
+        jp, tp = jl.ORSWOT.add(js, jp, (e + 1) % 5, 2), tl.ORSWOT.add(ts, tp, (e + 1) % 5, 2)
+        if step % 5 == 4:
+            jo, to = jl.ORSWOT.merge(js, jo, jp), tl.ORSWOT.merge(ts, to, tp)
+        _leaves_equal(to, jo)
+        for fn in ("value", "member_mask"):
+            assert np.array_equal(getattr(tl.ORSWOT, fn)(ts, to).numpy(),
+                                  np.asarray(getattr(jl.ORSWOT, fn)(js, jo)))
+        assert tl.ORSWOT.stats(ts, to) == jl.ORSWOT.stats(js, jo)
+    assert tl.ORSWOT.name == jl.ORSWOT.name == "riak_dt_orswot"
+    assert tl.get_type("riak_dt_orswot") is tl.ORSWOT
+
+
+def test_dots_helpers_match_jax():
+    import lasp_tpu.lattice.dots as jd
+    import lasp_tpu_torch.lattice.dots as td
+
+    rng = np.random.RandomState(21)
+    ca, da = _orswot_reachable(rng, 6, 5, 5)
+    cb, db = _orswot_ops(rng, ca, da, 2)
+    cb[::3], db[::3] = _orswot_reachable(rng, 6, 5, 4)[0][::3], _orswot_reachable(
+        rng, 6, 5, 4)[1][::3]
+    j = [jnp.asarray(x) for x in (ca, da, cb, db)]
+    t = [torch.as_tensor(x) for x in (ca, da, cb, db)]
+    got = td.merge_dots(*t)
+    want = jax.vmap(jd.merge_dots)(*j)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), np.asarray(w))
+    assert np.array_equal(td.clock_inflation(t[0], t[2]).numpy(),
+                          np.asarray(jax.vmap(jd.clock_inflation)(j[0], j[2])))
+    assert np.array_equal(
+        td.strict_clock_inflation(*t).numpy(),
+        np.asarray(jax.vmap(jd.strict_clock_inflation)(*j)),
+    )
+    for e, a in ((0, 0), (5, 4), (2, 1)):
+        got = td.mint_dot(t[0][3], t[1][3], e, a)
+        want = jd.mint_dot(j[0][3], j[1][3], e, a)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    assert np.array_equal(t[0][3].numpy(), ca[3])  # mint_dot copies
+
+
+@pytest.mark.parametrize("name", ["riak_dt_orswot", "riak_dt_gcounter", "lasp_orset_packed"])
+def test_bridge_state_round_trips(name):
+    """numpy -> port -> numpy gives back the same leaves, dtypes included,
+    with leading replica and group dims, and a wrong trailing shape is
+    refused."""
+    _jc, _tc, _js, ts, a, _b = CASES[name](np.random.RandomState(3))
+    for leaves in (a, [np.stack([x, x[::-1]]) for x in a]):
+        back = bridge_state.to_numpy(bridge_state.from_numpy(name, ts, leaves, device="cpu"))
+        for got, want in zip(back, leaves):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(ValueError, match="trailing shape"):
+        bridge_state.from_numpy(name, ts, [x[..., :1] for x in a], device="cpu")

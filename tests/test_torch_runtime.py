@@ -18,6 +18,10 @@ import lasp_tpu_torch.store as tstore
 from lasp_tpu.mesh.topology import edge_failure_mask, random_regular, ring
 from lasp_tpu_torch import bridge_state
 
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
+
 N = 512
 IDS = ("s", "g", "c")
 
@@ -28,8 +32,9 @@ def _topology(name):
 
 
 def _writes(rt, rng):
-    """One OR-Set, one G-Set and one G-Counter, written through
-    ``update_batch`` (adds, an in-batch remove) and ``update_at``."""
+    """One OR-Set, one G-Set, one G-Counter and, where declared, one
+    OR-SWOT, written through ``update_batch`` (adds, in-batch removes) and
+    ``update_at``."""
     writers = rng.choice(N, 10, replace=False)
     ops = []
     for a, r in enumerate(writers[:6]):
@@ -44,6 +49,20 @@ def _writes(rt, rng):
     rt.update_batch("c", [(int(r), ("increment", a + 1), f"w{a}")
                           for a, r in enumerate(writers[:8])])
     rt.update_at(int(writers[8]), "c", ("increment",), "w8")
+    if "o" not in rt.store.ids():
+        return
+    ops = []
+    for a, r in enumerate(writers[:6]):
+        mine = [f"o{(2 * a + j) % 12}" for j in range(3)]
+        ops.append((int(r), ("add_all", mine), f"w{a}"))
+        if a % 2 == 0:
+            ops.append((int(r), ("remove", mine[0]), f"w{a}"))
+        if a == 3:
+            ops.append((int(r), ("remove_all", mine[1:]), f"w{a}"))
+            ops.append((int(r), ("add", "back"), f"w{a}"))
+    rt.update_batch("o", ops)
+    rt.update_at(int(writers[7]), "o", ("add", "solo"), "w7")
+    rt.update_at(int(writers[1]), "o", ("remove", "o2"), "w1")
 
 
 def _build(pkg, nbrs, packed):
@@ -54,6 +73,8 @@ def _build(pkg, nbrs, packed):
                   tokens_per_actor=2)
     store.declare(id="g", type="lasp_gset", n_elems=16)
     store.declare(id="c", type="riak_dt_gcounter", n_actors=16)
+    if not packed:  # packing changes the OR-Set only: one OR-SWOT run suffices
+        store.declare(id="o", type="riak_dt_orswot", n_elems=24)
     if store_mod is jstore:
         rt = mesh_mod.ReplicatedRuntime(store, df_mod.Graph(store), N, nbrs,
                                         packed=packed, plan="off")
@@ -74,7 +95,8 @@ def _twins(topology, packed):
 
 
 def _assert_same_states(trt, jrt):
-    for v in IDS:
+    assert trt.var_ids == jrt.var_ids
+    for v in trt.var_ids:
         got = bridge_state.to_numpy(trt.states[v])
         want = [np.asarray(x) for x in jrt.states[v]]
         assert len(got) == len(want)
@@ -104,7 +126,7 @@ def test_run_to_convergence_matches_jax(topology, packed, run, masked):
     assert rounds_t == rounds_j > 1
     assert trt.round_residuals == _jax_residuals(jrt)
     _assert_same_states(trt, jrt)
-    for v in IDS:
+    for v in trt.var_ids:
         assert trt.coverage_value(v) == jrt.coverage_value(v)
         assert trt.divergence(v) == jrt.divergence(v)
         if not masked:
@@ -112,6 +134,9 @@ def test_run_to_convergence_matches_jax(topology, packed, run, masked):
     if not masked:
         assert trt.coverage_value("c") == sum(range(1, 9)) + 1
         assert "late" in trt.coverage_value("s")
+    if not masked and not packed:
+        assert {"solo", "back"} <= trt.coverage_value("o")
+        assert "o7" not in trt.coverage_value("o")  # its writer removed it
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -129,7 +154,7 @@ def test_frontier_and_dense_steps_match_jax_round_by_round(packed):
         assert rt_ == rj, rnd
         assert tf.frontier_rows_last == jf.frontier_rows_last, rnd
         assert tf.frontier_dense_falls_last == jf.frontier_dense_falls_last, rnd
-        sparse_rounds += tf.frontier_dense_falls_last < len(IDS) and rt_ > 0
+        sparse_rounds += tf.frontier_dense_falls_last < len(tf.var_ids) and rt_ > 0
         _assert_same_states(tf, jf)
         dj, dt = jd.step(), td.step()
         assert dt == dj == rj, rnd
@@ -162,12 +187,58 @@ def test_seed_tokens_and_reads_match_jax():
         assert trt.run_to_convergence(mode="auto") == jrt.run_to_convergence(
             mode="auto")
         _assert_same_states(trt, jrt)
-        for v in IDS:
+        for v in trt.var_ids:
             got, want = trt.read_at(r0, v), jrt.read_at(r0, v)
             assert (got is None) == (want is None)
             if got is not None:
                 assert all(np.array_equal(a, np.asarray(b)) for a, b in
                            zip(bridge_state.to_numpy(got), want))
+
+
+@pytest.mark.parametrize("plan", ["auto", "off"])
+def test_orswot_batch_failure_matches_jax(plan):
+    """An OR-SWOT batch whose k-th op fails not_present: the ops before it
+    persist, ``batch_index == k``, nothing of op k or later applies, and
+    the element and actor interners hold exactly what JAX's do; then the
+    twins converge (dense under one plan mode, frontier under the other)."""
+    nbrs = random_regular(64, 3, seed=2)
+
+    def build(pkg):
+        store_mod, df_mod, mesh_mod = pkg
+        kw = {} if store_mod is jstore else {"device": "cpu"}
+        store = store_mod.Store(n_actors=4, **kw)
+        store.declare(id="o", type="riak_dt_orswot", n_elems=8)
+        rt = mesh_mod.ReplicatedRuntime(store, df_mod.Graph(store), 64, nbrs,
+                                        plan=plan, **kw)
+        rt.update_batch("o", [(3, ("add", "pre"), "w3")])
+        return rt
+
+    ops = [
+        (3, ("add_all", ["a", "b"]), "w3"),
+        (5, ("add", "c"), "w5"),
+        (3, ("remove_all", ["a", "pre"]), "w3"),
+        (5, ("remove_all", ["c", "c"]), "w5"),  # second "c" is gone: fails
+        (9, ("add", "late"), "w9"),
+    ]
+    jrt, trt = build(JAX), build(PORT)
+    errors = []
+    for rt in (jrt, trt):
+        with pytest.raises(Exception, match="not_present") as info:
+            rt.update_batch("o", ops)
+        errors.append(info.value)
+    assert [e.batch_index for e in errors] == [3, 3]
+    assert type(errors[1]).__name__ == type(errors[0]).__name__ == "PreconditionError"
+    for a, b in zip(bridge_state.to_numpy(trt.states["o"]), jrt.states["o"]):
+        assert np.array_equal(a, np.asarray(b))
+    jv, tv = jrt.store.variable("o"), trt.store.variable("o")
+    assert tv.elems.terms() == jv.elems.terms() == ["pre", "a", "b", "c"]
+    assert tv.actors.terms() == jv.actors.terms() == ["w3", "w5"]
+    assert trt.replica_value("o", 3) == jrt.replica_value("o", 3) == {"b"}
+    assert trt.replica_value("o", 5) == jrt.replica_value("o", 5) == {"c"}
+    mode = "dense" if plan == "off" else "frontier"
+    assert trt.run_to_convergence(mode=mode) == jrt.run_to_convergence(mode=mode)
+    assert trt.coverage_value("o") == jrt.coverage_value("o") == {"b", "c"}
+    assert trt.divergence("o") == jrt.divergence("o") == 0
 
 
 def test_runtime_refuses_what_is_not_ported():
