@@ -10,7 +10,10 @@ Phases, each of which fails the run on any error:
                once) into ``build/lasp_tpu_torch``;
 2. parity   — hold each kernel (K1, K2, K3) bit-for-bit against its plain
                PyTorch version on the card (tolerance zero: every value is
-               a bit or an integer), changed flags included;
+               a bit or an integer), changed flags included, on every path
+               of its schedule (K1 narrow rows in one slab and column
+               slabs at 16-, 8- and 4-byte loads; K3 bulk copies, 4-byte
+               copies and column-chunked rows);
 3. headline — ``bench_scenarios.orset_anti_entropy`` at 2**18 replicas of
                the 8 KiB packed OR-Set (128 elems x 64 actors x 4 tokens),
                random 3-regular gossip, fused blocks of 4;
@@ -26,10 +29,14 @@ Phases, each of which fails the run on any error:
                K2 and K3 must launch with G > 1; a fourth ``plan="auto"``
                twin converges under ``torch.profiler`` for the card's busy
                share;
-6. kernels  — each kernel timed at the shapes phases 3-5 gave it (device
-               time, and host time per wrapper call), beside its plain
-               version and its bound, with its launches on phases 3-5
-               (counts zeroed before each phase, read after).
+6. kernels  — each kernel timed at every distinct launch shape phases 3-5
+               gave it (``cuda_gossip.SHAPES``, counts zeroed before each
+               phase, read after), beside its bound, for its loss
+               ``sum(count * (ms - bound_ms))``; at its widest shape also
+               beside its plain version, its gather model and the host time
+               per wrapper call; and K1's column-slab sweep (slab widths
+               against whole rows) at each of its shapes and at two shapes
+               whose planes fit the L2.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -68,7 +75,7 @@ def _peak_hbm_gbps(name: str) -> float:
 _QUEUE_AHEAD_CYCLES = 1_000_000_000
 
 
-def _time_ms(torch, fn, reps: int) -> float:
+def _time_ms(torch, fn, reps: int, spin_cycles: int = _QUEUE_AHEAD_CYCLES) -> float:
     """Mean device milliseconds per call over ``reps`` calls, by CUDA
     events, after one warm call. The card first spins on a sleep kernel
     while the host enqueues the whole window, so the events time the
@@ -81,7 +88,7 @@ def _time_ms(torch, fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     spin = torch.cuda.Event()
-    torch.cuda._sleep(_QUEUE_AHEAD_CYCLES)
+    torch.cuda._sleep(spin_cycles)
     spin.record()
     start.record()
     for _ in range(reps):
@@ -113,6 +120,38 @@ def _max_abs_err(torch, got, want) -> int:
     )
 
 
+def _parity_k1(torch, cg, words, gen) -> int:
+    """K1 against its plain version on every path of its schedule: narrow
+    rows in one slab (R not a multiple of any block size; K in {2, 3, 8};
+    D in {2, 3, 6}), then column slabs with D in {1024, 1026, 1027} (16-,
+    8- and 4-byte loads, a narrower last slab) at R = 1,003 and R = 65,536
+    with K in {1, 3, 8}. Each shape runs into new buffers and into given
+    ``out=`` buffers; both sides of the schedule must be taken."""
+    widths = set()
+    cases = [(1003, 2, 2), (1003, 8, 2), (517, 3, 3), (515, 3, 6),
+             (1003, 3, 1024), (1003, 8, 1024),
+             *((65_536, k, d) for d in (1024, 1026, 1027) for k in (1, 3, 8))]
+    for r, k, d in cases:
+        ex, rm = words(r, d), words(r, d)
+        nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda",
+                           generator=gen)
+        out = (torch.empty_like(ex), torch.empty_like(rm))
+        want = cg.gossip_round_dense_plain(ex, rm, nb)
+        before = set(cg.SHAPES["gossip_round_dense"])
+        got = cg.gossip_round_dense(ex, rm, nb)
+        got2 = cg.gossip_round_dense(ex, rm, nb, out=out)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) and torch.equal(g2, w)
+                   for g, g2, w in zip(got, got2, want)):
+            raise RuntimeError(f"K1 disagrees with its plain version at R={r} K={k} D={d}")
+        if got2[0].data_ptr() != out[0].data_ptr():
+            raise RuntimeError("K1 out= buffers not honoured")
+        widths |= {key[3] < d for key in set(cg.SHAPES["gossip_round_dense"]) - before}
+    if widths != {False, True}:
+        raise RuntimeError("K1 parity did not take both whole rows and column slabs")
+    return len(cases)
+
+
 def phase_parity(torch, cg) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -122,23 +161,8 @@ def phase_parity(torch, cg) -> None:
             generator=gen,
         )
 
-    # K1: R not a multiple of any block size; K in {2, 3, 8}; D in {2, 1024}
-    # plus widths that take the 8-byte and 4-byte load paths
-    for r, k, d in [(1003, 2, 2), (1003, 3, 1024), (1003, 8, 1024),
-                    (1003, 8, 2), (517, 3, 3), (515, 3, 6)]:
-        ex, rm = words(r, d), words(r, d)
-        nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda",
-                           generator=gen)
-        got = cg.gossip_round_dense(ex, rm, nb)
-        want = cg.gossip_round_dense_plain(ex, rm, nb)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise RuntimeError(f"K1 disagrees with its plain version at R={r} K={k} D={d}")
-        out = (torch.empty_like(ex), torch.empty_like(rm))
-        got2 = cg.gossip_round_dense(ex, rm, nb, out=out)
-        if got2[0].data_ptr() != out[0].data_ptr() or not torch.equal(got2[0], want[0]):
-            raise RuntimeError("K1 out= buffers not honoured")
-    _log("parity", "K1 gossip_round_dense: 6 shapes bit-identical to plain")
+    _log("parity", f"K1 gossip_round_dense: {_parity_k1(torch, cg, words, gen)} "
+                   "shapes bit-identical to plain (whole rows and column slabs)")
 
     # K2: dtype x op x mask x bucket (duplicates) x groups
     r, k = 1000, 3
@@ -188,7 +212,25 @@ def phase_parity(torch, cg) -> None:
     _log("parity", f"K2 gossip_round_rows: {cases} cases bit-identical to plain "
                    "(rows and changed flags, stacked and member-list leaves)")
     _log("parity", f"K3 gossip_round_rows_vclock: {_parity_k3(torch, cg, gen)} "
-                   "cases bit-identical to plain (clock, dots and changed flags)")
+                   "cases bit-identical to plain (clock, dots and changed flags); "
+                   f"{_parity_k3_paths(torch, cg, gen)} more on the bulk, 4-byte "
+                   "and column-chunked paths")
+
+
+def _vclock_case(torch, cg, gen, clock, dots, k, masked, bucket, label) -> None:
+    """One K3 launch against its plain version on random data (both skip
+    dead edges, so any data will do), with a duplicate row slot."""
+    g, r = len(clock), clock[0].shape[0]
+    nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda", generator=gen)
+    mask = torch.rand((r, k), device="cuda", generator=gen) > 0.4 if masked else None
+    rows = torch.randint(0, r, (g, bucket), device="cuda", generator=gen)
+    rows[:, -1] = rows[:, 0]
+    got, ch = cg.gossip_round_rows_vclock(clock, dots, nb, rows, mask)
+    want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(x, y) for x, y in zip(got, want)) and torch.equal(ch, ch_w)):
+        raise RuntimeError(f"K3 disagrees with its plain version: {label} K={k} "
+                           f"masked={masked} bucket={bucket}")
 
 
 def _parity_k3(torch, cg, gen) -> int:
@@ -253,6 +295,50 @@ def _parity_k3(torch, cg, gen) -> int:
                                                and torch.equal(got_s.dots[-1], dots[-1])):
                         raise RuntimeError("K3: the all-invalid quiescent member moved")
                     cases += 1
+    return cases
+
+
+def _parity_k3_paths(torch, cg, gen) -> int:
+    """K3 on each path of its ring, against its plain version: A = 3 (the
+    4-byte cp.async path), A = 16 (bulk copies) and E = 512, A = 64 (dots
+    rows wider than a stage, staged in column chunks), each at G in {1, 16,
+    70} (70: above the launcher's 64-member table), K in {1, 3, 8}, masked
+    and unmasked, F in {1, 33}; then 16-byte-aligned actors on members that
+    are not 16-byte aligned (the 4-byte path). The schedule each case takes
+    is checked."""
+    cases = 0
+    for a, e, r in ((3, 8, 1000), (16, 64, 1000), (64, 512, 128)):
+        for g in (1, 16, 70):
+            clock = torch.randint(0, 7, (g, r, a), dtype=torch.int32,
+                                  device="cuda", generator=gen)
+            dots = torch.randint(0, 7, (g, r, e, a), dtype=torch.int32,
+                                 device="cuda", generator=gen)
+            dots = dots * (torch.rand((g, r, e, 1), device="cuda", generator=gen) < 0.5)
+            members = (list(clock.unbind(0)), list(dots.unbind(0)))
+            for k in (1, 3, 8):
+                sched = cg.vclock_launch_schedule(*members, k)
+                if sched.bulk != (a % 4 == 0) or (e == 512 and sched.chunk_words >= e * a):
+                    raise RuntimeError(f"K3 schedule {sched} at A={a} E={e} K={k}")
+                for masked in (False, True):
+                    for bucket in (1, 33):
+                        _vclock_case(torch, cg, gen, *members, k, masked, bucket,
+                                     f"A={a} E={e} G={g}")
+                        cases += 1
+            del clock, dots, members
+    for g in (1, 3):  # members 4 bytes off a 16-byte boundary
+        r, e, a = 1000, 64, 16
+        cbuf = torch.randint(0, 7, (g * r * a + 1,), dtype=torch.int32, device="cuda",
+                             generator=gen)
+        dbuf = torch.randint(0, 7, (g * r * e * a + 1,), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        clock = list(cbuf[1:].view(g, r, a).unbind(0))
+        dots = list(dbuf[1:].view(g, r, e, a).unbind(0))
+        if cg.vclock_launch_schedule(clock, dots, 3).bulk:
+            raise RuntimeError("K3 took bulk copies from misaligned members")
+        for masked in (False, True):
+            _vclock_case(torch, cg, gen, clock, dots, 3, masked, 33,
+                         f"misaligned G={g}")
+            cases += 1
     return cases
 
 
@@ -333,6 +419,28 @@ def _plan_twin(n, nbrs, plan):
     return rt, ids, expected
 
 
+def _capture_rows_inputs(cg, rt, source: str, captured: dict) -> None:
+    """Wrap ``rt._rows_round`` so that the first launch of each new K2 / K3
+    launch shape (a key of ``cg.SHAPES``) leaves its inputs in ``captured``:
+    ``(kernel, key) -> {"source", "var_ids", "rows", "mask"}``. The kernels
+    phase replays them on the states of the runtime named ``source``."""
+    inner = rt._rows_round
+    names = ("gossip_round_rows", "gossip_round_rows_vclock")
+
+    def recording(var_ids, row_idx, mask):
+        before = {n: set(cg.SHAPES[n]) for n in names}
+        changed = inner(var_ids, row_idx, mask)
+        for n in names:
+            for key in set(cg.SHAPES[n]) - before[n]:
+                captured.setdefault((n, key), {
+                    "source": source, "var_ids": tuple(var_ids),
+                    "rows": row_idx.clone(), "mask": mask,
+                })
+        return changed
+
+    rt._rows_round = recording
+
+
 def _device_busy(torch, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: wall seconds (host clock,
     synchronized), device seconds (the CUDA kernels' and copies' own time)
@@ -353,16 +461,20 @@ def _device_busy(torch, fn) -> dict:
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
-def phase_plan(torch, cg, n: int) -> dict:
+def _shape_counts(cg) -> dict:
+    return {n: dict(c) for n, c in cg.SHAPES.items()}
+
+
+def phase_plan(torch, cg, n: int, captured: dict) -> dict:
     """Three twins of the 48-variable store: frontier with ``plan="off"``,
     frontier with ``plan="auto"`` and dense; then a fourth, ``plan="auto"``
     frontier twin converged under the profiler for the device's busy share.
-    Returns what the kernels phase needs: the auto twin, its widest planned
-    sparse round per kernel and the launches."""
+    Returns what the kernels phase needs: the auto twin, the launches and
+    the launch shapes."""
     from lasp_tpu_torch.mesh import random_regular
 
     nbrs = random_regular(n, 3, seed=23)
-    runs, widest = {}, {}
+    runs, max_g = {}, {}
     cg.reset_launches()
     for label, plan, mode in (("off", "off", "frontier"), ("auto", "auto", "frontier"),
                               ("dense", "auto", "dense")):
@@ -371,27 +483,17 @@ def phase_plan(torch, cg, n: int) -> dict:
         rt, ids, expected = _plan_twin(n, nbrs, plan)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if label == "auto":
-            rows_round = rt._rows_round
-
-            def recording(var_ids, row_idx, mask, _rt=rt, _inner=rows_round):
-                codec, spec = _rt._mesh_meta(var_ids[0])
-                kind = cg.rows_plan_of(codec, spec, _rt.states[var_ids[0]]).kind
-                g, f = row_idx.shape
-                if g * f > widest.get(kind, {}).get("slots", 0):
-                    widest[kind] = {"slots": g * f, "G": g, "F": f,
-                                    "var_ids": tuple(var_ids), "rows": row_idx.clone()}
-                widest.setdefault(f"{kind}_max_G", 0)
-                widest[f"{kind}_max_G"] = max(widest[f"{kind}_max_G"], g)
-                return _inner(var_ids, row_idx, mask)
-
-            rt._rows_round = recording
+        _capture_rows_inputs(cg, rt, "plan", captured)
         rounds = rt.run_to_convergence(mode=mode)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         runs[label] = {"rt": rt, "rounds": rounds, "seconds": t2 - t0,
                        "setup_s": t1 - t0, "converge_s": t2 - t1}
-    launches = dict(cg.LAUNCHES)
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    for name, fields in (("gossip_round_rows", cg.SHAPE_FIELDS["gossip_round_rows"]),
+                         ("gossip_round_rows_vclock",
+                          cg.SHAPE_FIELDS["gossip_round_rows_vclock"])):
+        max_g[name] = max((key[fields.index("G")] for key in shapes[name]), default=0)
     off, auto, dense = runs["off"]["rt"], runs["auto"]["rt"], runs["dense"]["rt"]
     if not runs["off"]["rounds"] == runs["auto"]["rounds"] == runs["dense"]["rounds"]:
         raise RuntimeError(f"plan: round counts differ: "
@@ -414,7 +516,6 @@ def phase_plan(torch, cg, n: int) -> dict:
     probe, _ids, _expected = _plan_twin(n, nbrs, "auto")
     busy = _device_busy(torch, lambda: probe.run_to_convergence(mode="frontier"))
     del probe
-    cg.LAUNCHES.update(launches)  # the profiled twin's launches are not counted
     _log("plan", json.dumps({
         "replicas": n, "vars": len(ids), "rounds": runs["auto"]["rounds"],
         "seconds": {k: v["seconds"] for k, v in runs.items()},
@@ -422,60 +523,165 @@ def phase_plan(torch, cg, n: int) -> dict:
         "converge_s": {k: v["converge_s"] for k, v in runs.items()},
         "profiled_auto_converge": busy,
         "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
-        "residuals": auto.round_residuals, "describe": describe,
-        "widest_sparse": {k: {"G": w["G"], "F": w["F"]} for k, w in widest.items()
-                          if isinstance(w, dict)},
-        "max_G": {k: w for k, w in widest.items() if not isinstance(w, dict)},
+        "residuals": auto.round_residuals, "describe": describe, "max_G": max_g,
     }))
     if launches["gossip_round_rows_vclock"] == 0:
         raise RuntimeError("the plan phase never launched K3")
-    for kind in ("leafwise", "vclock"):
-        if widest.get(f"{kind}_max_G", 0) < 2:
-            raise RuntimeError(f"the plan phase never launched the {kind} kernel at G > 1")
-    return {"rt": auto, "widest": widest, "launches": launches,
-            "nbrs": nbrs, "ids": ids}
+    for name, g in max_g.items():
+        if g < 2:
+            raise RuntimeError(f"the plan phase never launched {name} at G > 1")
+    return {"rt": auto, "launches": launches, "shapes": shapes, "nbrs": nbrs}
 
 
-def _k3_at_plan_shape(torch, cg, plan, bw) -> dict:
-    """K3 at the widest planned OR-SWOT round of the plan phase: the same
-    members and row table, on the converged populations (the kernel's work
-    does not depend on the values). Returns the kernels-line fields."""
-    w3 = plan["widest"]["vclock"]
-    rt = plan["rt"]
-    members = [rt.states[v] for v in w3["var_ids"]]
-    clocks = [m.clock for m in members]
-    dotss = [m.dots for m in members]
-    rows, nb = w3["rows"], rt.neighbors
-    got, ch = cg.gossip_round_rows_vclock(clocks, dotss, nb, rows)
-    stacked_c, stacked_d = torch.stack(clocks), torch.stack(dotss)
-    want, ch_w = cg.gossip_round_rows_vclock_plain(stacked_c, stacked_d, nb, rows)
-    err = max(_max_abs_err(torch, got, want), int((ch.int() - ch_w.int()).abs().max()))
-    del got, want
-    ms = _time_ms(torch, lambda: cg.gossip_round_rows_vclock(clocks, dotss, nb, rows), 20)
-    call_ms = _call_ms(
-        torch, lambda: cg.gossip_round_rows_vclock(clocks, dotss, nb, rows), 20)
-    plain_ms = _time_ms(
-        torch, lambda: cg.gossip_round_rows_vclock_plain(stacked_c, stacked_d, nb, rows), 3)
-    del stacked_c, stacked_d
-    g, f = rows.shape
-    k = nb.shape[1]
-    a, e = clocks[0].shape[1], dotss[0].shape[1]
-    row_bytes = 4 * (a + e * a)
-    rows_np, nbrs = rows.cpu().numpy(), plan["nbrs"]
-    # each distinct row a member's round reads (own and neighbours), once
-    distinct = sum(np.unique(np.concatenate([r, nbrs[np.unique(r)].ravel()])).size
+def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int) -> tuple:
+    """The least bytes and the gather model of one K2 / K3 launch over
+    ``rows_np [G, F]``: each distinct row a member's round reads (own and
+    neighbours) once, the row indices, the distinct rows' neighbour
+    indices, the joined rows and the changed flags; against the
+    ``(K+2)``-rows-a-slot traffic the kernels issue."""
+    g, f = rows_np.shape
+    distinct = sum(np.unique(np.concatenate([r, nbrs_np[np.unique(r)].ravel()])).size
                    for r in rows_np)
-    bound_bytes = (distinct * row_bytes + g * f * 4
-                   + sum(np.unique(r).size for r in rows_np) * k * 4
-                   + g * f * row_bytes + g * f * 4)
-    gather_bytes = (k + 2) * g * f * row_bytes + g * f * 4 * (k + 1)
-    return {
-        "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-        "bound_ms": float(bound_bytes) / bw * 1e3, "bound_by": "bytes",
-        "gather_model_bound_ms": gather_bytes / bw * 1e3,
-        "shape": {"G": int(g), "F": int(f), "R": rt.n_replicas, "A": int(a),
-                  "E": int(e), "K": int(k)},
-    }
+    bound = (distinct * row_bytes + g * f * 4
+             + sum(np.unique(r).size for r in rows_np) * k * 4
+             + g * f * row_bytes + g * f * 4)
+    gather = (k + 2) * g * f * row_bytes + g * f * 4 * (k + 1)
+    return float(bound), float(gather)
+
+
+def _rows_call(cg, rt, cap):
+    """A replay of one captured K2 / K3 launch on ``rt``'s states, and the
+    row bytes of its members (over every leaf)."""
+    var_ids = cap["var_ids"]
+    codec, spec = rt._mesh_meta(var_ids[0])
+    members = [rt.states[v] for v in var_ids]
+    plan = cg.rows_plan_of(codec, spec, members[0])
+    leaves = [list(ls) for ls in zip(*members)]
+    row_bytes = sum(ms[0][0].numel() * ms[0].element_size() for ms in leaves)
+    rows, mask, nb = cap["rows"], cap["mask"], rt.neighbors
+
+    def call():
+        return cg.rows_round(plan, leaves, nb, rows, mask)
+
+    return call, leaves, plan, row_bytes
+
+
+def _k1_inputs(torch, r, d, k, seed=7):
+    from lasp_tpu_torch.mesh import random_regular
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ex = torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    rm = ex & torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
+                            device="cuda", generator=gen)
+    nb = torch.as_tensor(random_regular(r, k, seed=seed), device="cuda")
+    return ex, rm, nb
+
+
+#: K1 shapes ``(R, D, K)`` off the main path whose two planes together
+#: take 32 MiB, inside the 50 MB L2 (the engine's and the headline's row
+#: widths at fewer replicas): the sweep holds slabs against whole rows there
+_K1_SWEEP_IN_L2 = ((32_768, 128, 3), (4_096, 1_024, 3))
+
+
+def _k1_sweep(torch, cg, ex, rm, nb, want) -> list:
+    """K1 at one shape in column slabs of 8 to 256 words (48 and 96: slab
+    segments that straddle 128-byte lines) and in whole rows. Each is
+    checked against the plain result, then timed. Returns ``[[slab_words,
+    ms], ...]``."""
+    out = (torch.empty_like(ex), torch.empty_like(rm))
+    d = ex.shape[1]
+    table = []
+    for w in sorted({min(w, d) for w in (8, 16, 32, 48, 64, 96, 128, 256)} | {d}):
+        cg._dense_launch(ex, rm, nb, *out, w)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, x) for o, x in zip(out, want)):
+            raise RuntimeError(f"K1 disagrees with its plain version in {w}-word slabs")
+        ms = _time_ms(torch, lambda w=w: cg._dense_launch(ex, rm, nb, *out, w), 20,
+                      spin_cycles=_QUEUE_AHEAD_CYCLES // 10)
+        table.append([w, ms])
+    return table
+
+
+def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2) -> tuple:
+    """Every kernel at every distinct launch shape of the main path (``ms``
+    and ``bound_ms`` per shape, ``loss_ms = sum(count * (ms - bound_ms))``),
+    and at its widest shape the fields of the kernels line."""
+    fields = cg.SHAPE_FIELDS
+    per_shape = {name: [] for name in cg.LAUNCHES}
+    widest, sweeps = {}, {}
+    # K1: planes made from a seed at each logged shape, in its slabs, and
+    # the slab sweep at each of them
+    for key, count in shapes["gossip_round_dense"].items():
+        r, d, k, slab = key
+        ex, rm, nb = _k1_inputs(torch, r, d, k)
+        out = (torch.empty_like(ex), torch.empty_like(rm))
+        ms = _time_ms(torch, lambda: cg._dense_launch(ex, rm, nb, *out, slab), 10)
+        row_bytes = 2 * d * 4
+        bound = (2 * r * row_bytes + r * k * 4) / bw * 1e3  # planes in + out, indices
+        per_shape["gossip_round_dense"].append((key, count, ms, bound))
+        want = cg.gossip_round_dense_plain(ex, rm, nb)
+        sweeps[f"R={r} D={d} K={k}"] = _k1_sweep(torch, cg, ex, rm, nb, want)
+        if r == 1 << 18 and d == 1024:  # the headline shape
+            got = cg.gossip_round_dense(ex, rm, nb)
+            err = _max_abs_err(torch, got, want)
+            del got
+            widest["gossip_round_dense"] = {
+                "max_abs_err": err, "ms": ms,
+                "call_ms": _call_ms(torch, lambda: cg.gossip_round_dense(
+                    ex, rm, nb, out=out), 20),
+                "plain_ms": _time_ms(
+                    torch, lambda: cg.gossip_round_dense_plain(ex, rm, nb), 3),
+                "bound_ms": bound, "bound_by": "bytes",
+                "gather_model_bound_ms": (k + 2) * r * row_bytes / bw * 1e3,
+                "shape": dict(zip(fields["gossip_round_dense"], key)),
+            }
+        del ex, rm, nb, out, want
+    for r, d, k in _K1_SWEEP_IN_L2:
+        ex, rm, nb = _k1_inputs(torch, r, d, k)
+        want = cg.gossip_round_dense_plain(ex, rm, nb)
+        sweeps[f"R={r} D={d} K={k} (off the main path)"] = _k1_sweep(
+            torch, cg, ex, rm, nb, want)
+        del ex, rm, nb, want
+    # K2 / K3: the captured launches replayed on their runtime's states
+    for name in ("gossip_round_rows", "gossip_round_rows_vclock"):
+        for key, count in shapes[name].items():
+            cap = captured[(name, key)]
+            rt = sources[cap["source"]]
+            call, leaves, plan, row_bytes = _rows_call(cg, rt, cap)
+            ms = _time_ms(torch, call, 10, spin_cycles=_QUEUE_AHEAD_CYCLES // 10)
+            k = key[fields[name].index("K")]
+            bound, gather = _rows_bound_bytes(cap["rows"].cpu().numpy(),
+                                              rt._host_neighbors, row_bytes, k)
+            per_shape[name].append((key, count, ms, bound / bw * 1e3))
+            is_widest = (key == widest_k2 if name == "gossip_round_rows" else
+                         key == max(shapes[name], key=lambda x: x[0] * x[1]))
+            if is_widest:
+                got, ch = call()
+                stacked = [torch.stack(ms_) for ms_ in leaves]
+                if plan.kind == "vclock":
+                    want, ch_w = cg.gossip_round_rows_vclock_plain(
+                        *stacked, rt.neighbors, cap["rows"], cap["mask"])
+                    plain = lambda: cg.gossip_round_rows_vclock_plain(  # noqa: E731
+                        *stacked, rt.neighbors, cap["rows"], cap["mask"])
+                else:
+                    want, ch_w = cg.gossip_round_rows_plain(
+                        plan.op, stacked, rt.neighbors, cap["rows"], cap["mask"])
+                    plain = lambda: cg.gossip_round_rows_plain(  # noqa: E731
+                        plan.op, stacked, rt.neighbors, cap["rows"], cap["mask"])
+                err = max(_max_abs_err(torch, got, want),
+                          int((ch.int() - ch_w.int()).abs().max()))
+                del got, want
+                widest[name] = {
+                    "max_abs_err": err, "ms": ms,
+                    "call_ms": _call_ms(torch, call, 20),
+                    "plain_ms": _time_ms(torch, plain, 3),
+                    "bound_ms": bound / bw * 1e3, "bound_by": "bytes",
+                    "gather_model_bound_ms": gather / bw * 1e3,
+                    "shape": dict(zip(fields[name], key)),
+                }
+                del stacked
+    return per_shape, widest, sweeps
 
 
 def main() -> int:
@@ -512,18 +718,28 @@ def main() -> int:
     phase_parity(torch, cg)
 
     launches: dict = {}
+    shapes: dict = {}
+    captured: dict = {}
     # 3. headline ---------------------------------------------------------------
     cg.reset_launches()
-    head = orset_anti_entropy(1 << 18, fanout=3, block=4, n_elems=128,
+    r_head, k_head = 1 << 18, 3
+    head = orset_anti_entropy(r_head, fanout=k_head, block=4, n_elems=128,
                               n_actors=64, tokens_per_actor=4)
     torch.cuda.synchronize()
-    launches["headline"] = dict(cg.LAUNCHES)
+    launches["headline"], shapes["headline"] = dict(cg.LAUNCHES), _shape_counts(cg)
     if head["check"] != "converged+all-live":
         raise RuntimeError("headline did not converge with every element live")
+    # the bytes a round must move: each replica's row of both planes read
+    # once and written once, its K neighbour indices read once
+    required = (2 * r_head * head["state_bytes_per_replica"] + r_head * k_head * 4
+                ) * head["rounds"]
+    required_gbps = required / head["seconds"] / 1e9
     _log("headline", json.dumps({
         k: head[k] for k in ("scenario", "rounds", "seconds", "merges_per_sec",
-                             "achieved_GBps", "state_bytes_per_replica")
-    } | {"share_of_peak_hbm": head["achieved_GBps"] / peak_gbps,
+                             "state_bytes_per_replica")
+    } | {"required_GBps": required_gbps,
+         "share_of_peak_hbm": required_gbps / peak_gbps,
+         "issued_GBps_gather_model": head["achieved_GBps"],
          "productive_rounds_per_block":
              head["convergence"]["productive_rounds_per_block"],
          "seconds_each": head["timing"]["seconds_each"]}))
@@ -538,23 +754,12 @@ def main() -> int:
     torch.cuda.synchronize()
     t_dense = time.perf_counter() - t0
     rt_f, _, _, _ = _engine(torch, n, nbrs)
-    # keep the state and rows of the widest sparse OR-Set round (timed below)
-    widest: dict = {}
-    sparse_round = rt_f._frontier_sparse_round
-
-    def recording(var_id, rows, edge_mask):
-        if var_id == ids[0] and rows.size > widest.get("size", 0):
-            widest.update(size=rows.size, rows=rows.copy(),
-                          states=tuple(x.clone() for x in rt_f.states[var_id]),
-                          bucket=rt_f._frontier_bucket(rows.size))
-        return sparse_round(var_id, rows, edge_mask)
-
-    rt_f._frontier_sparse_round = recording
+    _capture_rows_inputs(cg, rt_f, "engine", captured)
     t0 = time.perf_counter()
     rounds_f = rt_f.run_to_convergence(mode="frontier")
     torch.cuda.synchronize()
     t_frontier = time.perf_counter() - t0
-    launches["engine"] = dict(cg.LAUNCHES)
+    launches["engine"], shapes["engine"] = dict(cg.LAUNCHES), _shape_counts(cg)
     if rounds_d != rounds_f:
         raise RuntimeError(f"engine: dense took {rounds_d} rounds, frontier {rounds_f}")
     for v in ids:
@@ -567,10 +772,15 @@ def main() -> int:
         raise RuntimeError("engine: OR-Set coverage value is wrong")
     if rt_d.coverage_value(ids[1]) != total or rt_f.coverage_value(ids[1]) != total:
         raise RuntimeError("engine: G-Counter coverage value is wrong")
+    # K2's widest shape: the engine's widest sparse OR-Set round (two leaves)
+    fields2 = cg.SHAPE_FIELDS["gossip_round_rows"]
+    widest_k2 = max((key for key in shapes["engine"]["gossip_round_rows"]
+                     if key[fields2.index("leaves")] == 2),
+                    key=lambda x: x[fields2.index("F")])
     _log("engine", json.dumps({
         "replicas": n, "rounds": rounds_d, "dense_seconds": t_dense,
         "frontier_seconds": t_frontier, "coverage_elems": len(expected),
-        "counter": total, "widest_sparse_rows": widest.get("size"),
+        "counter": total, "widest_sparse_rows": widest_k2[fields2.index("F")],
     }))
     for phase, counts in launches.items():
         _log("launches", f"{phase}: {counts}")
@@ -580,105 +790,58 @@ def main() -> int:
         raise RuntimeError("the engine path never launched K1")
     if launches["engine"]["gossip_round_rows"] == 0:
         raise RuntimeError("the engine path never launched K2")
-    del rt_d, rt_f
+    del rt_d
 
     # 5. plan ---------------------------------------------------------------------
-    plan = phase_plan(torch, cg, n)
-    launches["plan"] = plan["launches"]
+    plan = phase_plan(torch, cg, n, captured)
+    launches["plan"], shapes["plan"] = plan["launches"], plan["shapes"]
     _log("launches", f"plan: {launches['plan']}")
 
     # 6. kernels at the main path's shapes ----------------------------------------
     bw = peak_gbps * 1e9
-    # K1 at the headline shape: R = 2**18, D = 128 elems x 8 words, K = 3
-    r, d, k = 1 << 18, 128 * 8, 3
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    ex = torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
-                       device="cuda", generator=gen)
-    rm = ex & torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
-                            device="cuda", generator=gen)
-    nb = torch.as_tensor(random_regular(r, k, seed=7), device="cuda")
-    base = dict(cg.LAUNCHES)
-    got = cg.gossip_round_dense(ex, rm, nb)
-    want = cg.gossip_round_dense_plain(ex, rm, nb)
-    k1_err = _max_abs_err(torch, got, want)
-    del got, want
-    out = (torch.empty_like(ex), torch.empty_like(rm))
-    k1_ms = _time_ms(torch, lambda: cg.gossip_round_dense(ex, rm, nb, out=out), 20)
-    k1_call_ms = _call_ms(torch, lambda: cg.gossip_round_dense(ex, rm, nb, out=out), 20)
-    k1_plain_ms = _time_ms(torch, lambda: cg.gossip_round_dense_plain(ex, rm, nb), 3)
-    row_bytes = 2 * d * 4
-    k1_bytes = 2 * r * row_bytes + r * k * 4  # planes in + out, indices once
-    k1_gather_bytes = (k + 2) * r * row_bytes
-    del ex, rm, out
-    # K2 at the widest sparse round of the engine's frontier run
-    states = widest["states"]
-    rows_np = widest["rows"]
-    padded = np.full(widest["bucket"], rows_np[0], dtype=np.int64)
-    padded[: rows_np.size] = rows_np
-    rows_t = torch.as_tensor(padded, device="cuda")[None]
-    leaves = [x[None] for x in states]
-    nb_e = torch.as_tensor(nbrs, device="cuda")
-    got, ch = cg.gossip_round_rows("or", leaves, nb_e, rows_t)
-    want, ch_w = cg.gossip_round_rows_plain("or", leaves, nb_e, rows_t)
-    k2_err = max(_max_abs_err(torch, got, want),
-                 int((ch.int() - ch_w.int()).abs().max()))
-    k2_ms = _time_ms(torch, lambda: cg.gossip_round_rows("or", leaves, nb_e, rows_t), 50)
-    k2_call_ms = _call_ms(torch, lambda: cg.gossip_round_rows("or", leaves, nb_e, rows_t), 50)
-    k2_plain_ms = _time_ms(
-        torch, lambda: cg.gossip_round_rows_plain("or", leaves, nb_e, rows_t), 10)
-    f = padded.size
-    w2 = states[0].shape[1]
-    row2 = 2 * w2 * 4
-    distinct = np.unique(np.concatenate([padded, nbrs[np.unique(padded)].ravel()]))
-    k2_bytes = (distinct.size * row2 + f * 4 + np.unique(padded).size * k * 4
-                + f * row2 + f * 4)
-    k2_gather_bytes = (k + 2) * f * row2 + f * 4 * (k + 1)
-    del states, leaves, got, want, widest
-    k3 = _k3_at_plan_shape(torch, cg, plan, bw)
-    cg.LAUNCHES.update(base)  # timing launches are not main-path launches
+    main_shapes = {name: {} for name in cg.LAUNCHES}
+    for phase_shapes in shapes.values():
+        for name, counts in phase_shapes.items():
+            for key, c in counts.items():
+                main_shapes[name][key] = main_shapes[name].get(key, 0) + c
+    head_keys = list(shapes["headline"]["gossip_round_dense"])
+    if not head_keys or any(key[3] >= key[1] for key in head_keys):
+        raise RuntimeError(f"the headline's K1 launches did not take column slabs: "
+                           f"{head_keys}")
+    per_shape, widest, sweeps = phase_kernels(
+        torch, cg, bw, main_shapes, captured,
+        {"engine": rt_f, "plan": plan["rt"]}, widest_k2)
+    for shape, sweep in sweeps.items():
+        _log("kernels", f"K1 slab sweep at {shape}: " + json.dumps(
+            [[w, round(ms, 5)] for w, ms in sweep]) + " ([slab_words, ms])")
+    _log("kernels", "shapes " + json.dumps({
+        name: {"fields": cg.SHAPE_FIELDS[name],
+               "rows [key, launches, ms, bound_ms]": [
+                   [list(key), c, round(ms, 5), round(b, 5)] for key, c, ms, b in rows]}
+        for name, rows in per_shape.items()}))
 
     def total_launches(name):
         return sum(c[name] for c in launches.values())
 
-    kernels = [
-        {
-            "name": "gossip_round_dense", "route": "cuda",
-            "source": "lasp_tpu_torch/ops/csrc/gossip_round_dense.cu",
-            "replaces": "lasp_tpu/ops/pallas_gossip.py:125",
-            "launches": total_launches("gossip_round_dense"),
-            "launches_by_phase": {p: c["gossip_round_dense"] for p, c in launches.items()},
-            "max_abs_err": k1_err, "ms": k1_ms, "call_ms": k1_call_ms,
-            "plain_ms": k1_plain_ms,
-            "bound_ms": k1_bytes / bw * 1e3, "bound_by": "bytes",
-            "gather_model_bound_ms": k1_gather_bytes / bw * 1e3,
-            "library_ms": None,
-            "shape": {"R": r, "D_words": d, "K": k},
-        },
-        {
-            "name": "gossip_round_rows", "route": "cuda",
-            "source": "lasp_tpu_torch/ops/csrc/gossip_round_rows.cu",
-            "replaces": "lasp_tpu/ops/pallas_gossip.py:439",
-            "launches": total_launches("gossip_round_rows"),
-            "launches_by_phase": {p: c["gossip_round_rows"] for p, c in launches.items()},
-            "max_abs_err": k2_err, "ms": k2_ms, "call_ms": k2_call_ms,
-            "plain_ms": k2_plain_ms,
-            "bound_ms": float(k2_bytes) / bw * 1e3, "bound_by": "bytes",
-            "gather_model_bound_ms": k2_gather_bytes / bw * 1e3,
-            "library_ms": None,
-            "shape": {"G": 1, "F": int(f), "R": n, "W_words": int(w2),
-                      "leaves": 2, "K": k},
-        },
-        {
-            "name": "gossip_round_rows_vclock", "route": "cuda",
-            "source": "lasp_tpu_torch/ops/csrc/gossip_round_rows.cu",
-            "replaces": "lasp_tpu/ops/pallas_gossip.py:439",
-            "launches": total_launches("gossip_round_rows_vclock"),
-            "launches_by_phase": {p: c["gossip_round_rows_vclock"]
-                                  for p, c in launches.items()},
-            **k3, "library_ms": None,
-        },
-    ]
-    if k1_err or k2_err or k3["max_abs_err"]:
+    meta = {
+        "gossip_round_dense": ("lasp_tpu_torch/ops/csrc/gossip_round_dense.cu",
+                               "lasp_tpu/ops/pallas_gossip.py:125"),
+        "gossip_round_rows": ("lasp_tpu_torch/ops/csrc/gossip_round_rows.cu",
+                              "lasp_tpu/ops/pallas_gossip.py:439"),
+        "gossip_round_rows_vclock": ("lasp_tpu_torch/ops/csrc/gossip_round_rows.cu",
+                                     "lasp_tpu/ops/pallas_gossip.py:439"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": total_launches(name),
+            "launches_by_phase": {p: c[name] for p, c in launches.items()},
+            **widest[name], "library_ms": None,
+            "loss_ms": sum(c * (ms - b) for _key, c, ms, b in per_shape[name]),
+            "n_shapes": len(per_shape[name]),
+        })
+    if any(k["max_abs_err"] for k in kernels):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

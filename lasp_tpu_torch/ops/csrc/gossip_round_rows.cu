@@ -34,15 +34,43 @@
 // The frontier's slots are scattered rows of an HBM-resident population,
 // so each row read comes from HBM.
 //
-// What the design does about it: one block per slot; the block stages the
+// What K2's design does about it: one block per slot; the block stages the
 // slot's K neighbour indices (dead edges marked -1) in shared memory once,
 // then its threads stride over the row's elements so every load of a warp
 // is a contiguous segment of one row; the fold runs in registers, and the
 // changed flag is the block's own reduction (__syncthreads_or), as the TPU
-// kernel computes it in-kernel. K3 also stages the own clock and the K
-// neighbour clocks ((K+1)·A words) in shared memory: the thread that owns
-// dots column a keeps the running clock ca[a] of the fold's prefix in a
-// register and reads cb[a] from shared memory at each step.
+// kernel computes it in-kernel.
+//
+// K3's rows are wide (4,160 B at the store's default OR-SWOT, 64 elements x
+// 16 actors), so what holds it back is bytes in flight, not bytes: one block
+// per slot with scalar loads behind a data-dependent neighbour loop issues
+// each gathered load after the previous fold step. K3 is therefore a
+// persistent, warp-specialised kernel around a ring of stages in shared
+// memory:
+//   * Each block takes a contiguous range of (member, slot) work items. Its
+//     producer warp reads the rows, neighbour indices and edge mask of 32
+//     slots at once (one lane a slot), then fills one stage per slot: the
+//     own row and the K neighbour rows, clocks then dots, with 1-D bulk
+//     copies (cp.async.bulk ... mbarrier::complete_tx::bytes) on the stage's
+//     full barrier, which carries the expected byte count. Dead edges issue
+//     no copy and are marked in the stage's header.
+//   * Rows whose clock or dots are not 16-byte multiples (A % 4 != 0) or
+//     whose members are not 16-byte aligned take the same ring with 4-byte
+//     cp.async copies from the whole producer warp, completing on the full
+//     barrier through cp.async.mbarrier.arrive.noinc.
+//   * A dots row larger than a stage is staged in column chunks, each stage
+//     carrying the slot's clock rows again (a few percent more bytes, all L2
+//     hits): one barrier ring serves every row width, and the word fold is
+//     independent per column once the clocks are known.
+//   * Eight consumer warps fold a stage from shared memory: each thread owns
+//     4 consecutive actors of one element (16-byte shared loads; one actor
+//     on the 4-byte path) and keeps the running clock ca of the fold's
+//     prefix in registers, in k order, skipping dead edges; then it releases
+//     the stage on its empty barrier (one arrival per warp). changed is one
+//     named-barrier OR over the consumers per slot.
+//   * Full and empty barriers are tracked by phase parity across the ring's
+//     wrap-around; the producer refills a stage only after every consumer
+//     warp has released it.
 //
 // Plain C interface, bound with ctypes (lasp_tpu_torch/ops/cuda_gossip.py);
 // each launcher returns cudaGetLastError() after its launches.
@@ -50,13 +78,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 enum Op { kOr = 0, kMax = 1 };
 enum Dtype { kU8 = 0, kI32 = 1, kU32 = 2 };
 
 constexpr int kMaxGroup = 64;
-constexpr size_t kMaxSmem = 48 * 1024;
 
 // base pointers of the members of one leaf, for one launch
 struct Members {
@@ -149,66 +180,385 @@ int launch_rows(const void* const* ptrs0, const void* const* ptrs1, void* out0,
   return (int)cudaSuccess;
 }
 
-__global__ void gossip_round_rows_vclock_kernel(
+// -- K3: the ring ------------------------------------------------------------
+
+constexpr int kProducerThreads = 32;
+constexpr int kConsumerThreads = 256;
+constexpr int kVclockThreads = kProducerThreads + kConsumerThreads;
+constexpr int kHeaderBatch = 32;  // slots whose indices the producer reads at once
+constexpr int kStages = 4;        // depth of the ring
+constexpr size_t kMaxDynamicSmem = 227 * 1024;
+
+// Shared memory of one K3 block, in bytes from the base: full and empty
+// barriers, the stages' live-edge headers, the producer's index batch, then
+// the stages (128-byte aligned; every row area starts on 16 bytes).
+struct VclockLayout {
+  int clock_stride;   // words of one staged clock row (A rounded up to 4)
+  int dots_stride;    // words of one staged dots chunk (rounded up to 4)
+  int stage_words;    // (K + 1) * (clock_stride + dots_stride)
+  int header_off;     // int32[kStages][K + 1]: 1 = live source, 0 = dead edge
+  int batch_off;      // int32[kHeaderBatch][K + 1]: row, then neighbours
+  int stage_off;
+  size_t bytes;
+};
+
+VclockLayout vclock_layout(int k, int n_actors, int chunk_words) {
+  VclockLayout l;
+  l.clock_stride = (n_actors + 3) / 4 * 4;
+  l.dots_stride = (chunk_words + 3) / 4 * 4;
+  l.stage_words = (k + 1) * (l.clock_stride + l.dots_stride);
+  size_t off = 2 * (size_t)kStages * sizeof(uint64_t);
+  l.header_off = (int)off;
+  off += (size_t)kStages * (k + 1) * sizeof(int32_t);
+  l.batch_off = (int)off;
+  off += (size_t)kHeaderBatch * (k + 1) * sizeof(int32_t);
+  off = (off + 127) / 128 * 128;
+  l.stage_off = (int)off;
+  l.bytes = off + (size_t)kStages * l.stage_words * sizeof(int32_t);
+  return l;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// arrive on bar once every cp.async this thread issued has landed
+__device__ __forceinline__ void copy4_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// OR of v over the first n_threads threads that reach named barrier 1
+__device__ __forceinline__ int consumers_any(int v, int n_threads) {
+  int out;
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      "setp.ne.s32 q, %1, 0;\n"
+      "bar.red.or.pred p, 1, %2, q;\n"
+      "selp.s32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(out)
+      : "r"(v), "r"(n_threads)
+      : "memory");
+  return out;
+}
+
+template <int V> struct IVec;
+template <> struct IVec<4> { using T = int4; };
+template <> struct IVec<1> { using T = int32_t; };
+
+template <typename T>
+__device__ __forceinline__ T lds(const int32_t* p) {
+  return *reinterpret_cast<const T*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void stg(int32_t* p, T v) {
+  *reinterpret_cast<T*>(p) = v;
+}
+
+__device__ __forceinline__ int32_t vmax(int32_t a, int32_t b) { return a > b ? a : b; }
+__device__ __forceinline__ int4 vmax(int4 a, int4 b) {
+  return make_int4(vmax(a.x, b.x), vmax(a.y, b.y), vmax(a.z, b.z), vmax(a.w, b.w));
+}
+__device__ __forceinline__ int vne(int32_t a, int32_t b) { return a != b; }
+__device__ __forceinline__ int vne(int4 a, int4 b) {
+  return (a.x != b.x) | (a.y != b.y) | (a.z != b.z) | (a.w != b.w);
+}
+
+// one step of merge_dots: (da, ca) is the accumulated dots word and clock
+// before this step, (db, cb) the neighbour's
+__device__ __forceinline__ void fold(int32_t& da, int32_t& ca, int32_t db, int32_t cb) {
+  const bool keep_a = da > 0 && (da == db || da > cb);
+  const bool keep_b = db > 0 && (db == da || db > ca);
+  const int32_t va = keep_a ? da : 0;
+  const int32_t vb = keep_b ? db : 0;
+  da = va > vb ? va : vb;
+  ca = ca > cb ? ca : cb;
+}
+__device__ __forceinline__ void fold(int4& da, int4& ca, int4 db, int4 cb) {
+  fold(da.x, ca.x, db.x, cb.x);
+  fold(da.y, ca.y, db.y, cb.y);
+  fold(da.z, ca.z, db.z, cb.z);
+  fold(da.w, ca.w, db.w, cb.w);
+}
+
+// V = 4: bulk copies, 4 actors a consumer thread; V = 1: 4-byte cp.async
+// copies, one actor a consumer thread.
+template <int V>
+__global__ void __launch_bounds__(kVclockThreads)
+gossip_round_rows_vclock_kernel(
     const __grid_constant__ Members clocks,
     const __grid_constant__ Members dots, int32_t* __restrict__ out_clock,
     int32_t* __restrict__ out_dots, const int32_t* __restrict__ rows,
     const int32_t* __restrict__ nbrs, const uint8_t* __restrict__ mask,
-    int32_t* __restrict__ changed, long long n_slots, int n_elems,
-    int n_actors, int k) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_nbr = smem;          // [k]
-  int32_t* s_clock = smem + k;    // [(k+1) * A]: own clock, then neighbours'
-  const long long f = blockIdx.x;
-  const int g = blockIdx.y;
-  const long long row = rows[g * n_slots + f];
-  const int32_t* clock = static_cast<const int32_t*>(clocks.p[g]);
-  const int32_t* dts = static_cast<const int32_t*>(dots.p[g]);
+    int32_t* __restrict__ changed, long long n_slots, long long n_items,
+    int n_elems, int n_actors, int k, int chunk_words, const VclockLayout lay) {
+  using VT = typename IVec<V>::T;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  int32_t* live = reinterpret_cast<int32_t*>(smem + lay.header_off);
+  int32_t* batch = reinterpret_cast<int32_t*>(smem + lay.batch_off);
+  int32_t* ring = reinterpret_cast<int32_t*>(smem + lay.stage_off);
+  const int kc = k + 1;
   const int a_n = n_actors;
-  stage_neighbours(s_nbr, row, nbrs, mask, k);
-  __syncthreads();
-  for (int i = threadIdx.x; i < (k + 1) * a_n; i += blockDim.x) {
-    const int j = i / a_n;
-    const long long src = j == 0 ? row : (long long)s_nbr[j - 1];
-    s_clock[i] = src < 0 ? 0 : clock[src * a_n + (i - j * a_n)];
-  }
-  __syncthreads();
-  const long long slot = g * n_slots + f;
-  int diff = 0;
-  for (int a = threadIdx.x; a < a_n; a += blockDim.x) {
-    const int32_t own = s_clock[a];
-    int32_t c = own;
-    for (int j = 0; j < k; ++j) {
-      if (s_nbr[j] < 0) continue;
-      const int32_t cb = s_clock[(j + 1) * a_n + a];
-      c = c > cb ? c : cb;
-    }
-    out_clock[slot * a_n + a] = c;
-    diff |= (c != own);
-  }
   const long long row_words = (long long)n_elems * a_n;
-  for (long long i = threadIdx.x; i < row_words; i += blockDim.x) {
-    const int a = (int)(i % a_n);
-    int32_t ca = s_clock[a];
-    const int32_t own = dts[row * row_words + i];
-    int32_t da = own;
-    for (int j = 0; j < k; ++j) {
-      const int32_t nb = s_nbr[j];
-      if (nb < 0) continue;
-      const int32_t cb = s_clock[(j + 1) * a_n + a];
-      const int32_t db = dts[(long long)nb * row_words + i];
-      const bool keep_a = da > 0 && (da == db || da > cb);
-      const bool keep_b = db > 0 && (db == da || db > ca);
-      const int32_t va = keep_a ? da : 0;
-      const int32_t vb = keep_b ? db : 0;
-      da = va > vb ? va : vb;
-      ca = ca > cb ? ca : cb;
+  const int n_chunks = (int)((row_words + chunk_words - 1) / chunk_words);
+  const long long per_block = (n_items + gridDim.x - 1) / gridDim.x;
+  const long long first = (long long)blockIdx.x * per_block;
+  const long long last = first + per_block < n_items ? first + per_block : n_items;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // bulk: the producer's arrive.expect_tx; 4-byte: each producer lane's
+      // copy-completion arrival plus lane 0's arrival after the header
+      mbar_init(&full[s], V == 4 ? 1 : kProducerThreads + 1);
+      mbar_init(&empty[s], kConsumerThreads / 32);
     }
-    out_dots[slot * row_words + i] = da;
-    diff |= (da != own);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  const int any = __syncthreads_or(diff);
-  if (threadIdx.x == 0) changed[slot] = any ? 1 : 0;
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == 0) {
+    // producer: fill one stage per (slot, chunk), in the consumers' order
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long s0 = first; s0 < last; s0 += kHeaderBatch) {
+      __syncwarp();  // the previous batch is read
+      const long long s = s0 + lane;
+      if (s < last) {
+        int32_t* h = batch + lane * kc;
+        const long long row = rows[s];
+        h[0] = (int32_t)row;
+        for (int j = 0; j < k; ++j) {
+          int32_t nb = nbrs[row * k + j];
+          if (mask != nullptr && mask[row * k + j] == 0) nb = -1;
+          h[1 + j] = nb;
+        }
+      }
+      __syncwarp();
+      const int in_batch = (int)(last - s0 < kHeaderBatch ? last - s0 : kHeaderBatch);
+      for (int t = 0; t < in_batch; ++t) {
+        const int g = (int)((s0 + t) / n_slots);
+        const int32_t* clock = static_cast<const int32_t*>(clocks.p[g]);
+        const int32_t* dts = static_cast<const int32_t*>(dots.p[g]);
+        const int32_t* h = batch + t * kc;
+        for (int c = 0; c < n_chunks; ++c) {
+          const long long c0 = (long long)c * chunk_words;
+          const int cw = (int)(row_words - c0 < chunk_words ? row_words - c0 : chunk_words);
+          mbar_wait(&empty[stage], phase ^ 1);
+          int32_t* st_clock = ring + (size_t)stage * lay.stage_words;
+          int32_t* st_dots = st_clock + kc * lay.clock_stride;
+          if (lane == 0) {
+            for (int j = 0; j < kc; ++j) live[stage * kc + j] = h[j] >= 0;
+          }
+          if (V == 4) {
+            if (lane == 0) {
+              uint32_t n_live = 0;
+              for (int j = 0; j < kc; ++j) n_live += h[j] >= 0;
+              mbar_arrive_expect_tx(&full[stage], n_live * (uint32_t)(a_n + cw) * 4u);
+            }
+            __syncwarp();
+            for (int j = lane; j < kc; j += 32) {
+              const long long src = h[j];
+              if (src < 0) continue;
+              bulk_copy(st_clock + j * lay.clock_stride, clock + src * a_n,
+                        (uint32_t)a_n * 4u, &full[stage]);
+              bulk_copy(st_dots + j * lay.dots_stride, dts + src * row_words + c0,
+                        (uint32_t)cw * 4u, &full[stage]);
+            }
+          } else {
+            for (int j = 0; j < kc; ++j) {
+              const long long src = h[j];
+              if (src < 0) continue;
+              for (int w = lane; w < a_n; w += 32) {
+                copy4(st_clock + j * lay.clock_stride + w, clock + src * a_n + w);
+              }
+              for (int w = lane; w < cw; w += 32) {
+                copy4(st_dots + j * lay.dots_stride + w, dts + src * row_words + c0 + w);
+              }
+            }
+            copy4_arrive(&full[stage]);
+            if (lane == 0) mbar_arrive(&full[stage]);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  // consumers: fold each stage from shared memory in k order
+  const int ct = threadIdx.x - kProducerThreads;
+  int stage = 0;
+  uint32_t phase = 0;
+  int diff = 0;
+  for (long long slot = first; slot < last; ++slot) {
+    for (int c = 0; c < n_chunks; ++c) {
+      const long long c0 = (long long)c * chunk_words;
+      const int cw = (int)(row_words - c0 < chunk_words ? row_words - c0 : chunk_words);
+      mbar_wait(&full[stage], phase);
+      const int32_t* st_clock = ring + (size_t)stage * lay.stage_words;
+      const int32_t* st_dots = st_clock + kc * lay.clock_stride;
+      const int32_t* lv = live + stage * kc;
+      if (c == 0) {
+        for (int q = ct * V; q < a_n; q += kConsumerThreads * V) {
+          const VT own = lds<VT>(st_clock + q);
+          VT acc = own;
+          for (int j = 1; j < kc; ++j) {
+            if (!lv[j]) continue;
+            acc = vmax(acc, lds<VT>(st_clock + j * lay.clock_stride + q));
+          }
+          stg(out_clock + slot * a_n + q, acc);
+          diff |= vne(acc, own);
+        }
+      }
+      for (int q = ct * V; q < cw; q += kConsumerThreads * V) {
+        const long long w = c0 + q;
+        const int a0 = (int)(w % a_n);
+        const VT own = lds<VT>(st_dots + q);
+        VT da = own;
+        VT ca = lds<VT>(st_clock + a0);
+        for (int j = 1; j < kc; ++j) {
+          if (!lv[j]) continue;
+          fold(da, ca, lds<VT>(st_dots + j * lay.dots_stride + q),
+               lds<VT>(st_clock + j * lay.clock_stride + a0));
+        }
+        stg(out_dots + slot * row_words + w, da);
+        diff |= vne(da, own);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (c == n_chunks - 1) {
+        __syncwarp();  // bar.red wants each warp converged
+        const int any = consumers_any(diff, kConsumerThreads);
+        if (ct == 0) changed[slot] = any;
+        diff = 0;
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// resident blocks of the V kernel with `smem` bytes of dynamic shared
+// memory on the current device, after its dynamic shared-memory limit is
+// raised to kMaxDynamicSmem there; both depend only on the device and the
+// size, so each (device, size) is asked once, not on every launch
+template <int V>
+cudaError_t vclock_resident(size_t smem, long long* resident) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, long long> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(dev, smem);
+  const auto hit = known.find(key);
+  if (hit != known.end()) {
+    *resident = hit->second;
+    return cudaSuccess;
+  }
+  auto kernel = gossip_round_rows_vclock_kernel<V>;
+  int sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kMaxDynamicSmem)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kVclockThreads, smem)) != cudaSuccess) {
+    return err;
+  }
+  *resident = known[key] = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+template <int V>
+int launch_vclock(const void* const* clock_ptrs, const void* const* dots_ptrs,
+                  int32_t* out_clock, int32_t* out_dots, const int32_t* rows,
+                  const int32_t* nbrs, const uint8_t* mask, int32_t* changed,
+                  long long n_groups, long long n_slots, int n_elems,
+                  int n_actors, int k, int chunk_words,
+                  const VclockLayout& lay, cudaStream_t stream) {
+  long long resident = 0;
+  cudaError_t err = vclock_resident<V>(lay.bytes, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const long long row_words = (long long)n_elems * n_actors;
+  for (long long g0 = 0; g0 < n_groups; g0 += kMaxGroup) {
+    const int gc = (int)(n_groups - g0 < kMaxGroup ? n_groups - g0 : kMaxGroup);
+    Members mc = {}, md = {};
+    for (int i = 0; i < gc; ++i) {
+      mc.p[i] = clock_ptrs[g0 + i];
+      md.p[i] = dots_ptrs[g0 + i];
+    }
+    const long long slot0 = g0 * n_slots;
+    const long long n_items = gc * n_slots;
+    const int blocks = (int)(n_items < resident ? n_items : resident);
+    gossip_round_rows_vclock_kernel<V><<<blocks, kVclockThreads, lay.bytes, stream>>>(
+        mc, md, out_clock + slot0 * n_actors, out_dots + slot0 * row_words,
+        rows + slot0, nbrs, mask, changed + slot0, n_slots, n_items, n_elems,
+        n_actors, k, chunk_words, lay);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -252,38 +602,42 @@ extern "C" int lasp_gossip_round_rows(
 // pointers, each member's clock int32[n_rows, n_actors] and dots
 // int32[n_rows, n_elems, n_actors]; out_clock: int32[n_groups, n_slots,
 // n_actors]; out_dots: int32[n_groups, n_slots, n_elems, n_actors]; rows,
-// neighbors, mask and changed as for K2.
+// neighbors, mask and changed as for K2. The schedule comes from the
+// wrapper (ops/cuda_gossip.py vclock_schedule): bulk = 1 for 1-D bulk copies
+// (n_actors % 4 == 0 and every pointer 16-byte aligned), 0 for 4-byte
+// cp.async copies; chunk_words: the dots words of one row a stage holds
+// (a multiple of 4 under bulk). The ring is kStages deep.
 extern "C" int lasp_gossip_round_rows_vclock(
     const void* const* clock_ptrs, const void* const* dots_ptrs,
     void* out_clock, void* out_dots, const void* rows, const void* neighbors,
     const void* mask, void* changed, long long n_groups, long long n_slots,
-    int n_elems, int n_actors, int k, void* stream) {
+    int n_elems, int n_actors, int k, int bulk, int chunk_words, void* stream) {
   if (n_groups <= 0 || n_slots <= 0) return 0;
-  const size_t smem = (size_t)(k + (k + 1) * (long long)n_actors) * sizeof(int32_t);
   if (k < 0 || n_slots > 0x7fffffffLL || n_elems <= 0 || n_actors <= 0 ||
-      smem > kMaxSmem) {
+      chunk_words <= 0) {
     return (int)cudaErrorInvalidValue;
   }
+  const VclockLayout lay = vclock_layout(k, n_actors, chunk_words);
+  if (lay.bytes > kMaxDynamicSmem) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = block_threads((long long)n_elems * n_actors);
-  for (long long g0 = 0; g0 < n_groups; g0 += kMaxGroup) {
-    const int gc = (int)(n_groups - g0 < kMaxGroup ? n_groups - g0 : kMaxGroup);
-    Members mc = {}, md = {};
-    for (int i = 0; i < gc; ++i) {
-      mc.p[i] = clock_ptrs[g0 + i];
-      md.p[i] = dots_ptrs[g0 + i];
+  int32_t* oc = static_cast<int32_t*>(out_clock);
+  int32_t* od = static_cast<int32_t*>(out_dots);
+  const int32_t* r = static_cast<const int32_t*>(rows);
+  const int32_t* nb = static_cast<const int32_t*>(neighbors);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  int32_t* c = static_cast<int32_t*>(changed);
+  if (bulk) {
+    bool ok = n_actors % 4 == 0 && chunk_words % 4 == 0 &&
+              reinterpret_cast<uintptr_t>(out_clock) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(out_dots) % 16 == 0;
+    for (long long i = 0; ok && i < n_groups; ++i) {
+      ok = reinterpret_cast<uintptr_t>(clock_ptrs[i]) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(dots_ptrs[i]) % 16 == 0;
     }
-    const long long slot0 = g0 * n_slots;
-    gossip_round_rows_vclock_kernel<<<dim3((unsigned)n_slots, (unsigned)gc),
-                                      threads, smem, s>>>(
-        mc, md, static_cast<int32_t*>(out_clock) + slot0 * n_actors,
-        static_cast<int32_t*>(out_dots) + slot0 * n_elems * n_actors,
-        static_cast<const int32_t*>(rows) + slot0,
-        static_cast<const int32_t*>(neighbors),
-        static_cast<const uint8_t*>(mask), static_cast<int32_t*>(changed) + slot0,
-        n_slots, n_elems, n_actors, k);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (!ok) return (int)cudaErrorMisalignedAddress;
+    return launch_vclock<4>(clock_ptrs, dots_ptrs, oc, od, r, nb, m, c, n_groups,
+                            n_slots, n_elems, n_actors, k, chunk_words, lay, s);
   }
-  return (int)cudaSuccess;
+  return launch_vclock<1>(clock_ptrs, dots_ptrs, oc, od, r, nb, m, c, n_groups,
+                          n_slots, n_elems, n_actors, k, chunk_words, lay, s);
 }

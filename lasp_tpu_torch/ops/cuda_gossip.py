@@ -22,16 +22,22 @@ population stays outside the kernels, as on the TPU.
 
 Each wrapper runs its plain version for tensors on the CPU, and only there:
 for CUDA tensors it launches the kernel or raises. Each launch adds one to
-:data:`LAUNCHES`.
+:data:`LAUNCHES` and to its shape's count in :data:`SHAPES`.
+
+The launch schedules are pure functions of shapes, here where the CPU tests
+reach them: :func:`dense_slab_words` picks K1's column-slab width,
+:func:`vclock_schedule` picks K3's copy path and stage chunk.
 
 The TPU-only helpers are not ported: ``tuned_rows_block`` sized blocks for
-2 MiB of VMEM (the CUDA launch shape comes from the card's limits inside
-the launchers), and ``flatten_plane`` / ``unflatten_plane`` padded rows to
-the TPU's 128-lane width, which the CUDA kernels do not need.
+2 MiB of VMEM (the CUDA launch shape comes from the schedules above and the
+card's limits inside the launchers), and ``flatten_plane`` /
+``unflatten_plane`` padded rows to the TPU's 128-lane width, which the CUDA
+kernels do not need.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -49,6 +55,19 @@ LAUNCHES = {
     "gossip_round_rows_vclock": 0,
 }
 
+#: the fields of each kernel's launch-shape key in :data:`SHAPES`
+SHAPE_FIELDS = {
+    "gossip_round_dense": ("R", "D", "K", "slab_words"),
+    "gossip_round_rows": ("G", "F", "R", "width", "leaves", "K", "dtype",
+                          "masked"),
+    "gossip_round_rows_vclock": ("G", "F", "R", "A", "E", "K", "masked",
+                                 "bulk", "chunk_words"),
+}
+
+#: kernel launches since the last :func:`reset_launches`, by kernel name and
+#: launch-shape key (a tuple of the kernel's :data:`SHAPE_FIELDS`)
+SHAPES = {name: collections.Counter() for name in LAUNCHES}
+
 #: the most neighbour columns the dense kernel stages in shared memory
 MAX_FANOUT = 32
 
@@ -56,16 +75,18 @@ MAX_FANOUT = 32
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        SHAPES[name].clear()
 
 
 def _stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_launch(name: str, rc: int) -> None:
+def _check_launch(name: str, rc: int, shape: tuple) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
+    SHAPES[name][shape] += 1
 
 
 def _require_cuda(name: str, *tensors) -> torch.device:
@@ -97,14 +118,73 @@ def gossip_round_dense_plain(exists, removed, neighbors):
     return acc_e, acc_r
 
 
+#: the most bytes one slab of one plane may span: K1's slab sweep (PERF.md,
+#: from ``chip_smoke.py``) found slabs past the L2 faster than narrower ones
+#: on 4 KB rows, where each row's slab segment is a DRAM access of its own
+DENSE_SLAB_BYTES = 64 << 20
+#: K1 cuts a row into at least this many slabs (the same sweep: on 512-byte
+#: rows a quarter row beat a half row)
+DENSE_MIN_SLABS = 4
+#: K1's narrowest slab: one 32-byte sector of each row
+DENSE_MIN_SLAB_WORDS = 8
+
+
+def dense_vector_words(d: int, *tensors) -> int:
+    """The words K1 moves per load for rows of ``d`` words: 4 (16 bytes)
+    when ``d`` and every tensor's address allow it, else 2, else 1 — the
+    launcher's own rule (``csrc/gossip_round_dense.cu``)."""
+    ptrs = [t.data_ptr() for t in tensors]
+    if d % 4 == 0 and all(p % 16 == 0 for p in ptrs):
+        return 4
+    if d % 2 == 0 and all(p % 8 == 0 for p in ptrs):
+        return 2
+    return 1
+
+
+def dense_slab_words(r: int, d: int, vec: int) -> int:
+    """K1's column-slab width, in words, for ``[r, d]`` planes loaded
+    ``vec`` words at a time: the widest power-of-two slab (a multiple of
+    ``vec``, at least :data:`DENSE_MIN_SLAB_WORDS`) that spans at most
+    :data:`DENSE_SLAB_BYTES` and leaves at least :data:`DENSE_MIN_SLABS`
+    slabs a row; the whole row only when a row is no wider than the
+    narrowest slab. Slabs beat whole rows even where both planes fit the
+    L2 (PERF.md)."""
+    w = max(DENSE_MIN_SLAB_WORDS, vec)
+    while 2 * w * DENSE_MIN_SLABS <= d and r * (2 * w) * 4 <= DENSE_SLAB_BYTES:
+        w *= 2
+    return min(w, d)
+
+
+def dense_slab_columns(d: int, slab_words: int) -> list:
+    """The ``(start, stop)`` word ranges of K1's slabs over a row of ``d``
+    words, in the order the kernel walks them (the last may be narrower)."""
+    return [(c, min(c + slab_words, d)) for c in range(0, d, slab_words)]
+
+
 @functools.cache
 def _dense_fn():
     fn = _build.library("gossip_round_dense").lasp_gossip_round_dense
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _dense_launch(exists, removed, neighbors, out_e, out_r, slab_words: int) -> None:
+    """One K1 launch in column slabs of ``slab_words`` words (checked CUDA
+    tensors)."""
+    r, d = exists.shape
+    k = neighbors.shape[1]
+    dev = exists.device
+    with torch.cuda.device(dev):
+        rc = _dense_fn()(
+            exists.data_ptr(), removed.data_ptr(), neighbors.data_ptr(),
+            out_e.data_ptr(), out_r.data_ptr(), r, d, k, slab_words,
+            _stream_ptr(dev),
+        )
+    _check_launch("gossip_round_dense", rc, (r, d, k, slab_words))
 
 
 def gossip_round_dense(exists, removed, neighbors, out=None):
@@ -119,7 +199,7 @@ def gossip_round_dense(exists, removed, neighbors, out=None):
     if exists.device.type == "cpu":
         return gossip_round_dense_plain(exists, removed, neighbors)
     name = "gossip_round_dense"
-    dev = _require_cuda(name, exists, removed, neighbors)
+    _require_cuda(name, exists, removed, neighbors)
     if exists.dim() != 2 or exists.shape != removed.shape:
         raise ValueError(
             f"{name}: planes must be [R, D] of one shape, got "
@@ -145,12 +225,9 @@ def gossip_round_dense(exists, removed, neighbors, out=None):
         inputs = {exists.data_ptr(), removed.data_ptr()}
         if out_e.data_ptr() in inputs or out_r.data_ptr() in inputs:
             raise ValueError(f"{name}: out buffers alias the input planes")
-    with torch.cuda.device(dev):
-        rc = _dense_fn()(
-            exists.data_ptr(), removed.data_ptr(), neighbors.data_ptr(),
-            out_e.data_ptr(), out_r.data_ptr(), r, d, k, _stream_ptr(dev),
-        )
-    _check_launch(name, rc)
+    vec = dense_vector_words(d, exists, removed, out_e, out_r)
+    _dense_launch(exists, removed, neighbors, out_e, out_r,
+                  dense_slab_words(r, d, vec))
     return out_e, out_r
 
 
@@ -293,9 +370,62 @@ def _rows_fn():
 def _vclock_fn():
     fn = _build.library("gossip_round_rows").lasp_gossip_round_rows_vclock
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+#: the most bytes one stage of K3's shared-memory ring holds (the ring's
+#: depth is the kernel's own, ``kStages`` in ``csrc/gossip_round_rows.cu``)
+VCLOCK_STAGE_BYTES = 32 << 10
+
+
+@dataclasses.dataclass(frozen=True)
+class VclockSchedule:
+    """K3's ring: ``bulk`` (1-D bulk copies,
+    16-byte folds) or 4-byte ``cp.async`` copies; ``chunk_words`` dots words
+    of each staged row a stage holds (the whole row when it fits)."""
+
+    bulk: bool
+    chunk_words: int
+
+
+def vclock_schedule(n_actors: int, n_elems: int, k: int,
+                    aligned: bool) -> VclockSchedule:
+    """K3's schedule for ``clock [A]`` / ``dots [E, A]`` rows and fanout
+    ``k``. Bulk copies need 16-byte multiples and addresses: ``A % 4 == 0``
+    and ``aligned`` (every member's base 16-byte aligned); anything else
+    takes the 4-byte path. A stage holds the K+1 clock rows and, per row, a
+    chunk of its dots of at most :data:`VCLOCK_STAGE_BYTES` in all; a row
+    wider than that is staged in chunks (multiples of 4 words). Raises
+    ``ValueError`` when the K+1 clock rows alone leave no room."""
+    clock_stride = -(-n_actors // 4) * 4
+    room = VCLOCK_STAGE_BYTES // 4 // (k + 1) - clock_stride
+    room -= room % 4
+    if room < 4:
+        raise ValueError(
+            f"gossip_round_rows_vclock: {k + 1} clock rows of {n_actors} actors "
+            f"leave no room for dots in a {VCLOCK_STAGE_BYTES}-byte stage"
+        )
+    row_words = n_elems * n_actors
+    return VclockSchedule(bulk=aligned and n_actors % 4 == 0,
+                          chunk_words=min(row_words, room))
+
+
+def vclock_launch_schedule(clocks, dotss, k: int) -> VclockSchedule:
+    """Checks K3's members (``clock int32[R, A]``, ``dots int32[R, E, A]``,
+    one shape per leaf) and returns their schedule; alignment is read from
+    the members' addresses."""
+    c0, d0 = clocks[0], dotss[0]
+    if c0.dtype != torch.int32 or d0.dtype != torch.int32 or c0.dim() != 2 or (
+        d0.dim() != 3 or d0.shape[0] != c0.shape[0] or d0.shape[2] != c0.shape[1]
+    ):
+        raise ValueError(
+            "gossip_round_rows_vclock: members need clock int32[R, A] and "
+            "dots int32[R, E, A]"
+        )
+    aligned = all(m.data_ptr() % 16 == 0 for m in (*clocks, *dotss))
+    return vclock_schedule(d0.shape[2], d0.shape[1], k, aligned)
 
 
 def _pointer_table(members):
@@ -353,7 +483,7 @@ def gossip_round_rows(op, leaves, neighbors, rows, edge_mask=None):
            for ms in members):
         raise ValueError(f"{name}: leaves must share dtype and row shape")
     code = _rows_dtype_code(members[0][0].dtype, op)
-    dev, rows, mask, g, _r, f, k = _rows_launch_args(
+    dev, rows, mask, g, r, f, k = _rows_launch_args(
         name, members, neighbors, rows, edge_mask
     )
     width = math.prod(row_shape)
@@ -371,7 +501,8 @@ def gossip_round_rows(op, leaves, neighbors, rows, edge_mask=None):
             None if mask is None else mask.data_ptr(), changed.data_ptr(),
             g, f, width, k, _stream_ptr(dev),
         )
-    _check_launch(name, rc)
+    _check_launch(name, rc, (g, f, r, width, len(members), k, code,
+                             int(mask is not None)))
     return outs, changed != 0
 
 
@@ -387,14 +518,8 @@ def gossip_round_rows_vclock(clock, dots, neighbors, rows, edge_mask=None):
     dev, rows, mask, g, r, f, k = _rows_launch_args(
         name, [clocks, dotss], neighbors, rows, edge_mask
     )
-    c0, d0 = clocks[0], dotss[0]
-    if c0.dtype != torch.int32 or d0.dtype != torch.int32 or c0.dim() != 2 or (
-        d0.dim() != 3 or d0.shape[0] != r or d0.shape[2] != c0.shape[1]
-    ):
-        raise ValueError(
-            f"{name}: members need clock int32[R, A] and dots int32[R, E, A]"
-        )
-    n_elems, n_actors = d0.shape[1], d0.shape[2]
+    sched = vclock_launch_schedule(clocks, dotss, k)
+    n_elems, n_actors = dotss[0].shape[1], dotss[0].shape[2]
     out_c = torch.empty((g, f, n_actors), dtype=torch.int32, device=dev)
     out_d = torch.empty((g, f, n_elems, n_actors), dtype=torch.int32, device=dev)
     changed = torch.empty((g, f), dtype=torch.int32, device=dev)
@@ -405,9 +530,11 @@ def gossip_round_rows_vclock(clock, dots, neighbors, rows, edge_mask=None):
             _pointer_table(clocks), _pointer_table(dotss),
             out_c.data_ptr(), out_d.data_ptr(), rows.data_ptr(),
             neighbors.data_ptr(), None if mask is None else mask.data_ptr(),
-            changed.data_ptr(), g, f, n_elems, n_actors, k, _stream_ptr(dev),
+            changed.data_ptr(), g, f, n_elems, n_actors, k, int(sched.bulk),
+            sched.chunk_words, _stream_ptr(dev),
         )
-    _check_launch(name, rc)
+    _check_launch(name, rc, (g, f, r, n_actors, n_elems, k, int(mask is not None),
+                             int(sched.bulk), sched.chunk_words))
     return (out_c, out_d), changed != 0
 
 

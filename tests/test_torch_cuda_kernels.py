@@ -89,3 +89,91 @@ def test_vclock_kernel_matches_plain_on_card(cuda, a, e, k, masked, g):
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert torch.equal(ch, ch_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1024, 1026, 1027])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_dense_kernel_slab_path_matches_plain_on_card(cuda, d, k):
+    """K1 at R = 65,536, where the automatic schedule cuts column slabs:
+    16-, 8- and 4-byte loads and a narrower last slab, into given ``out=``
+    buffers."""
+    r = 65_536
+    gen = torch.Generator(device=cuda).manual_seed(d + k)
+    ex = torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
+                       device=cuda, generator=gen)
+    rm = torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
+                       device=cuda, generator=gen)
+    nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
+    assert cg.dense_slab_words(r, d, cg.dense_vector_words(d, ex, rm)) < d
+    out = (torch.empty_like(ex), torch.empty_like(rm))
+    got = cg.gossip_round_dense(ex, rm, nb, out=out)
+    want = cg.gossip_round_dense_plain(ex, rm, nb)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == out[0].data_ptr()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_words", [8, 16, 32, 48, 1024])
+def test_dense_kernel_every_schedule_matches_plain_on_card(cuda, slab_words):
+    r, d, k = 4099, 1024, 3
+    gen = torch.Generator(device=cuda).manual_seed(slab_words)
+    ex = torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
+                       device=cuda, generator=gen)
+    rm = torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
+                       device=cuda, generator=gen)
+    nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
+    out = (torch.empty_like(ex), torch.empty_like(rm))
+    cg._dense_launch(ex, rm, nb, *out, slab_words)
+    want = cg.gossip_round_dense_plain(ex, rm, nb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,e,r", [(3, 8, 1000), (16, 64, 1000), (64, 512, 128)])
+@pytest.mark.parametrize("g", [1, 16, 70])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_vclock_kernel_paths_match_plain_on_card(cuda, a, e, r, g, k, masked):
+    """K3 on each path of its ring: 4-byte copies (A = 3), bulk copies
+    (A = 16) and dots rows staged in column chunks (E = 512, A = 64); G = 70
+    walks the launcher's 64-member table in two launches; F in {1, 33}."""
+    gen = torch.Generator(device=cuda).manual_seed(a + e + g + k)
+    clock = torch.randint(0, 7, (g, r, a), dtype=torch.int32, device=cuda, generator=gen)
+    dots = torch.randint(0, 7, (g, r, e, a), dtype=torch.int32, device=cuda, generator=gen)
+    members = (list(clock.unbind(0)), list(dots.unbind(0)))
+    sched = cg.vclock_launch_schedule(*members, k)
+    assert sched.bulk == (a % 4 == 0)
+    assert e != 512 or sched.chunk_words < e * a
+    nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
+    mask = torch.rand((r, k), device=cuda, generator=gen) > 0.4 if masked else None
+    for f in (1, 33):
+        rows = torch.randint(0, r, (g, f), device=cuda, generator=gen)
+        got, ch = cg.gossip_round_rows_vclock(*members, nb, rows, mask)
+        want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert torch.equal(ch, ch_w)
+
+
+@pytest.mark.cuda
+def test_vclock_kernel_on_misaligned_members_matches_plain_on_card(cuda):
+    """Members 4 bytes off a 16-byte boundary take the 4-byte copy path."""
+    g, r, e, a, k = 3, 1000, 64, 16, 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    cbuf = torch.randint(0, 7, (g * r * a + 1,), dtype=torch.int32, device=cuda,
+                         generator=gen)
+    dbuf = torch.randint(0, 7, (g * r * e * a + 1,), dtype=torch.int32, device=cuda,
+                         generator=gen)
+    clock, dots = cbuf[1:].view(g, r, a), dbuf[1:].view(g, r, e, a)
+    members = (list(clock.unbind(0)), list(dots.unbind(0)))
+    assert not cg.vclock_launch_schedule(*members, k).bulk
+    nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
+    rows = torch.randint(0, r, (g, 33), device=cuda, generator=gen)
+    got, ch = cg.gossip_round_rows_vclock(*members, nb, rows)
+    want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(ch, ch_w)
