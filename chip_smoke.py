@@ -12,8 +12,10 @@ Phases, each of which fails the run on any error:
                PyTorch version on the card (tolerance zero: every value is
                a bit or an integer), changed flags included, on every path
                of its schedule (K1 narrow rows in one slab and column
-               slabs at 16-, 8- and 4-byte loads; K3 bulk copies, 4-byte
-               copies and column-chunked rows);
+               slabs at 16-, 8- and 4-byte loads; K2 16-, 8-, 4- and 1-byte
+               vectors in teams of 1 to 32 lanes, on stacked, view, clone
+               and misaligned members, int64 and int32 rows; K3 bulk
+               copies, 4-byte copies and column-chunked rows);
 3. headline — ``bench_scenarios.orset_anti_entropy`` at 2**18 replicas of
                the 8 KiB packed OR-Set (128 elems x 64 actors x 4 tokens),
                random 3-regular gossip, fused blocks of 4;
@@ -34,9 +36,11 @@ Phases, each of which fails the run on any error:
                phase, read after), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
                beside its plain version, its gather model and the host time
-               per wrapper call; and K1's column-slab sweep (slab widths
-               against whole rows) at each of its shapes and at two shapes
-               whose planes fit the L2.
+               per wrapper call; K2's loss split by launch class; every
+               K2 and K3 shape replayed once under ``torch.profiler``, which
+               must show exactly one device kernel per wrapper call; and
+               K1's column-slab sweep (slab widths against whole rows) at
+               each of its shapes and at two shapes whose planes fit the L2.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -164,73 +168,91 @@ def phase_parity(torch, cg) -> None:
     _log("parity", f"K1 gossip_round_dense: {_parity_k1(torch, cg, words, gen)} "
                    "shapes bit-identical to plain (whole rows and column slabs)")
 
-    # K2: dtype x op x mask x bucket (duplicates) x groups
-    r, k = 1000, 3
-    leaf_kinds = {
-        "gset bool/or": (torch.bool, "or", (16,), 1),
-        "gcounter int32/max": (torch.int32, "max", (4,), 1),
-        "packed uint32/or": (torch.int32, "or", (16, 2), 2),
-        "flat uint32/or": (torch.int32, "or", (128,), 2),
-    }
-    cases = 0
-    for label, (dtype, op, row, n_leaves) in leaf_kinds.items():
-        for g in (1, 3, 16):
-            if dtype == torch.bool:
-                leaves = [torch.randint(0, 2, (g, r) + row, device="cuda",
-                                        generator=gen).bool()
-                          for _ in range(n_leaves)]
-            elif op == "max":
-                leaves = [torch.randint(0, 50, (g, r) + row, dtype=torch.int32,
-                                        device="cuda", generator=gen)
-                          for _ in range(n_leaves)]
-            else:
-                leaves = [words(g, r, *row) for _ in range(n_leaves)]
-            nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda",
-                               generator=gen)
-            for masked in (False, True):
-                mask = (torch.rand((r, k), device="cuda", generator=gen) > 0.4
-                        if masked else None)
-                for bucket in (5, 16, 33):
-                    rows = torch.randint(0, r, (g, bucket), device="cuda",
-                                         generator=gen)
-                    rows[:, -1] = rows[:, 0]  # a duplicate pad slot
-                    got, ch = cg.gossip_round_rows(op, leaves, nb, rows, mask)
-                    want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
-                    # the members as separate tensors, as the plan passes them
-                    got_m, ch_m = cg.gossip_round_rows(
-                        op, [[m.clone() for m in x.unbind(0)] for x in leaves],
-                        nb, rows, mask)
-                    torch.cuda.synchronize()
-                    if not (all(torch.equal(a, b) for a, b in zip(got, want))
-                            and all(torch.equal(a, b) for a, b in zip(got_m, want))
-                            and torch.equal(ch, ch_w) and torch.equal(ch_m, ch_w)):
-                        raise RuntimeError(
-                            f"K2 disagrees with its plain version: {label} "
-                            f"G={g} masked={masked} bucket={bucket}"
-                        )
-                    cases += 1
-    _log("parity", f"K2 gossip_round_rows: {cases} cases bit-identical to plain "
-                   "(rows and changed flags, stacked and member-list leaves)")
+    _log("parity", f"K2 gossip_round_rows: {_parity_k2(torch, cg, gen)} cases "
+                   "bit-identical to plain (rows and changed flags) on every "
+                   "vector path, team width and member kind")
     _log("parity", f"K3 gossip_round_rows_vclock: {_parity_k3(torch, cg, gen)} "
                    "cases bit-identical to plain (clock, dots and changed flags); "
                    f"{_parity_k3_paths(torch, cg, gen)} more on the bulk, 4-byte "
                    "and column-chunked paths")
 
 
+def _parity_k2(torch, cg, gen) -> int:
+    """K2 against its plain version on every path of its schedule
+    (``rows_paths.K2_PATHS``: 16-, 8-, 4- and 1-byte vectors, teams of 1 to
+    32 lanes, rows walked by the team), at G in {1, 16, 70} (70: above the
+    launcher's 64-member table), K in {1, 3, 5, 8} (5 and 8: above
+    ``kFanoutChunk``), masked and unmasked, buckets of 5, 16 and 33 slots
+    with a duplicate pad, int64 and int32 rows, and four kinds of member
+    (stacked, unbind views, clones, misaligned copies). Each path's schedule
+    is checked, and every vector width and every team width must be
+    taken."""
+    from lasp_tpu_torch.ops import rows_paths as rp
+
+    r = 500
+    cases = 0
+    taken = set()
+    fields = cg.SHAPE_FIELDS["gossip_round_rows"]
+    for path, (_dtype, op, _row, _n, vec, team) in rp.K2_PATHS.items():
+        sched = tuple(cg.rows_schedule(rp.row_bytes(path), 16))
+        if sched != (vec, team):
+            raise RuntimeError(f"K2 schedule at {path}: {sched}")
+        for g in (1, 16, 70):
+            leaves = rp.k2_leaves(path, g, r, gen)
+            kinds = {kind: [rp.k2_members(x, kind) for x in leaves]
+                     for kind in rp.MEMBER_KINDS}
+            for k in (1, 3, 5, 8):
+                nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda",
+                                   generator=gen)
+                for masked in (False, True):
+                    mask = (torch.rand((r, k), device="cuda", generator=gen) > 0.4
+                            if masked else None)
+                    for bucket in (5, 16, 33):
+                        rows = torch.randint(0, r, (g, bucket), device="cuda",
+                                             generator=gen)
+                        rows[:, -1] = rows[:, 0]  # a duplicate pad slot
+                        want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
+                        for kind, members in kinds.items():
+                            for rr in (rows, rows.int()):
+                                before = set(cg.SHAPES["gossip_round_rows"])
+                                got, ch = cg.gossip_round_rows(op, members, nb, rr, mask)
+                                torch.cuda.synchronize()
+                                if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                                        and ch.dtype == torch.bool
+                                        and torch.equal(ch, ch_w)):
+                                    raise RuntimeError(
+                                        f"K2 disagrees with its plain version: {path} "
+                                        f"G={g} K={k} masked={masked} bucket={bucket} "
+                                        f"members={kind} rows={rr.dtype}")
+                                for key in set(cg.SHAPES["gossip_round_rows"]) - before:
+                                    taken.add((key[fields.index("vec_bytes")],
+                                               key[fields.index("team_lanes")]))
+                                cases += 1
+            del leaves, kinds
+    if ({v for v, _t in taken} != {16, 8, 4, 1}
+            or {t for _v, t in taken} != {1, 2, 4, 8, 16, 32}):
+        raise RuntimeError(f"K2 parity did not take every vector and team width: "
+                           f"{sorted(taken)}")
+    return cases
+
+
 def _vclock_case(torch, cg, gen, clock, dots, k, masked, bucket, label) -> None:
     """One K3 launch against its plain version on random data (both skip
-    dead edges, so any data will do), with a duplicate row slot."""
+    dead edges, so any data will do), with a duplicate row slot, on int64
+    and int32 rows."""
     g, r = len(clock), clock[0].shape[0]
     nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda", generator=gen)
     mask = torch.rand((r, k), device="cuda", generator=gen) > 0.4 if masked else None
     rows = torch.randint(0, r, (g, bucket), device="cuda", generator=gen)
     rows[:, -1] = rows[:, 0]
-    got, ch = cg.gossip_round_rows_vclock(clock, dots, nb, rows, mask)
     want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
-    torch.cuda.synchronize()
-    if not (all(torch.equal(x, y) for x, y in zip(got, want)) and torch.equal(ch, ch_w)):
-        raise RuntimeError(f"K3 disagrees with its plain version: {label} K={k} "
-                           f"masked={masked} bucket={bucket}")
+    for rr in (rows, rows.int()):
+        got, ch = cg.gossip_round_rows_vclock(clock, dots, nb, rr, mask)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(x, y) for x, y in zip(got, want))
+                and ch.dtype == torch.bool and torch.equal(ch, ch_w)):
+            raise RuntimeError(f"K3 disagrees with its plain version: {label} K={k} "
+                               f"masked={masked} bucket={bucket} rows={rr.dtype}")
 
 
 def _parity_k3(torch, cg, gen) -> int:
@@ -535,17 +557,20 @@ def phase_plan(torch, cg, n: int, captured: dict) -> dict:
 
 def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int) -> tuple:
     """The least bytes and the gather model of one K2 / K3 launch over
-    ``rows_np [G, F]``: each distinct row a member's round reads (own and
-    neighbours) once, the row indices, the distinct rows' neighbour
-    indices, the joined rows and the changed flags; against the
-    ``(K+2)``-rows-a-slot traffic the kernels issue."""
+    ``rows_np [G, F]``, as the kernels are called: each distinct row a
+    member's round reads (own and neighbours) once, the row indices in
+    their own dtype (the runtime's int64), the distinct rows' int32
+    neighbour indices, the joined rows and the 1-byte changed flags; against
+    the ``(K+2)``-rows-a-slot traffic the kernels issue (with a slot's row
+    index, its K neighbour indices and its flag)."""
     g, f = rows_np.shape
+    idx = rows_np.dtype.itemsize
     distinct = sum(np.unique(np.concatenate([r, nbrs_np[np.unique(r)].ravel()])).size
                    for r in rows_np)
-    bound = (distinct * row_bytes + g * f * 4
+    bound = (distinct * row_bytes + g * f * idx
              + sum(np.unique(r).size for r in rows_np) * k * 4
-             + g * f * row_bytes + g * f * 4)
-    gather = (k + 2) * g * f * row_bytes + g * f * 4 * (k + 1)
+             + g * f * row_bytes + g * f)
+    gather = (k + 2) * g * f * row_bytes + g * f * (idx + 4 * k + 1)
     return float(bound), float(gather)
 
 
@@ -684,6 +709,80 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2) -> tuple:
     return per_shape, widest, sweeps
 
 
+def _device_kernels(torch, warm, calls) -> dict:
+    """Run ``warm`` and then each of ``calls`` once under
+    ``torch.profiler``: the device activities (kernels, copies, fills) they
+    put on the card, by name and count. Sleep kernels open and close the
+    window and are left out. The profiler may drop the record of the first
+    kernel of our library in a window (PERF.md), so ``warm`` launches a
+    kernel of that library first, whose name the caller leaves out too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        warm()
+        torch.cuda.synchronize()
+        for call in calls:
+            call()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key}
+
+
+#: profiled replays of the K2 / K3 shapes before the one-kernel check gives up
+_PROFILE_WINDOWS = 3
+
+
+def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
+    """Every K2 / K3 shape of the main path replayed once under the
+    profiler: each wrapper call must put exactly one kernel, its own, on
+    the card (no cast, no comparison, no fill). K2 and K3 share a library,
+    so one K3 call warms the window of the K2 calls and one K2 call that of
+    the K3 calls, and the warming kernel is left out of the count. A
+    dropped record can only lower a count, so a window fails at once on a
+    kernel of another name or more kernels than calls, and the check passes
+    when one of ``_PROFILE_WINDOWS`` windows shows one kernel a call."""
+    names = ("gossip_round_rows", "gossip_round_rows_vclock")
+    calls = {name: [_rows_call(cg, sources[captured[(name, key)]["source"]],
+                               captured[(name, key)])[0] for key in shapes[name]]
+             for name in names}
+    for name, other in zip(names, reversed(names)):
+        seen = []
+        for _ in range(_PROFILE_WINDOWS):
+            kernels = {n: c for n, c in _device_kernels(
+                torch, calls[other][0], calls[name]).items()
+                if f"{other}_kernel" not in n}
+            seen.append(sum(kernels.values()))
+            if seen[-1] > len(calls[name]) or any(
+                    f"{name}_kernel" not in n for n in kernels):
+                raise RuntimeError(f"{name}: {len(calls[name])} wrapper calls put "
+                                   f"these on the card: {kernels}")
+            if seen[-1] == len(calls[name]):
+                break
+        else:
+            raise RuntimeError(f"{name}: {len(calls[name])} wrapper calls showed "
+                               f"only {seen} kernels in {_PROFILE_WINDOWS} profiled "
+                               f"windows: {kernels}")
+        widest[name]["device_kernels_per_call"] = 1.0
+        widest[name]["profiled_windows_kernels"] = seen
+
+
+def _k2_loss_split(cg, rows) -> dict:
+    """K2's ``loss_ms`` by launch class: narrow frontiers (F <= 512, at the
+    card's launch floor), wide frontiers of one member, wide frontiers of
+    a group."""
+    f = cg.SHAPE_FIELDS["gossip_round_rows"]
+    split = {"F<=512": 0.0, "G=1, F>512": 0.0, "G>1, F>512": 0.0}
+    for key, c, ms, b in rows:
+        cls = ("F<=512" if key[f.index("F")] <= 512 else
+               "G=1, F>512" if key[f.index("G")] == 1 else "G>1, F>512")
+        split[cls] += c * (ms - b)
+    return split
+
+
 def main() -> int:
     import torch
 
@@ -819,6 +918,9 @@ def main() -> int:
                "rows [key, launches, ms, bound_ms]": [
                    [list(key), c, round(ms, 5), round(b, 5)] for key, c, ms, b in rows]}
         for name, rows in per_shape.items()}))
+    _one_kernel_per_call(torch, cg, main_shapes, captured,
+                         {"engine": rt_f, "plan": plan["rt"]}, widest)
+    _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
     def total_launches(name):
         return sum(c[name] for c in launches.values())
@@ -841,6 +943,7 @@ def main() -> int:
             "loss_ms": sum(c * (ms - b) for _key, c, ms, b in per_shape[name]),
             "n_shapes": len(per_shape[name]),
         })
+    kernels[1]["loss_split_ms"] = _k2_loss_split(cg, per_shape["gossip_round_rows"])
     if any(k["max_abs_err"] for k in kernels):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     print(smi, flush=True)

@@ -23,6 +23,10 @@
 // kernel (the caller's epilogue): slots of one bucket may name each other
 // as neighbours, and the round must read the state from before the round.
 //
+// Both kernels read rows as int64 (the runtime's index dtype) or int32, the
+// edge mask as the bytes of a bool tensor, and write changed as 0 / 1 bytes
+// into a bool tensor, so a wrapper call puts exactly one kernel on the card.
+//
 // Members are separate tensors: each launch takes, per leaf, a table of the
 // G members' base pointers as a __grid_constant__ kernel parameter (at most
 // kMaxGroup per launch; the launcher walks larger groups in chunks). A
@@ -34,12 +38,33 @@
 // The frontier's slots are scattered rows of an HBM-resident population,
 // so each row read comes from HBM.
 //
-// What K2's design does about it: one block per slot; the block stages the
-// slot's K neighbour indices (dead edges marked -1) in shared memory once,
-// then its threads stride over the row's elements so every load of a warp
-// is a contiguous segment of one row; the fold runs in registers, and the
-// changed flag is the block's own reduction (__syncthreads_or), as the TPU
-// kernel computes it in-kernel.
+// K2's rows are narrow (64 B for the plan's G-Set and G-Counter rows, 512 B
+// a leaf for the engine's packed OR-Set) and nothing is reused within a
+// slot, so what holds it back is bytes in flight: many independent 16-byte
+// loads, not a staging ring. K2's design:
+//   * Sub-warp teams. A team of T lanes (a power of two, at most 32) owns one
+//     (member, slot) work item; each lane owns V bytes (16, 8, 4 or 1) of
+//     each leaf row, and a row wider than T·V bytes is walked by the team in
+//     steps of T·V. The wrapper (ops/cuda_gossip.py rows_schedule) picks V
+//     from the row's byte width and every pointer's alignment, and T from
+//     the row's vectors: at 64-byte rows T = 4 (8 slots a warp), at 512-byte
+//     leaves T = 32.
+//   * A persistent grid (SMs x resident blocks, asked once per device)
+//     strides over the G·F items warp by warp; the loop is uniform across a
+//     warp, so lanes of teams past the last item still reach the shuffles.
+//   * No shared memory and no block barrier: each lane loads the slot's row
+//     index and the neighbour indices and mask bytes itself. A team's lanes
+//     load the same addresses, which the load unit serves as one request.
+//   * The own row and up to kFanoutChunk neighbour rows of every leaf are
+//     loaded before the fold (an unrolled register array; K = 3 on the main
+//     path). A dead edge is a load not issued, its register left at the
+//     join's identity (0 for or, INT32_MIN for max), so the fold has no
+//     branch. A larger fanout walks the same code in chunks of kFanoutChunk,
+//     in k order.
+//   * The join works on the vector: bool rows OR bytewise (their bytes are
+//     0 / 1, so this is logical or), packed words OR as words, int32 rows
+//     take max per 4-byte lane. Joined rows go out with streaming stores;
+//     changed is a shuffle-xor OR over the team, written by its lane 0.
 //
 // K3's rows are wide (4,160 B at the store's default OR-SWOT, 64 elements x
 // 16 actors), so what holds it back is bytes in flight, not bytes: one block
@@ -85,7 +110,6 @@
 namespace {
 
 enum Op { kOr = 0, kMax = 1 };
-enum Dtype { kU8 = 0, kI32 = 1, kU32 = 2 };
 
 constexpr int kMaxGroup = 64;
 
@@ -94,90 +118,218 @@ struct Members {
   const void* p[kMaxGroup];
 };
 
-int block_threads(long long width) {
-  int threads = 32;
-  while (threads < width && threads < 256) threads <<= 1;
-  return threads;
+// rows[i] of an int64 (rows_i64) or int32 index array
+__device__ __forceinline__ long long load_row(const void* rows, int rows_i64, long long i) {
+  return rows_i64 ? __ldg(static_cast<const long long*>(rows) + i)
+                  : (long long)__ldg(static_cast<const int32_t*>(rows) + i);
 }
 
-template <typename T, int OP>
-__device__ __forceinline__ T join(T a, T b) {
-  if (OP == kOr) return static_cast<T>(a | b);
-  return a > b ? a : b;
+const void* row_at(const void* rows, int rows_i64, long long i) {
+  return static_cast<const char*>(rows) + i * (rows_i64 ? 8 : 4);
 }
 
-// the slot's neighbour rows, -1 for a dead edge
-__device__ __forceinline__ void stage_neighbours(
-    int32_t* s_nbr, long long row, const int32_t* __restrict__ nbrs,
-    const uint8_t* __restrict__ mask, int k) {
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    int32_t nb = nbrs[row * k + j];
-    if (mask != nullptr && mask[row * k + j] == 0) nb = -1;
-    s_nbr[j] = nb;
-  }
+__device__ __forceinline__ int32_t vmax(int32_t a, int32_t b) { return a > b ? a : b; }
+__device__ __forceinline__ int4 vmax(int4 a, int4 b) {
+  return make_int4(vmax(a.x, b.x), vmax(a.y, b.y), vmax(a.z, b.z), vmax(a.w, b.w));
+}
+__device__ __forceinline__ int vne(int32_t a, int32_t b) { return a != b; }
+__device__ __forceinline__ int vne(int2 a, int2 b) { return (a.x != b.x) | (a.y != b.y); }
+__device__ __forceinline__ int vne(int4 a, int4 b) {
+  return (a.x != b.x) | (a.y != b.y) | (a.z != b.z) | (a.w != b.w);
+}
+__device__ __forceinline__ int vne(uint8_t a, uint8_t b) { return a != b; }
+
+// -- K2: sub-warp teams --------------------------------------------------------
+
+constexpr int kRowsThreads = 256;
+// neighbour rows whose loads are issued together, before their fold
+constexpr int kFanoutChunk = 4;
+
+// the type of one V-byte vector of a row
+template <int V> struct Bytes;
+template <> struct Bytes<16> { using T = int4; };
+template <> struct Bytes<8> { using T = int2; };
+template <> struct Bytes<4> { using T = int32_t; };
+template <> struct Bytes<1> { using T = uint8_t; };
+
+template <int OP>
+__device__ __forceinline__ int32_t join1(int32_t a, int32_t b) {
+  return OP == kOr ? (a | b) : vmax(a, b);
+}
+template <int OP>
+__device__ __forceinline__ int4 join(int4 a, int4 b) {
+  return make_int4(join1<OP>(a.x, b.x), join1<OP>(a.y, b.y), join1<OP>(a.z, b.z),
+                   join1<OP>(a.w, b.w));
+}
+template <int OP>
+__device__ __forceinline__ int2 join(int2 a, int2 b) {
+  return make_int2(join1<OP>(a.x, b.x), join1<OP>(a.y, b.y));
+}
+template <int OP>
+__device__ __forceinline__ int32_t join(int32_t a, int32_t b) { return join1<OP>(a, b); }
+template <int OP>
+__device__ __forceinline__ uint8_t join(uint8_t a, uint8_t b) {
+  static_assert(OP == kOr, "byte rows join by or only");
+  return static_cast<uint8_t>(a | b);
 }
 
-template <typename T, int OP>
-__global__ void gossip_round_rows_kernel(
-    const __grid_constant__ Members plane0,
-    const __grid_constant__ Members plane1, T* __restrict__ out0,
-    T* __restrict__ out1, int n_leaves, const int32_t* __restrict__ rows,
-    const int32_t* __restrict__ nbrs, const uint8_t* __restrict__ mask,
-    int32_t* __restrict__ changed, long long n_slots, long long width, int k) {
-  extern __shared__ int32_t s_nbr[];
-  const long long f = blockIdx.x;
-  const int g = blockIdx.y;
-  const long long row = rows[g * n_slots + f];
-  stage_neighbours(s_nbr, row, nbrs, mask, k);
-  __syncthreads();
-  const long long out_off = (g * n_slots + f) * width;
-  int diff = 0;
-  for (int leaf = 0; leaf < n_leaves; ++leaf) {
-    const T* plane =
-        static_cast<const T*>(leaf == 0 ? plane0.p[g] : plane1.p[g]);
-    T* out = leaf == 0 ? out0 : out1;
-    for (long long i = threadIdx.x; i < width; i += blockDim.x) {
-      const T own = plane[row * width + i];
-      T acc = own;
-      for (int j = 0; j < k; ++j) {
-        const int32_t nb = s_nbr[j];
-        if (nb < 0) continue;
-        acc = join<T, OP>(acc, plane[(long long)nb * width + i]);
+// the join's identity: 0 for or, INT32_MIN in every int32 lane for max
+__device__ __forceinline__ void splat(int4& v, int32_t x) { v = make_int4(x, x, x, x); }
+__device__ __forceinline__ void splat(int2& v, int32_t x) { v = make_int2(x, x); }
+__device__ __forceinline__ void splat(int32_t& v, int32_t x) { v = x; }
+__device__ __forceinline__ void splat(uint8_t& v, int32_t x) { v = static_cast<uint8_t>(x); }
+
+// OP: kOr / kMax; V: bytes a lane loads at once; NL: leaves (1 or 2). A team
+// is 1 << team_shift lanes; n_vec is the V-byte vectors of one leaf row.
+template <int OP, int V, int NL>
+__global__ void __launch_bounds__(kRowsThreads)
+gossip_round_rows_kernel(const __grid_constant__ Members plane0,
+                         const __grid_constant__ Members plane1,
+                         uint8_t* __restrict__ out0, uint8_t* __restrict__ out1,
+                         const void* __restrict__ rows, int rows_i64,
+                         const int32_t* __restrict__ nbrs,
+                         const uint8_t* __restrict__ mask,
+                         uint8_t* __restrict__ changed, long long n_slots,
+                         long long n_items, long long n_vec, int team_shift, int k) {
+  using T = typename Bytes<V>::T;
+  const int team_lanes = 1 << team_shift;
+  const int lane = threadIdx.x & 31;
+  const int lt = lane & (team_lanes - 1);
+  const int per_warp = 32 >> team_shift;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  T ident;
+  splat(ident, OP == kOr ? 0 : INT32_MIN);
+  // uniform across the warp: every lane reaches the team reduction
+  for (long long base = warp * per_warp; base < n_items; base += n_warps * per_warp) {
+    const long long item = base + (lane >> team_shift);
+    int diff = 0;
+    if (item < n_items) {
+      const int g = (int)(item / n_slots);
+      const long long row = load_row(rows, rows_i64, item);
+      const T* plane[NL];
+      T* out[NL];
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        plane[l] = static_cast<const T*>(l == 0 ? plane0.p[g] : plane1.p[g]);
+        out[l] = reinterpret_cast<T*>(l == 0 ? out0 : out1) + item * n_vec;
       }
-      out[out_off + i] = acc;
-      diff |= (acc != own);
+      for (long long v = lt; v < n_vec; v += team_lanes) {
+        T own[NL], acc[NL];
+#pragma unroll
+        for (int l = 0; l < NL; ++l) acc[l] = own[l] = __ldg(plane[l] + row * n_vec + v);
+        for (int c0 = 0; c0 < k; c0 += kFanoutChunk) {
+          long long src[kFanoutChunk];
+          bool live[kFanoutChunk];
+#pragma unroll
+          for (int j = 0; j < kFanoutChunk; ++j) {
+            const int e = c0 + j;
+            live[j] = e < k && (mask == nullptr || __ldg(mask + row * k + e) != 0);
+            src[j] = live[j] ? (long long)__ldg(nbrs + row * k + e) : 0;
+          }
+          T x[NL][kFanoutChunk];
+#pragma unroll
+          for (int l = 0; l < NL; ++l) {
+#pragma unroll
+            for (int j = 0; j < kFanoutChunk; ++j) {
+              x[l][j] = live[j] ? __ldg(plane[l] + src[j] * n_vec + v) : ident;
+            }
+          }
+#pragma unroll
+          for (int l = 0; l < NL; ++l) {
+#pragma unroll
+            for (int j = 0; j < kFanoutChunk; ++j) acc[l] = join<OP>(acc[l], x[l][j]);
+          }
+        }
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          __stcs(out[l] + v, acc[l]);
+          diff |= vne(acc[l], own[l]);
+        }
+      }
     }
+    for (int off = team_lanes >> 1; off > 0; off >>= 1) {
+      diff |= __shfl_xor_sync(0xffffffffu, diff, off);
+    }
+    if (item < n_items && lt == 0) changed[item] = diff ? 1 : 0;
   }
-  const int any = __syncthreads_or(diff);
-  if (threadIdx.x == 0) changed[g * n_slots + f] = any ? 1 : 0;
 }
 
-template <typename T, int OP>
+// resident blocks of one K2 instance on the current device (SMs x blocks
+// an SM holds); depends only on the device, so each is asked once
+template <int OP, int V, int NL>
+cudaError_t rows_resident(long long* resident) {
+  static std::mutex mu;
+  static std::map<int, long long> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = known.find(dev);
+  if (hit != known.end()) {
+    *resident = hit->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, gossip_round_rows_kernel<OP, V, NL>, kRowsThreads, 0)) !=
+          cudaSuccess) {
+    return err;
+  }
+  *resident = known[dev] = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+template <int OP, int V, int NL>
 int launch_rows(const void* const* ptrs0, const void* const* ptrs1, void* out0,
-                void* out1, int n_leaves, const int32_t* rows,
-                const int32_t* nbrs, const uint8_t* mask, int32_t* changed,
-                long long n_groups, long long n_slots, long long width, int k,
+                void* out1, const void* rows, int rows_i64, const int32_t* nbrs,
+                const uint8_t* mask, uint8_t* changed, long long n_groups,
+                long long n_slots, long long row_bytes, int team_shift, int k,
                 cudaStream_t stream) {
-  const int threads = block_threads(width);
-  const size_t smem = (size_t)(k > 0 ? k : 1) * sizeof(int32_t);
+  long long resident = 0;
+  cudaError_t err = rows_resident<OP, V, NL>(&resident);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_vec = row_bytes / V;
+  const int per_warp = 32 >> team_shift;
   for (long long g0 = 0; g0 < n_groups; g0 += kMaxGroup) {
     const int gc = (int)(n_groups - g0 < kMaxGroup ? n_groups - g0 : kMaxGroup);
     Members m0 = {}, m1 = {};
     for (int i = 0; i < gc; ++i) {
       m0.p[i] = ptrs0[g0 + i];
-      m1.p[i] = n_leaves > 1 ? ptrs1[g0 + i] : nullptr;
+      m1.p[i] = NL > 1 ? ptrs1[g0 + i] : nullptr;
     }
     const long long slot0 = g0 * n_slots;
-    gossip_round_rows_kernel<T, OP>
-        <<<dim3((unsigned)n_slots, (unsigned)gc), threads, smem, stream>>>(
-            m0, m1, static_cast<T*>(out0) + slot0 * width,
-            n_leaves > 1 ? static_cast<T*>(out1) + slot0 * width : nullptr,
-            n_leaves, rows + slot0, nbrs, mask, changed + slot0, n_slots,
-            width, k);
-    const cudaError_t err = cudaGetLastError();
+    const long long n_items = gc * n_slots;
+    const long long warps = (n_items + per_warp - 1) / per_warp;
+    const long long wanted = (warps * 32 + kRowsThreads - 1) / kRowsThreads;
+    const int blocks = (int)(wanted < resident ? wanted : resident);
+    gossip_round_rows_kernel<OP, V, NL><<<blocks, kRowsThreads, 0, stream>>>(
+        m0, m1, static_cast<uint8_t*>(out0) + slot0 * row_bytes,
+        NL > 1 ? static_cast<uint8_t*>(out1) + slot0 * row_bytes : nullptr,
+        row_at(rows, rows_i64, slot0), rows_i64, nbrs, mask, changed + slot0,
+        n_slots, n_items, n_vec, team_shift, k);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+template <int OP, int V>
+int launch_rows_leaves(int n_leaves, const void* const* ptrs0, const void* const* ptrs1,
+                       void* out0, void* out1, const void* rows, int rows_i64,
+                       const int32_t* nbrs, const uint8_t* mask, uint8_t* changed,
+                       long long n_groups, long long n_slots, long long row_bytes,
+                       int team_shift, int k, cudaStream_t stream) {
+  if (n_leaves == 2) {
+    return launch_rows<OP, V, 2>(ptrs0, ptrs1, out0, out1, rows, rows_i64, nbrs, mask,
+                                 changed, n_groups, n_slots, row_bytes, team_shift, k,
+                                 stream);
+  }
+  return launch_rows<OP, V, 1>(ptrs0, ptrs1, out0, out1, rows, rows_i64, nbrs, mask,
+                               changed, n_groups, n_slots, row_bytes, team_shift, k,
+                               stream);
 }
 
 // -- K3: the ring ------------------------------------------------------------
@@ -309,15 +461,6 @@ __device__ __forceinline__ void stg(int32_t* p, T v) {
   *reinterpret_cast<T*>(p) = v;
 }
 
-__device__ __forceinline__ int32_t vmax(int32_t a, int32_t b) { return a > b ? a : b; }
-__device__ __forceinline__ int4 vmax(int4 a, int4 b) {
-  return make_int4(vmax(a.x, b.x), vmax(a.y, b.y), vmax(a.z, b.z), vmax(a.w, b.w));
-}
-__device__ __forceinline__ int vne(int32_t a, int32_t b) { return a != b; }
-__device__ __forceinline__ int vne(int4 a, int4 b) {
-  return (a.x != b.x) | (a.y != b.y) | (a.z != b.z) | (a.w != b.w);
-}
-
 // one step of merge_dots: (da, ca) is the accumulated dots word and clock
 // before this step, (db, cb) the neighbour's
 __device__ __forceinline__ void fold(int32_t& da, int32_t& ca, int32_t db, int32_t cb) {
@@ -342,9 +485,9 @@ __global__ void __launch_bounds__(kVclockThreads)
 gossip_round_rows_vclock_kernel(
     const __grid_constant__ Members clocks,
     const __grid_constant__ Members dots, int32_t* __restrict__ out_clock,
-    int32_t* __restrict__ out_dots, const int32_t* __restrict__ rows,
+    int32_t* __restrict__ out_dots, const void* __restrict__ rows, int rows_i64,
     const int32_t* __restrict__ nbrs, const uint8_t* __restrict__ mask,
-    int32_t* __restrict__ changed, long long n_slots, long long n_items,
+    uint8_t* __restrict__ changed, long long n_slots, long long n_items,
     int n_elems, int n_actors, int k, int chunk_words, const VclockLayout lay) {
   using VT = typename IVec<V>::T;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -381,7 +524,7 @@ gossip_round_rows_vclock_kernel(
       const long long s = s0 + lane;
       if (s < last) {
         int32_t* h = batch + lane * kc;
-        const long long row = rows[s];
+        const long long row = load_row(rows, rows_i64, s);
         h[0] = (int32_t)row;
         for (int j = 0; j < k; ++j) {
           int32_t nb = nbrs[row * k + j];
@@ -487,7 +630,7 @@ gossip_round_rows_vclock_kernel(
       if (c == n_chunks - 1) {
         __syncwarp();  // bar.red wants each warp converged
         const int any = consumers_any(diff, kConsumerThreads);
-        if (ct == 0) changed[slot] = any;
+        if (ct == 0) changed[slot] = static_cast<uint8_t>(any);
         diff = 0;
       }
       if (++stage == kStages) {
@@ -532,10 +675,10 @@ cudaError_t vclock_resident(size_t smem, long long* resident) {
 
 template <int V>
 int launch_vclock(const void* const* clock_ptrs, const void* const* dots_ptrs,
-                  int32_t* out_clock, int32_t* out_dots, const int32_t* rows,
-                  const int32_t* nbrs, const uint8_t* mask, int32_t* changed,
-                  long long n_groups, long long n_slots, int n_elems,
-                  int n_actors, int k, int chunk_words,
+                  int32_t* out_clock, int32_t* out_dots, const void* rows,
+                  int rows_i64, const int32_t* nbrs, const uint8_t* mask,
+                  uint8_t* changed, long long n_groups, long long n_slots,
+                  int n_elems, int n_actors, int k, int chunk_words,
                   const VclockLayout& lay, cudaStream_t stream) {
   long long resident = 0;
   cudaError_t err = vclock_resident<V>(lay.bytes, &resident);
@@ -553,65 +696,92 @@ int launch_vclock(const void* const* clock_ptrs, const void* const* dots_ptrs,
     const int blocks = (int)(n_items < resident ? n_items : resident);
     gossip_round_rows_vclock_kernel<V><<<blocks, kVclockThreads, lay.bytes, stream>>>(
         mc, md, out_clock + slot0 * n_actors, out_dots + slot0 * row_words,
-        rows + slot0, nbrs, mask, changed + slot0, n_slots, n_items, n_elems,
-        n_actors, k, chunk_words, lay);
+        row_at(rows, rows_i64, slot0), rows_i64, nbrs, mask, changed + slot0,
+        n_slots, n_items, n_elems, n_actors, k, chunk_words, lay);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
 }
 
+bool aligned_to(const void* p, long long bytes) {
+  return reinterpret_cast<uintptr_t>(p) % (uintptr_t)bytes == 0;
+}
+
 }  // namespace
 
-// K2. ptrs0 / ptrs1: host arrays of the n_groups members' base pointers for
-// leaf 0 / leaf 1, each member T[n_rows, width] (ptrs1 unused when n_leaves
-// is 1); out0/out1: T[n_groups, n_slots, width]; rows: int32[n_groups,
-// n_slots] and neighbors: int32[n_rows, k], entries in [0, n_rows); mask:
-// uint8[n_rows, k] or null; changed: int32[n_groups, n_slots].
+// K2. op: 0 = or (bool bytes or packed words), 1 = int32 max; ptrs0 /
+// ptrs1: host arrays of the n_groups members' base pointers for leaf 0 /
+// leaf 1 (ptrs1 unused when n_leaves is 1), each member [n_rows] rows of
+// row_bytes bytes; out0 / out1: [n_groups, n_slots] rows of row_bytes;
+// rows: int64 (rows_i64 = 1) or int32 [n_groups, n_slots]; neighbors:
+// int32[n_rows, k], entries in [0, n_rows); mask: the bytes of a bool
+// [n_rows, k] or null; changed: the bytes of a bool [n_groups, n_slots],
+// written 0 or 1. The schedule comes from the wrapper (ops/cuda_gossip.py
+// rows_schedule): vec_bytes (16, 8, 4 or 1; at least 4 for max) divides
+// row_bytes and every member and output address; team_lanes is a power of
+// two, at most 32.
 extern "C" int lasp_gossip_round_rows(
-    int dtype, int op, const void* const* ptrs0, const void* const* ptrs1,
-    void* out0, void* out1, int n_leaves, const void* rows,
-    const void* neighbors, const void* mask, void* changed, long long n_groups,
-    long long n_slots, long long width, int k, void* stream) {
+    int op, int vec_bytes, int team_lanes, const void* const* ptrs0,
+    const void* const* ptrs1, void* out0, void* out1, int n_leaves,
+    const void* rows, int rows_i64, const void* neighbors, const void* mask,
+    void* changed, long long n_groups, long long n_slots, long long row_bytes, int k,
+    void* stream) {
   if (n_groups <= 0 || n_slots <= 0) return 0;
+  const bool vec_ok = vec_bytes == 16 || vec_bytes == 8 || vec_bytes == 4 ||
+                      (vec_bytes == 1 && op == kOr);
   if (n_leaves < 1 || n_leaves > 2 || k < 0 || n_slots > 0x7fffffffLL ||
-      width <= 0) {
+      row_bytes <= 0 || (op != kOr && op != kMax) || !vec_ok ||
+      row_bytes % vec_bytes != 0 || team_lanes < 1 || team_lanes > 32 ||
+      (team_lanes & (team_lanes - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  bool ok = aligned_to(out0, vec_bytes) && (n_leaves < 2 || aligned_to(out1, vec_bytes));
+  for (long long i = 0; ok && i < n_groups; ++i) {
+    ok = aligned_to(ptrs0[i], vec_bytes) && (n_leaves < 2 || aligned_to(ptrs1[i], vec_bytes));
+  }
+  if (!ok) return (int)cudaErrorMisalignedAddress;
+  int team_shift = 0;
+  while ((1 << team_shift) < team_lanes) ++team_shift;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* r = static_cast<const int32_t*>(rows);
   const int32_t* nb = static_cast<const int32_t*>(neighbors);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  int32_t* c = static_cast<int32_t*>(changed);
-  if (dtype == kU8 && op == kOr) {
-    return launch_rows<uint8_t, kOr>(ptrs0, ptrs1, out0, out1, n_leaves, r, nb,
-                                     m, c, n_groups, n_slots, width, k, s);
+  uint8_t* c = static_cast<uint8_t*>(changed);
+#define LASP_ROWS_LAUNCH(OP, V)                                                       \
+  return launch_rows_leaves<OP, V>(n_leaves, ptrs0, ptrs1, out0, out1, rows, rows_i64, \
+                                   nb, m, c, n_groups, n_slots, row_bytes, team_shift, \
+                                   k, s)
+  if (op == kOr) {
+    switch (vec_bytes) {
+      case 16: LASP_ROWS_LAUNCH(kOr, 16);
+      case 8: LASP_ROWS_LAUNCH(kOr, 8);
+      case 4: LASP_ROWS_LAUNCH(kOr, 4);
+      default: LASP_ROWS_LAUNCH(kOr, 1);
+    }
   }
-  if (dtype == kI32 && op == kMax) {
-    return launch_rows<int32_t, kMax>(ptrs0, ptrs1, out0, out1, n_leaves, r,
-                                      nb, m, c, n_groups, n_slots, width, k, s);
+  switch (vec_bytes) {
+    case 16: LASP_ROWS_LAUNCH(kMax, 16);
+    case 8: LASP_ROWS_LAUNCH(kMax, 8);
+    default: LASP_ROWS_LAUNCH(kMax, 4);
   }
-  if (dtype == kU32 && op == kOr) {
-    return launch_rows<uint32_t, kOr>(ptrs0, ptrs1, out0, out1, n_leaves, r,
-                                      nb, m, c, n_groups, n_slots, width, k, s);
-  }
-  return (int)cudaErrorInvalidValue;
+#undef LASP_ROWS_LAUNCH
 }
 
 // K3. clock_ptrs / dots_ptrs: host arrays of the n_groups members' base
 // pointers, each member's clock int32[n_rows, n_actors] and dots
 // int32[n_rows, n_elems, n_actors]; out_clock: int32[n_groups, n_slots,
 // n_actors]; out_dots: int32[n_groups, n_slots, n_elems, n_actors]; rows,
-// neighbors, mask and changed as for K2. The schedule comes from the
-// wrapper (ops/cuda_gossip.py vclock_schedule): bulk = 1 for 1-D bulk copies
-// (n_actors % 4 == 0 and every pointer 16-byte aligned), 0 for 4-byte
-// cp.async copies; chunk_words: the dots words of one row a stage holds
-// (a multiple of 4 under bulk). The ring is kStages deep.
+// rows_i64, neighbors, mask and changed as for K2. The schedule comes from
+// the wrapper (ops/cuda_gossip.py vclock_schedule): bulk = 1 for 1-D bulk
+// copies (n_actors % 4 == 0 and every pointer 16-byte aligned), 0 for
+// 4-byte cp.async copies; chunk_words: the dots words of one row a stage
+// holds (a multiple of 4 under bulk). The ring is kStages deep.
 extern "C" int lasp_gossip_round_rows_vclock(
     const void* const* clock_ptrs, const void* const* dots_ptrs,
-    void* out_clock, void* out_dots, const void* rows, const void* neighbors,
-    const void* mask, void* changed, long long n_groups, long long n_slots,
-    int n_elems, int n_actors, int k, int bulk, int chunk_words, void* stream) {
+    void* out_clock, void* out_dots, const void* rows, int rows_i64,
+    const void* neighbors, const void* mask, void* changed, long long n_groups,
+    long long n_slots, int n_elems, int n_actors, int k, int bulk, int chunk_words,
+    void* stream) {
   if (n_groups <= 0 || n_slots <= 0) return 0;
   if (k < 0 || n_slots > 0x7fffffffLL || n_elems <= 0 || n_actors <= 0 ||
       chunk_words <= 0) {
@@ -622,22 +792,19 @@ extern "C" int lasp_gossip_round_rows_vclock(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* oc = static_cast<int32_t*>(out_clock);
   int32_t* od = static_cast<int32_t*>(out_dots);
-  const int32_t* r = static_cast<const int32_t*>(rows);
   const int32_t* nb = static_cast<const int32_t*>(neighbors);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  int32_t* c = static_cast<int32_t*>(changed);
+  uint8_t* c = static_cast<uint8_t*>(changed);
   if (bulk) {
-    bool ok = n_actors % 4 == 0 && chunk_words % 4 == 0 &&
-              reinterpret_cast<uintptr_t>(out_clock) % 16 == 0 &&
-              reinterpret_cast<uintptr_t>(out_dots) % 16 == 0;
+    bool ok = n_actors % 4 == 0 && chunk_words % 4 == 0 && aligned_to(out_clock, 16) &&
+              aligned_to(out_dots, 16);
     for (long long i = 0; ok && i < n_groups; ++i) {
-      ok = reinterpret_cast<uintptr_t>(clock_ptrs[i]) % 16 == 0 &&
-           reinterpret_cast<uintptr_t>(dots_ptrs[i]) % 16 == 0;
+      ok = aligned_to(clock_ptrs[i], 16) && aligned_to(dots_ptrs[i], 16);
     }
     if (!ok) return (int)cudaErrorMisalignedAddress;
-    return launch_vclock<4>(clock_ptrs, dots_ptrs, oc, od, r, nb, m, c, n_groups,
-                            n_slots, n_elems, n_actors, k, chunk_words, lay, s);
+    return launch_vclock<4>(clock_ptrs, dots_ptrs, oc, od, rows, rows_i64, nb, m, c,
+                            n_groups, n_slots, n_elems, n_actors, k, chunk_words, lay, s);
   }
-  return launch_vclock<1>(clock_ptrs, dots_ptrs, oc, od, r, nb, m, c, n_groups,
-                          n_slots, n_elems, n_actors, k, chunk_words, lay, s);
+  return launch_vclock<1>(clock_ptrs, dots_ptrs, oc, od, rows, rows_i64, nb, m, c,
+                          n_groups, n_slots, n_elems, n_actors, k, chunk_words, lay, s);
 }

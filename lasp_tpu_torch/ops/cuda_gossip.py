@@ -26,7 +26,8 @@ for CUDA tensors it launches the kernel or raises. Each launch adds one to
 
 The launch schedules are pure functions of shapes, here where the CPU tests
 reach them: :func:`dense_slab_words` picks K1's column-slab width,
-:func:`vclock_schedule` picks K3's copy path and stage chunk.
+:func:`rows_schedule` K2's vector width and team size, and
+:func:`vclock_schedule` K3's copy path and stage chunk.
 
 The TPU-only helpers are not ported: ``tuned_rows_block`` sized blocks for
 2 MiB of VMEM (the CUDA launch shape comes from the schedules above and the
@@ -42,6 +43,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -59,7 +61,7 @@ LAUNCHES = {
 SHAPE_FIELDS = {
     "gossip_round_dense": ("R", "D", "K", "slab_words"),
     "gossip_round_rows": ("G", "F", "R", "width", "leaves", "K", "dtype",
-                          "masked"),
+                          "op", "masked", "vec_bytes", "team_lanes"),
     "gossip_round_rows_vclock": ("G", "F", "R", "A", "E", "K", "masked",
                                  "bulk", "chunk_words"),
 }
@@ -102,6 +104,15 @@ def _require_cuda(name: str, *tensors) -> torch.device:
     return dev
 
 
+def address_alignment(*tensors) -> int:
+    """The largest of 16, 8, 4, 2 and 1 bytes that divides every tensor's
+    address."""
+    bits = 16
+    for t in tensors:
+        bits |= t.data_ptr()
+    return bits & -bits
+
+
 # ---------------------------------------------------------------------------
 # K1: dense round over packed planes
 # ---------------------------------------------------------------------------
@@ -133,10 +144,10 @@ def dense_vector_words(d: int, *tensors) -> int:
     """The words K1 moves per load for rows of ``d`` words: 4 (16 bytes)
     when ``d`` and every tensor's address allow it, else 2, else 1 — the
     launcher's own rule (``csrc/gossip_round_dense.cu``)."""
-    ptrs = [t.data_ptr() for t in tensors]
-    if d % 4 == 0 and all(p % 16 == 0 for p in ptrs):
+    aligned = address_alignment(*tensors)
+    if d % 4 == 0 and aligned == 16:
         return 4
-    if d % 2 == 0 and all(p % 8 == 0 for p in ptrs):
+    if d % 2 == 0 and aligned >= 8:
         return 2
     return 1
 
@@ -340,28 +351,18 @@ def gossip_round_rows_vclock_plain(clock, dots, neighbors, rows, edge_mask=None)
     return (ca, da), changed
 
 
-#: kernel element-type codes of the K2 launcher (csrc/gossip_round_rows.cu)
-_U8, _I32, _U32 = 0, 1, 2
-
-
-def _rows_dtype_code(dtype: torch.dtype, op: str) -> int:
-    if dtype == torch.bool and op == "or":
-        return _U8
-    if dtype == torch.int32 and op == "max":
-        return _I32
-    if dtype == torch.int32 and op == "or":
-        return _U32  # packed words: int32 storage, uint32 bits
-    raise ValueError(
-        f"gossip_round_rows: no kernel for {dtype} leaves joined by {op!r}"
-    )
+#: the leaf dtypes and joins K2 has a kernel for (``int32`` ``"or"``:
+#: packed words, int32 storage holding uint32 bits)
+ROWS_JOINS = frozenset({(torch.bool, "or"), (torch.int32, "max"),
+                        (torch.int32, "or")})
 
 
 @functools.cache
 def _rows_fn():
     fn = _build.library("gossip_round_rows").lasp_gossip_round_rows
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -369,10 +370,35 @@ def _rows_fn():
 @functools.cache
 def _vclock_fn():
     fn = _build.library("gossip_round_rows").lasp_gossip_round_rows_vclock
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+class RowsSchedule(NamedTuple):
+    """K2's launch: each lane of a team of ``team_lanes`` lanes loads
+    ``vec_bytes`` of a leaf row at a time; a team owns one (member, slot)
+    item and walks a row wider than ``team_lanes * vec_bytes`` in steps of
+    that many bytes."""
+
+    vec_bytes: int
+    team_lanes: int
+
+
+def rows_schedule(row_bytes: int, aligned: int) -> RowsSchedule:
+    """K2's schedule for leaf rows of ``row_bytes`` bytes whose members and
+    outputs all start on multiples of ``aligned`` bytes
+    (:func:`address_alignment`): the widest vector of 16, 8, 4 or 1 bytes
+    that divides both, so every row of every member and output starts on a
+    vector; and the fewest lanes, a power of two, at most 32, whose vectors
+    cover a row. Rows of int32 (4-byte aligned, 4-byte multiples) never go
+    below 4 bytes, so ``max`` always folds whole int32 lanes."""
+    vec = next(v for v in (16, 8, 4, 1) if row_bytes % v == 0 and aligned % v == 0)
+    team = 1
+    while team * vec < row_bytes and team < 32:
+        team *= 2
+    return RowsSchedule(vec, team)
 
 
 #: the most bytes one stage of K3's shared-memory ring holds (the ring's
@@ -424,7 +450,7 @@ def vclock_launch_schedule(clocks, dotss, k: int) -> VclockSchedule:
             "gossip_round_rows_vclock: members need clock int32[R, A] and "
             "dots int32[R, E, A]"
         )
-    aligned = all(m.data_ptr() % 16 == 0 for m in (*clocks, *dotss))
+    aligned = address_alignment(*clocks, *dotss) == 16
     return vclock_schedule(d0.shape[2], d0.shape[1], k, aligned)
 
 
@@ -437,15 +463,20 @@ def _pointer_table(members):
 def _rows_launch_args(name, member_leaves, neighbors, rows, edge_mask):
     """Checks shared by the K2 and K3 wrappers: one CUDA device, contiguous
     members of one dtype and row shape per leaf, ``rows [G, F]`` and an
-    ``int32[R, K]`` table. Returns ``(device, rows int32, mask uint8 or
-    None, G, R, F, K)``."""
+    ``int32[R, K]`` table, a ``bool[R, K]`` mask. The kernels read int64 or
+    int32 rows and the bytes of the mask as they are; only rows of another
+    dtype are converted (a kernel of its own). Returns ``(device, rows int64
+    or int32, mask uint8 view or None, G, R, F, K)``."""
     first = member_leaves[0][0]
     g = len(member_leaves[0])
-    rows = rows.to(device=first.device, dtype=torch.int32).contiguous()
-    mask = (
-        edge_mask.to(device=first.device, dtype=torch.uint8).contiguous()
-        if edge_mask is not None else None
-    )
+    if rows.dtype not in (torch.int64, torch.int32):
+        rows = rows.long()
+    rows = rows.to(first.device).contiguous()
+    mask = None
+    if edge_mask is not None:
+        if edge_mask.dtype != torch.bool or edge_mask.shape != neighbors.shape:
+            raise ValueError(f"{name}: edge_mask must be bool{tuple(neighbors.shape)}")
+        mask = edge_mask.to(first.device).contiguous().view(torch.uint8)
     flat = [m for leaf in member_leaves for m in leaf]
     dev = _require_cuda(
         name, *flat, neighbors, rows, *(() if mask is None else (mask,))
@@ -460,8 +491,6 @@ def _rows_launch_args(name, member_leaves, neighbors, rows, edge_mask):
     r = first.shape[0]
     if neighbors.dtype != torch.int32 or neighbors.dim() != 2 or neighbors.shape[0] != r:
         raise ValueError(f"{name}: neighbors must be int32[{r}, K]")
-    if mask is not None and mask.shape != neighbors.shape:
-        raise ValueError(f"{name}: edge_mask must be bool{tuple(neighbors.shape)}")
     return dev, rows, mask, g, r, rows.shape[1], neighbors.shape[1]
 
 
@@ -470,40 +499,46 @@ def gossip_round_rows(op, leaves, neighbors, rows, edge_mask=None):
     the G member tensors ``[R, ...]``, all of one dtype and row shape (bool
     for ``"or"``, int32 for ``"or"`` on packed words or ``"max"``);
     ``neighbors``: ``int32[R, K]``; ``rows: int[G, F]`` (pad slots may
-    repeat a row); ``edge_mask``: optional ``bool[R, K]``. Returns
-    ``(joined rows [G, F, ...] per leaf, changed: bool[G, F])``."""
+    repeat a row; int64 and int32 are read as they are); ``edge_mask``:
+    optional ``bool[R, K]``. Returns ``(joined rows [G, F, ...] per leaf,
+    changed: bool[G, F])``. For CUDA tensors of those dtypes a call is one
+    kernel launch (:func:`rows_schedule` picks its vectors and teams)."""
     if _is_cpu(leaves[0]):
         return gossip_round_rows_plain(op, leaves, neighbors, rows, edge_mask)
     name = "gossip_round_rows"
     if not 1 <= len(leaves) <= 2:
         raise ValueError(f"{name}: one or two leaves, got {len(leaves)}")
     members = [_members(leaf) for leaf in leaves]
-    row_shape = tuple(members[0][0].shape[1:])
-    if any(tuple(ms[0].shape[1:]) != row_shape or ms[0].dtype != members[0][0].dtype
+    row_shape, dtype = tuple(members[0][0].shape[1:]), members[0][0].dtype
+    if any(tuple(ms[0].shape[1:]) != row_shape or ms[0].dtype != dtype
            for ms in members):
         raise ValueError(f"{name}: leaves must share dtype and row shape")
-    code = _rows_dtype_code(members[0][0].dtype, op)
+    if (dtype, op) not in ROWS_JOINS:
+        raise ValueError(f"{name}: no kernel for {dtype} leaves joined by {op!r}")
     dev, rows, mask, g, r, f, k = _rows_launch_args(
         name, members, neighbors, rows, edge_mask
     )
     width = math.prod(row_shape)
-    outs = [torch.empty((g, f) + row_shape, dtype=members[0][0].dtype, device=dev)
-            for _ in members]
-    changed = torch.empty((g, f), dtype=torch.int32, device=dev)
+    outs = [torch.empty((g, f) + row_shape, dtype=dtype, device=dev) for _ in members]
+    changed = torch.empty((g, f), dtype=torch.bool, device=dev)
     if f == 0 or width == 0:
-        return outs, changed.zero_() != 0
+        return outs, changed.zero_()
+    row_bytes = width * members[0][0].element_size()
+    sched = rows_schedule(row_bytes, address_alignment(
+        *(m for ms in members for m in ms), *outs))
     with torch.cuda.device(dev):
         rc = _rows_fn()(
-            code, 0 if op == "or" else 1,
+            0 if op == "or" else 1, sched.vec_bytes, sched.team_lanes,
             _pointer_table(members[0]), _pointer_table(members[-1]),
             outs[0].data_ptr(), outs[-1].data_ptr(), len(members),
-            rows.data_ptr(), neighbors.data_ptr(),
+            rows.data_ptr(), int(rows.dtype == torch.int64), neighbors.data_ptr(),
             None if mask is None else mask.data_ptr(), changed.data_ptr(),
-            g, f, width, k, _stream_ptr(dev),
+            g, f, row_bytes, k, _stream_ptr(dev),
         )
-    _check_launch(name, rc, (g, f, r, width, len(members), k, code,
-                             int(mask is not None)))
-    return outs, changed != 0
+    _check_launch(name, rc, (g, f, r, width, len(members), k,
+                             str(dtype).removeprefix("torch."), op,
+                             int(mask is not None), *sched))
+    return outs, changed
 
 
 def gossip_round_rows_vclock(clock, dots, neighbors, rows, edge_mask=None):
@@ -522,20 +557,21 @@ def gossip_round_rows_vclock(clock, dots, neighbors, rows, edge_mask=None):
     n_elems, n_actors = dotss[0].shape[1], dotss[0].shape[2]
     out_c = torch.empty((g, f, n_actors), dtype=torch.int32, device=dev)
     out_d = torch.empty((g, f, n_elems, n_actors), dtype=torch.int32, device=dev)
-    changed = torch.empty((g, f), dtype=torch.int32, device=dev)
+    changed = torch.empty((g, f), dtype=torch.bool, device=dev)
     if f == 0 or n_elems * n_actors == 0:
-        return (out_c, out_d), changed.zero_() != 0
+        return (out_c, out_d), changed.zero_()
     with torch.cuda.device(dev):
         rc = _vclock_fn()(
             _pointer_table(clocks), _pointer_table(dotss),
             out_c.data_ptr(), out_d.data_ptr(), rows.data_ptr(),
+            int(rows.dtype == torch.int64),
             neighbors.data_ptr(), None if mask is None else mask.data_ptr(),
             changed.data_ptr(), g, f, n_elems, n_actors, k, int(sched.bulk),
             sched.chunk_words, _stream_ptr(dev),
         )
     _check_launch(name, rc, (g, f, r, n_actors, n_elems, k, int(mask is not None),
                              int(sched.bulk), sched.chunk_words))
-    return (out_c, out_d), changed != 0
+    return (out_c, out_d), changed
 
 
 def rows_round(plan: RowsPlan, leaves, neighbors, rows, edge_mask=None):

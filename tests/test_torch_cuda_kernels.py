@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lasp_tpu_torch.ops import cuda_gossip as cg
+from lasp_tpu_torch.ops import rows_paths as rp
 
 
 @pytest.fixture
@@ -38,33 +39,36 @@ def test_dense_kernel_matches_plain_on_card(cuda, r, k, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,op,row,n_leaves", [
-    (torch.bool, "or", (16,), 1),
-    (torch.int32, "max", (4,), 1),
-    (torch.int32, "or", (16, 2), 2),
-])
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("bucket", [5, 16, 33])
-def test_rows_kernel_matches_plain_on_card(cuda, dtype, op, row, n_leaves,
-                                           masked, bucket):
-    gen = torch.Generator(device=cuda).manual_seed(bucket)
-    g, r, k = 2, 500, 3
-    if dtype == torch.bool:
-        leaves = [torch.randint(0, 2, (g, r) + row, device=cuda,
-                                generator=gen).bool() for _ in range(n_leaves)]
-    else:
-        leaves = [torch.randint(-50, 50, (g, r) + row, dtype=torch.int32,
-                                device=cuda, generator=gen)
-                  for _ in range(n_leaves)]
+@pytest.mark.parametrize("path", list(rp.K2_PATHS))
+@pytest.mark.parametrize("g", [1, 16, 70])
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+def test_rows_kernel_matches_plain_on_card(cuda, path, g, k):
+    """K2 on each path of its schedule (``rows_paths.K2_PATHS``: 16-, 8-, 4-
+    and 1-byte vectors, teams of 1 to 32 lanes), G = 70 above the
+    launcher's 64-member table, K above the kernel's ``kFanoutChunk`` of 4;
+    masked and unmasked, buckets of 5, 16 and 33 with a duplicate pad slot,
+    int64 and int32 rows, and the members as one stacked tensor, unbind
+    views, clones and misaligned copies (which take narrower vectors)."""
+    _dtype, op, _row, _n, vec, team = rp.K2_PATHS[path]
+    row_bytes = rp.row_bytes(path)
+    assert cg.rows_schedule(row_bytes, 16) == (vec, team)
+    gen = torch.Generator(device=cuda).manual_seed(g * 100 + k + row_bytes)
+    r = 500
+    leaves = rp.k2_leaves(path, g, r, gen)
     nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
-    mask = torch.rand((r, k), device=cuda, generator=gen) > 0.4 if masked else None
-    rows = torch.randint(0, r, (g, bucket), device=cuda, generator=gen)
-    rows[:, -1] = rows[:, 0]
-    got, ch = cg.gossip_round_rows(op, leaves, nb, rows, mask)
-    want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert torch.equal(ch, ch_w)
+    for masked in (False, True):
+        mask = torch.rand((r, k), device=cuda, generator=gen) > 0.4 if masked else None
+        for bucket in (5, 16, 33):
+            rows = torch.randint(0, r, (g, bucket), device=cuda, generator=gen)
+            rows[:, -1] = rows[:, 0]
+            want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
+            for kind in rp.MEMBER_KINDS:
+                members = [rp.k2_members(x, kind) for x in leaves]
+                for rr in (rows, rows.int()):
+                    got, ch = cg.gossip_round_rows(op, members, nb, rr, mask)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b) for a, b in zip(got, want))
+                    assert ch.dtype == torch.bool and torch.equal(ch, ch_w)
 
 
 @pytest.mark.cuda
@@ -160,7 +164,8 @@ def test_vclock_kernel_paths_match_plain_on_card(cuda, a, e, r, g, k, masked):
 
 @pytest.mark.cuda
 def test_vclock_kernel_on_misaligned_members_matches_plain_on_card(cuda):
-    """Members 4 bytes off a 16-byte boundary take the 4-byte copy path."""
+    """Members 4 bytes off a 16-byte boundary take the 4-byte copy path;
+    int64 and int32 rows."""
     g, r, e, a, k = 3, 1000, 64, 16, 3
     gen = torch.Generator(device=cuda).manual_seed(5)
     cbuf = torch.randint(0, 7, (g * r * a + 1,), dtype=torch.int32, device=cuda,
@@ -172,8 +177,9 @@ def test_vclock_kernel_on_misaligned_members_matches_plain_on_card(cuda):
     assert not cg.vclock_launch_schedule(*members, k).bulk
     nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
     rows = torch.randint(0, r, (g, 33), device=cuda, generator=gen)
-    got, ch = cg.gossip_round_rows_vclock(*members, nb, rows)
     want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert torch.equal(ch, ch_w)
+    for rr in (rows, rows.int()):  # int64 and int32 rows are read as they are
+        got, ch = cg.gossip_round_rows_vclock(*members, nb, rr)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert ch.dtype == torch.bool and torch.equal(ch, ch_w)

@@ -205,6 +205,33 @@ def test_grouped_plain_matches_pallas_with_edge_mask_and_duplicates():
         assert np.array_equal(got_c.numpy(), np.asarray(want_c))
 
 
+@pytest.mark.parametrize("kind", ("gset", "gcounter", "packed", "orswot"))
+def test_rows_wrappers_take_int64_and_int32_rows(kind):
+    """K2's and K3's wrappers take the runtime's int64 rows and a caller's
+    int32 rows as they are, and return bool changed flags: either dtype
+    gives Pallas's joined rows and flags, under an edge mask."""
+    codec, spec, st = seeded(kind)
+    stacked = jax.tree_util.tree_map(lambda x: jnp.stack([x, x[::-1]]), st)
+    nbrs = random_regular(N, K, seed=41)
+    rng = np.random.RandomState(43)
+    rows = rng.randint(0, N, size=(2, 12))
+    mask = rng.rand(N, K) > 0.3
+    valid = np.ones(rows.shape, bool)
+    pal_s, pal_c = pallas_gossip_round_rows_grouped(
+        codec, spec, stacked, jnp.asarray(nbrs), jnp.asarray(rows),
+        jnp.asarray(valid), jnp.asarray(mask), interpret=True)
+    state = port_state(kind, spec, stacked)
+    plan = cg.rows_plan_of(port_codec(kind), None, state)
+    for dtype in (torch.int64, torch.int32):
+        idx = torch.as_tensor(rows, dtype=dtype)
+        joined, changed = cg.rows_round(plan, list(state), torch.as_tensor(nbrs),
+                                        idx, torch.as_tensor(mask))
+        assert changed.dtype == torch.bool
+        assert np.array_equal(changed.numpy(), np.asarray(pal_c))
+        assert_same(type(state)(*(cg.scatter_rows(leaf, idx, j)
+                                  for leaf, j in zip(state, joined))), pal_s)
+
+
 def test_raw_changed_flag_equals_codec_equal_on_packed():
     """K2's changed flag is a raw leaf inequality; the contract
     (``mesh.gossip.gossip_round_rows``) uses ``~codec.equal`` with the

@@ -1,14 +1,22 @@
 """The launch logic of the port's CUDA kernels, which stays in Python where
 these CPU tests reach it (``lasp_tpu_torch.ops.cuda_gossip``): K1's
-column-slab schedule, K3's choice of copy path and stage chunk, the
-arguments both wrappers refuse, and the per-shape launch log. The kernels
+column-slab schedule, K2's vector width and team size (and the paths of
+its on-card parity table), K3's choice of copy path and stage chunk, the
+arguments the wrappers refuse, the row-sparse bound of ``chip_smoke.py``,
+and the per-shape launch log. The kernels
 themselves run only on the card (tests/test_torch_cuda_kernels.py)."""
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from lasp_tpu_torch.ops import cuda_gossip as cg
+from lasp_tpu_torch.ops import rows_paths as rp
+
+REPO = Path(__file__).resolve().parents[1]
 
 # Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
 # and under a parallel test run they oversubscribe the cores.
@@ -96,6 +104,138 @@ def test_dense_vector_words_follow_width_and_alignment():
     assert cg.dense_vector_words(1027, aligned) == 1
     assert cg.dense_vector_words(1024, aligned, _offset_view((4, 1024), 2)) == 2
     assert cg.dense_vector_words(1024, _offset_view((4, 1024), 1), aligned) == 1
+
+
+# -- K2: vectors and teams --------------------------------------------------------
+
+
+@pytest.mark.parametrize("row_bytes,aligned,vec,team", [
+    (64, 16, 16, 4),     # the plan's G-Set bool[64] and G-Counter int32[16] rows
+    (512, 16, 16, 32),   # a leaf of the engine's packed OR-Set (128 words)
+    (128, 16, 16, 8),    # a packed (16, 2)-word leaf
+    (5, 16, 1, 8),       # bool[5]
+    (12, 16, 4, 4),      # int32[3]
+    (24, 16, 8, 4),      # int32[6]
+    (64, 8, 8, 8),       # members 8 bytes off a 16-byte boundary
+    (64, 4, 4, 16),      # members 4 bytes off
+    (64, 1, 1, 32),      # bool members 1 byte off
+    (1000, 16, 8, 32),   # wider than a warp's vectors: the team walks the row
+    (1200, 16, 16, 32),
+    (4, 16, 4, 1),
+    (1, 16, 1, 1),
+])
+def test_rows_schedule_at_the_main_path_and_odd_shapes(row_bytes, aligned, vec, team):
+    assert cg.rows_schedule(row_bytes, aligned) == (vec, team)
+
+
+@pytest.mark.parametrize("row_bytes", [1, 3, 4, 5, 12, 24, 48, 64, 100, 128, 500,
+                                       512, 513, 1000, 1024, 1200, 4096])
+@pytest.mark.parametrize("aligned", [1, 2, 4, 8, 16])
+def test_rows_schedule_vectors_divide_rows_and_addresses(row_bytes, aligned):
+    """Every row of every member and output starts on a vector (the vector
+    divides the row and every address), 16 bytes only where every address
+    allows it; the team is a power of two of at most 32 lanes whose vectors
+    cover a row, or a whole warp that walks a wider row."""
+    vec, team = cg.rows_schedule(row_bytes, aligned)
+    assert vec in (16, 8, 4, 1)
+    assert row_bytes % vec == 0 and aligned % vec == 0
+    assert vec == 16 or aligned < 16 or row_bytes % 16 != 0
+    assert team & (team - 1) == 0 and 1 <= team <= 32
+    assert team * vec >= row_bytes or team == 32
+    assert team == 1 or (team // 2) * vec < row_bytes  # no idle half-team
+
+
+def test_rows_schedule_keeps_int32_rows_on_whole_lanes():
+    """int32 rows (4-byte multiples, 4-byte aligned) never take the byte
+    path, so ``max`` folds whole int32 lanes."""
+    for words in range(1, 70):
+        for aligned in (4, 8, 16):
+            assert cg.rows_schedule(4 * words, aligned).vec_bytes >= 4
+
+
+def test_address_alignment_reads_every_tensor():
+    aligned = torch.zeros((4, 16), dtype=torch.int32)
+    assert cg.address_alignment(aligned) == 16
+    assert cg.address_alignment(aligned, _offset_view((4, 16), 2)) == 8
+    assert cg.address_alignment(_offset_view((4, 16), 1), aligned) == 4
+    flags = torch.zeros(65, dtype=torch.bool)
+    assert cg.address_alignment(aligned, flags[1:]) == 1
+    assert cg.address_alignment(aligned, flags[2:]) == 2
+
+
+@pytest.mark.parametrize("path", list(rp.K2_PATHS))
+def test_card_parity_paths_take_the_schedule_they_name(path):
+    """Each path of the on-card K2 parity table is what ``rows_schedule``
+    gives its rows at 16-byte-aligned addresses."""
+    _dtype, _op, _row, _n, vec, team = rp.K2_PATHS[path]
+    assert cg.rows_schedule(rp.row_bytes(path), 16) == (vec, team)
+
+
+def test_card_parity_paths_cover_every_vector_and_team_width():
+    """The table with its four kinds of member (stacked, views, clones,
+    misaligned copies) reaches every vector width and every team width of
+    the kernel, so the card's parity checks walk every path."""
+    taken = set()
+    for path in rp.K2_PATHS:
+        for kind in rp.MEMBER_KINDS:
+            leaves = [rp.k2_members(x, kind) for x in rp.k2_leaves(
+                path, 2, 3, torch.Generator().manual_seed(0))]
+            members = [m for leaf in leaves for m in cg._members(leaf)]
+            taken.add(cg.rows_schedule(rp.row_bytes(path),
+                                       cg.address_alignment(*members)))
+    assert {v for v, _t in taken} == {16, 8, 4, 1}
+    assert {t for _v, t in taken} == {1, 2, 4, 8, 16, 32}
+
+
+def test_rows_wrapper_refuses_a_join_it_has_no_kernel_for():
+    nb = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    rows = torch.zeros((1, 2), dtype=torch.int64)
+    for dtype, op in ((torch.bool, "max"), (torch.int64, "or"), (torch.int32, "and")):
+        leaf = torch.zeros((1, 4, 16), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="no kernel for"):
+            cg.gossip_round_rows(op, [leaf], nb, rows)
+
+
+def test_rows_bound_counts_the_row_index_dtype_and_byte_flags():
+    """``chip_smoke.py``'s bound for K2 / K3 reads each slot's row index in
+    its own dtype (8 bytes for the runtime's int64) and writes a 1-byte
+    changed flag."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    nbrs = np.array([[1], [2], [0]], dtype=np.int32)
+    rows = np.array([[0, 1]], dtype=np.int64)
+    b64, g64 = chip_smoke._rows_bound_bytes(rows, nbrs, 16, 1)
+    b32, g32 = chip_smoke._rows_bound_bytes(rows.astype(np.int32), nbrs, 16, 1)
+    # 3 distinct rows read, 2 written, 2 row indices, 2 neighbour indices, 2 flags
+    assert b64 == 3 * 16 + 2 * 16 + 2 * 8 + 2 * 4 + 2
+    assert b64 - b32 == g64 - g32 == 2 * 4
+    assert g64 == 3 * 2 * 16 + 2 * (8 + 4 + 1)
+
+
+def test_rows_wrapper_refuses_tensors_off_the_cpu_and_cuda():
+    leaf = torch.zeros((1, 4, 16), dtype=torch.bool, device="meta")
+    nb = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cg.gossip_round_rows("or", [leaf], nb, torch.zeros((1, 2), dtype=torch.int64))
+
+
+def test_row_wrappers_refuse_a_mask_that_is_not_bool():
+    """The kernels read the mask's bytes as they are, so K2 and K3 take
+    only a bool mask of the table's shape."""
+    nb = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    rows = torch.zeros((1, 2), dtype=torch.int64)
+    leaf = torch.zeros((1, 4, 16), dtype=torch.bool, device="meta")
+    clock = torch.zeros((1, 4, 16), dtype=torch.int32, device="meta")
+    dots = torch.zeros((1, 4, 8, 16), dtype=torch.int32, device="meta")
+    for mask in (torch.ones((4, 2), dtype=torch.uint8, device="meta"),
+                 torch.ones((4, 3), dtype=torch.bool, device="meta")):
+        with pytest.raises(ValueError, match="edge_mask must be bool"):
+            cg.gossip_round_rows("or", [leaf], nb, rows, mask)
+        with pytest.raises(ValueError, match="edge_mask must be bool"):
+            cg.gossip_round_rows_vclock(clock, dots, nb, rows, mask)
 
 
 # -- K3: the ring's copy path and chunks -----------------------------------------
