@@ -31,16 +31,28 @@ Phases, each of which fails the run on any error:
                K2 and K3 must launch with G > 1; a fourth ``plan="auto"``
                twin converges under ``torch.profiler`` for the card's busy
                share;
-6. kernels  — each kernel timed at every distinct launch shape phases 3-5
+6. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+               10,485,760 replicas (threshold 5): ``Store``, ``Graph``
+               (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
+               ``seed_increments``, ``register_trigger(builder=...)`` and
+               ``converge_on_device``, one round warmed outside the clock; the
+               scenario fails unless the live ads, active pairs and view
+               totals equal the reference semantics and ``ads`` / ``active``
+               have converged. A second full-size build converges under
+               ``torch.profiler`` for the card's busy share, at the end of
+               the run;
+7. kernels  — each kernel timed at every distinct launch shape phases 3-6
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
                phase, read after), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
                beside its plain version, its gather model and the host time
-               per wrapper call; K2's loss split by launch class; every
-               K2 and K3 shape replayed once under ``torch.profiler``, which
-               must show exactly one device kernel per wrapper call; and
-               K1's column-slab sweep (slab widths against whole rows) at
-               each of its shapes and at two shapes whose planes fit the L2.
+               per wrapper call; K1 at the adcounter's shapes on the
+               adcounter's own topology, beside its plain version; K2's loss
+               split by launch class; and K1's column-slab sweep (slab widths
+               against whole rows) at each of its shapes and at two shapes
+               whose planes fit the L2. Every K2 and K3 shape is replayed
+               once under ``torch.profiler`` before phase 6, which must show
+               exactly one device kernel per wrapper call.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -555,6 +567,69 @@ def phase_plan(torch, cg, n: int, captured: dict) -> dict:
     return {"rt": auto, "launches": launches, "shapes": shapes, "nbrs": nbrs}
 
 
+#: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
+_ADCOUNTER_REPLICAS = 10 * (1 << 20)
+
+
+def phase_adcounter(torch, cg) -> dict:
+    """The north star through the port's entry points, and a second
+    full-size build left ready to converge. Returns the launches and launch
+    shapes of the first run, the twin (its neighbour table feeds the
+    kernels phase) and the fields of the phase's line."""
+    from lasp_tpu_torch.bench_scenarios import adcounter_10m, adcounter_setup
+
+    n = _ADCOUNTER_REPLICAS
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 1e9  # earlier phases' states
+    torch.cuda.reset_peak_memory_stats()
+    cg.reset_launches()
+    t0 = time.perf_counter()
+    out = adcounter_10m(n, threshold=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if out["live_ads"] != 6 or out["active_pairs"] != 6:
+        raise RuntimeError(f"adcounter: {out}")
+    if launches["gossip_round_dense"] == 0:
+        raise RuntimeError("the adcounter never launched K1")
+    t1 = time.perf_counter()
+    twin, _views, _lanes = adcounter_setup(n, 5, None)
+    torch.cuda.synchronize()
+    line = {
+        "replicas": n, "rounds": out["rounds"], "warm_rounds": 1,
+        "seconds": out["seconds"], "under_60s": out["under_60s"],
+        "state_bytes_per_replica": out["state_bytes_per_replica"],
+        "ad_totals": out["ad_totals"], "live_ads": out["live_ads"],
+        "active_pairs": out["active_pairs"], "driver": out["driver"],
+        "scenario_wall_s": wall, "setup_s": time.perf_counter() - t1,
+        "peak_allocated_GB": peak, "resident_before_GB": resident,
+        "k1_launches_by_shape": {
+            str(dict(zip(cg.SHAPE_FIELDS["gossip_round_dense"], key))): c
+            for key, c in shapes["gossip_round_dense"].items()},
+    }
+    return {"launches": launches, "shapes": shapes, "twin": twin, "line": line}
+
+
+def adcounter_profile(torch, ad: dict) -> None:
+    """The adcounter's second build converged under the profiler; logs the
+    phase's line."""
+    twin, line = ad.pop("twin"), ad["line"]
+    rounds = [None]
+    busy = _device_busy(torch, lambda: rounds.__setitem__(0, twin.converge_on_device()))
+    live = twin.coverage_value("ads")
+    if rounds[0] != line["rounds"] or live != {
+            f"ad{a}" for a in range(10) if a % 8 + 1 < 5}:
+        raise RuntimeError(f"adcounter: the profiled twin took {rounds[0]} rounds "
+                           f"and left ads {live}")
+    del twin
+    line["profiled_converge (a second full-size build)"] = busy
+    # converge_on_device runs whole blocks of 8: the profiled run from
+    # scratch includes the no-op rounds after the fixed point
+    line["profiled_rounds_run"] = -(-rounds[0] // 8) * 8
+    _log("adcounter", json.dumps(line))
+
+
 def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int) -> tuple:
     """The least bytes and the gather model of one K2 / K3 launch over
     ``rows_np [G, F]``, as the kernels are called: each distinct row a
@@ -591,7 +666,9 @@ def _rows_call(cg, rt, cap):
     return call, leaves, plan, row_bytes
 
 
-def _k1_inputs(torch, r, d, k, seed=7):
+def _k1_inputs(torch, r, d, k, seed=7, nbrs=None):
+    """Planes made from a seed, and ``nbrs`` (the path's own topology) or
+    a random ``k``-regular table."""
     from lasp_tpu_torch.mesh import random_regular
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -599,7 +676,8 @@ def _k1_inputs(torch, r, d, k, seed=7):
                        device="cuda", generator=gen)
     rm = ex & torch.randint(-2**31, 2**31 - 1, (r, d), dtype=torch.int32,
                             device="cuda", generator=gen)
-    nb = torch.as_tensor(random_regular(r, k, seed=seed), device="cuda")
+    nb = (nbrs if nbrs is not None else
+          torch.as_tensor(random_regular(r, k, seed=seed), device="cuda"))
     return ex, rm, nb
 
 
@@ -628,18 +706,21 @@ def _k1_sweep(torch, cg, ex, rm, nb, want) -> list:
     return table
 
 
-def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2) -> tuple:
+def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
+                  k1_nbrs) -> tuple:
     """Every kernel at every distinct launch shape of the main path (``ms``
     and ``bound_ms`` per shape, ``loss_ms = sum(count * (ms - bound_ms))``),
-    and at its widest shape the fields of the kernels line."""
+    at its widest shape the fields of the kernels line, and K1 at the
+    adcounter's shapes against its plain version (``k1_nbrs``: the
+    neighbour table of a path's population, by row count)."""
     fields = cg.SHAPE_FIELDS
     per_shape = {name: [] for name in cg.LAUNCHES}
-    widest, sweeps = {}, {}
+    widest, sweeps, k1_adcounter = {}, {}, []
     # K1: planes made from a seed at each logged shape, in its slabs, and
     # the slab sweep at each of them
     for key, count in shapes["gossip_round_dense"].items():
         r, d, k, slab = key
-        ex, rm, nb = _k1_inputs(torch, r, d, k)
+        ex, rm, nb = _k1_inputs(torch, r, d, k, nbrs=k1_nbrs.get(r))
         out = (torch.empty_like(ex), torch.empty_like(rm))
         ms = _time_ms(torch, lambda: cg._dense_launch(ex, rm, nb, *out, slab), 10)
         row_bytes = 2 * d * 4
@@ -647,6 +728,17 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2) -> tuple:
         per_shape["gossip_round_dense"].append((key, count, ms, bound))
         want = cg.gossip_round_dense_plain(ex, rm, nb)
         sweeps[f"R={r} D={d} K={k}"] = _k1_sweep(torch, cg, ex, rm, nb, want)
+        if r in k1_nbrs:  # the adcounter's shapes, on its own topology
+            got = cg.gossip_round_dense(ex, rm, nb)
+            k1_adcounter.append({
+                "shape": dict(zip(fields["gossip_round_dense"], key)),
+                "launches": count, "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+                "loss_ms": count * (ms - bound),
+                "max_abs_err": _max_abs_err(torch, got, want),
+                "plain_ms": _time_ms(
+                    torch, lambda: cg.gossip_round_dense_plain(ex, rm, nb), 3),
+            })
+            del got
         if r == 1 << 18 and d == 1024:  # the headline shape
             got = cg.gossip_round_dense(ex, rm, nb)
             err = _max_abs_err(torch, got, want)
@@ -706,7 +798,7 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2) -> tuple:
                     "shape": dict(zip(fields[name], key)),
                 }
                 del stacked
-    return per_shape, widest, sweeps
+    return per_shape, widest, sweeps, k1_adcounter
 
 
 def _device_kernels(torch, warm, calls) -> dict:
@@ -895,8 +987,25 @@ def main() -> int:
     plan = phase_plan(torch, cg, n, captured)
     launches["plan"], shapes["plan"] = plan["launches"], plan["shapes"]
     _log("launches", f"plan: {launches['plan']}")
+    # K2 and K3 replayed under the profiler before the adcounter: in windows
+    # opened after the 10,485,760-replica phase the profiler lost some of
+    # their kernel records (PERF.md)
+    profiled = {name: {} for name in ("gossip_round_rows", "gossip_round_rows_vclock")}
+    rows_shapes = {name: {} for name in profiled}
+    for phase_shapes in shapes.values():
+        for name in rows_shapes:
+            for key, c in phase_shapes[name].items():
+                rows_shapes[name][key] = rows_shapes[name].get(key, 0) + c
+    _one_kernel_per_call(torch, cg, rows_shapes, captured,
+                         {"engine": rt_f, "plan": plan["rt"]}, profiled)
+    _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 6. kernels at the main path's shapes ----------------------------------------
+    # 6. adcounter ----------------------------------------------------------------
+    ad = phase_adcounter(torch, cg)
+    launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
+    _log("launches", f"adcounter: {launches['adcounter']}")
+
+    # 7. kernels at the main path's shapes ----------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():
@@ -907,9 +1016,12 @@ def main() -> int:
     if not head_keys or any(key[3] >= key[1] for key in head_keys):
         raise RuntimeError(f"the headline's K1 launches did not take column slabs: "
                            f"{head_keys}")
-    per_shape, widest, sweeps = phase_kernels(
+    per_shape, widest, sweeps, k1_adcounter = phase_kernels(
         torch, cg, bw, main_shapes, captured,
-        {"engine": rt_f, "plan": plan["rt"]}, widest_k2)
+        {"engine": rt_f, "plan": plan["rt"]}, widest_k2,
+        {_ADCOUNTER_REPLICAS: ad["twin"].neighbors})
+    if len(k1_adcounter) != len(shapes["adcounter"]["gossip_round_dense"]):
+        raise RuntimeError("K1 was not held at every adcounter shape")
     for shape, sweep in sweeps.items():
         _log("kernels", f"K1 slab sweep at {shape}: " + json.dumps(
             [[w, round(ms, 5)] for w, ms in sweep]) + " ([slab_words, ms])")
@@ -918,9 +1030,9 @@ def main() -> int:
                "rows [key, launches, ms, bound_ms]": [
                    [list(key), c, round(ms, 5), round(b, 5)] for key, c, ms, b in rows]}
         for name, rows in per_shape.items()}))
-    _one_kernel_per_call(torch, cg, main_shapes, captured,
-                         {"engine": rt_f, "plan": plan["rt"]}, widest)
-    _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
+    for name, fields in profiled.items():
+        widest[name].update(fields)
+    adcounter_profile(torch, ad)
 
     def total_launches(name):
         return sum(c[name] for c in launches.values())
@@ -943,8 +1055,10 @@ def main() -> int:
             "loss_ms": sum(c * (ms - b) for _key, c, ms, b in per_shape[name]),
             "n_shapes": len(per_shape[name]),
         })
+    kernels[0]["adcounter_shapes"] = k1_adcounter
     kernels[1]["loss_split_ms"] = _k2_loss_split(cg, per_shape["gossip_round_rows"])
-    if any(k["max_abs_err"] for k in kernels):
+    if any(k["max_abs_err"] for k in kernels) or any(
+            s["max_abs_err"] for s in k1_adcounter):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,10 +13,13 @@ Layer map (the slice ported so far):
 - ``lasp_tpu_torch.ops``     — packed / flat OR-Sets, the hand-written CUDA
   gossip kernels (``ops.cuda_gossip``) and the fused round loops
 - ``lasp_tpu_torch.mesh``    — topologies, gossip rounds, the dispatch plan
-  and the ``ReplicatedRuntime`` dense and frontier engines
-- ``lasp_tpu_torch.store``   — the variable store
-- ``lasp_tpu_torch.dataflow``— a ``Graph`` stand-in with no edges
-- ``lasp_tpu_torch.bench_scenarios`` — the OR-Set anti-entropy headline
+  and the ``ReplicatedRuntime`` dense and frontier engines, with dataflow
+  edges and reactive triggers in its step
+- ``lasp_tpu_torch.store``   — the variable store, binds and threshold watches
+- ``lasp_tpu_torch.dataflow``— the combinator graph (map / fold / filter /
+  union / intersection / product / bind_to)
+- ``lasp_tpu_torch.bench_scenarios`` — the OR-Set anti-entropy headline and
+  the ad counters, the 10M-replica north star included
 - ``lasp_tpu_torch.bridge_state``    — numpy state exchange with the JAX
   package's state pytrees
 

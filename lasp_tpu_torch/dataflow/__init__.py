@@ -1,6 +1,15 @@
-"""Dataflow layer stand-in (port of ``lasp_tpu.dataflow``; the combinator
-edges and the fused propagate plan are a later slice)."""
+"""Dataflow layer: the monotone combinator graph as round sweeps (port of
+``lasp_tpu.dataflow``; the fused propagate megakernel is a later slice)."""
 
-from .engine import Graph
+from .edges import BindToEdge, Edge, PairwiseEdge, ProductEdge, ProjectEdge
+from .engine import Graph, PairUniverse
 
-__all__ = ["Graph"]
+__all__ = [
+    "BindToEdge",
+    "Edge",
+    "Graph",
+    "PairUniverse",
+    "PairwiseEdge",
+    "ProductEdge",
+    "ProjectEdge",
+]

@@ -3,19 +3,22 @@ of the ``lasp_tpu.mesh.runtime.ReplicatedRuntime`` core).
 
 Every variable's state carries a leading replica axis ``[R, ...]`` on the
 runtime's device; client operations apply at chosen replica rows and
-bulk-synchronous gossip rounds spread them. Ported for a graph with no
-dataflow edges:
+bulk-synchronous gossip rounds spread them. Ported:
 
 - construction, including ``packed=True`` (OR-Set families held in the flat
   bit-packed wire format, ``ops.flatpack``) and ``plan="auto" | "off"``;
 - ``update_at``, the per-variable arm of ``update_batch`` (OR-SWOT
-  included), ``seed_tokens``;
+  included), ``seed_tokens``, ``seed_increments``;
 - the dense engine: ``step``, ``fused_steps``, ``run_to_convergence(block=)``
-  — unmasked rounds of packed OR-Sets run through the CUDA kernel K1. The
-  dense step stays per variable under either plan mode (the JAX step is
-  grouped; the results are the same by construction);
+  and ``converge_on_device`` (fused blocks of at most 8 rounds, one host
+  sync a block). A step is the local round — the dataflow graph's sweep and
+  the reactive triggers (``register_trigger``) on dense views of every
+  replica — then gossip; unmasked rounds of packed OR-Sets run through the
+  CUDA kernel K1. The dense step stays per variable under either plan mode
+  (the JAX step is grouped; the results are the same by construction);
 - the frontier scheduler: ``mark_dirty``, ``frontier_step``,
-  ``run_to_convergence(mode="frontier" | "auto")``. With ``plan="off"``
+  ``run_to_convergence(mode="frontier" | "auto")``, for a runtime with no
+  dataflow edges and no triggers. With ``plan="off"``
   every variable takes its own round; with ``plan="auto"`` (the default,
   as in JAX) same-signature variables share one row-sparse kernel launch
   per group per round (``mesh.plan``). Sparse rounds run through the CUDA
@@ -28,10 +31,10 @@ Rows are updated in place (client writes, sparse-round scatters) where the
 JAX runtime rebinds donated buffers: do not hold ``rt.states[v]`` leaves
 across a write or a round and expect the old values. A planned round reads
 each member population where it lies (the kernels take a table of member
-base pointers) and never stacks a group's populations. Dataflow edges,
-triggers, programs, sharding, membership and grouped ingest are later
-slices and raise ``NotImplementedError`` or take the per-variable arm;
-telemetry is not carried.
+base pointers) and never stacks a group's populations. Programs, sharding,
+membership, grouped ingest and ``begin_fused_steps`` are later slices
+(``shard``, ``register`` and ``resize`` raise ``NotImplementedError``;
+client writes take the per-variable arm); telemetry is not carried.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dataflow.plan import tree_select
 from ..device import resolve_device
 from ..lattice.base import replicate, tree_map
 from ..ops import cuda_gossip
@@ -50,6 +54,9 @@ from .plan import compile_plan
 
 #: store types held flat-bit-packed on the mesh when ``packed=True``
 _PACKABLE = ("lasp_orset", "lasp_orset_gbtree")
+
+#: rounds a fused block of ``converge_on_device`` runs between host syncs
+_CONVERGE_BLOCK = 8
 
 
 class _CapacityWalk:
@@ -102,8 +109,6 @@ class ReplicatedRuntime:
                  packed: bool = False, plan: str = "auto", device=None):
         if plan not in ("auto", "off"):
             raise ValueError(f"unknown plan mode {plan!r} ('auto' or 'off')")
-        if graph.edges:
-            _not_ported("dataflow edges")
         self.device = resolve_device(device)
         self.store = store
         self.graph = graph
@@ -144,11 +149,21 @@ class ReplicatedRuntime:
         self.plan_mode = plan
         #: the compiled DispatchPlan, or None until the next stepping call
         self._plan = None
+        #: reactive rules run in every step: ``(fn, touches | None, builder)``
+        self._triggers: list = []
+        #: edge count the round function was built for (-1: never)
+        self._n_edges = -1
         self._sync_graph()
 
     def _sync_graph(self) -> None:
-        """Replicate every declared variable that has no population yet."""
-        self.graph.refresh()
+        """Fold in edges and variables added to the graph or store after
+        construction: rebuild the graph's round function and replicate
+        every declared variable that has no population yet."""
+        graph = self.graph
+        graph.refresh()
+        if graph.edges:
+            graph._build()
+        self._n_edges = len(graph.edges)
         for v in self.store.ids():
             var = self.store.variable(v)
             if v in self.states:
@@ -217,10 +232,36 @@ class ReplicatedRuntime:
             self._mask_views = (edge_mask, host, dev)
         return host, dev
 
-    # -- not ported yet --------------------------------------------------------
-    def register_trigger(self, *args, **kwargs):
-        _not_ported("register_trigger")
+    # -- reactive triggers -----------------------------------------------------
+    def register_trigger(self, fn=None, touches=None, *, builder=None) -> None:
+        """Register a per-replica reactive rule run inside every step:
+        ``fn(dense_states: dict) -> dict[var_id, candidate_state]``, the
+        reference's server-process pattern (a blocking threshold read, then
+        an update; ``riak_test/lasp_advertisement_counter_test.erl:197-235``)
+        as a per-round predicate at every replica. ``fn`` is written for one
+        replica's dense states and runs under ``torch.func.vmap`` over the
+        replica axis, so it means what it means in the JAX package: no
+        in-place writes into captured tensors and no ``.item()`` inside it.
+        Each candidate lands through merge + the inflation gate, per
+        replica (``src/lasp_core.erl:301-311``).
 
+        ``touches`` lists every var_id the trigger reads or writes; in
+        packed mode only the graph's and the triggers' variables are
+        unpacked to dense views. ``None`` means "may touch anything" and
+        unpacks every variable. ``builder`` (keyword-only, instead of
+        ``fn``): a zero-argument callable returning the trigger fn, called
+        once now."""
+        if (fn is None) == (builder is None):
+            raise ValueError("register_trigger takes exactly one of fn or builder")
+        if builder is not None:
+            fn = builder()
+            if not callable(fn):
+                raise TypeError(f"trigger builder returned {fn!r}, not a callable")
+        self._triggers.append(
+            (fn, frozenset(touches) if touches is not None else None, builder)
+        )
+
+    # -- not ported yet --------------------------------------------------------
     def shard(self, *args, **kwargs):
         _not_ported("shard")
 
@@ -229,9 +270,6 @@ class ReplicatedRuntime:
 
     def register(self, *args, **kwargs):
         _not_ported("register (mesh programs)")
-
-    def converge_on_device(self, *args, **kwargs):
-        _not_ported("converge_on_device")
 
     # -- client operations ---------------------------------------------------
     def update_at(self, replica: int, var_id: str, op: tuple, actor) -> None:
@@ -249,7 +287,9 @@ class ReplicatedRuntime:
             for x, r in zip(pop, new_row):
                 x[replica] = r
             self._mark_dirty_rows(var_id, [replica])
-        # a non-inflation is silently ignored (the bind rule)
+        # a non-inflation is silently ignored (the bind rule); new terms
+        # fold into the edge tables
+        self.graph.refresh()
 
     def update_batch(self, var_id: str, ops) -> None:
         """Vectorized client writes: ``ops`` is an iterable of ``(replica,
@@ -274,6 +314,9 @@ class ReplicatedRuntime:
         finally:
             # the rows the batch touched: a superset of the rows it changed
             self._mark_dirty_rows(var_id, [r for r, _op, _a in ops])
+            # the ops that landed before a failure interned terms too: fold
+            # them into the edge tables
+            self.graph.refresh()
         final = err if err is not None else cap_err
         if final is not None:
             raise final
@@ -688,7 +731,9 @@ class ReplicatedRuntime:
         """Intern terms into the variable's element universe; their dense
         indices drive device-side scatters."""
         var = self.store.variable(var_id)
-        return np.asarray([var.elems.intern(t) for t in terms], dtype=np.int32)
+        out = np.asarray([var.elems.intern(t) for t in terms], dtype=np.int32)
+        self.graph.refresh()
+        return out
 
     def intern_actors(self, var_id: str, actors) -> np.ndarray:
         var = self.store.variable(var_id)
@@ -724,61 +769,192 @@ class ReplicatedRuntime:
             states.removed[idx] = False
         self._mark_dirty_rows(var_id, rows_np)
 
+    def seed_increments(self, var_id: str, rows, lanes, by=1) -> None:
+        """Device-side bulk G-Counter increments at ``(rows[i], lanes[i])``
+        — the population-scale client-view writes of the ad-counter configs
+        (``riak_test/lasp_adcounter_test.erl:57-120`` client loop).
+        Duplicate ``(row, lane)`` pairs accumulate. Indices out of range
+        raise ``IndexError``."""
+        states = self._population(var_id)
+        rows_np = np.asarray(rows, dtype=np.int64).ravel()
+        lanes_np = np.asarray(lanes, dtype=np.int64).ravel()
+        by_np = np.broadcast_to(np.asarray(by), np.shape(rows)).ravel()
+        r_cap, l_cap = states.counts.shape
+        if rows_np.size and (
+            rows_np.min() < 0 or rows_np.max() >= r_cap
+            or lanes_np.min() < 0 or lanes_np.max() >= l_cap
+        ):
+            raise IndexError(
+                f"seed_increments({var_id!r}): (row, lane) out of range for "
+                f"[{r_cap}, {l_cap}] counts"
+            )
+        states.counts.index_put_(
+            (self._index(rows_np), self._index(lanes_np)),
+            torch.as_tensor(by_np, dtype=states.counts.dtype, device=self.device),
+            accumulate=True,
+        )
+        self._mark_dirty_rows(var_id, rows_np)
+
     # -- dense engine ----------------------------------------------------------
-    def _dense_round(self, edge_mask) -> torch.Tensor:
-        """One gossip round over every variable; returns the per-var
-        residual vector (rows whose state changed, by ``codec.equal``) as
-        an int32 device tensor, without a host sync."""
+    def _ensure_step(self) -> tuple:
+        """Shared prologue of every dense stepping call: fold in edges added
+        to the graph, and the edge tables on the runtime's device, read
+        anew (client writes grow the interners the tables index)."""
+        if self._n_edges != len(self.graph.edges):
+            self._sync_graph()
+        return self.graph.device_tables(self.device)
+
+    def _needed(self) -> frozenset:
+        """The variables the local round views dense: the graph's and the
+        triggers' touch sets, or every variable when a trigger declared
+        none."""
+        if any(touch is None for _fn, touch, _b in self._triggers):
+            return frozenset(self.var_ids)
+        needed = frozenset(self.graph._var_ids) | frozenset(
+            v for _fn, touch, _b in self._triggers for v in touch
+        )
+        return needed & frozenset(self.var_ids)
+
+    def _local_round(self, states: dict, tables) -> dict:
+        """The replica-local half of a step, over every replica at once:
+        unpack the needed variables, run the graph's round, land each
+        trigger's candidates through merge + the inflation gate per replica,
+        repack (``FlatORSet.pack`` canonicalises the tombstones, as the
+        JAX step does)."""
+        needed = self._needed()
+        dense = {
+            v: self._to_dense_row(v, x) for v, x in states.items() if v in needed
+        }
+        if self.graph.edges:
+            flow = {v: dense[v] for v in self.graph._var_ids}
+            dense.update(self.graph._round_fn(flow, tables))
+        for trig, _touch, _b in self._triggers:
+            for v, cand in torch.func.vmap(trig)(dense).items():
+                if v not in dense:
+                    raise KeyError(f"trigger wrote {v!r} outside its declared touches")
+                var = self.store.variable(v)
+                codec, spec = var.codec, var.spec
+                merged = codec.merge(spec, dense[v], cand)
+                ok = codec.is_inflation(spec, dense[v], merged)
+                # bind rule: non-inflations silently ignored
+                dense[v] = tree_select(ok, merged, dense[v])
+        out = dict(states)
+        out.update({v: self._from_dense_row(v, x) for v, x in dense.items()})
+        return out
+
+    def _dense_round(self, edge_mask, tables) -> torch.Tensor:
+        """One step: the local round (with dataflow edges or triggers),
+        then one gossip round over every variable. Returns the per-var
+        residual vector — rows whose state changed from before the local
+        round to after the gossip, by ``codec.equal`` — as an int32 device
+        tensor, without a host sync."""
         _host, mask = self._masks(edge_mask)
+        prev = dict(self.states)
+        swept = (
+            self._local_round(prev, tables)
+            if self.graph.edges or self._triggers else prev
+        )
         res = []
         for v in self.var_ids:
             codec, spec = self._mesh_meta(v)
-            prev = self.states[v]
-            new = gossip_round(codec, spec, prev, self.neighbors, mask)
-            res.append(torch.sum(~codec.equal(spec, prev, new), dtype=torch.int32))
+            new = gossip_round(codec, spec, swept[v], self.neighbors, mask)
+            res.append(torch.sum(~codec.equal(spec, prev[v], new), dtype=torch.int32))
             self.states[v] = new
         if not res:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
         return torch.stack(res)
 
     def step(self, edge_mask=None) -> int:
-        """One bulk-synchronous gossip round. Returns the number of
-        (replica, variable) states it CHANGED (0 on the quiescent round)."""
+        """One bulk-synchronous round: local dataflow sweep and triggers,
+        then gossip. Returns the number of (replica, variable) states it
+        CHANGED (0 on the quiescent round)."""
+        tables = self._ensure_step()
         self._frontier_sync_mask(edge_mask)
-        res_vec = self._dense_round(edge_mask).cpu()
+        res_vec = self._dense_round(edge_mask, tables).cpu()
         residual = int(res_vec.sum())
         self._frontier_after_dense(res_vec.numpy())
         self.round_residuals.append(residual)
         return residual
 
-    def fused_steps(self, block: int, edge_mask=None) -> int:
-        """Run ``block`` rounds with one host sync at the end. Returns the
-        0-based index within the block of the first quiescent round
-        (residual 0), or -1 if every round changed something; rounds after
-        the first quiescent one are no-ops."""
-        self._frontier_sync_mask(edge_mask)
+    def _fused_block(self, block: int, edge_mask, tables) -> int:
+        """``block`` full steps with one host sync at the end: the 0-based
+        index of the first quiescent round, or -1."""
         first_zero = torch.full((), -1, dtype=torch.int32, device=self.device)
         for i in range(block):
-            residual = self._dense_round(edge_mask).sum()
+            residual = self._dense_round(edge_mask, tables).sum()
             first_zero = torch.where(
                 (first_zero < 0) & (residual == 0), i, first_zero
             )
-        first = int(first_zero)  # the block's one device sync
+        return int(first_zero)  # the block's one device sync
+
+    def fused_steps(self, block: int, edge_mask=None) -> int:
+        """Run ``block`` full steps (sweep + triggers + gossip + residual)
+        with one host sync at the end. Returns the 0-based index within the
+        block of the first quiescent round (residual 0), or -1 if every
+        round changed something; a quiescent step is a fixed point of the
+        whole step (join idempotence and the triggers' inflation gate), so
+        the rounds after it are no-ops."""
+        tables = self._ensure_step()
+        self._frontier_sync_mask(edge_mask)
+        first = self._fused_block(block, edge_mask, tables)
         self._frontier_after_opaque(first >= 0)
         self.round_residuals.append(-1 if first < 0 else 0)
         return first
+
+    def converge_on_device(self, max_rounds: int = 10_000, edge_mask=None,
+                           strict: bool = True, sync_every: int = 8) -> int:
+        """Run to the fixed point with no per-round host sync: fused blocks
+        of at most 8 full steps, each capped by the budget left, with the
+        host reading one device-side first-quiescent index a block (eager
+        PyTorch has no ``while_loop``; the JAX runtime runs the same steps
+        in one).
+
+        Returns the exact rounds to convergence, the final quiescent round
+        included (the :meth:`run_to_convergence` count). When the budget
+        runs out it raises, or with ``strict=False`` returns
+        ``-rounds_executed``. Up to 7 no-op rounds may run past the fixed
+        point inside the last block. ``sync_every`` is checked as in JAX;
+        the partitioned arm that reads it stays with ``shard``, which is
+        not ported."""
+        if max_rounds < 1:
+            raise ValueError("max_rounds must be >= 1")
+        if sync_every < 0:
+            raise ValueError("sync_every must be >= 0")
+        tables = self._ensure_step()
+        self._frontier_sync_mask(edge_mask)
+        rounds = 0
+        signed = None
+        while signed is None:
+            block = min(_CONVERGE_BLOCK, max_rounds - rounds)
+            first = self._fused_block(block, edge_mask, tables)
+            if first >= 0:
+                signed = rounds + first + 1
+            else:
+                rounds += block
+                if rounds >= max_rounds:
+                    signed = -rounds
+        self._frontier_after_opaque(signed > 0)
+        # 0 = reached the fixed point; -1 = the budget ran out
+        self.round_residuals.append(0 if signed > 0 else -1)
+        if signed < 0 and strict:
+            raise RuntimeError(f"no convergence within {-signed} rounds")
+        return signed
 
     def run_to_convergence(self, max_rounds: int = 10_000, edge_mask=None,
                            block: int = 1, mode: str = "dense") -> int:
         """Step until no state changes; returns rounds taken (the quiescent
         round counted). ``block > 1`` runs dense rounds in fused blocks with
         an exact count. ``mode``: ``"dense"``, ``"frontier"`` (dirty-set
-        scheduling) or ``"auto"`` (frontier whenever the runtime supports
-        it — always, with no dataflow edges)."""
+        scheduling; raises where the runtime needs the dense sweep) or
+        ``"auto"`` (frontier where supported, dense otherwise)."""
         if mode not in ("dense", "frontier", "auto"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode != "dense":
-            return self._frontier_convergence(max_rounds, edge_mask)
+            reason = self._frontier_unsupported()
+            if reason is None:
+                return self._frontier_convergence(max_rounds, edge_mask)
+            if mode == "frontier":
+                raise RuntimeError(f"frontier gossip unavailable here: {reason}")
         if block > 1:
             rounds = 0
             while rounds < max_rounds:
@@ -842,6 +1018,16 @@ class ReplicatedRuntime:
         self._population(var_id)
         return int(self._frontier[var_id].sum())
 
+    def _frontier_unsupported(self) -> "str | None":
+        """None when the frontier engine can schedule this runtime, else
+        the reason the dense sweep is required."""
+        if self.graph.edges or self._triggers:
+            return (
+                "dataflow edges / triggers sweep every replica row locally "
+                "(a row can change from its own state)"
+            )
+        return None
+
     def frontier_step(self, edge_mask=None) -> int:
         """ONE frontier-scheduled round: per variable, expand the dirty mask
         by reverse-neighbour reachability, gather + join only the reachable
@@ -852,6 +1038,9 @@ class ReplicatedRuntime:
         group's active members share one kernel launch. Returns the total
         (replica, variable) states changed — the :meth:`step` contract,
         with identical per-round states."""
+        reason = self._frontier_unsupported()
+        if reason is not None:
+            raise RuntimeError(f"frontier_step unavailable: {reason}")
         self._frontier_sync_mask(edge_mask)
         plan = self._ensure_plan()
         if plan is None:

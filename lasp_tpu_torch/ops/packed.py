@@ -33,24 +33,32 @@ def as_uint(words: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int64) & WORD_MASK
 
 
+def _byte_bits(device) -> torch.Tensor:
+    """uint8[8]: the weight of each bit of a byte, low bit first."""
+    return torch.ones(8, dtype=torch.uint8, device=device) << torch.arange(
+        8, dtype=torch.uint8, device=device
+    )
+
+
 def pack_bits(flat: torch.Tensor, n_words: int) -> torch.Tensor:
     """bool[..., N] -> int32[..., n_words], bit ``i`` at word ``i // 32``,
-    position ``i % 32`` (the JAX packing order)."""
-    pad = n_words * 32 - flat.shape[-1]
-    p = torch.nn.functional.pad(flat.to(torch.int64), (0, pad))
-    p = p.reshape(p.shape[:-1] + (n_words, 32))
-    weights = torch.ones((), dtype=torch.int64, device=flat.device) << torch.arange(
-        32, dtype=torch.int64, device=flat.device
-    )
-    return to_int32((p * weights).sum(dim=-1))
+    position ``i % 32`` (the JAX packing order). Built a byte at a time
+    (two bytes of scratch a bit) and read as little-endian words."""
+    lead = tuple(flat.shape[:-1])
+    padded = torch.zeros(lead + (n_words * 32,), dtype=torch.uint8, device=flat.device)
+    padded[..., : flat.shape[-1]] = flat
+    weighted = padded.reshape(lead + (n_words * 4, 8)) * _byte_bits(flat.device)
+    return weighted.sum(dim=-1, dtype=torch.uint8).view(torch.int32)
 
 
 def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
-    """int32[..., W] -> bool[..., n_bits] (inverse of :func:`pack_bits`)."""
-    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
-    bits = (as_uint(words)[..., None] >> shifts) & 1
-    flat = bits.reshape(words.shape[:-1] + (words.shape[-1] * 32,))
-    return flat[..., :n_bits].to(torch.bool)
+    """int32[..., W] -> bool[..., n_bits] (inverse of :func:`pack_bits`),
+    read a byte at a time from the little-endian words (one byte of
+    scratch a bit)."""
+    lead = tuple(words.shape[:-1])
+    octets = words.contiguous().view(torch.uint8)
+    bits = (octets.unsqueeze(-1) & _byte_bits(words.device)) != 0
+    return bits.reshape(lead + (words.shape[-1] * 32,))[..., :n_bits]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,3 +33,22 @@ def test_orset_anti_entropy_counts_match_jax(fanout, block, seed):
         (fanout + 2) * 256 * got["state_bytes_per_replica"] * got["rounds"]
     )
     assert got["device"] == "cpu" and got["gossip_impl"] == "plain"
+
+
+def test_adcounter_north_star_matches_jax():
+    """The north star at 8,192 replicas: the same rounds (warm round
+    included), view totals, live ads, active pairs and bytes a replica."""
+    want = jb.adcounter_10m(8192, threshold=5)
+    got = tb.adcounter_10m(8192, threshold=5, device="cpu")
+    for key in ("scenario", "rounds", "ad_totals", "live_ads", "active_pairs",
+                "state_bytes_per_replica", "engine", "check"):
+        assert got[key] == want[key], key
+    assert got["rounds"] > 2 and got["state_bytes_per_replica"] == 416
+    assert got["driver"].startswith("converge_on_device(fused blocks")
+
+
+def test_adcounter_6_matches_jax():
+    want = jb.adcounter_6()
+    got = tb.adcounter_6(device="cpu")
+    for key in ("scenario", "rounds", "totals", "engine", "check"):
+        assert got[key] == want[key], key

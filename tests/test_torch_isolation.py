@@ -32,7 +32,8 @@ def test_scans_cover_every_ported_module():
     mods = set(_submodules())
     files = {str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")}
     for name in ("lattice.dots", "lattice.orswot", "mesh.plan", "mesh.runtime",
-                 "ops.cuda_gossip"):
+                 "ops.cuda_gossip", "dataflow.edges", "dataflow.engine",
+                 "dataflow.plan", "store.store", "bench_scenarios"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -73,7 +74,11 @@ def test_no_forbidden_import_in_source(path):
 
 
 def _entry_points():
-    from lasp_tpu_torch.bench_scenarios import orset_anti_entropy
+    from lasp_tpu_torch.bench_scenarios import (
+        adcounter_6,
+        adcounter_10m,
+        orset_anti_entropy,
+    )
     from lasp_tpu_torch.bridge_state import from_numpy
     from lasp_tpu_torch.dataflow import Graph
     from lasp_tpu_torch.lattice import GSet, GSetSpec
@@ -89,6 +94,8 @@ def _entry_points():
             store, Graph(store), 8, ring(8, 2)
         ),
         "orset_anti_entropy": lambda: orset_anti_entropy(16),
+        "adcounter_6": lambda: adcounter_6(),
+        "adcounter_10m": lambda: adcounter_10m(16),
         "codec.new": lambda: GSet.new(GSetSpec(n_elems=4)),
         "from_numpy": lambda: from_numpy(
             "lasp_gset", GSetSpec(n_elems=4), [np.zeros(4, bool)]
@@ -97,8 +104,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", sorted(
-    ["Store", "ReplicatedRuntime", "orset_anti_entropy", "codec.new",
-     "from_numpy"]
+    ["Store", "ReplicatedRuntime", "orset_anti_entropy", "adcounter_6",
+     "adcounter_10m", "codec.new", "from_numpy"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the

@@ -38,7 +38,7 @@ def _offset_view(shape, words: int) -> torch.Tensor:
 @pytest.mark.parametrize("r,d", [
     (1003, 1024), (100_000, 128), (1 << 18, 1024), (65_536, 1024),
     (65_536, 1026), (65_536, 1027), (1 << 22, 2), (7, 3), (1 << 24, 64),
-    (32_768, 128), (4_096, 1024),
+    (32_768, 128), (4_096, 1024), (10_485_760, 1), (10_485_760, 4),
 ])
 def test_dense_schedule_takes_whole_rows_only_when_both_planes_fit(r, d):
     """K1's slab width at any shape: slabs even where both planes fit the
@@ -60,10 +60,16 @@ def test_dense_schedule_at_the_main_path_shapes():
     """The slabs K1's sweep chose (PERF.md): the headline's 4 KB rows
     (2**18 replicas x 1,024 words) in 64-word slabs, the engine's 512-byte
     flat OR-Set rows (100,000 x 128 words) in 32-word slabs; the small
-    parity planes (1,003 replicas) in quarter rows."""
+    parity planes (1,003 replicas) in quarter rows; the adcounter's 1- and
+    4-word rows (10,485,760 replicas) whole, a row a load."""
     assert cg.dense_slab_words(1 << 18, 1024, 4) == 64
     assert cg.dense_slab_words(100_000, 128, 4) == 32
     assert cg.dense_slab_words(1003, 1024, 4) == 256
+    aligned = torch.zeros((8, 4), dtype=torch.int32)
+    assert cg.dense_vector_words(1, aligned) == 1
+    assert cg.dense_slab_words(10_485_760, 1, 1) == 1
+    assert cg.dense_vector_words(4, aligned) == 4
+    assert cg.dense_slab_words(10_485_760, 4, 4) == 4
 
 
 @pytest.mark.parametrize("d,w", [(1024, 16), (1027, 16), (1026, 8), (7, 8),
