@@ -31,7 +31,24 @@ Phases, each of which fails the run on any error:
                K2 and K3 must launch with G > 1; a fourth ``plan="auto"``
                twin converges under ``torch.profiler`` for the card's busy
                share;
-6. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+6. baseline — the BASELINE configs through ``bench_scenarios``:
+               ``gset_1k()`` (1,024 replicas, two G-Sets with union and
+               intersection edges), ``orset_100k()`` (100,000 replicas, K1) and
+               ``pipeline_1m()`` (1,048,576 replicas, map -> filter -> fold),
+               each failing on its own reference check;
+7. ingest   — ``bench_scenarios.ingest_storm`` at 100,000 replicas x 128
+               variables (6 cycles of 2,048 ops, 3 warm replays an arm,
+               ``gate=None``): the per-variable and grouped arms bit-identical,
+               one group apply per plan group per cycle; then the same
+               schedule replayed into three ``plan="auto"`` twins (dense,
+               frontier with its exact marks feeding K2 / K3, ``packed=True``
+               dense through K1) that must converge alike;
+8. reads    — on the engine's population: ``read_until`` parked on the card
+               against ``on_device=False`` on a twin, ``read_any_until`` over
+               both variables likewise, and ``begin_fused_steps(8)`` with an
+               ``ingest_cycle`` before ``finish()`` against ``fused_steps(8)``
+               and the same cycle on a twin;
+9. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -41,7 +58,7 @@ Phases, each of which fails the run on any error:
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
                the run;
-7. kernels  — each kernel timed at every distinct launch shape phases 3-6
+10. kernels — each kernel timed at every distinct launch shape phases 3-9
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
                phase, read after), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
@@ -51,7 +68,7 @@ Phases, each of which fails the run on any error:
                split by launch class; and K1's column-slab sweep (slab widths
                against whole rows) at each of its shapes and at two shapes
                whose planes fit the L2. Every K2 and K3 shape is replayed
-               once under ``torch.profiler`` before phase 6, which must show
+               once under ``torch.profiler`` before phase 9, which must show
                exactly one device kernel per wrapper call.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
@@ -567,6 +584,236 @@ def phase_plan(torch, cg, n: int, captured: dict) -> dict:
     return {"rt": auto, "launches": launches, "shapes": shapes, "nbrs": nbrs}
 
 
+def phase_baseline(torch, cg) -> dict:
+    """BASELINE configs 2, 3 and 4 through their scenarios, each of which
+    raises on its own reference check. Returns the phase's launches and
+    launch shapes."""
+    from lasp_tpu_torch.bench_scenarios import gset_1k, orset_100k, pipeline_1m
+
+    cg.reset_launches()
+    lines = {}
+    for name, fn, keys in (
+            ("gset_1k", gset_1k, ("union_size", "intersection_size")),
+            ("orset_100k", orset_100k, ("merges_per_sec", "state_bytes_per_replica")),
+            ("pipeline_1m", pipeline_1m, ("folded_count",))):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        k1_before = cg.LAUNCHES["gossip_round_dense"]
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lines[name] = {
+            "scenario": out["scenario"], "rounds": out["rounds"],
+            "seconds": out["seconds"], "scenario_wall_s": time.perf_counter() - t0,
+            **{k: out[k] for k in keys},
+            "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "resident_before_GB": resident,
+            "k1_launches": cg.LAUNCHES["gossip_round_dense"] - k1_before,
+            "check": out["check"],
+        }
+    if lines["orset_100k"]["k1_launches"] == 0:
+        raise RuntimeError("orset_100k never launched K1")
+    _log("baseline", json.dumps(lines))
+    return {"launches": dict(cg.LAUNCHES), "shapes": _shape_counts(cg)}
+
+
+#: the ingest cell: BASELINE config 3's population under the JAX
+#: ``ingest_storm`` defaults (which run it at 256 replicas)
+_INGEST = {"n_replicas": 100_000, "n_vars": 128, "cycles": 6, "ops_per_cycle": 2048,
+           "seed": 31}
+
+
+def phase_ingest(torch, cg, captured: dict, card: str) -> dict:
+    """``ingest_storm`` at 100,000 replicas, then its schedule replayed into
+    a dense, a frontier and a packed ``plan="auto"`` twin, converged: the
+    rounds, the dense and frontier states bit for bit, every variable's
+    coverage value across the three and divergence 0 must agree. ``card``
+    (the card's name and power limit) is printed beside the arms. Returns
+    the launches, the launch shapes and the frontier twin (its captured K2
+    / K3 launches are replayed in the kernels phase)."""
+    from lasp_tpu_torch.bench_scenarios import (
+        INGEST_KINDS, _ingest_schedule, ingest_storm, ingest_storm_runtime,
+    )
+    from lasp_tpu_torch.mesh import ingest
+
+    c = _INGEST
+    cg.reset_launches()
+    t0 = time.perf_counter()
+    storm = ingest_storm(c["n_replicas"], c["n_vars"], c["cycles"], c["ops_per_cycle"],
+                         seed=c["seed"], reps=3, gate=None)
+    torch.cuda.synchronize()
+    storm_wall = time.perf_counter() - t0
+    split = {}
+    for plan, fns in (("off", ("_batch_begin", "_dispatch_batch", "_batch_finalize")),
+                      ("auto", ("_batch_begin", "encode_batch", "apply_group",
+                                "_batch_finalize"))):
+        rt, ids = ingest_storm_runtime(c["n_replicas"], c["n_vars"], plan=plan,
+                                       seed=c["seed"])
+        schedule = _ingest_schedule(ids, INGEST_KINDS, c["n_replicas"], c["cycles"],
+                                    c["ops_per_cycle"], c["seed"])
+        split[plan] = _host_split(torch, lambda: [rt.ingest_cycle(x) for x in schedule], fns)
+        del rt
+    twins = {}
+    schedule = None
+    for label, mode, packed in (("dense", "dense", False), ("frontier", "frontier", False),
+                                ("packed", "dense", True)):
+        rt, ids = ingest_storm_runtime(c["n_replicas"], c["n_vars"], packed=packed,
+                                       seed=c["seed"])
+        if schedule is None:
+            schedule = _ingest_schedule(ids, INGEST_KINDS, c["n_replicas"], c["cycles"],
+                                        c["ops_per_cycle"], c["seed"])
+        if label == "frontier":
+            _capture_rows_inputs(cg, rt, "ingest", captured)
+        applies = ingest.GROUP_APPLIES
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reports = [rt.ingest_cycle(cycle) for cycle in schedule]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dirty = sum(rt.frontier_size(v) for v in ids)
+        rounds = rt.run_to_convergence(mode=mode)
+        torch.cuda.synchronize()
+        twins[label] = {"rt": rt, "rounds": rounds, "ingest_s": t2 - t1,
+                        "converge_s": time.perf_counter() - t2, "dirty_rows": dirty,
+                        "group_applies": ingest.GROUP_APPLIES - applies,
+                        "dispatches": sum(r["dispatches"] for r in reports)}
+    dense, front, packed = (twins[k]["rt"] for k in ("dense", "frontier", "packed"))
+    if not twins["dense"]["rounds"] == twins["frontier"]["rounds"] == twins["packed"]["rounds"]:
+        raise RuntimeError(f"ingest: round counts differ: "
+                           f"{ {k: v['rounds'] for k, v in twins.items()} }")
+    for v in ids:
+        if not all(torch.equal(a, b) for a, b in zip(dense.states[v], front.states[v])):
+            raise RuntimeError(f"ingest: dense and frontier states differ on {v}")
+        want = dense.coverage_value(v)
+        if front.coverage_value(v) != want or packed.coverage_value(v) != want:
+            raise RuntimeError(f"ingest: coverage of {v} differs between twins")
+        if dense.divergence(v) or front.divergence(v) or packed.divergence(v):
+            raise RuntimeError(f"ingest: {v} did not converge")
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log("ingest", json.dumps({
+        "scenario": storm["scenario"], "card": card, "storm_wall_s": storm_wall,
+        "per_var_median_s": storm["timing"]["per_var"]["seconds"],
+        "grouped_median_s": storm["timing"]["grouped"]["seconds"],
+        "per_var_seconds_each": storm["timing"]["per_var"]["seconds_each"],
+        "grouped_seconds_each": storm["timing"]["grouped"]["seconds_each"],
+        "ingest_speedup": storm["ingest_speedup"], "group_applies": storm["dispatches"],
+        "normalize_alloc_bytes": storm["normalize_alloc_bytes"],
+        "twins": {k: {f: v[f] for f in v if f != "rt"} for k, v in twins.items()},
+        "host_split_s (one cold drive, cProfile cumulative)": split,
+        "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }))
+    if launches["gossip_round_rows"] == 0 or launches["gossip_round_rows_vclock"] == 0:
+        raise RuntimeError(f"the ingest twins never launched K2 and K3: {launches}")
+    if launches["gossip_round_dense"] == 0:
+        raise RuntimeError("the packed ingest twin never launched K1")
+    del dense, packed
+    return {"launches": launches, "shapes": shapes, "rt": front}
+
+
+def _host_split(torch, fn, names) -> dict:
+    """Run ``fn`` once under ``cProfile`` (synchronized after): its wall
+    seconds and the cumulative seconds of the functions ``names`` (host
+    time, device waits included where they block)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    out = {"wall": time.perf_counter() - t0}
+    for (_file, _line, name), row in pstats.Stats(prof).stats.items():
+        if name in names:
+            out[name] = out.get(name, 0.0) + row[3]
+    return out
+
+
+def _same_populations(torch, a, b, what: str) -> None:
+    for v in a.var_ids:
+        if not all(torch.equal(x, y) for x, y in zip(a.states[v], b.states[v])):
+            raise RuntimeError(f"reads: {what}: states of {v} differ")
+
+
+def phase_reads(torch, cg, n, nbrs) -> dict:
+    """The parked reads and the fused-block handle on the engine's
+    population, each against a twin that takes the host path. Returns the
+    launches and launch shapes."""
+    from lasp_tpu_torch.lattice import Threshold
+
+    cg.reset_launches()
+    line = {}
+    # read_until: the G-Counter's total at a replica no writer sits at
+    dev, ids, _expected, total = _engine(torch, n, nbrs)
+    host, _, _, _ = _engine(torch, n, nbrs)
+    ads, views = ids
+    reader = int(np.flatnonzero(~dev._frontier[views])[0])
+    t0 = time.perf_counter()
+    row_d = dev.read_until(reader, views, Threshold(total))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    row_h = host.read_until(reader, views, Threshold(total), on_device=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rounds = len(host.round_residuals)
+    if not torch.equal(row_d.counts, row_h.counts) or int(row_d.counts.sum()) != total:
+        raise RuntimeError("reads: read_until rows differ")
+    _same_populations(torch, dev, host, "read_until")
+    if dev.round_residuals != [0] or min(host.round_residuals) <= 0:
+        raise RuntimeError(f"reads: residuals {dev.round_residuals} / {host.round_residuals}")
+    line["read_until"] = {"replica": reader, "rounds": rounds, "device_s": t1 - t0,
+                          "host_probed_s": t2 - t1, "device_ms_per_round": (t1 - t0) / rounds * 1e3,
+                          "host_ms_per_round": (t2 - t1) / rounds * 1e3}
+    # read_any_until: the first writer's ads row or the counter total,
+    # whichever reaches the reader first
+    del dev, host
+    a, _, _, _ = _engine(torch, n, nbrs)
+    b, _, _, _ = _engine(torch, n, nbrs)
+    writer = int(np.flatnonzero(a._frontier[ads])[0])
+    want = a.read_at(writer, ads)
+    reads = [(ads, Threshold(want)), (views, Threshold(total))]
+    reader = int(np.flatnonzero(~a._frontier[ads] & ~a._frontier[views])[-1])
+    t0 = time.perf_counter()
+    var_a, row_a = a.read_any_until(reader, reads)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    var_b, row_b = b.read_any_until(reader, reads, on_device=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if var_a != var_b or not all(torch.equal(x, y) for x, y in zip(row_a, row_b)):
+        raise RuntimeError(f"reads: read_any_until gave {var_a} and {var_b}")
+    _same_populations(torch, a, b, "read_any_until")
+    line["read_any_until"] = {"replica": reader, "first": var_a,
+                              "rounds": len(b.round_residuals), "device_s": t1 - t0,
+                              "host_probed_s": t2 - t1}
+    # the fused-block handle with a cycle issued before finish(): writer w1
+    # (``_engine``'s second writer, at its own row) adds back ad0, which w0
+    # withdrew, and counts 7 more views
+    w1 = int(np.random.RandomState(5).choice(n, 16, replace=False)[1])
+    cycle = {ads: [(w1, ("add", "ad0"), "w1")], views: [(w1, ("increment", 7), "w1")]}
+    t0 = time.perf_counter()
+    handle = a.begin_fused_steps(8)
+    enqueue_s = time.perf_counter() - t0
+    a.ingest_cycle(cycle)
+    first_a = handle.finish()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first_b = b.fused_steps(8)
+    b.ingest_cycle(cycle)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if first_a != first_b or handle.finish() != first_a:
+        raise RuntimeError(f"reads: fused block returned {first_a} and {first_b}")
+    _same_populations(torch, a, b, "begin_fused_steps")
+    line["fused_handle"] = {"first_quiescent": first_a, "enqueue_s": enqueue_s,
+                            "begin_to_finish_s": t1 - t0, "fused_then_cycle_s": t2 - t1}
+    _log("reads", json.dumps(line))
+    return {"launches": dict(cg.LAUNCHES), "shapes": _shape_counts(cg)}
+
+
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
@@ -987,6 +1234,19 @@ def main() -> int:
     plan = phase_plan(torch, cg, n, captured)
     launches["plan"], shapes["plan"] = plan["launches"], plan["shapes"]
     _log("launches", f"plan: {launches['plan']}")
+    # 6. baseline -----------------------------------------------------------------
+    base = phase_baseline(torch, cg)
+    launches["baseline"], shapes["baseline"] = base["launches"], base["shapes"]
+    _log("launches", f"baseline: {launches['baseline']}")
+    # 7. ingest -------------------------------------------------------------------
+    ing = phase_ingest(torch, cg, captured, smi)
+    launches["ingest"], shapes["ingest"] = ing["launches"], ing["shapes"]
+    _log("launches", f"ingest: {launches['ingest']}")
+    # 8. reads --------------------------------------------------------------------
+    rd = phase_reads(torch, cg, n, nbrs)
+    launches["reads"], shapes["reads"] = rd["launches"], rd["shapes"]
+    _log("launches", f"reads: {launches['reads']}")
+    sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"]}
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
     # their kernel records (PERF.md)
@@ -996,16 +1256,15 @@ def main() -> int:
         for name in rows_shapes:
             for key, c in phase_shapes[name].items():
                 rows_shapes[name][key] = rows_shapes[name].get(key, 0) + c
-    _one_kernel_per_call(torch, cg, rows_shapes, captured,
-                         {"engine": rt_f, "plan": plan["rt"]}, profiled)
+    _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 6. adcounter ----------------------------------------------------------------
+    # 9. adcounter ----------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 7. kernels at the main path's shapes ----------------------------------------
+    # 10. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():
@@ -1017,8 +1276,7 @@ def main() -> int:
         raise RuntimeError(f"the headline's K1 launches did not take column slabs: "
                            f"{head_keys}")
     per_shape, widest, sweeps, k1_adcounter = phase_kernels(
-        torch, cg, bw, main_shapes, captured,
-        {"engine": rt_f, "plan": plan["rt"]}, widest_k2,
+        torch, cg, bw, main_shapes, captured, sources, widest_k2,
         {_ADCOUNTER_REPLICAS: ad["twin"].neighbors})
     if len(k1_adcounter) != len(shapes["adcounter"]["gossip_round_dense"]):
         raise RuntimeError("K1 was not held at every adcounter shape")

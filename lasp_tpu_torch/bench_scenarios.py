@@ -1,14 +1,17 @@
 """Benchmark scenarios of the port (from ``lasp_tpu.bench_scenarios``):
 ``orset_anti_entropy``, the OR-Set anti-entropy headline that ``bench.py``
-runs on the JAX side; ``adcounter_6``, the G-Counter ad counter through the
-engine; and ``adcounter_10m``, the north star — the advertisement counter's
-union -> product -> filter pipeline, G-Counter views and the server trigger
-over a scale-free population, run to its fixed point by
-``converge_on_device``."""
+runs on the JAX side; the BASELINE configs ``gset_1k`` (G-Sets with union
+and intersection edges), ``orset_100k`` and ``pipeline_1m`` (map -> filter
+-> fold); ``adcounter_6``, the G-Counter ad counter through the engine;
+``adcounter_10m``, the north star — the advertisement counter's union ->
+product -> filter pipeline, G-Counter views and the server trigger over a
+scale-free population, run to its fixed point by ``converge_on_device``;
+and ``ingest_storm``, the grouped-ingest A/B."""
 
 from __future__ import annotations
 
 import time
+import tracemalloc
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ import torch
 from .dataflow import Graph
 from .device import resolve_device
 from .lattice.base import replicate, tree_map
+from .mesh import ingest as ingest_mod
 from .mesh.gossip import converged, diverged_rows
 from .mesh.runtime import ReplicatedRuntime
 from .mesh.topology import locality_order, random_regular, ring, scale_free
@@ -380,4 +384,338 @@ def adcounter_10m(n_replicas: int = 10 * (1 << 20), threshold: int = 5,
         "sharding": None,
         "under_60s": secs < 60,
         "check": "live==(<threshold), active==matching-pairs",
+    }
+
+
+def gset_1k(device=None) -> dict:
+    """BASELINE config 2: 1,024 replicas, two 64-element G-Sets with union
+    and intersection edges, through the engine (the graph's sweep and a
+    gossip round a step, converged by ``converge_on_device``), checked
+    against the global reference values."""
+    dev = resolve_device(device)
+    n, e = 1024, 64
+    store = Store(n_actors=4, device=dev)
+    graph = Graph(store)
+    left = store.declare(id="left", type="lasp_gset", n_elems=e)
+    right = store.declare(id="right", type="lasp_gset", n_elems=e)
+    graph.union(left, right, dst="u")
+    graph.intersection(left, right, dst="i")
+    rt = ReplicatedRuntime(store, graph, n, random_regular(n, 3, seed=3), device=dev)
+
+    # population seed: random sparse element masks per replica, landed
+    # directly on the replica axis
+    rng = np.random.RandomState(2)
+    lmask = rng.rand(n, e) < 0.05
+    rmask = rng.rand(n, e) < 0.05
+    for var, mask in ((left, lmask), (right, rmask)):
+        # interned into each input's universe: the intersection edge pairs
+        # the two interners term by term
+        elems = rt.intern_terms(var, list(range(e)))
+        idx = torch.as_tensor(elems, dtype=torch.int64, device=dev)
+        rt.states[var].mask[:, idx] = torch.as_tensor(mask, device=dev)
+
+    warm_rounds, run = _engine_convergence_driver(rt)
+    rounds, secs = _timed(dev, run)
+    gl = {int(i) for i in np.flatnonzero(lmask.any(axis=0))}
+    gr = {int(i) for i in np.flatnonzero(rmask.any(axis=0))}
+    u_val, i_val = rt.coverage_value("u"), rt.coverage_value("i")
+    if u_val != (gl | gr):
+        raise RuntimeError(f"gset_1k: union {sorted(u_val)} != reference")
+    # the inputs gossip to their global unions, so the intersection
+    # converges to the global intersection
+    if i_val != (gl & gr):
+        raise RuntimeError(f"gset_1k: intersection {sorted(i_val)} != reference")
+    if rt.divergence("u") or rt.divergence("i"):
+        raise RuntimeError("gset_1k: u or i did not converge")
+    return {
+        "scenario": "gset_1k",
+        "rounds": warm_rounds + rounds,
+        "seconds": round(secs, 4),
+        "union_size": len(u_val),
+        "intersection_size": len(i_val),
+        "engine": "Graph+ReplicatedRuntime",
+        "check": "matches-global-reference",
+    }
+
+
+def orset_100k(n_replicas: int = 100_000, device=None) -> dict:
+    """BASELINE config 3: ``orset_anti_entropy`` at 100,000 replicas and its
+    defaults."""
+    return orset_anti_entropy(n_replicas, device=device)
+
+
+def pipeline_1m(n_replicas: int = 1 << 20, device=None) -> dict:
+    """BASELINE config 4: a 1,048,576-replica map -> filter -> fold pipeline
+    through the engine: a G-Set source, ``Graph.map`` / ``filter`` /
+    ``fold`` edges, swept and gossiped by ``ReplicatedRuntime`` to the
+    global fixed point."""
+    dev = resolve_device(device)
+    e = 32
+    store = Store(n_actors=4, device=dev)
+    graph = Graph(store)
+    src = store.declare(id="src", type="lasp_gset", n_elems=e)
+    mapped = graph.map(src, lambda i: i // 2, dst="mapped", dst_elems=e)
+    kept = graph.filter(mapped, lambda i: i % 2 == 0, dst="kept")
+    graph.fold(kept, lambda i: [i, i + 100], dst="folded", dst_elems=2 * e + 100)
+
+    rt = ReplicatedRuntime(
+        store, graph, n_replicas, random_regular(n_replicas, 3, seed=5), device=dev
+    )
+    # population seed: replica r starts with element (r % e), interned on
+    # the host once and scattered in one shot
+    elems = rt.intern_terms(src, list(range(e)))
+    r = np.arange(n_replicas)
+    rt.states[src].mask[
+        torch.as_tensor(r, device=dev),
+        torch.as_tensor(elems[r % e], dtype=torch.int64, device=dev),
+    ] = True
+    del r
+    warm_rounds, run = _engine_convergence_driver(rt)
+    rounds, secs = _timed(dev, run)
+    got = rt.coverage_value("folded")
+    ref_kept = {i for i in {i // 2 for i in range(e)} if i % 2 == 0}
+    ref_folded = {j for i in ref_kept for j in (i, i + 100)}
+    if got != ref_folded:
+        raise RuntimeError(f"pipeline: folded {sorted(got)} != {sorted(ref_folded)}")
+    if rt.divergence("folded"):
+        raise RuntimeError("pipeline: folded did not converge")
+    return {
+        "scenario": f"pipeline_{n_replicas}",
+        "rounds": warm_rounds + rounds,
+        "seconds": round(secs, 4),
+        "folded_count": len(got),
+        "engine": "Graph+ReplicatedRuntime",
+        "check": "fold==reference",
+    }
+
+
+def _snapshot_runtime(rt):
+    """States and frontier of a runtime, copied, for warm replays: restore
+    from this and an identical schedule replays exactly."""
+    return (
+        {k: tree_map(torch.clone, st) for k, st in rt.states.items()},
+        {k: m.copy() for k, m in rt._frontier.items()},
+    )
+
+
+def _restore_runtime(rt, snap) -> None:
+    states, frontier = snap
+    for k, st in states.items():
+        rt.states[k] = tree_map(torch.clone, st)
+    rt._frontier = {k: m.copy() for k, m in frontier.items()}
+
+
+def _ingest_schedule(ids, kinds, n_replicas: int, cycles: int,
+                     ops_per_cycle: int, seed: int) -> list:
+    """The ingest_storm op schedule: ``cycles`` serving cycles of
+    ``ops_per_cycle`` client ops each, Zipf-hot over variables, mixed
+    verbs — adds/increments dominate, OR-Set/OR-SWOT removes target
+    terms KNOWN live at their position (the precondition must hold so
+    both arms replay the identical schedule), map field writes ride the
+    per-var fallback. Pure function of the seed; returned as
+    ``[{var: [(replica, op, actor), ...]}, ...]``."""
+    rng = np.random.RandomState(seed)
+    n_vars = len(ids)
+    # Zipf-hot variable popularity (rank-1/r weights)
+    w = 1.0 / np.arange(1, n_vars + 1)
+    w /= w.sum()
+    order = rng.permutation(n_vars)
+    live: dict = {}  # (var, replica) -> [added-not-removed terms]
+    mints: dict = {}  # (var, replica, term-slot) -> OR-Set adds issued
+    schedule = []
+    for _c in range(cycles):
+        cycle: dict = {}
+        vs = rng.choice(n_vars, size=ops_per_cycle, p=w)
+        rows = rng.randint(0, n_replicas, size=ops_per_cycle)
+        rolls = rng.rand(ops_per_cycle)
+        for v_rank, r, roll in zip(vs, rows, rolls):
+            v = int(order[v_rank])
+            var, kind = ids[v], kinds[v % len(kinds)]
+            r = int(r)
+            actor = f"a{r % 4}"
+            if kind == "riak_dt_gcounter":
+                op = ("increment", 1 + int(roll * 3))
+            elif kind == "riak_dt_map":
+                op = (
+                    ("update", "hits", ("increment",))
+                    if roll < 0.5
+                    else ("update", "tags", ("add", f"t{int(roll * 8)}"))
+                )
+            else:
+                bag = live.setdefault((var, r), [])
+                removable = kind in ("lasp_orset", "riak_dt_orswot")
+                if removable and bag and roll < 0.15:
+                    op = ("remove", bag.pop())
+                else:
+                    t0 = int(roll * 8)
+                    if kind == "lasp_orset":
+                        # OR-Set tokens never free: cap adds per (var,
+                        # replica, term) at the actor pool width so the
+                        # schedule can never exhaust a slot pool (both
+                        # arms must replay it error-free)
+                        t0 = next(
+                            (t % 8 for t in range(t0, t0 + 8)
+                             if mints.get((var, r, t % 8), 0) < 8),
+                            None,
+                        )
+                        if t0 is None:
+                            if bag:
+                                op = ("remove", bag.pop())
+                                cycle.setdefault(var, []).append(
+                                    (r, op, actor)
+                                )
+                            continue
+                        mints[(var, r, t0)] = mints.get((var, r, t0), 0) + 1
+                    term = f"e{t0}"
+                    op = ("add", term)
+                    if removable and term not in bag:
+                        bag.append(term)
+            cycle.setdefault(var, []).append((r, op, actor))
+        schedule.append(cycle)
+    return schedule
+
+
+#: ``ingest_storm``'s variable kinds, cycled; the JAX scenario's fifth,
+#: ``riak_dt_map``, waits for the map's port
+INGEST_KINDS = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot", "lasp_orset")
+
+
+def ingest_storm_runtime(n_replicas: int, n_vars: int, plan: str = "auto",
+                         packed: bool = False, fanout: int = 3, seed: int = 31,
+                         device=None):
+    """``ingest_storm``'s store over ``random_regular(n_replicas, fanout,
+    seed)``: ``n_vars`` variables cycling :data:`INGEST_KINDS` at the JAX
+    scenario's widths. Returns ``(runtime, ids)``."""
+    dev = resolve_device(device)
+    store = Store(n_actors=4, device=dev)
+    caps = {
+        "lasp_gset": {"n_elems": 16},
+        "riak_dt_gcounter": {"n_actors": 4},
+        "riak_dt_orswot": {"n_elems": 8, "n_actors": 4},
+        "lasp_orset": {"n_elems": 8, "n_actors": 4, "tokens_per_actor": 8},
+    }
+    ids = []
+    for i in range(n_vars):
+        kind = INGEST_KINDS[i % len(INGEST_KINDS)]
+        ids.append(store.declare(id=f"v{i}", type=kind, **caps[kind]))
+    rt = ReplicatedRuntime(
+        store, Graph(store), n_replicas,
+        random_regular(n_replicas, fanout, seed=seed), packed=packed, plan=plan,
+        device=dev,
+    )
+    return rt, ids
+
+
+def ingest_storm(
+    n_replicas: int = 256,
+    n_vars: int = 128,
+    cycles: int = 6,
+    ops_per_cycle: int = 2048,
+    fanout: int = 3,
+    seed: int = 31,
+    reps: int = 3,
+    gate: "float | None" = 3.0,
+    device=None,
+) -> dict:
+    """The grouped-ingest A/B: a store of ``n_vars`` mixed-codec CRDTs
+    (G-Set / G-Counter / OR-SWOT / OR-Set, cycled; the JAX scenario also
+    cycles ``riak_dt_map``, which waits for the map's port) absorbs
+    ``cycles`` serving cycles of Zipf-hot client ops (adds, increments,
+    live-targeted removes) under both ingest arms:
+
+    - **per_var** (``plan="off"``): each variable's batch resolves and
+      lands on its own;
+    - **grouped** (``plan="auto"``): ops resolve into op tables and every
+      same-signature variable lands in one group apply per dispatch-plan
+      group per cycle (``mesh.ingest``).
+
+    Both arms replay the identical schedule warm from snapshots (median of
+    ``reps``, synchronized host clock). Asserted in the scenario: final
+    states bit-identical across the arms, exactly one group apply per
+    active plan group per cycle, and ``_normalize_ops`` returning its
+    input list for 100,000 scalar ops with under 64 KiB allocated. With a
+    ``gate`` the grouped arm must be at least that many times faster."""
+    dev = resolve_device(device)
+    probe_rt, probe_ids = ingest_storm_runtime(n_replicas, n_vars, fanout=fanout,
+                                               seed=seed, device=dev)
+    schedule = _ingest_schedule(
+        probe_ids, INGEST_KINDS, n_replicas, cycles, ops_per_cycle, seed
+    )
+    # one group apply per active plan group per cycle
+    expected = sum(
+        len({ingest_mod.group_key(probe_rt, v) for v in cycle}) for cycle in schedule
+    )
+    del probe_rt
+
+    def drive(rt) -> None:
+        for cycle in schedule:
+            rt.ingest_cycle(cycle)
+
+    results, finals = {}, {}
+    dispatch_check = None
+    for arm, plan in (("per_var", "off"), ("grouped", "auto")):
+        rt, ids = ingest_storm_runtime(n_replicas, n_vars, plan=plan, fanout=fanout,
+                                       seed=seed, device=dev)
+        snap = _snapshot_runtime(rt)
+        before = ingest_mod.GROUP_APPLIES
+        _timed(dev, lambda: drive(rt))  # cold: first allocations, interning
+        if plan == "auto":
+            got = ingest_mod.GROUP_APPLIES - before
+            dispatch_check = {"expected": expected, "got": got}
+            if got != expected:
+                raise RuntimeError(f"ingest_storm: group applies {dispatch_check}")
+        rep_secs = []
+        for _ in range(reps):
+            _restore_runtime(rt, snap)
+            _, secs = _timed(dev, lambda: drive(rt))
+            rep_secs.append(secs)
+        results[arm] = {
+            "seconds": float(np.median(rep_secs)),
+            "seconds_each": rep_secs,
+            "noise_band": max(rep_secs) / max(min(rep_secs), 1e-9),
+        }
+        finals[arm] = {v: rt.states[v] for v in ids}
+        del rt, snap
+    for v, st in finals["per_var"].items():
+        if not all(torch.equal(a, b) for a, b in zip(st, finals["grouped"][v])):
+            raise RuntimeError(f"ingest_storm: arm states diverged on {v}")
+    del finals
+
+    # scalar-op normalize is copy-on-write: the input list comes back
+    big = [(0, ("increment",), "a0")] * 100_000
+    tracemalloc.start()
+    base = tracemalloc.get_traced_memory()[0]
+    out = ReplicatedRuntime._normalize_ops(big)
+    alloc = tracemalloc.get_traced_memory()[0] - base
+    tracemalloc.stop()
+    if out is not big or alloc >= 65536:
+        raise RuntimeError(f"ingest_storm: normalize allocated {alloc} B for scalar ops")
+
+    pv_s = results["per_var"]["seconds"]
+    gr_s = results["grouped"]["seconds"]
+    speedup = pv_s / gr_s if gr_s > 0 else None
+    if gate is not None and (speedup is None or speedup < gate):
+        raise RuntimeError(f"grouped ingest speedup {speedup}x under the {gate}x gate")
+    return {
+        "scenario": f"ingest_storm_{n_vars}x{n_replicas}",
+        "n_replicas": n_replicas,
+        "n_vars": n_vars,
+        "cycles": cycles,
+        "ops_per_cycle": ops_per_cycle,
+        "fanout": fanout,
+        "kinds": list(INGEST_KINDS),
+        "dispatches": dispatch_check,
+        "impl_block_seconds": {"per_var": pv_s, "grouped": gr_s},
+        "normalize_alloc_bytes": int(alloc),
+        "timing": {
+            "policy": f"median of {reps} warm snapshot replays per arm",
+            "per_var": results["per_var"],
+            "grouped": results["grouped"],
+        },
+        "ingest_impl": "grouped" if gr_s <= pv_s else "per_var",
+        "ingest_speedup": speedup,
+        "gate": gate,
+        "engine": "ReplicatedRuntime.ingest_cycle (mesh.ingest op tables)",
+        "check": "bit-identical final states across arms + one group apply "
+                 "per active plan group per cycle",
     }

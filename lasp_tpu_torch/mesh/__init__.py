@@ -1,6 +1,6 @@
 """Mesh layer: replication, gossip / anti-entropy, the dispatch plan and
-reads over a leading replica axis (port of ``lasp_tpu.mesh``; sharding,
-quorum FSMs and grouped ingest are later slices)."""
+reads over a leading replica axis, grouped ingest and the parked reads
+(port of ``lasp_tpu.mesh``; sharding and quorum FSMs are later slices)."""
 
 from .gossip import (
     converged,
@@ -11,7 +11,7 @@ from .gossip import (
     join_all,
     quorum_read,
 )
-from .runtime import ReplicatedRuntime
+from .runtime import ActorCollisionError, FusedBlockHandle, ReplicatedRuntime
 from .topology import (
     assert_symmetric_mask,
     edge_failure_mask,
@@ -25,6 +25,8 @@ from .topology import (
 )
 
 __all__ = [
+    "ActorCollisionError",
+    "FusedBlockHandle",
     "ReplicatedRuntime",
     "assert_symmetric_mask",
     "converged",

@@ -6,16 +6,26 @@ runtime's device; client operations apply at chosen replica rows and
 bulk-synchronous gossip rounds spread them. Ported:
 
 - construction, including ``packed=True`` (OR-Set families held in the flat
-  bit-packed wire format, ``ops.flatpack``) and ``plan="auto" | "off"``;
-- ``update_at``, the per-variable arm of ``update_batch`` (OR-SWOT
-  included), ``seed_tokens``, ``seed_increments``;
-- the dense engine: ``step``, ``fused_steps``, ``run_to_convergence(block=)``
-  and ``converge_on_device`` (fused blocks of at most 8 rounds, one host
-  sync a block). A step is the local round — the dataflow graph's sweep and
-  the reactive triggers (``register_trigger``) on dense views of every
-  replica — then gossip; unmasked rounds of packed OR-Sets run through the
-  CUDA kernel K1. The dense step stays per variable under either plan mode
-  (the JAX step is grouped; the results are the same by construction);
+  bit-packed wire format, ``ops.flatpack``), ``plan="auto" | "off"`` and
+  ``debug_actors`` (the actor-collision guard: :class:`ActorCollisionError`
+  at a second write site of one actor lane);
+- the write path: ``update_at``; ``ingest_cycle``, which under
+  ``plan="auto"`` resolves each variable's ops into an op table and lands
+  each dispatch-plan group's tables in one group apply (``mesh.ingest``)
+  with exact dirty marks, and under ``plan="off"`` runs the per-variable
+  arm; ``update_batch`` (one variable's cycle); ``apply_batch``;
+  ``seed_tokens`` and ``seed_increments`` with JAX's index semantics
+  (negative indices wrap, out-of-range ones drop, filtered on the host
+  before the scatter);
+- the dense engine: ``step``, ``begin_fused_steps`` (a
+  :class:`FusedBlockHandle` whose ``finish`` syncs), ``fused_steps``,
+  ``run_to_convergence(block=)`` and ``converge_on_device`` (fused blocks
+  of at most 8 rounds, one host sync a block). A step is the local round —
+  the dataflow graph's sweep and the reactive triggers
+  (``register_trigger``) on dense views of every replica — then gossip;
+  unmasked rounds of packed OR-Sets run through the CUDA kernel K1. The
+  dense step stays per variable under either plan mode (the JAX step is
+  grouped; the results are the same by construction);
 - the frontier scheduler: ``mark_dirty``, ``frontier_step``,
   ``run_to_convergence(mode="frontier" | "auto")``, for a runtime with no
   dataflow edges and no triggers. With ``plan="off"``
@@ -25,16 +35,19 @@ bulk-synchronous gossip rounds spread them. Ported:
   kernels K2 (leafwise codecs) and K3 (OR-SWOT), their plain versions for
   a population on the CPU; the dense crossover is decided per variable;
 - reads: ``coverage_value``, ``replica_value``, ``quorum_value``,
-  ``divergence``, ``read_at``.
+  ``divergence``, ``read_at``, and the parked reads ``read_until`` /
+  ``read_any_until``: by default the wait runs one round at a time with
+  the threshold predicate evaluated on the device at the replica's row and
+  one int32 crossing to the host a round; ``on_device=False`` probes the
+  row from the host between (fused) rounds.
 
 Rows are updated in place (client writes, sparse-round scatters) where the
 JAX runtime rebinds donated buffers: do not hold ``rt.states[v]`` leaves
 across a write or a round and expect the old values. A planned round reads
 each member population where it lies (the kernels take a table of member
 base pointers) and never stacks a group's populations. Programs, sharding,
-membership, grouped ingest and ``begin_fused_steps`` are later slices
-(``shard``, ``register`` and ``resize`` raise ``NotImplementedError``;
-client writes take the per-variable arm); telemetry is not carried.
+membership, maps and compaction are later slices (``shard``, ``register``
+and ``resize`` raise ``NotImplementedError``); telemetry is not carried.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from ..ops import cuda_gossip
 from ..ops.flatpack import FlatORSet, FlatORSetSpec
 from ..store.store import PreconditionError
 from ..utils.interning import CapacityError
+from . import ingest as ingest_mod
 from .gossip import divergence, frontier_reach, gossip_round, gossip_round_rows, join_all, quorum_read
 from .plan import compile_plan
 
@@ -99,6 +113,113 @@ def _not_ported(what: str):
     )
 
 
+def _wrap_index(idx: np.ndarray, size: int) -> tuple:
+    """``(index, valid)``: negative indices wrapped once, as JAX's scatters
+    normalise them, and the mask of those in ``[0, size)`` (JAX drops the
+    rest)."""
+    idx = np.where(idx < 0, idx + size, idx)
+    return idx, (idx >= 0) & (idx < size)
+
+
+def _leaves(tree) -> list:
+    """The leaves of a threshold state: tuples, lists and dicts flatten,
+    anything else is a leaf."""
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    if isinstance(tree, dict):
+        return [x for t in tree.values() for x in _leaves(t)]
+    return [tree]
+
+
+def _device_expressible(state) -> bool:
+    """Can this threshold state ride into the device-parked wait? Every
+    codec threshold (lattice states, numeric counter bounds) can; a
+    host-only payload (an object-dtype leaf) cannot, and the wait then
+    probes from the host."""
+    try:
+        for leaf in _leaves(state):
+            dt = getattr(leaf, "dtype", None)
+            if dt is None:
+                dt = np.asarray(leaf).dtype  # plain Python leaf
+            if dt == object:
+                return False
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+class ActorCollisionError(RuntimeError):
+    """Two replica rows minted per-actor lane events under one actor
+    (raised only under the opt-in ``debug_actors`` guard). The riak_dt
+    actor requirement: an actor names one writing site; colliding dot
+    counters read as observed-and-removed, and same-lane counter increments
+    max-merge into lost counts — silently."""
+
+
+class _PendingBatch:
+    """One variable's prepared, not yet applied op batch inside an ingest
+    cycle: the host phases ran (``_batch_begin``); the dispatch outcome and
+    the bookkeeping inputs gather here until ``_batch_finalize``."""
+
+    __slots__ = ("var", "var_id", "tn", "ops", "states", "cap_err",
+                 "guard_actors", "table", "err", "marks", "encode_failed")
+
+    def __init__(self, var, var_id, tn, ops, states, cap_err, guard_actors):
+        self.var = var
+        self.var_id = var_id
+        self.tn = tn
+        self.ops = ops
+        self.states = states
+        self.cap_err = cap_err
+        self.guard_actors = guard_actors
+        #: the resolved op table (``mesh.ingest``); None = per-variable arm
+        self.table = None
+        #: dispatch / encode error (``cap_err`` stays apart: it defers)
+        self.err = None
+        #: exact changed rows from the group apply; None = per-variable arm
+        #: (superset marking)
+        self.marks = None
+        self.encode_failed = False
+
+
+class FusedBlockHandle:
+    """An enqueued, not yet synced fused block (``begin_fused_steps``):
+    :meth:`finish` waits for the block's first-quiescent index and does the
+    round bookkeeping ``fused_steps`` does inline. ``finish`` is
+    idempotent: the first call resolves, later calls return the result."""
+
+    __slots__ = ("_rt", "_first_zero", "_states_in", "_result")
+
+    def __init__(self, rt, first_zero, states_in):
+        self._rt = rt
+        self._first_zero = first_zero
+        #: the states from before the window, held until the sync
+        #: succeeds: the port never donates, so a failed sync restores them
+        self._states_in = states_in
+        self._result: "int | None" = None
+
+    @property
+    def pending(self) -> bool:
+        return self._result is None
+
+    def finish(self) -> int:
+        if self._result is not None:
+            return self._result
+        rt = self._rt
+        try:
+            first_zero = int(self._first_zero)  # the window's one device sync
+        except Exception:
+            if self._states_in is not None:
+                rt._restore_states(self._states_in)
+            raise
+        finally:
+            self._states_in = None
+        rt._frontier_after_opaque(first_zero >= 0)
+        rt.round_residuals.append(-1 if first_zero < 0 else 0)
+        self._result = first_zero
+        return first_zero
+
+
 class ReplicatedRuntime:
     """Simulates ``n_replicas`` copies of a store under a gossip topology,
     bulk-synchronously, on one device."""
@@ -106,7 +227,8 @@ class ReplicatedRuntime:
     _FRONTIER_MIN_BUCKET = 16
 
     def __init__(self, store, graph, n_replicas: int, neighbors,
-                 packed: bool = False, plan: str = "auto", device=None):
+                 packed: bool = False, plan: str = "auto",
+                 debug_actors: bool = False, device=None):
         if plan not in ("auto", "off"):
             raise ValueError(f"unknown plan mode {plan!r} ('auto' or 'off')")
         self.device = resolve_device(device)
@@ -127,6 +249,10 @@ class ReplicatedRuntime:
             self._host_neighbors, device=self.device
         ).contiguous()
         self.packed = packed
+        #: opt-in actor-collision guard; the write-site registry maps
+        #: (var_id, actor identity) -> home replica
+        self.debug_actors = debug_actors
+        self._actor_sites: dict = {}
         self.states: dict = {}
         self._packed_specs: dict[str, FlatORSetSpec] = {}
         #: per-var dirty-replica frontier masks (host ``np.bool_[R]``)
@@ -271,12 +397,93 @@ class ReplicatedRuntime:
     def register(self, *args, **kwargs):
         _not_ported("register (mesh programs)")
 
+    # -- the actor guard (debug_actors) ----------------------------------------
+    #: the types whose ops mint per-actor lane events: the OR-SWOT (vclock
+    #: dots; colliding counters read as observed-and-removed), the G-Counter
+    #: (same-lane increments at two rows max-merge into lost counts) and the
+    #: OR-Sets (counter-based tokens allocate row-locally per (elem, actor)
+    #: pool: two rows minting under one actor reuse slots)
+    _ACTOR_LANE_TYPES = frozenset({
+        "riak_dt_orswot", "riak_dt_gcounter", "lasp_orset", "lasp_orset_gbtree",
+    })
+
+    def _actor_guard_keys(self, var, actor, fresh_offset: int = 0) -> list:
+        """Registry keys naming one physical actor lane. ``update_at`` and
+        ``update_batch`` name actors by term, ``seed_increments`` by lane
+        index; a term registers under its ``("lane", idx)`` alias too, and
+        a lane index resolves back to its term. A term not yet interned
+        will land at ``len(var.actors) + fresh_offset`` (the interner
+        assigns slots in order; the offset counts the other fresh actors
+        before it in the same batch)."""
+        keys = [(var.id, actor)]
+        if var.actors is None:
+            return keys
+        if isinstance(actor, tuple) and len(actor) == 2 and actor[0] == "lane":
+            idx = actor[1]
+            if idx < len(var.actors):
+                keys.append((var.id, var.actors.terms()[idx]))
+        elif actor in var.actors:
+            keys.append((var.id, ("lane", var.actors.index_of(actor))))
+        else:
+            keys.append((var.id, ("lane", len(var.actors) + fresh_offset)))
+        return keys
+
+    def _guard_actor_check(self, var, replica: int, actor) -> list:
+        """The guard's check half: raise at an actor's second write site;
+        return the registry keys for :meth:`_guard_actor_commit`, which runs
+        only once the write applied (a failed write registers no site)."""
+        keys = self._actor_guard_keys(var, actor)
+        for key in keys:
+            prev = self._actor_sites.get(key)
+            if prev is not None and prev != int(replica):
+                if prev < 0:
+                    raise ActorCollisionError(
+                        f"actor {actor!r} departed with a crashed row "
+                        f"(its {var.id!r} tokens may still circulate via "
+                        "gossip) and may never mint again — use a fresh "
+                        "actor name for the new incarnation (the riak_dt "
+                        "never-reuse-an-actor rule)"
+                    )
+                raise ActorCollisionError(
+                    f"actor {actor!r} already minted lane events for "
+                    f"{var.id!r} at replica {prev}; writing from replica "
+                    f"{int(replica)} would collide its per-actor lane "
+                    "(vclock dots / counter lanes merge by max: silent "
+                    "element loss or lost increments). Use one actor per "
+                    "writing replica."
+                )
+        return keys
+
+    def _guard_actor_commit(self, keys, replica: int) -> None:
+        for key in keys:
+            self._actor_sites.setdefault(key, int(replica))
+
+    @staticmethod
+    def _op_mints_lane(var, op: tuple) -> bool:
+        """Does this client op mint per-actor lane events? Removes read
+        lanes but mint nothing, so two-site removes are safe."""
+        tn = var.type_name
+        if tn == "riak_dt_gcounter":
+            return op[0] == "increment"
+        if tn in ("riak_dt_orswot", "lasp_orset", "lasp_orset_gbtree"):
+            return op[0] in ("add", "add_all")
+        return False
+
     # -- client operations ---------------------------------------------------
     def update_at(self, replica: int, var_id: str, op: tuple, actor) -> None:
         """Apply a store op at one replica row: the codec op + merge +
         inflation gate run directly on the row (``lasp_core:update`` then
-        ``bind``, ``src/lasp_core.erl:283-312``); gossip carries it on."""
+        ``bind``, ``src/lasp_core.erl:283-312``); gossip carries it on.
+        Under ``debug_actors`` a lane-minting op from a second replica of
+        one actor raises :class:`ActorCollisionError`."""
         var = self.store.variable(var_id)
+        guarded = (
+            self.debug_actors
+            and var.type_name in self._ACTOR_LANE_TYPES
+            and self._op_mints_lane(var, op)
+        )
+        if guarded:
+            self._guard_actor_check(var, replica, actor)
         pop = self._population(var_id)
         wire_row = tree_map(lambda x: x[replica], pop)
         row = self._to_dense_row(var_id, wire_row)
@@ -286,6 +493,10 @@ class ReplicatedRuntime:
             new_row = self._from_dense_row(var_id, merged)
             for x, r in zip(pop, new_row):
                 x[replica] = r
+            if guarded:
+                # keys re-derived after the apply interned the actor (its
+                # ("lane", idx) alias); a non-inflation mints nothing
+                self._guard_actor_commit(self._actor_guard_keys(var, actor), replica)
             self._mark_dirty_rows(var_id, [replica])
         # a non-inflation is silently ignored (the bind rule); new terms
         # fold into the edge tables
@@ -294,45 +505,257 @@ class ReplicatedRuntime:
     def update_batch(self, var_id: str, ops) -> None:
         """Vectorized client writes: ``ops`` is an iterable of ``(replica,
         op_tuple, actor)``, applied with the sequential semantics of per-op
-        :meth:`update_at` (the JAX runtime's per-variable arm). A mid-batch
+        :meth:`update_at`. One variable's :meth:`ingest_cycle`: under
+        ``plan="auto"`` the batch becomes an op table and one group apply
+        with exact dirty marks; under ``plan="off"`` it takes the
+        per-variable arm and marks every row it touched. A mid-batch
         failure (capacity, exhausted pool, not_present) persists the op
         prefix before it and then raises."""
+        self.ingest_cycle(((var_id, ops),))
+
+    def apply_batch(self, var_id: str, fn) -> None:
+        """Device-side batched update: ``fn(states[R, ...]) -> states``. The
+        opaque ``fn`` may touch any row, so the variable's whole frontier
+        goes dirty (pass rows to :meth:`mark_dirty` afterwards to tighten
+        it)."""
+        self.states[var_id] = fn(self.states[var_id])
+        self.mark_dirty(var_id)
+
+    @staticmethod
+    def _normalize_ops(ops) -> list:
+        """Materialize the op list once, rebuilding only the entries whose
+        multi-term payload must be copied (``add_all`` / ``remove_all``: a
+        one-shot iterator would reach the dispatch drained). Scalar ops
+        keep their tuples, so a batch of them returns the input list
+        itself."""
+        ops = ops if isinstance(ops, list) else list(ops)
+        out = None
+        for i, item in enumerate(ops):
+            op = item[1]
+            if (
+                isinstance(op, tuple)
+                and len(op) > 1
+                and op[0] in ("add_all", "remove_all")
+            ):
+                if out is None:
+                    out = ops[:i]
+                out.append((item[0], (op[0], list(op[1]), *op[2:]), item[2]))
+            elif out is not None:
+                out.append(item)
+        return ops if out is None else out
+
+    def _batch_begin(self, var_id: str, ops) -> "_PendingBatch | None":
+        """The host phases of a batched write: normalize, check the rows,
+        the capacity prefix, the actor guard's staging. Returns None for an
+        empty batch; raises batch-level errors (``IndexError`` for a row
+        outside the population, ``ActorCollisionError``) with nothing
+        applied."""
         ops = self._normalize_ops(ops)
         var = self.store.variable(var_id)
         tn = var.type_name
         states = self._population(var_id)
         if not ops:
-            return
+            return None
+        # rows index the card's scatters, where an out-of-range index is a
+        # device-side assert: refused here, before anything is interned
+        n = self.n_replicas
+        for r, _op, _actor in ops:
+            if not 0 <= r < n:
+                raise IndexError(
+                    f"update_batch({var_id!r}): replica {r!r} out of range "
+                    f"for {n} replicas"
+                )
+        # the longest op prefix whose new terms / actors fit applies, then
+        # the overflow raises; walked before the guard, so the guard judges
+        # exactly the ops that can apply in this call
         n_fit, cap_err = self._capacity_prefix(var, tn, ops)
         if cap_err is not None:
             ops = ops[:n_fit]
-        err = None
-        try:
-            self._dispatch_batch(var, tn, states, ops)
-        except (CapacityError, PreconditionError, ValueError) as exc:
-            err = exc
-        finally:
-            # the rows the batch touched: a superset of the rows it changed
-            self._mark_dirty_rows(var_id, [r for r, _op, _a in ops])
-            # the ops that landed before a failure interned terms too: fold
-            # them into the edge tables
-            self.graph.refresh()
-        final = err if err is not None else cap_err
-        if final is not None:
-            raise final
+        guard_actors = None
+        if self.debug_actors and tn in self._ACTOR_LANE_TYPES:
+            # checked before any mutation: a collision is a batch-level
+            # error, all or nothing (nothing applied, registry unchanged)
+            staged: dict = {}
+            fresh: dict = {}  # actors not yet interned -> arrival order
+            for r, op, actor in ops:
+                if not self._op_mints_lane(var, op):
+                    continue
+                if var.actors is not None and actor not in var.actors:
+                    fresh.setdefault(actor, len(fresh))
+                off = fresh.get(actor, 0)
+                for key in self._actor_guard_keys(var, actor, off):
+                    prev = self._actor_sites.get(key, staged.get(key))
+                    if prev is None:
+                        staged[key] = int(r)
+                    elif prev != int(r):
+                        raise ActorCollisionError(
+                            f"update_batch({var_id!r}): actor {actor!r} "
+                            + ("departed with a crashed row and may "
+                               "never mint again (use a fresh actor "
+                               "name for the new incarnation)"
+                               if prev < 0 else
+                               f"mints lane events at replicas {prev} "
+                               f"and {int(r)}")
+                            + " — one actor per writing replica "
+                            "(see debug_actors/_guard_actor_check)"
+                        )
+            # sites register at finalize, only for the ops that applied
+            guard_actors = [
+                (actor, int(r), k)
+                for k, (r, op, actor) in enumerate(ops)
+                if self._op_mints_lane(var, op)
+            ]
+        return _PendingBatch(var, var_id, tn, ops, states, cap_err, guard_actors)
 
-    @staticmethod
-    def _normalize_ops(ops) -> list:
-        """Materialize the op list once, copying multi-term payloads (a
-        one-shot iterator would reach the dispatch drained)."""
-        out = []
-        for r, op, actor in ops:
-            if isinstance(op, tuple) and len(op) > 1 and op[0] in (
-                "add_all", "remove_all"
-            ):
-                op = (op[0], list(op[1]), *op[2:])
-            out.append((r, op, actor))
-        return out
+    def ingest_cycle(self, ops_by_var, isolate_errors: bool = False) -> dict:
+        """Apply one cycle of client writes across variables: ``ops_by_var``
+        maps ``var_id -> [(replica, op, actor), ...]`` (a dict or an
+        iterable of pairs; each variable's order is kept).
+
+        Under ``plan="auto"`` every encodable variable's ops resolve into an
+        op table (``mesh.ingest``) and each dispatch-plan group's tables
+        land in one group apply, whose changed rows become exact dirty
+        marks (the per-op ``update_at`` marks). ``plan="off"`` runs the
+        per-variable arm, which marks every row a batch touched.
+
+        Errors per variable are ``update_batch``'s: a mid-batch data failure
+        persists the op prefix before it. With ``isolate_errors=False`` the
+        first failing variable's error raises after every variable's
+        bookkeeping landed; ``isolate_errors=True`` returns them in the
+        report. Returns ``{"errors", "ops", "dispatches", "groups",
+        "grouped_vars", "pad_slots", "table_slots", "fallback_vars"}``."""
+        items = ops_by_var.items() if hasattr(ops_by_var, "items") else ops_by_var
+        pendings: list = []
+        errors: dict = {}
+        seen: set = set()
+        for var_id, ops in items:
+            if var_id in seen:
+                # a second batch of one variable would encode against the
+                # population from before the first
+                raise ValueError(
+                    f"ingest_cycle: variable {var_id!r} appears twice "
+                    "in one cycle (merge its op lists)"
+                )
+            seen.add(var_id)
+            try:
+                p = self._batch_begin(var_id, ops)
+            except Exception as exc:
+                if not isolate_errors:
+                    raise
+                errors[var_id] = exc
+                continue
+            if p is not None:
+                pendings.append(p)
+        # encode: each batch's op table, on the host
+        tabled: list = []
+        for p in pendings:
+            if self.plan_mode != "auto":
+                continue
+            try:
+                p.table, enc_err = ingest_mod.encode_batch(
+                    self, p.var, p.tn, p.states, p.ops
+                )
+                if enc_err is not None:
+                    p.err = enc_err
+            except Exception as exc:
+                # a malformed op: nothing applied; the terms interned so
+                # far still fold into the edge tables at finalize
+                p.err, p.table, p.encode_failed = exc, None, True
+            except BaseException as exc:
+                # an interrupt lands this batch's bookkeeping, then goes on
+                p.err, p.table, p.encode_failed = exc, None, True
+                self._batch_finalize(p)
+                raise
+            if p.table is not None:
+                tabled.append(p)
+        # the per-variable arm: plan="off", or a type with no op table
+        for p in pendings:
+            if p.table is not None or p.encode_failed:
+                continue
+            try:
+                self._dispatch_batch(p.var, p.tn, p.states, p.ops)
+            except Exception as exc:
+                p.err = exc
+            except BaseException as exc:
+                p.err = exc
+                self._batch_finalize(p)
+                raise
+        report = self._ingest_apply_groups(tabled)
+        for p in pendings:
+            self._batch_finalize(p)
+            final = p.err if p.err is not None else p.cap_err
+            if final is not None:
+                errors[p.var_id] = final
+        report["errors"] = errors
+        report["ops"] = sum(len(p.ops) for p in pendings)
+        report["fallback_vars"] = [
+            p.var_id for p in pendings if p.table is None and not p.encode_failed
+        ]
+        if errors and not isolate_errors:
+            raise next(iter(errors.values()))
+        return report
+
+    def _ingest_apply_groups(self, tabled: list) -> dict:
+        """Land the cycle's op tables: group them by the gossip plan's
+        signature rule and land each group in one group apply
+        (``mesh.ingest.apply_group``), whose per-member changed rows become
+        the pendings' exact marks. A failing group fails its own batches
+        (their marks stay None: superset marking) and not the cycle."""
+        groups: dict = {}
+        for p in tabled:
+            if p.table.slots == 0:
+                p.marks = ()  # nothing survived the trims: no apply, no marks
+                continue
+            key = (ingest_mod.group_key(self, p.var_id), p.table.kind)
+            groups.setdefault(key, []).append(p)
+        n_groups = slots = padded = 0
+        for (_sig, kind), members in groups.items():
+            tables = [p.table for p in members]
+            try:
+                changed = ingest_mod.apply_group(
+                    kind, [self.states[p.var_id] for p in members], tables,
+                    self.n_replicas,
+                )
+            except Exception as exc:
+                for p in members:
+                    p.err = exc
+                continue
+            for p, ch in zip(members, changed):
+                p.marks = np.flatnonzero(ch)
+            buckets, pad_slots = ingest_mod.table_buckets(tables)
+            n_groups += 1
+            slots += sum(b for _n, b in buckets) * len(members)
+            padded += pad_slots
+        return {
+            "dispatches": n_groups,
+            "groups": n_groups,
+            "grouped_vars": len(tabled),
+            "pad_slots": padded,
+            "table_slots": slots,
+        }
+
+    def _batch_finalize(self, p: "_PendingBatch") -> None:
+        """The bookkeeping every batch owes, applied or failed: dirty marks
+        (the group apply's exact rows, else every row the batch touched — a
+        superset), the edge tables' refresh (a failed batch's persisted
+        prefix interned terms too), the actor guard's site commits for the
+        ops that applied."""
+        if p.marks is not None:
+            if len(p.marks):
+                self._mark_dirty_rows(p.var_id, p.marks)
+        else:
+            self._mark_dirty_rows(p.var_id, [r for r, _op, _a in p.ops])
+        self.graph.refresh()
+        if p.guard_actors is not None:
+            # the batch paths stamp the failing op's index on the error:
+            # ops at or after it minted nothing and commit nothing
+            fail_idx = (
+                getattr(p.err, "batch_index", len(p.ops))
+                if p.err is not None else len(p.ops)
+            )
+            for actor, r, k in p.guard_actors:
+                if k < fail_idx:
+                    self._guard_actor_commit(self._actor_guard_keys(p.var, actor), r)
 
     @staticmethod
     def _capacity_prefix(var, tn, ops):
@@ -626,7 +1049,7 @@ class ReplicatedRuntime:
         if probe:
             rs = np.asarray([p[0] for p in probe], dtype=np.int64)
             es = np.asarray([var.elems.index_of(p[1]) for p in probe], dtype=np.int64)
-            present = (self._take_pairs(states.dots, rs, es) > 0).any(axis=-1)
+            present = (ingest_mod.take_pairs(states.dots, rs, es) > 0).any(axis=-1)
             live = {p: bool(v) for p, v in zip(probe, present)}
         for k, (r, op, _actor) in enumerate(ops):
             verb = op[0]
@@ -641,12 +1064,6 @@ class ReplicatedRuntime:
             else:
                 raise ValueError(f"update_batch: unsupported op {op!r}")
         return len(ops), None
-
-    def _take_pairs(self, plane, rs, es) -> np.ndarray:
-        """``plane[rs, es]`` of an ``[R, E, ...]`` plane as one flat gather,
-        pulled to the host (the port's copy of ``mesh.ingest.take_pairs``)."""
-        flat = rs * int(plane.shape[1]) + es
-        return plane.reshape((-1,) + tuple(plane.shape[2:]))[self._index(flat)].cpu().numpy()
 
     def _elem_word_masks(self, var_id: str) -> np.ndarray:
         """uint32[E, W]: per-element word masks of the flat bit layout."""
@@ -742,9 +1159,13 @@ class ReplicatedRuntime:
     def seed_tokens(self, var_id: str, rows, elems, tokens) -> None:
         """Device-side bulk add: token ``tokens[i]`` of element ``elems[i]``
         live at replica ``rows[i]`` in one scatter (reference op
-        ``src/lasp_orset.erl:101-102``). In packed mode duplicate triples
-        are dropped on the host first: the add-scatter that stands in for
-        a scatter-OR would carry a duplicate into an unrelated bit."""
+        ``src/lasp_orset.erl:101-102``). Indices follow JAX's scatter:
+        negative ones wrap, out-of-range ones drop (filtered before the
+        scatter, so the card only sees valid indices); a row outside the
+        population then raises ``IndexError`` from the dirty marking, after
+        the rest landed. In packed mode duplicate triples are dropped on the
+        host first: the add-scatter that stands in for a scatter-OR would
+        carry a duplicate into an unrelated bit."""
         states = self._population(var_id)
         rows_np = np.asarray(rows, dtype=np.int64).ravel()
         elems_np = np.asarray(elems, dtype=np.int64).ravel()
@@ -759,12 +1180,15 @@ class ReplicatedRuntime:
                     rows_np[first], elems_np[first], tokens_np[first]
                 )
             self.states[var_id] = FlatORSet.scatter_tokens(
-                self._packed_specs[var_id], states, self._index(rows_np),
-                self._index(elems_np), self._index(tokens_np),
+                self._packed_specs[var_id], states, rows_np, elems_np, tokens_np,
             )
         else:
-            idx = (self._index(rows_np), self._index(elems_np),
-                   self._index(tokens_np))
+            r_cap, e_cap, t_cap = states.exists.shape
+            r, r_ok = _wrap_index(rows_np, r_cap)
+            e, e_ok = _wrap_index(elems_np, e_cap)
+            t, t_ok = _wrap_index(tokens_np, t_cap)
+            ok = r_ok & e_ok & t_ok
+            idx = (self._index(r[ok]), self._index(e[ok]), self._index(t[ok]))
             states.exists[idx] = True
             states.removed[idx] = False
         self._mark_dirty_rows(var_id, rows_np)
@@ -773,27 +1197,50 @@ class ReplicatedRuntime:
         """Device-side bulk G-Counter increments at ``(rows[i], lanes[i])``
         — the population-scale client-view writes of the ad-counter configs
         (``riak_test/lasp_adcounter_test.erl:57-120`` client loop).
-        Duplicate ``(row, lane)`` pairs accumulate. Indices out of range
-        raise ``IndexError``."""
+        Duplicate ``(row, lane)`` pairs accumulate. Indices follow JAX's
+        scatter: negative rows and lanes wrap, an add at an out-of-range
+        lane drops (its row is still marked dirty), and a row outside the
+        population raises ``IndexError`` from the dirty marking after the
+        rest of the call landed. Under ``debug_actors`` a lane written from
+        two rows raises :class:`ActorCollisionError` with nothing
+        applied."""
         states = self._population(var_id)
+        staged = None
+        if self.debug_actors:
+            # the lane index is the actor identity on this surface; its
+            # ("lane", idx) spelling aliases the interned term, so term
+            # writes collide with it too. Staged: all checked, then applied
+            var = self.store.variable(var_id)
+            staged = {}
+            for lane, row in zip(np.asarray(lanes).ravel().tolist(),
+                                 np.asarray(rows).ravel().tolist()):
+                for key in self._actor_guard_keys(var, ("lane", int(lane))):
+                    prev = self._actor_sites.get(key, staged.get(key))
+                    if prev is None:
+                        staged[key] = int(row)
+                    elif prev != int(row):
+                        raise ActorCollisionError(
+                            f"seed_increments({var_id!r}): lane {lane} "
+                            f"written from replicas {prev} and {int(row)}"
+                            " — one actor lane, one writing replica"
+                        )
         rows_np = np.asarray(rows, dtype=np.int64).ravel()
         lanes_np = np.asarray(lanes, dtype=np.int64).ravel()
         by_np = np.broadcast_to(np.asarray(by), np.shape(rows)).ravel()
         r_cap, l_cap = states.counts.shape
-        if rows_np.size and (
-            rows_np.min() < 0 or rows_np.max() >= r_cap
-            or lanes_np.min() < 0 or lanes_np.max() >= l_cap
-        ):
-            raise IndexError(
-                f"seed_increments({var_id!r}): (row, lane) out of range for "
-                f"[{r_cap}, {l_cap}] counts"
-            )
+        r, r_ok = _wrap_index(rows_np, r_cap)
+        lane, l_ok = _wrap_index(lanes_np, l_cap)
+        ok = r_ok & l_ok
         states.counts.index_put_(
-            (self._index(rows_np), self._index(lanes_np)),
-            torch.as_tensor(by_np, dtype=states.counts.dtype, device=self.device),
+            (self._index(r[ok]), self._index(lane[ok])),
+            torch.as_tensor(by_np[ok], device=self.device).to(states.counts.dtype),
             accumulate=True,
         )
         self._mark_dirty_rows(var_id, rows_np)
+        if staged:
+            # registered after the write: a shape error above leaves no
+            # site for rows that were never written
+            self._actor_sites.update(staged)
 
     # -- dense engine ----------------------------------------------------------
     def _ensure_step(self) -> tuple:
@@ -876,30 +1323,56 @@ class ReplicatedRuntime:
         self.round_residuals.append(residual)
         return residual
 
-    def _fused_block(self, block: int, edge_mask, tables) -> int:
-        """``block`` full steps with one host sync at the end: the 0-based
-        index of the first quiescent round, or -1."""
+    def _enqueue_block(self, block: int, edge_mask, tables) -> torch.Tensor:
+        """Enqueue ``block`` full steps; returns the device-side 0-based
+        index of the block's first quiescent round, or -1, without a host
+        sync."""
         first_zero = torch.full((), -1, dtype=torch.int32, device=self.device)
         for i in range(block):
             residual = self._dense_round(edge_mask, tables).sum()
             first_zero = torch.where(
                 (first_zero < 0) & (residual == 0), i, first_zero
             )
-        return int(first_zero)  # the block's one device sync
+        return first_zero
+
+    def _fused_block(self, block: int, edge_mask, tables) -> int:
+        """``block`` full steps with one host sync at the end: the 0-based
+        index of the first quiescent round, or -1."""
+        return int(self._enqueue_block(block, edge_mask, tables))
+
+    def _restore_states(self, states_in: dict) -> None:
+        """Put back the populations of a window that failed (the port never
+        donates, so they are intact)."""
+        self.states.clear()
+        self.states.update(states_in)
+
+    def begin_fused_steps(self, block: int, edge_mask=None) -> FusedBlockHandle:
+        """Enqueue a fused block of ``block`` full steps without waiting for
+        it: the returned :class:`FusedBlockHandle`'s ``finish`` syncs and
+        does the round bookkeeping. ``self.states`` holds the block's
+        outputs at once, so work issued before ``finish`` (an
+        ``ingest_cycle``) queues behind the window on the stream; host work
+        in between overlaps the card's. A failure while enqueueing or at
+        the sync restores the states from before the window."""
+        tables = self._ensure_step()
+        self._frontier_sync_mask(edge_mask)
+        states_in = dict(self.states)
+        try:
+            first_zero = self._enqueue_block(block, edge_mask, tables)
+        except Exception:
+            self._restore_states(states_in)
+            raise
+        return FusedBlockHandle(self, first_zero, states_in)
 
     def fused_steps(self, block: int, edge_mask=None) -> int:
         """Run ``block`` full steps (sweep + triggers + gossip + residual)
-        with one host sync at the end. Returns the 0-based index within the
-        block of the first quiescent round (residual 0), or -1 if every
-        round changed something; a quiescent step is a fixed point of the
-        whole step (join idempotence and the triggers' inflation gate), so
-        the rounds after it are no-ops."""
-        tables = self._ensure_step()
-        self._frontier_sync_mask(edge_mask)
-        first = self._fused_block(block, edge_mask, tables)
-        self._frontier_after_opaque(first >= 0)
-        self.round_residuals.append(-1 if first < 0 else 0)
-        return first
+        with one host sync at the end (``begin_fused_steps(...).finish()``).
+        Returns the 0-based index within the block of the first quiescent
+        round (residual 0), or -1 if every round changed something; a
+        quiescent step is a fixed point of the whole step (join idempotence
+        and the triggers' inflation gate), so the rounds after it are
+        no-ops."""
+        return self.begin_fused_steps(block, edge_mask).finish()
 
     def converge_on_device(self, max_rounds: int = 10_000, edge_mask=None,
                            strict: bool = True, sync_every: int = 8) -> int:
@@ -1293,14 +1766,228 @@ class ReplicatedRuntime:
         vnode-local read, ``src/lasp_vnode.erl:402-407``): the dense row
         state when the threshold is met, else None."""
         var = self.store.variable(var_id)
-        thr = self.store._resolve_threshold(var, threshold)
-        if isinstance(thr.state, tuple):
-            thr = thr._replace(
-                state=tree_map(lambda x: x.to(self.device), thr.state)
-            )
+        thr = self._device_threshold(self.store._resolve_threshold(var, threshold))
         row = self._to_dense_row(
             var_id, tree_map(lambda x: x[replica], self._population(var_id))
         )
         if bool(var.codec.threshold_met(var.spec, row, thr)):
             return row
         return None
+
+    def _device_threshold(self, thr):
+        """A resolved threshold with its state on the runtime's device (a
+        numeric bound as a 0-d tensor, copied once rather than at every
+        check)."""
+        if isinstance(thr.state, tuple):
+            return thr._replace(state=tree_map(lambda x: x.to(self.device), thr.state))
+        if isinstance(thr.state, (int, np.integer)):
+            return thr._replace(state=torch.as_tensor(thr.state, device=self.device))
+        return thr
+
+    def read_until(self, replica: int, var_id: str, threshold=None,
+                   max_rounds: int = 10_000, edge_mask=None, block: int = 1,
+                   on_device: "bool | None" = None):
+        """Blocking monotonic threshold read (``lasp:read/2`` semantics,
+        ``src/lasp_core.erl:329-364``): steps the mesh until the threshold
+        is met at the given replica, then returns that replica's dense row.
+
+        ``on_device`` (default ``None`` = auto) picks the wait:
+
+        - **device-parked** (whenever the threshold state can ride to the
+          device, which every codec threshold can): one round at a time,
+          the predicate evaluated on the device at the replica's row, one
+          int32 (the met index, quiescence or neither) crossing to the host
+          a round and no row pulled; it stops on exactly the round that
+          meets the threshold (eager PyTorch has no ``while_loop``, so this
+          is the JAX device loop a round at a time);
+        - **host-probed** (``on_device=False``, or an object-dtype
+          threshold): rounds run in fused blocks of ``block`` between host
+          probes of the row (the wake-up coarsens to the block; a
+          threshold is monotonic, so later rounds never unmeet it).
+
+        Once the population quiesces with the threshold unmet it can never
+        be met, so the wait raises ``TimeoutError`` at once."""
+        if on_device is None:
+            var = self.store.variable(var_id)
+            threshold = self.store._resolve_threshold(var, threshold)
+            on_device = _device_expressible(threshold.state)
+        if on_device:
+            return self._read_until_on_device(
+                replica, var_id, threshold, max_rounds, edge_mask
+            )
+        row, rounds, quiescent = self._step_until(
+            lambda: self.read_at(replica, var_id, threshold),
+            max_rounds, edge_mask, block,
+        )
+        if row is not None:
+            return row
+        raise TimeoutError(
+            f"threshold not met at replica {replica} within {rounds} rounds"
+            + (" (population quiescent: the threshold is unreachable)"
+               if quiescent else "")
+        )
+
+    def _step_until(self, probe, max_rounds, edge_mask, block):
+        """The host-probed loop of the blocking reads: rounds (in fused
+        blocks when ``block > 1``, single steps for a remainder) until
+        ``probe()`` returns non-None, the population quiesces, or the budget
+        is spent. Returns ``(probe_result, rounds, quiescent)``, the
+        quiescent round counted."""
+        rounds, quiescent = 0, False
+        while rounds < max_rounds:
+            hit = probe()
+            if hit is not None:
+                return hit, rounds, quiescent
+            if block > 1 and max_rounds - rounds >= block:
+                at = self.fused_steps(block, edge_mask)
+                quiescent = at >= 0
+                rounds += at + 1 if quiescent else block
+            else:
+                quiescent = self.step(edge_mask) == 0
+                rounds += 1
+            if quiescent:
+                break
+        return probe(), rounds, quiescent
+
+    def read_any_until(self, replica: int, reads, max_rounds: int = 10_000,
+                       edge_mask=None, block: int = 1,
+                       on_device: "bool | None" = None):
+        """First-match-wins blocking read over ``[(var_id, threshold),
+        ...]`` at one replica (``lasp:read_any/1``,
+        ``src/lasp_core.erl:369-420``): steps the population until any
+        listed threshold is met and returns ``(var_id, row)`` of the first
+        (list order breaks a same-round tie). Raises ``TimeoutError`` at
+        once when the population quiesces with every threshold unmet.
+        ``on_device`` as in :meth:`read_until`."""
+        reads = list(reads)  # probed every round: an iterator would drain
+        if not reads:
+            raise ValueError("read_any_until needs at least one read")
+        if on_device is None:
+            reads = [
+                (v, self.store._resolve_threshold(self.store.variable(v), t))
+                for v, t in reads
+            ]
+            on_device = all(_device_expressible(t.state) for _v, t in reads)
+        if on_device:
+            return self._read_any_until_on_device(
+                replica, reads, max_rounds, edge_mask
+            )
+
+        def probe():
+            for var_id, threshold in reads:
+                row = self.read_at(replica, var_id, threshold)
+                if row is not None:
+                    return var_id, row
+            return None
+
+        hit, rounds, quiescent = self._step_until(probe, max_rounds, edge_mask, block)
+        if hit is not None:
+            return hit
+        raise TimeoutError(
+            f"no threshold met at replica {replica} within {rounds} rounds"
+            + (" (population quiescent: none is reachable)" if quiescent else "")
+        )
+
+    def _wait_status(self, replica: int, metas, quiescent) -> torch.Tensor:
+        """The device wait's one int32 a round: the index of the first
+        listed threshold met at the replica's row, else ``n`` when the
+        round was quiescent (``quiescent``: a 0-d bool), else ``n + 1``."""
+        flags = [
+            codec.threshold_met(
+                spec,
+                self._to_dense_row(v, tree_map(lambda x: x[replica], self.states[v])),
+                thr,
+            ).reshape(1)
+            for v, codec, spec, thr in metas
+        ]
+        always = torch.ones((1,), dtype=torch.bool, device=self.device)
+        # argmax returns the first maximum: the first met read wins
+        return torch.argmax(torch.cat(flags + [quiescent.reshape(1), always]).to(torch.uint8))
+
+    def _read_any_until_on_device(self, replica, reads, max_rounds, edge_mask):
+        """The device-parked wait (JAX's ``lax.while_loop``) one round at a
+        time: exit code 0 (met), 1 (budget spent) or 2 (quiescent unmet),
+        the round count, the ``max_rounds < 1`` probe-once idiom, the int32
+        exit-protocol guard, the host re-check of a device "met" and one
+        ``round_residuals`` entry (0 if met, else -1)."""
+        if max_rounds < 1:
+            # the host loop's max_rounds=0 idiom: probe once, never step
+            for var_id, threshold in reads:
+                row = self.read_at(replica, var_id, threshold)
+                if row is not None:
+                    return var_id, row
+            raise TimeoutError(
+                f"no threshold met at replica {replica} within 0 rounds"
+                if len(reads) > 1 else
+                f"threshold not met at replica {replica} within 0 rounds"
+            )
+        if (max_rounds + 1) * 4 * len(reads) >= 2**31:
+            # JAX packs (rounds * 4 + code) * n_reads + which into one
+            # int32; the port keeps its bound so both refuse the same calls
+            raise ValueError(
+                f"max_rounds={max_rounds} with {len(reads)} reads "
+                "overflows the device wait's int32 exit protocol — "
+                "lower max_rounds or split the read list"
+            )
+        for var_id, _t in reads:
+            self._population(var_id)  # sync in late-declared variables
+        resolved = [
+            (v, self.store._resolve_threshold(self.store.variable(v), t))
+            for v, t in reads
+        ]
+        metas = [
+            (v, self.store.variable(v).codec, self.store.variable(v).spec,
+             self._device_threshold(t))
+            for v, t in resolved
+        ]
+        tables = self._ensure_step()
+        self._frontier_sync_mask(edge_mask)
+        n_reads = len(resolved)
+        states_in = dict(self.states)
+        rounds = 0
+        try:
+            status = int(self._wait_status(
+                replica, metas, torch.zeros((), dtype=torch.bool, device=self.device)
+            ))
+            while status == n_reads + 1 and rounds < max_rounds:
+                residual = self._dense_round(edge_mask, tables).sum()
+                rounds += 1
+                status = int(self._wait_status(replica, metas, residual == 0))
+        except Exception:
+            self._restore_states(states_in)
+            raise
+        code = 0 if status < n_reads else (2 if status == n_reads else 1)
+        if rounds > 0 or code == 2:
+            self._frontier_after_opaque(code == 2)
+        self.round_residuals.append(0 if code == 0 else -1)
+        verb = "read_until" if n_reads == 1 else "read_any_until"
+        if code == 0:
+            var_id, thr = resolved[status]
+            row = self.read_at(replica, var_id, thr)
+            if row is None:
+                # met on the device must be met on the host
+                raise RuntimeError(
+                    f"{verb}({var_id!r}): device wait reported the "
+                    "threshold met but the host re-check disagrees — "
+                    "device/host threshold predicate mismatch"
+                )
+            return var_id, row
+        if n_reads == 1:
+            raise TimeoutError(
+                f"threshold not met at replica {replica} within {rounds} rounds"
+                + (" (population quiescent: the threshold is unreachable)"
+                   if code == 2 else "")
+            )
+        raise TimeoutError(
+            f"no threshold met at replica {replica} within {rounds} rounds"
+            + (" (population quiescent: none is reachable)" if code == 2 else "")
+        )
+
+    def _read_until_on_device(self, replica, var_id, threshold, max_rounds,
+                              edge_mask):
+        """The single-threshold device wait: the n=1 case of
+        :meth:`_read_any_until_on_device`."""
+        _v, row = self._read_any_until_on_device(
+            replica, [(var_id, threshold)], max_rounds, edge_mask
+        )
+        return row

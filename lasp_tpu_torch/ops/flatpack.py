@@ -130,14 +130,29 @@ class FlatORSet:
         """OR token bits into a replicated ``[R, W]`` state at ``(rows[i],
         elems[i], tokens[i])``. The triples MUST be unique: with unique
         bits an add-scatter into a zero buffer never carries, so it equals
-        a scatter-OR (int32 wrap-around included)."""
+        a scatter-OR (int32 wrap-around included).
+
+        The index arithmetic is JAX's: the bit index is
+        ``uint32(elem) * n_tokens + uint32(token)`` in uint32 (emulated in
+        int64), a word outside ``[0, W)`` drops, negative rows wrap and
+        out-of-range rows drop. A token past its element's range but inside
+        the row aliases into the next element, as in JAX. The dropped
+        triples are filtered out before the scatter, so the card only sees
+        valid indices."""
         d = spec.dense
         dev = states.exists.device
-        rows = torch.as_tensor(rows, dtype=torch.int64, device=dev)
-        bit = torch.as_tensor(elems, dtype=torch.int64, device=dev) * d.n_tokens + (
-            torch.as_tensor(tokens, dtype=torch.int64, device=dev)
-        )
+        r_cap, w_cap = states.exists.shape
+        rows = torch.as_tensor(rows, dtype=torch.int64, device=dev).reshape(-1)
+        u32 = 0xFFFFFFFF
+        bit = (
+            (torch.as_tensor(elems, dtype=torch.int64, device=dev).reshape(-1) & u32)
+            * d.n_tokens
+            + (torch.as_tensor(tokens, dtype=torch.int64, device=dev).reshape(-1) & u32)
+        ) & u32
         word = bit // 32
+        rows = torch.where(rows < 0, rows + r_cap, rows)
+        keep = (rows >= 0) & (rows < r_cap) & (word < w_cap)
+        rows, word, bit = rows[keep], word[keep], bit[keep]
         mask = to_int32(torch.ones_like(bit) << (bit % 32))
         add_words = torch.zeros_like(states.exists)
         add_words.index_put_((rows, word), mask, accumulate=True)

@@ -183,3 +183,114 @@ def test_vclock_kernel_on_misaligned_members_matches_plain_on_card(cuda):
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert ch.dtype == torch.bool and torch.equal(ch, ch_w)
+
+
+# -- the grouped ingest appliers on the card ----------------------------------
+
+
+def _ingest_group(device, kind, tables):
+    """Apply ``tables`` (one per member) as one group on fresh member
+    states on ``device``; returns the states and the changed rows."""
+    import numpy as np
+
+    from lasp_tpu_torch.lattice import (
+        GCounter, GCounterSpec, GSet, GSetSpec, ORSet, ORSetSpec, ORSWOT,
+        ORSWOTSpec,
+    )
+    from lasp_tpu_torch.lattice.base import replicate
+    from lasp_tpu_torch.mesh import ingest
+    from lasp_tpu_torch.ops.flatpack import FlatORSet, FlatORSetSpec
+
+    r = 64
+    codec, spec = {
+        "gset": (GSet, GSetSpec(n_elems=16)),
+        "gcounter": (GCounter, GCounterSpec(n_actors=4)),
+        "orset": (ORSet, ORSetSpec(n_elems=8, n_actors=4, tokens_per_actor=4)),
+        "orset_packed": (FlatORSet, FlatORSetSpec(
+            dense=ORSetSpec(n_elems=8, n_actors=4, tokens_per_actor=8))),
+        "orswot": (ORSWOT, ORSWOTSpec(n_elems=8, n_actors=4)),
+    }[kind]
+    states = [replicate(codec.new(spec, device=device), r) for _ in tables]
+    arrays = [ingest.IngestTable(kind, f"m{i}", 1,
+                                 {k: np.asarray(v) for k, v in t.items()})
+              for i, t in enumerate(tables)]
+    changed = ingest.apply_group(kind, states, arrays, r)
+    return [[x.cpu() for x in st] for st in states], changed
+
+
+def _ingest_on_card_matches_cpu(cuda, kind, tables):
+    import numpy as np
+
+    got, ch_got = _ingest_group(cuda, kind, tables)
+    want, ch_want = _ingest_group("cpu", kind, tables)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(np.array_equal(x, y) for x, y in zip(ch_got, ch_want))
+    return got, ch_got
+
+
+@pytest.mark.cuda
+def test_ingest_unequal_tables_never_send_pads_to_the_card(cuda):
+    """Members of one group with tables of 1, 9 and 0 slots (JAX would pad
+    them to a bucket of 16 with the out-of-range row): each member gets
+    exactly its own rows, the empty one nothing."""
+    import numpy as np
+
+    tables = [
+        {"rows": np.array([63], np.int32), "elems": np.array([15], np.int32)},
+        {"rows": np.arange(9, dtype=np.int32), "elems": np.arange(9, dtype=np.int32)},
+        {"rows": np.zeros(0, np.int32), "elems": np.zeros(0, np.int32)},
+    ]
+    got, changed = _ingest_on_card_matches_cpu(cuda, "gset", tables)
+    assert int(got[0][0].sum()) == 1 and bool(got[0][0][63, 15])
+    assert int(got[1][0].sum()) == 9 and not got[2][0].any()
+    assert np.flatnonzero(changed[1]).tolist() == list(range(9))
+
+
+@pytest.mark.cuda
+def test_ingest_duplicate_targets_on_card(cuda):
+    """Repeated targets: G-Set sets and G-Counter adds (constant and
+    accumulating writes) land as on the CPU; the dense OR-Set's repeated
+    tombstone rows are OR-ed first; a repeated value-carrying target is
+    refused before any scatter."""
+    import numpy as np
+
+    _ingest_on_card_matches_cpu(cuda, "gset", [
+        {"rows": np.array([3, 3, 3], np.int32), "elems": np.array([2, 2, 5], np.int32)}])
+    got, _ = _ingest_on_card_matches_cpu(cuda, "gcounter", [
+        {"rows": np.array([7, 7, 7], np.int32), "lanes": np.array([1, 1, 2], np.int32),
+         "amounts": np.array([2, 3, 4], np.int32)}])
+    assert got[0][0][7].tolist() == [0, 5, 4, 0]
+    vals = np.zeros((2, 16), bool)
+    vals[0, 0], vals[1, 1] = True, True
+    got, _ = _ingest_on_card_matches_cpu(cuda, "orset", [{
+        "m_rows": np.array([4, 4], np.int32), "m_elems": np.array([1, 1], np.int32),
+        "m_slots": np.array([0, 1], np.int32),
+        "t_rows": np.array([4, 4], np.int32), "t_elems": np.array([1, 1], np.int32),
+        "t_vals": vals}])
+    assert got[0][1][4, 1, :2].tolist() == [True, True]
+    with pytest.raises(RuntimeError, match="repeats its target"):
+        _ingest_group(cuda, "orswot", [{
+            "d_rows": np.array([1, 1], np.int32), "d_elems": np.array([0, 0], np.int32),
+            "d_vals": np.ones((2, 4), np.int32),
+            "c_rows": np.zeros(0, np.int32), "c_lanes": np.zeros(0, np.int32),
+            "c_vals": np.zeros(0, np.int32)}])
+
+
+@pytest.mark.cuda
+def test_ingest_packed_bit_31_on_card(cuda):
+    """The packed OR-Set's uint32 delta masks land as int32 adds: bit 31
+    (the sign bit) and a word that takes bits in both the mint and the
+    tombstone scatter come out as on the CPU."""
+    import numpy as np
+
+    top = np.uint32(1) << np.uint32(31)
+    got, _ = _ingest_on_card_matches_cpu(cuda, "orset_packed", [{
+        "m_rows": np.array([0, 5], np.int32), "m_words": np.array([0, 7], np.int32),
+        "m_masks": np.array([top | np.uint32(1), top], np.uint32),
+        "t_rows": np.array([0], np.int32), "t_words": np.array([0], np.int32),
+        "t_masks": np.array([top], np.uint32)}])
+    assert got[0][0][0, 0].item() == -(2**31) + 1
+    assert got[0][0][5, 7].item() == -(2**31)
+    assert got[0][1][0, 0].item() == -(2**31)

@@ -33,7 +33,7 @@ def test_scans_cover_every_ported_module():
     files = {str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")}
     for name in ("lattice.dots", "lattice.orswot", "mesh.plan", "mesh.runtime",
                  "ops.cuda_gossip", "dataflow.edges", "dataflow.engine",
-                 "dataflow.plan", "store.store", "bench_scenarios"):
+                 "dataflow.plan", "store.store", "bench_scenarios", "mesh.ingest"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -77,7 +77,11 @@ def _entry_points():
     from lasp_tpu_torch.bench_scenarios import (
         adcounter_6,
         adcounter_10m,
+        gset_1k,
+        ingest_storm,
+        orset_100k,
         orset_anti_entropy,
+        pipeline_1m,
     )
     from lasp_tpu_torch.bridge_state import from_numpy
     from lasp_tpu_torch.dataflow import Graph
@@ -96,6 +100,10 @@ def _entry_points():
         "orset_anti_entropy": lambda: orset_anti_entropy(16),
         "adcounter_6": lambda: adcounter_6(),
         "adcounter_10m": lambda: adcounter_10m(16),
+        "gset_1k": lambda: gset_1k(),
+        "orset_100k": lambda: orset_100k(16),
+        "pipeline_1m": lambda: pipeline_1m(16),
+        "ingest_storm": lambda: ingest_storm(16, 4, 1, 8, reps=1, gate=None),
         "codec.new": lambda: GSet.new(GSetSpec(n_elems=4)),
         "from_numpy": lambda: from_numpy(
             "lasp_gset", GSetSpec(n_elems=4), [np.zeros(4, bool)]
@@ -105,7 +113,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", sorted(
     ["Store", "ReplicatedRuntime", "orset_anti_entropy", "adcounter_6",
-     "adcounter_10m", "codec.new", "from_numpy"]
+     "adcounter_10m", "codec.new", "from_numpy", "gset_1k", "orset_100k",
+     "pipeline_1m", "ingest_storm"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the

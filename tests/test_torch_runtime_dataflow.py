@@ -217,3 +217,70 @@ def test_frontier_refused_auto_runs_dense(packed):
     _same_states(jrt, trt)
     # the dense step: one residual a round
     assert len(trt.round_residuals) > 2 and trt.round_residuals[-1] == 0
+
+
+# -- seed_increments / seed_tokens index semantics (JAX's scatter rules) -----
+
+
+def _seed_twins(packed, type_name, **caps):
+    rts = []
+    for port in (False, True):
+        st, df, mesh = (tstore, tdf, tmesh) if port else (jstore, jdf, jmesh)
+        kw = {"device": "cpu"} if port else {}
+        store = st.Store(n_actors=4, **kw)
+        store.declare(id="v", type=type_name, **caps)
+        rts.append(mesh.ReplicatedRuntime(store, df.Graph(store), 16,
+                                          random_regular(16, 3, seed=9),
+                                          packed=packed, **kw))
+    return rts
+
+
+def _seed_both(jrt, trt, verb, *args):
+    """Call ``verb`` on both runtimes: the same exception type (or none),
+    then bit-equal states and frontier masks."""
+    outcome = []
+    for rt in (jrt, trt):
+        try:
+            getattr(rt, verb)("v", *args)
+            outcome.append(None)
+        except Exception as exc:  # noqa: BLE001 - the type is what is compared
+            outcome.append(type(exc))
+    assert outcome[0] == outcome[1], outcome
+    _same_states(jrt, trt)
+    assert np.array_equal(jrt._frontier["v"], trt._frontier["v"])
+    return outcome[1]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("rows,lanes,raised", [
+    ([-1], [0], None),        # a negative row wraps to row 15
+    ([2], [-1], None),        # a negative lane wraps to lane 3
+    ([2], [4], None),         # an out-of-range lane drops; row 2 still dirty
+    ([16], [0], IndexError),  # the add drops, the dirty marking raises
+    ([2, 16], [1, 0], IndexError),  # row 2 lands, then the marking raises
+    ([-17], [0], IndexError),
+    ([3, 3, -1], [0, -4, 9], None),
+])
+def test_seed_increments_index_semantics_match_jax(packed, rows, lanes, raised):
+    jrt, trt = _seed_twins(packed, "riak_dt_gcounter", n_actors=4)
+    assert _seed_both(jrt, trt, "seed_increments", rows, lanes, 3) is raised
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("rows,elems,tokens,raised", [
+    ([1], [4], [0], None),     # element out of range: dropped
+    ([1], [0], [99], None),    # token out of range: dropped (packed: word 2)
+    ([1], [-1], [0], None),    # dense wraps to element 3; packed drops
+    ([1], [0], [-1], None),    # dense wraps to token 15; packed drops
+    ([1], [0], [20], None),    # packed: aliases into element 1 token 4
+    ([-1], [2], [3], None),    # a negative row wraps
+    ([16], [0], [0], IndexError),
+    ([2, 16], [1, 1], [5, 5], IndexError),
+    ([0, 0, 5], [3, 3, 2], [15, 15, 0], None),  # a duplicate triple
+])
+def test_seed_tokens_index_semantics_match_jax(packed, rows, elems, tokens, raised):
+    jrt, trt = _seed_twins(packed, "lasp_orset", n_elems=4)
+    assert _seed_both(jrt, trt, "seed_tokens", rows, elems, tokens) is raised
+    if raised is None:
+        assert trt.run_to_convergence() == jrt.run_to_convergence()
+        assert trt.coverage_value("v") == jrt.coverage_value("v")

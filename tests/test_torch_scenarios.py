@@ -1,0 +1,95 @@
+"""The port's BASELINE scenarios and the ingest A/B against ``lasp_tpu``'s:
+``gset_1k`` at its 1,024 replicas, ``orset_100k`` at 2,048 and
+``pipeline_1m`` at 4,096 must give JAX's rounds and values; the port's
+``ingest_storm`` runs at a small size, and its schedule, replayed through
+both packages' ``ingest_cycle``, gives the same states and reports. Only
+counts and values are compared: a time taken on the CPU says nothing about
+the card."""
+
+import numpy as np
+import pytest
+import torch
+
+import lasp_tpu.bench_scenarios as jb
+import lasp_tpu.dataflow as jdf
+import lasp_tpu.mesh as jmesh
+import lasp_tpu.store as jstore
+import lasp_tpu_torch.bench_scenarios as tb
+from lasp_tpu_torch import bridge_state
+
+# Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
+# and under a parallel test run they oversubscribe the cores.
+torch.set_num_threads(1)
+
+
+def test_gset_1k_matches_jax():
+    want = jb.gset_1k()
+    got = tb.gset_1k(device="cpu")
+    for key in ("scenario", "rounds", "union_size", "intersection_size",
+                "engine", "check"):
+        assert got[key] == want[key], key
+    assert got["rounds"] > 2
+
+
+def test_orset_100k_matches_jax_at_2048():
+    want = jb.orset_100k(2048)
+    got = tb.orset_100k(2048, device="cpu")
+    for key in ("scenario", "rounds", "n_elems", "n_tokens",
+                "state_bytes_per_replica", "check"):
+        assert got[key] == want[key], key
+    for key in ("productive_rounds_per_block", "diverged_replicas_at_seed"):
+        assert got["convergence"][key] == want["convergence"][key], key
+
+
+def test_pipeline_1m_matches_jax_at_4096():
+    want = jb.pipeline_1m(4096)
+    got = tb.pipeline_1m(4096, device="cpu")
+    for key in ("scenario", "rounds", "folded_count", "engine", "check"):
+        assert got[key] == want[key], key
+    assert got["folded_count"] == 16
+
+
+def test_ingest_storm_small():
+    out = tb.ingest_storm(n_replicas=32, n_vars=16, cycles=3, ops_per_cycle=150,
+                          gate=None, device="cpu")
+    assert out["scenario"] == "ingest_storm_16x32"
+    assert out["dispatches"]["got"] == out["dispatches"]["expected"] > 3
+    assert out["normalize_alloc_bytes"] < 65536
+    assert out["kinds"] == list(tb.INGEST_KINDS)
+    assert out["ingest_speedup"] > 0 and out["gate"] is None
+    with pytest.raises(RuntimeError, match="under the 1000000.0x gate"):
+        tb.ingest_storm(n_replicas=16, n_vars=4, cycles=1, ops_per_cycle=20,
+                        reps=1, gate=1e6, device="cpu")
+
+
+def test_ingest_schedule_replays_identically_through_both_packages():
+    """The port's copy of ``_ingest_schedule`` is JAX's function; its
+    cycles, replayed through JAX's and the port's ``ingest_cycle`` on the
+    same store, give the same reports, states and frontier marks, and
+    converge in the same rounds."""
+    n, n_vars, seed = 32, 8, 31
+    trt, ids = tb.ingest_storm_runtime(n, n_vars, seed=seed, device="cpu")
+    sched = tb._ingest_schedule(ids, tb.INGEST_KINDS, n, 3, 100, seed)
+    assert sched == jb._ingest_schedule(ids, tb.INGEST_KINDS, n, 3, 100, seed)
+    store = jstore.Store(n_actors=4)
+    for v in ids:
+        tv = trt.store.variable(v)
+        caps = {"riak_dt_gcounter": {"n_actors": 4},
+                "lasp_gset": {"n_elems": 16},
+                "riak_dt_orswot": {"n_elems": 8, "n_actors": 4},
+                "lasp_orset": {"n_elems": 8, "n_actors": 4,
+                               "tokens_per_actor": 8}}[tv.type_name]
+        store.declare(id=v, type=tv.type_name, **caps)
+    jrt = jmesh.ReplicatedRuntime(store, jdf.Graph(store), n,
+                                  jmesh.random_regular(n, 3, seed=seed))
+    for cycle in sched:
+        jrep, trep = jrt.ingest_cycle(cycle), trt.ingest_cycle(cycle)
+        assert jrep == trep
+    for v in ids:
+        for a, b in zip(bridge_state.to_numpy(trt.states[v]), jrt.states[v]):
+            assert np.array_equal(a, np.asarray(b)), v
+        assert np.array_equal(jrt._frontier[v], trt._frontier[v]), v
+    assert trt.run_to_convergence(mode="frontier") == jrt.run_to_convergence(
+        mode="frontier")
+    for v in ids:
+        assert trt.coverage_value(v) == jrt.coverage_value(v)
