@@ -37,18 +37,44 @@ Phases, each of which fails the run on any error:
                ``pipeline_1m()`` (1,048,576 replicas, map -> filter -> fold),
                each failing on its own reference check;
 7. ingest   — ``bench_scenarios.ingest_storm`` at 100,000 replicas x 128
-               variables (6 cycles of 2,048 ops, 3 warm replays an arm,
-               ``gate=None``): the per-variable and grouped arms bit-identical,
-               one group apply per plan group per cycle; then the same
-               schedule replayed into three ``plan="auto"`` twins (dense,
-               frontier with its exact marks feeding K2 / K3, ``packed=True``
-               dense through K1) that must converge alike;
+               variables cycling JAX's five kinds (G-Set, G-Counter,
+               OR-SWOT, OR-Set, map; 6 cycles of 2,048 ops, 3 warm replays
+               an arm, ``gate=None``): the per-variable and grouped arms
+               bit-identical, one group apply per plan group per cycle of
+               the encodable variables; then the same schedule replayed
+               into three ``plan="auto"`` twins (dense, frontier with its
+               exact marks feeding K2 / K3, ``packed=True`` dense through
+               K1) that must converge alike; the schedule's ops by kind;
 8. reads    — on the engine's population: ``read_until`` parked on the card
                against ``on_device=False`` on a twin, ``read_any_until`` over
                both variables likewise, and ``begin_fused_steps(8)`` with an
                ``ingest_cycle`` before ``finish()`` against ``fused_steps(8)``
                and the same cycle on a twin;
-9. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+9. map      — the KVS-replica map at BASELINE config 4's population,
+               1,048,576 replicas on ``random_regular(1_048_576, 3,
+               seed=4)``: a ``riak_dt_map`` (``reset_on_readd=True``, 8
+               actors) declaring ``{X, lasp_gset}`` (16 elements) and ``{Y,
+               riak_dt_gcounter}``, 8 writers at their home rows. 4,000 puts
+               on X and Y through ``update_batch`` (the vectorized
+               ``_map_batch``: no per-op warning may fire); adds then removes
+               on ``{T, lasp_orset}``, admitted by its first batch (the
+               per-op path, warned); ``{Z, riak_dt_map}`` holding a G-Set,
+               admitted mid-run; ``converge_on_device``;
+               ``compact_map_field(T)``, re-adds into the freed slots and a
+               profiled convergence. ``coverage_value`` must equal the value
+               computed in plain Python from the ops and ``divergence`` 0
+               after each convergence;
+10. compaction — the engine's population (100,000 replicas, packed OR-Set
+               of 64 elements x 16 actors x 4 tokens, a G-Counter): 16
+               writers add the 64 elements and remove 32 at their own rows,
+               converge through K1, ``compact_orset`` must return 32, 32
+               fresh adds land in the freed slots and converge through K1;
+               then a ``compaction_window`` with a builder-backed trigger
+               (the adcounter server's pattern: remove an element once the
+               G-Counter passes a threshold) compacts inside the window, and
+               the rebuilt trigger must fire after it. Values must equal the
+               plain-Python expectation;
+11. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -58,7 +84,7 @@ Phases, each of which fails the run on any error:
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
                the run;
-10. kernels — each kernel timed at every distinct launch shape phases 3-9
+12. kernels — each kernel timed at every distinct launch shape phases 3-11
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
                phase, read after), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
@@ -68,7 +94,7 @@ Phases, each of which fails the run on any error:
                split by launch class; and K1's column-slab sweep (slab widths
                against whole rows) at each of its shapes and at two shapes
                whose planes fit the L2. Every K2 and K3 shape is replayed
-               once under ``torch.profiler`` before phase 9, which must show
+               once under ``torch.profiler`` before phase 11, which must show
                exactly one device kernel per wrapper call.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
@@ -82,6 +108,8 @@ import json
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +117,16 @@ import numpy as np
 
 def _log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+#: the card's name and power limit, as ``nvidia-smi`` gives them (set by main)
+_CARD = None
+
+
+def _log_line(phase: str, fields: dict) -> None:
+    """A phase's JSON line, with the card's name and power limit beside its
+    numbers."""
+    _log(phase, json.dumps({"card": _CARD, **fields}))
 
 
 def _peak_hbm_gbps(name: str) -> float:
@@ -567,7 +605,7 @@ def phase_plan(torch, cg, n: int, captured: dict) -> dict:
     probe, _ids, _expected = _plan_twin(n, nbrs, "auto")
     busy = _device_busy(torch, lambda: probe.run_to_convergence(mode="frontier"))
     del probe
-    _log("plan", json.dumps({
+    _log_line("plan", {
         "replicas": n, "vars": len(ids), "rounds": runs["auto"]["rounds"],
         "seconds": {k: v["seconds"] for k, v in runs.items()},
         "setup_s": {k: v["setup_s"] for k, v in runs.items()},
@@ -575,7 +613,7 @@ def phase_plan(torch, cg, n: int, captured: dict) -> dict:
         "profiled_auto_converge": busy,
         "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
         "residuals": auto.round_residuals, "describe": describe, "max_G": max_g,
-    }))
+    })
     if launches["gossip_round_rows_vclock"] == 0:
         raise RuntimeError("the plan phase never launched K3")
     for name, g in max_g.items():
@@ -614,7 +652,7 @@ def phase_baseline(torch, cg) -> dict:
         }
     if lines["orset_100k"]["k1_launches"] == 0:
         raise RuntimeError("orset_100k never launched K1")
-    _log("baseline", json.dumps(lines))
+    _log_line("baseline", lines)
     return {"launches": dict(cg.LAUNCHES), "shapes": _shape_counts(cg)}
 
 
@@ -624,17 +662,17 @@ _INGEST = {"n_replicas": 100_000, "n_vars": 128, "cycles": 6, "ops_per_cycle": 2
            "seed": 31}
 
 
-def phase_ingest(torch, cg, captured: dict, card: str) -> dict:
+def phase_ingest(torch, cg, captured: dict) -> dict:
     """``ingest_storm`` at 100,000 replicas, then its schedule replayed into
     a dense, a frontier and a packed ``plan="auto"`` twin, converged: the
     rounds, the dense and frontier states bit for bit, every variable's
-    coverage value across the three and divergence 0 must agree. ``card``
-    (the card's name and power limit) is printed beside the arms. Returns
+    coverage value across the three and divergence 0 must agree. Returns
     the launches, the launch shapes and the frontier twin (its captured K2
     / K3 launches are replayed in the kernels phase)."""
     from lasp_tpu_torch.bench_scenarios import (
         INGEST_KINDS, _ingest_schedule, ingest_storm, ingest_storm_runtime,
     )
+    from lasp_tpu_torch.lattice.base import tree_leaves
     from lasp_tpu_torch.mesh import ingest
 
     c = _INGEST
@@ -679,11 +717,17 @@ def phase_ingest(torch, cg, captured: dict, card: str) -> dict:
                         "group_applies": ingest.GROUP_APPLIES - applies,
                         "dispatches": sum(r["dispatches"] for r in reports)}
     dense, front, packed = (twins[k]["rt"] for k in ("dense", "frontier", "packed"))
+    kinds = {v: dense.store.variable(v).type_name for v in ids}
+    ops_by_kind = Counter()
+    for cycle in schedule:
+        for v, ops in cycle.items():
+            ops_by_kind[kinds[v]] += len(ops)
     if not twins["dense"]["rounds"] == twins["frontier"]["rounds"] == twins["packed"]["rounds"]:
         raise RuntimeError(f"ingest: round counts differ: "
                            f"{ {k: v['rounds'] for k, v in twins.items()} }")
     for v in ids:
-        if not all(torch.equal(a, b) for a, b in zip(dense.states[v], front.states[v])):
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(dense.states[v]),
+                                                     tree_leaves(front.states[v]))):
             raise RuntimeError(f"ingest: dense and frontier states differ on {v}")
         want = dense.coverage_value(v)
         if front.coverage_value(v) != want or packed.coverage_value(v) != want:
@@ -691,8 +735,9 @@ def phase_ingest(torch, cg, captured: dict, card: str) -> dict:
         if dense.divergence(v) or front.divergence(v) or packed.divergence(v):
             raise RuntimeError(f"ingest: {v} did not converge")
     launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
-    _log("ingest", json.dumps({
-        "scenario": storm["scenario"], "card": card, "storm_wall_s": storm_wall,
+    _log_line("ingest", {
+        "scenario": storm["scenario"], "storm_wall_s": storm_wall,
+        "vars_by_kind": dict(Counter(kinds.values())), "ops_by_kind": dict(ops_by_kind),
         "per_var_median_s": storm["timing"]["per_var"]["seconds"],
         "grouped_median_s": storm["timing"]["grouped"]["seconds"],
         "per_var_seconds_each": storm["timing"]["per_var"]["seconds_each"],
@@ -702,7 +747,7 @@ def phase_ingest(torch, cg, captured: dict, card: str) -> dict:
         "twins": {k: {f: v[f] for f in v if f != "rt"} for k, v in twins.items()},
         "host_split_s (one cold drive, cProfile cumulative)": split,
         "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
-    }))
+    })
     if launches["gossip_round_rows"] == 0 or launches["gossip_round_rows_vclock"] == 0:
         raise RuntimeError(f"the ingest twins never launched K2 and K3: {launches}")
     if launches["gossip_round_dense"] == 0:
@@ -810,8 +855,233 @@ def phase_reads(torch, cg, n, nbrs) -> dict:
     _same_populations(torch, a, b, "begin_fused_steps")
     line["fused_handle"] = {"first_quiescent": first_a, "enqueue_s": enqueue_s,
                             "begin_to_finish_s": t1 - t0, "fused_then_cycle_s": t2 - t1}
-    _log("reads", json.dumps(line))
+    _log_line("reads", line)
     return {"launches": dict(cg.LAUNCHES), "shapes": _shape_counts(cg)}
+
+
+#: the map cell: the KVS-replica map (``riak_test/lasp_kvs_replica_test.erl``,
+#: ``tests/apps/test_kvs_replica.py:319-375``) at BASELINE config 4's
+#: population
+_MAP = {"n_replicas": 1 << 20, "seed": 4, "writers": 8, "puts": 4000}
+_KX, _KY = ("X", "lasp_gset"), ("Y", "riak_dt_gcounter")
+_KT, _KZ, _KQ = ("T", "lasp_orset"), ("Z", "riak_dt_map"), ("q", "lasp_gset")
+
+
+def _timed_step(torch, fn):
+    """``(result, seconds)``: host clock, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _batch_warnings(rt, var_id, ops) -> list:
+    """``rt.update_batch(var_id, ops)``; returns the per-op path's warnings."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rt.update_batch(var_id, ops)
+    return [str(w.message) for w in caught if "no vectorized kernel" in str(w.message)]
+
+
+def phase_map(torch, cg) -> dict:
+    """The KVS-replica map at 1,048,576 replicas through ``update_batch``,
+    field admission, ``converge_on_device`` and ``compact_map_field``, each
+    convergence checked against the value computed in plain Python from the
+    ops. Returns the launches and
+    launch shapes (maps ride no kernel: their rounds are plain PyTorch)."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.lattice.base import tree_leaves
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    c = _MAP
+    n, w = c["n_replicas"], c["writers"]
+    cg.reset_launches()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    store = Store(n_actors=w)
+    m = store.declare(id="kvs", type="riak_dt_map", n_actors=w, reset_on_readd=True,
+                      fields=[(_KX, "lasp_gset", {"n_elems": 16}),
+                              (_KY, "riak_dt_gcounter", {})])
+    rt = ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=c["seed"]))
+    steps = {}
+    rng = np.random.RandomState(c["seed"])
+    homes = [int(r) for r in rng.choice(n, w, replace=False)]
+    xs, n_incr, live_t, zs = set(), 0, set(), set()
+
+    def check(step: str) -> None:
+        want = {_KX: frozenset(xs), _KY: n_incr, _KT: frozenset(live_t),
+                _KZ: {_KQ: frozenset(zs)}}
+        got = rt.coverage_value(m)
+        if got != want:
+            raise RuntimeError(f"map: after {step} the coverage value is {got!r}, "
+                               f"expected {want!r}")
+        if rt.divergence(m):
+            raise RuntimeError(f"map: {m} did not converge at {step}")
+
+    # 1. puts on X and Y: the vectorized map batch, no per-op warning
+    ops = []
+    for i in range(c["puts"]):
+        a = int(rng.randint(w))
+        if i % 3 == 0:
+            ops.append((homes[a], ("update", _KY, ("increment",)), f"w{a}"))
+            n_incr += 1
+        else:
+            x = f"k{rng.randint(16)}"
+            ops.append((homes[a], ("update", _KX, ("add", x)), f"w{a}"))
+            xs.add(x)
+    warned, steps["puts"] = _timed_step(torch, lambda: _batch_warnings(rt, m, ops))
+    if warned:
+        raise RuntimeError(f"map: the X / Y puts left the vectorized batch: {warned}")
+    # 2. adds, then removes, on the OR-Set field T (admitted by its first
+    # batch): each writer adds four elements at its home row and removes two
+    # of them there (it observed every token of its own elements)
+    adds = [(homes[a], ("update", _KT, ("add", f"t{a}_{j}")), f"w{a}")
+            for a in range(w) for j in range(4)]
+    removes = [(homes[a], ("update", _KT, ("remove", f"t{a}_{j}")), f"w{a}")
+               for a in range(w) for j in range(2)]
+    live_t = {f"t{a}_{j}" for a in range(w) for j in (2, 3)}
+    warned, steps["T_adds_then_removes"] = _timed_step(
+        torch, lambda: _batch_warnings(rt, m, adds) + _batch_warnings(rt, m, removes))
+    if len(warned) != 2:
+        raise RuntimeError(f"map: the T batches did not take the per-op path: {warned}")
+    # 3. a submap Z holding a G-Set, admitted mid-run (a re-layout at n rows)
+    sub = [(homes[a], ("update", _KZ, ("update", _KQ, ("add", f"z{a}"))), f"w{a}")
+           for a in range(w)]
+    zs = {f"z{a}" for a in range(w)}
+    fields_before = rt.states[m].dots.shape[-2]
+    _, steps["Z_admission"] = _timed_step(torch, lambda: _batch_warnings(rt, m, sub))
+    if rt.states[m].dots.shape[-2] != fields_before + 1:
+        raise RuntimeError("map: the Z admission did not re-lay out the population")
+    # 4. converge
+    rounds1, steps["converge"] = _timed_step(torch, rt.converge_on_device)
+    check("the first convergence")
+    # 5. compact T, re-add into the freed slots, converge under the profiler
+    got, steps["compact_map_field"] = _timed_step(
+        torch, lambda: rt.compact_map_field(m, _KT))
+    if got != 2 * w:
+        raise RuntimeError(f"map: compact_map_field reclaimed {got}, expected {2 * w}")
+    readds = [(homes[a], ("update", _KT, ("add", f"r{a}")), f"w{a}") for a in range(w)]
+    live_t |= {f"r{a}" for a in range(w)}
+    _, steps["T_readds"] = _timed_step(torch, lambda: _batch_warnings(rt, m, readds))
+    t_elems = store.variable(m).map_aux[store.variable(m).spec.field_index(_KT)].elems
+    if len(t_elems) != 3 * w:
+        raise RuntimeError(f"map: T holds {len(t_elems)} interned elements, expected {3 * w}")
+    rounds2 = [None]
+    busy = _device_busy(torch, lambda: rounds2.__setitem__(0, rt.converge_on_device()))
+    check("the re-adds' convergence")
+    state_bytes = sum(x[0].numel() * x.element_size() for x in tree_leaves(rt.states[m]))
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log_line("map", {
+        "replicas": n, "writers": w, "fields": [
+            list(k) for k, _c, _s in store.variable(m).spec.fields],
+        "state_bytes_per_replica": state_bytes,
+        "steps_s": steps, "rounds": {"converge": rounds1, "after_readds": rounds2[0]},
+        "converge_s_per_round": steps["converge"] / rounds1,
+        "profiled_converge_after_readds": busy,
+        "peak_allocated_GB_over_resident": torch.cuda.max_memory_allocated() / 1e9
+        - resident, "resident_before_GB": resident,
+    })
+    del rt, store
+    return {"launches": launches, "shapes": shapes}
+
+
+#: the compaction cell: the engine's population
+_COMPACTION_REPLICAS = 100_000
+
+
+def phase_compaction(torch, cg) -> dict:
+    """``compact_orset`` and ``compaction_window`` on the engine's
+    population (packed OR-Set of 64 elements x 16 actors x 4 tokens, a
+    G-Counter), converging through K1; values against the plain-Python
+    expectation. Returns the launches and launch shapes."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    n = _COMPACTION_REPLICAS
+    cg.reset_launches()
+    store = Store(n_actors=16)
+    ads = store.declare(id="ads", type="lasp_orset", n_elems=64, n_actors=16,
+                        tokens_per_actor=4)
+    views = store.declare(id="views", type="riak_dt_gcounter", n_actors=16)
+    rt = ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=0),
+                           packed=True)
+    homes = [int(r) for r in np.random.RandomState(0).choice(n, 16, replace=False)]
+    rounds, secs = {}, {}
+
+    def check(step: str, want: set) -> None:
+        got = rt.coverage_value(ads)
+        if got != want or rt.divergence(ads) or rt.divergence(views):
+            raise RuntimeError(f"compaction: after {step} ads are {sorted(got)}, "
+                               f"expected {sorted(want)}")
+
+    # 1. the 16 writers add the 64 elements (4 each) and remove 2 of their own
+    rt.update_batch(ads, [(homes[a], ("add_all", [f"ad{4 * a + j}" for j in range(4)]),
+                           f"w{a}") for a in range(16)])
+    rt.update_batch(ads, [(homes[a], ("remove_all", [f"ad{4 * a}", f"ad{4 * a + 1}"]),
+                           f"w{a}") for a in range(16)])
+    live = {f"ad{4 * a + j}" for a in range(16) for j in (2, 3)}
+    # 2. converge through K1
+    rounds["first"], secs["first_converge"] = _timed_step(
+        torch, lambda: rt.run_to_convergence(mode="dense"))
+    check("the first convergence", live)
+    # 3. compact
+    got, secs["compact_orset"] = _timed_step(torch, lambda: rt.compact_orset(ads))
+    if got != 32 or len(store.variable(ads).elems) != 32:
+        raise RuntimeError(f"compaction: compact_orset reclaimed {got}, expected 32")
+    check("compact_orset", live)
+    # 4. 32 fresh elements into the reclaimed slots, converge through K1
+    rt.update_batch(ads, [(homes[a], ("add_all", [f"fresh{2 * a}", f"fresh{2 * a + 1}"]),
+                           f"w{a}") for a in range(16)])
+    live |= {f"fresh{i}" for i in range(32)}
+    rounds["fresh"], secs["fresh_converge"] = _timed_step(
+        torch, lambda: rt.run_to_convergence(mode="dense"))
+    check("the fresh adds", live)
+    # 5. the window: a builder-backed trigger removes ``ad2`` once the
+    # counter reaches 16 (the adcounter server's pattern)
+    threshold, target = 16, "ad2"
+
+    def builder():
+        (idx,) = rt.intern_terms(ads, [target])
+        pick = (torch.arange(64, device=rt.device) == int(idx))[:, None]
+
+        def trig(dense):
+            st = dense[ads]
+            fire = dense[views].counts.sum() >= threshold
+            return {ads: st._replace(removed=st.removed | (st.exists & pick & fire))}
+
+        return trig
+
+    rt.register_trigger(builder=builder, touches=[ads, views])
+    rt.update_batch(ads, [(homes[a], ("remove", f"fresh{2 * a}"), f"w{a}")
+                          for a in range(16)])
+    live -= {f"fresh{2 * a}" for a in range(16)}
+    t0 = time.perf_counter()
+    with rt.compaction_window() as win:
+        torch.cuda.synchronize()
+        secs["window_converge"] = time.perf_counter() - t0
+        got2, secs["window_compact_orset"] = _timed_step(torch, lambda: win.compact_orset(ads))
+    if got2 != 16 or len(rt._triggers) != 1:
+        raise RuntimeError(f"compaction: the window reclaimed {got2}, expected 16")
+    check("the window", live)
+    rt.update_batch(views, [(homes[a], ("increment",), f"w{a}") for a in range(16)])
+    rounds["after_window"], secs["after_window_converge"] = _timed_step(
+        torch, rt.converge_on_device)
+    live.discard(target)
+    check("the rebuilt trigger's convergence", live)
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    if launches["gossip_round_dense"] == 0:
+        raise RuntimeError("the compaction phase never launched K1")
+    _log_line("compaction", {
+        "replicas": n, "rounds": rounds, "seconds": secs,
+        "reclaimed": [got, got2], "live": len(live),
+        "k1_launches": launches["gossip_round_dense"],
+    })
+    del rt, store
+    return {"launches": launches, "shapes": shapes}
 
 
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
@@ -874,7 +1144,7 @@ def adcounter_profile(torch, ad: dict) -> None:
     # converge_on_device runs whole blocks of 8: the profiled run from
     # scratch includes the no-op rounds after the fixed point
     line["profiled_rounds_run"] = -(-rounds[0] // 8) * 8
-    _log("adcounter", json.dumps(line))
+    _log_line("adcounter", line)
 
 
 def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int) -> tuple:
@@ -1138,6 +1408,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    global _CARD
+    _CARD = smi
     kind = torch.cuda.get_device_name(0)
     peak_gbps = _peak_hbm_gbps(kind)
     _log("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1172,7 +1444,7 @@ def main() -> int:
     required = (2 * r_head * head["state_bytes_per_replica"] + r_head * k_head * 4
                 ) * head["rounds"]
     required_gbps = required / head["seconds"] / 1e9
-    _log("headline", json.dumps({
+    _log_line("headline", {
         k: head[k] for k in ("scenario", "rounds", "seconds", "merges_per_sec",
                              "state_bytes_per_replica")
     } | {"required_GBps": required_gbps,
@@ -1180,7 +1452,7 @@ def main() -> int:
          "issued_GBps_gather_model": head["achieved_GBps"],
          "productive_rounds_per_block":
              head["convergence"]["productive_rounds_per_block"],
-         "seconds_each": head["timing"]["seconds_each"]}))
+         "seconds_each": head["timing"]["seconds_each"]})
 
     # 4. engine -----------------------------------------------------------------
     n = 100_000
@@ -1215,11 +1487,11 @@ def main() -> int:
     widest_k2 = max((key for key in shapes["engine"]["gossip_round_rows"]
                      if key[fields2.index("leaves")] == 2),
                     key=lambda x: x[fields2.index("F")])
-    _log("engine", json.dumps({
+    _log_line("engine", {
         "replicas": n, "rounds": rounds_d, "dense_seconds": t_dense,
         "frontier_seconds": t_frontier, "coverage_elems": len(expected),
         "counter": total, "widest_sparse_rows": widest_k2[fields2.index("F")],
-    }))
+    })
     for phase, counts in launches.items():
         _log("launches", f"{phase}: {counts}")
     if launches["headline"]["gossip_round_dense"] == 0:
@@ -1239,13 +1511,21 @@ def main() -> int:
     launches["baseline"], shapes["baseline"] = base["launches"], base["shapes"]
     _log("launches", f"baseline: {launches['baseline']}")
     # 7. ingest -------------------------------------------------------------------
-    ing = phase_ingest(torch, cg, captured, smi)
+    ing = phase_ingest(torch, cg, captured)
     launches["ingest"], shapes["ingest"] = ing["launches"], ing["shapes"]
     _log("launches", f"ingest: {launches['ingest']}")
     # 8. reads --------------------------------------------------------------------
     rd = phase_reads(torch, cg, n, nbrs)
     launches["reads"], shapes["reads"] = rd["launches"], rd["shapes"]
     _log("launches", f"reads: {launches['reads']}")
+    # 9. map ----------------------------------------------------------------------
+    mp = phase_map(torch, cg)
+    launches["map"], shapes["map"] = mp["launches"], mp["shapes"]
+    _log("launches", f"map: {launches['map']}")
+    # 10. compaction --------------------------------------------------------------
+    cp = phase_compaction(torch, cg)
+    launches["compaction"], shapes["compaction"] = cp["launches"], cp["shapes"]
+    _log("launches", f"compaction: {launches['compaction']}")
     sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"]}
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
@@ -1259,12 +1539,12 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 9. adcounter ----------------------------------------------------------------
+    # 11. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 10. kernels at the main path's shapes ---------------------------------------
+    # 12. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():

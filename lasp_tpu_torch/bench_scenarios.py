@@ -18,7 +18,7 @@ import torch
 
 from .dataflow import Graph
 from .device import resolve_device
-from .lattice.base import replicate, tree_map
+from .lattice.base import replicate, tree_leaves, tree_map
 from .mesh import ingest as ingest_mod
 from .mesh.gossip import converged, diverged_rows
 from .mesh.runtime import ReplicatedRuntime
@@ -575,9 +575,9 @@ def _ingest_schedule(ids, kinds, n_replicas: int, cycles: int,
     return schedule
 
 
-#: ``ingest_storm``'s variable kinds, cycled; the JAX scenario's fifth,
-#: ``riak_dt_map``, waits for the map's port
-INGEST_KINDS = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot", "lasp_orset")
+#: ``ingest_storm``'s variable kinds, cycled, as in the JAX scenario
+INGEST_KINDS = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot", "lasp_orset",
+                "riak_dt_map")
 
 
 def ingest_storm_runtime(n_replicas: int, n_vars: int, plan: str = "auto",
@@ -585,7 +585,8 @@ def ingest_storm_runtime(n_replicas: int, n_vars: int, plan: str = "auto",
                          device=None):
     """``ingest_storm``'s store over ``random_regular(n_replicas, fanout,
     seed)``: ``n_vars`` variables cycling :data:`INGEST_KINDS` at the JAX
-    scenario's widths. Returns ``(runtime, ids)``."""
+    scenario's widths (the map: a ``tags`` G-Set of 8 elements and a
+    ``hits`` G-Counter, 4 actors). Returns ``(runtime, ids)``."""
     dev = resolve_device(device)
     store = Store(n_actors=4, device=dev)
     caps = {
@@ -593,6 +594,11 @@ def ingest_storm_runtime(n_replicas: int, n_vars: int, plan: str = "auto",
         "riak_dt_gcounter": {"n_actors": 4},
         "riak_dt_orswot": {"n_elems": 8, "n_actors": 4},
         "lasp_orset": {"n_elems": 8, "n_actors": 4, "tokens_per_actor": 8},
+        "riak_dt_map": {
+            "fields": [("tags", "lasp_gset", {"n_elems": 8}),
+                       ("hits", "riak_dt_gcounter", {})],
+            "n_actors": 4,
+        },
     }
     ids = []
     for i in range(n_vars):
@@ -618,8 +624,7 @@ def ingest_storm(
     device=None,
 ) -> dict:
     """The grouped-ingest A/B: a store of ``n_vars`` mixed-codec CRDTs
-    (G-Set / G-Counter / OR-SWOT / OR-Set, cycled; the JAX scenario also
-    cycles ``riak_dt_map``, which waits for the map's port) absorbs
+    (G-Set / G-Counter / OR-SWOT / OR-Set / map, cycled) absorbs
     ``cycles`` serving cycles of Zipf-hot client ops (adds, increments,
     live-targeted removes) under both ingest arms:
 
@@ -627,7 +632,8 @@ def ingest_storm(
       lands on its own;
     - **grouped** (``plan="auto"``): ops resolve into op tables and every
       same-signature variable lands in one group apply per dispatch-plan
-      group per cycle (``mesh.ingest``).
+      group per cycle (``mesh.ingest``); a map has no op table and takes
+      the per-variable arm (``_map_batch``) in both.
 
     Both arms replay the identical schedule warm from snapshots (median of
     ``reps``, synchronized host clock). Asserted in the scenario: final
@@ -641,9 +647,14 @@ def ingest_storm(
     schedule = _ingest_schedule(
         probe_ids, INGEST_KINDS, n_replicas, cycles, ops_per_cycle, seed
     )
-    # one group apply per active plan group per cycle
+    # one group apply per active plan group per cycle (encodable variables
+    # only: a map takes the per-variable arm)
     expected = sum(
-        len({ingest_mod.group_key(probe_rt, v) for v in cycle}) for cycle in schedule
+        len({
+            ingest_mod.group_key(probe_rt, v) for v in cycle
+            if probe_rt.store.variable(v).type_name != "riak_dt_map"
+        })
+        for cycle in schedule
     )
     del probe_rt
 
@@ -677,7 +688,8 @@ def ingest_storm(
         finals[arm] = {v: rt.states[v] for v in ids}
         del rt, snap
     for v, st in finals["per_var"].items():
-        if not all(torch.equal(a, b) for a, b in zip(st, finals["grouped"][v])):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(st), tree_leaves(finals["grouped"][v]))):
             raise RuntimeError(f"ingest_storm: arm states diverged on {v}")
     del finals
 

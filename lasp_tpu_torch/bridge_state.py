@@ -5,7 +5,11 @@ pytree); this port keeps the same fields as torch tensors. The word planes
 of the packed and flat OR-Sets are ``uint32`` there and ``int32`` holding
 the same bits here. :func:`from_numpy` and :func:`to_numpy` convert
 between the two, leaf by leaf, so both packages can start from one seeded
-population and be compared bit for bit.
+population and be compared bit for bit. A map state (``MapState``) nests:
+its ``fields`` are a tuple of embedded states (maps again when nested),
+``epochs`` is None outside reset mode, and ``tombs`` is a tuple with None
+for every field that carries no tombstone; both directions keep that
+structure.
 """
 
 from __future__ import annotations
@@ -15,12 +19,14 @@ import torch
 
 from .device import resolve_device
 from .lattice import (
+    CrdtMap,
     GCounter,
     GCounterState,
     GSet,
     GSetState,
     IVar,
     IVarState,
+    MapState,
     ORSet,
     ORSetState,
     ORSWOT,
@@ -39,6 +45,7 @@ CODECS = {
     "lasp_orset_gbtree": (ORSet, ORSetState),
     "lasp_orset_packed": (PackedORSet, PackedORSetState),
     "lasp_orset_flat": (FlatORSet, FlatORSetState),
+    "riak_dt_map": (CrdtMap, MapState),
 }
 
 _WORD_STATES = (PackedORSetState, FlatORSetState)
@@ -46,7 +53,10 @@ _WORD_STATES = (PackedORSetState, FlatORSetState)
 
 def from_numpy(codec_name: str, spec, leaves, device=None):
     """numpy leaves (the JAX state's fields, in order, with any leading
-    replica or group dims) -> the port's state on ``device``."""
+    replica or group dims) -> the port's state on ``device``. For a map,
+    ``leaves`` is the JAX ``MapState`` (or a tuple of its five fields)."""
+    if codec_name == "riak_dt_map":
+        return _map_from_numpy(spec, leaves, resolve_device(device))
     codec, state_cls = CODECS[codec_name]
     leaves = [np.asarray(x) for x in leaves]
     bottom = codec.new(spec, device="cpu")
@@ -69,9 +79,53 @@ def from_numpy(codec_name: str, spec, leaves, device=None):
     return state_cls(*out)
 
 
+def _tensor(leaf, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(leaf), device=dev)
+
+
+def _map_from_numpy(spec, leaves, dev) -> MapState:
+    clock, dots, fields, epochs, tombs = tuple(leaves)
+    if len(fields) != spec.n_fields:
+        raise ValueError(
+            f"riak_dt_map: {len(fields)} embedded states for a spec of "
+            f"{spec.n_fields} fields"
+        )
+    return MapState(
+        clock=_tensor(clock, dev),
+        dots=_tensor(dots, dev),
+        fields=tuple(
+            from_numpy(codec.name, espec, fs, device=dev)
+            for (_k, codec, espec), fs in zip(spec.fields, fields)
+        ),
+        epochs=None if epochs is None else _tensor(epochs, dev),
+        tombs=(
+            None if tombs is None
+            else tuple(None if t is None else _tensor(t, dev) for t in tombs)
+        ),
+    )
+
+
 def to_numpy(state) -> tuple:
-    """The port's state -> numpy leaves in the JAX package's dtypes
-    (word planes as ``uint32``)."""
+    """The port's state -> numpy leaves in the JAX package's dtypes (word
+    planes as ``uint32``); a map keeps the nesting of its fields, with
+    None where JAX holds None."""
+    if isinstance(state, MapState):
+        return MapState(
+            clock=state.clock.detach().cpu().numpy(),
+            dots=state.dots.detach().cpu().numpy(),
+            fields=tuple(to_numpy(fs) for fs in state.fields),
+            epochs=(
+                None if state.epochs is None
+                else state.epochs.detach().cpu().numpy()
+            ),
+            tombs=(
+                None if state.tombs is None
+                else tuple(
+                    None if t is None else t.detach().cpu().numpy()
+                    for t in state.tombs
+                )
+            ),
+        )
     words = isinstance(state, _WORD_STATES)
     return tuple(
         x.detach().cpu().numpy().view(np.uint32) if words

@@ -1,5 +1,5 @@
 """Lattice layer: dense CRDT codecs over torch tensors (port of
-``lasp_tpu.lattice``). ``riak_dt_map`` is not ported yet."""
+``lasp_tpu.lattice``): the six reference types plus the CRDT map."""
 
 from .base import (
     CrdtType,
@@ -12,13 +12,16 @@ from .base import (
 from .gcounter import GCounter, GCounterSpec, GCounterState
 from .gset import GSet, GSetSpec, GSetState
 from .ivar import IVar, IVarSpec, IVarState
+from .map import CrdtMap, MapSpec, MapState
 from .orset import ORSet, ORSetSpec, ORSetState
 from .orswot import ORSWOT, ORSWOTSpec, ORSWOTState
 
 #: ``lasp_orset_gbtree`` is semantically identical to ``lasp_orset``
 ORSetGbtree = type("ORSetGbtree", (ORSet,), {"name": "lasp_orset_gbtree"})
 
-REGISTRY = TypeRegistry(types=(IVar, GSet, ORSet, ORSetGbtree, GCounter, ORSWOT))
+REGISTRY = TypeRegistry(
+    types=(IVar, GSet, ORSet, ORSetGbtree, GCounter, ORSWOT, CrdtMap)
+)
 
 
 def get_type(name: str):
@@ -33,6 +36,9 @@ __all__ = [
     "replicate",
     "tree_all_equal",
     "tree_map",
+    "CrdtMap",
+    "MapSpec",
+    "MapState",
     "IVar",
     "IVarSpec",
     "IVarState",

@@ -101,24 +101,50 @@ def any_trailing(x: torch.Tensor, nd: int) -> torch.Tensor:
 
 
 def tree_map(fn, tree, *rest):
-    """Leafwise map over one or more same-type state NamedTuples."""
-    return type(tree)(*(fn(*leaves) for leaves in zip(tree, *rest)))
+    """Leafwise map over one or more same-structure states. A state is a
+    NamedTuple whose fields are tensors, ``None`` (passed through) or
+    tuples of states (a map's embedded fields and tombstones, recursed
+    into); a plain tuple keeps its type, a NamedTuple its class."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        children = [tree_map(fn, *parts) for parts in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*children)
+        return tuple(children)
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    return list(tree)
+    """The tensors of a state in field order, depth first, ``None``
+    skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [leaf for part in tree for leaf in tree_leaves(part)]
+    return [tree]
+
+
+def _structure(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return (type(tree), tuple(_structure(t) for t in tree))
+    return "leaf"
 
 
 def tree_all_equal(a, b) -> torch.Tensor:
-    """0-d bool: every leaf of two same-type states is elementwise equal."""
-    if type(a) is not type(b) or len(a) != len(b):
+    """0-d bool: every leaf of two same-structure states is elementwise
+    equal."""
+    if _structure(a) != _structure(b):
         raise ValueError(
             f"tree_all_equal: mismatched state types {type(a).__name__} "
             f"vs {type(b).__name__}"
         )
-    acc = torch.ones((), dtype=torch.bool, device=a[0].device)
-    for la, lb in zip(a, b):
-        acc = acc & torch.all(la == lb)
+    la, lb = tree_leaves(a), tree_leaves(b)
+    acc = torch.ones((), dtype=torch.bool, device=la[0].device)
+    for x, y in zip(la, lb):
+        acc = acc & torch.all(x == y)
     return acc
 
 

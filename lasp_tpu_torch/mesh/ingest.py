@@ -243,18 +243,46 @@ def _encode_orswot(rt, var, states, ops):
     return table, err
 
 
-def take_rows(plane: torch.Tensor, idx) -> np.ndarray:
+def _take_fill(dtype: torch.dtype, words: bool):
+    """The value ``jnp.take`` (mode "fill") returns at an out-of-range
+    index: True for bool, the most negative value for a signed leaf, all
+    ones for the packed words (uint32 planes in JAX, int32 here)."""
+    if dtype == torch.bool:
+        return True
+    if words:
+        return -1
+    return torch.iinfo(dtype).min
+
+
+def take_rows(plane: torch.Tensor, idx, words: bool = False) -> np.ndarray:
     """``plane[idx]`` along the leading axis as one gather, pulled to the
-    host (O(batch), never the population)."""
-    index = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=plane.device)
-    return plane[index].cpu().numpy()
+    host (O(batch), never the population), with ``jnp.take``'s index
+    rule: a negative index wraps once, an index still outside the plane
+    reads the fill value (:func:`_take_fill`). Only valid indices reach
+    the device. ``words``: the plane holds packed uint32 words."""
+    idx, ok = wrap_index(np.asarray(idx, dtype=np.int64), int(plane.shape[0]))
+    out = np.empty((idx.shape[0],) + tuple(plane.shape[1:]),
+                   dtype=_np_dtype(plane.dtype))
+    out[~ok] = _take_fill(plane.dtype, words)
+    if ok.any():
+        index = torch.as_tensor(idx[ok], device=plane.device)
+        out[ok] = plane[index].cpu().numpy()
+    return out
 
 
 def take_pairs(plane: torch.Tensor, rs, es) -> np.ndarray:
-    """``plane[rs, es]`` of an ``[R, E, ...]`` plane as one flat gather."""
+    """``plane[rs, es]`` of an ``[R, E, ...]`` plane as one flat gather
+    (JAX flattens the pair the same way before its ``take``)."""
     e = int(plane.shape[1])
     flat = np.asarray(rs, dtype=np.int64) * e + np.asarray(es, dtype=np.int64)
     return take_rows(plane.reshape((-1,) + tuple(plane.shape[2:])), flat)
+
+
+def wrap_index(idx: np.ndarray, size: int) -> tuple:
+    """``(index, valid)``: negative indices wrapped once, as JAX normalises
+    them, and the mask of those in ``[0, size)``."""
+    idx = np.where(idx < 0, idx + size, idx)
+    return idx, (idx >= 0) & (idx < size)
 
 
 class _PairCache:
@@ -395,8 +423,8 @@ def _encode_orset_packed(rt, var, states, ops):
         if not need:
             return
         rs = np.asarray(need, dtype=np.int32)
-        got_ex = take_rows(states.exists, rs).view(np.uint32)
-        got_rm = take_rows(states.removed, rs).view(np.uint32)
+        got_ex = take_rows(states.exists, rs, words=True).view(np.uint32)
+        got_rm = take_rows(states.removed, rs, words=True).view(np.uint32)
         for i, r in enumerate(need):
             ex_rows[r] = np.array(got_ex[i])
             rm_rows[r] = np.array(got_rm[i])
@@ -561,6 +589,24 @@ def _or_tombstones(arrays: dict) -> dict:
     return out
 
 
+def _drop_outside(arrays: dict, n_replicas: int) -> dict:
+    """A table with each row column wrapped once and its out-of-range
+    entries dropped, together with the columns of the same write (those
+    sharing the row column's prefix: ``m_rows`` carries ``m_elems`` and
+    ``m_slots``; a bare ``rows`` carries every column)."""
+    out = dict(arrays)
+    for name in arrays:
+        if name not in _ROW_COLS:
+            continue
+        rows, ok = wrap_index(arrays[name].astype(np.int64), n_replicas)
+        prefix = name[: -len("rows")]
+        for col in arrays:
+            if col.startswith(prefix):
+                out[col] = arrays[col][ok]
+        out[name] = rows[ok].astype(arrays[name].dtype)
+    return out
+
+
 def _check_targets(kind: str, arrays: dict) -> None:
     """No value-carrying target repeated within one table: on the card a
     repeated target would take an arbitrary one of its values."""
@@ -608,14 +654,15 @@ def apply_group(kind: str, states: list, tables: list, n_replicas: int) -> list:
     and return each member's changed rows as a host ``bool[R]`` (the exact
     dirty marks). ``states`` and ``tables`` are in member order and share
     one signature, so one device copy per column serves the whole group;
-    the only host sync is the G-Set's read of its change flags. The row
-    indices must lie in ``[0, n_replicas)`` (the runtime checks them when
-    a batch begins)."""
+    the only host sync is the G-Set's read of its change flags. Row
+    indices follow JAX's ``mode="drop"`` scatter: a negative row wraps
+    once, a row still outside ``[0, n_replicas)`` drops with its entry,
+    on the host (:func:`_drop_outside`), so the card never sees one."""
     global GROUP_APPLIES
     applier = _APPLIERS[kind]
-    arrays = [
-        _or_tombstones(t.arrays) if kind == "orset" else t.arrays for t in tables
-    ]
+    arrays = [_drop_outside(t.arrays, n_replicas) for t in tables]
+    if kind == "orset":
+        arrays = [_or_tombstones(a) for a in arrays]
     for a in arrays:
         _check_targets(kind, a)
     cols = {}

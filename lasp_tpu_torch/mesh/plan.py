@@ -33,6 +33,8 @@ import dataclasses
 
 import torch
 
+from ..lattice.base import tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class PlanGroup:
@@ -114,11 +116,9 @@ def stack_group(states_seq):
     """Stack per-member ``[R, ...]`` populations into the group's
     ``[G, R, ...]`` tensors (a copy of every member)."""
     states_seq = list(states_seq)
-    return type(states_seq[0])(
-        *(torch.stack(leaves) for leaves in zip(*states_seq))
-    )
+    return tree_map(lambda *leaves: torch.stack(leaves), *states_seq)
 
 
 def unstack_group(stacked, n: int) -> tuple:
     """Per-member views of ``[G, R, ...]`` tensors, in member order."""
-    return tuple(type(stacked)(*(x[i] for x in stacked)) for i in range(n))
+    return tuple(tree_map(lambda x: x[i], stacked) for i in range(n))

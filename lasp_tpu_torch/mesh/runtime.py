@@ -45,19 +45,35 @@ Rows are updated in place (client writes, sparse-round scatters) where the
 JAX runtime rebinds donated buffers: do not hold ``rt.states[v]`` leaves
 across a write or a round and expect the old values. A planned round reads
 each member population where it lies (the kernels take a table of member
-base pointers) and never stacks a group's populations. Programs, sharding,
-membership, maps and compaction are later slices (``shard``, ``register``
-and ``resize`` raise ``NotImplementedError``); telemetry is not carried.
+base pointers) and never stacks a group's populations.
+
+Maps (``riak_dt_map``) ride every path: ``update_at`` and the batches
+admit first-touched ``{Name, Type}`` keys and re-lay out the population
+(``_grow_map_population``); a batch whose fields are all G-Counters,
+G-Sets or IVars takes the vectorized ``_map_batch``, any other shape the
+per-op path with a warning, as in JAX; a map has no op table and no rows
+plan, so it takes the per-variable ingest arm and plain-PyTorch gossip
+rounds. Compaction: ``compact_orset`` (dense and packed),
+``compact_map_field`` and the ``compaction_window`` context. Programs,
+sharding and membership are later slices (``shard``, ``register`` and
+``resize`` raise ``NotImplementedError``); telemetry is not carried.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import sys
+import warnings
+
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..dataflow.plan import tree_select
 from ..device import resolve_device
-from ..lattice.base import replicate, tree_map
+from ..lattice.base import replicate, tree_leaves, tree_map
+from ..lattice.map import CrdtMap, map_subs
 from ..ops import cuda_gossip
 from ..ops.flatpack import FlatORSet, FlatORSetSpec
 from ..store.store import PreconditionError
@@ -113,17 +129,12 @@ def _not_ported(what: str):
     )
 
 
-def _wrap_index(idx: np.ndarray, size: int) -> tuple:
-    """``(index, valid)``: negative indices wrapped once, as JAX's scatters
-    normalise them, and the mask of those in ``[0, size)`` (JAX drops the
-    rest)."""
-    idx = np.where(idx < 0, idx + size, idx)
-    return idx, (idx >= 0) & (idx < size)
-
-
 def _leaves(tree) -> list:
     """The leaves of a threshold state: tuples, lists and dicts flatten,
-    anything else is a leaf."""
+    ``None`` (a map's absent tombstone) has none, anything else is a
+    leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in _leaves(t)]
     if isinstance(tree, dict):
@@ -146,6 +157,32 @@ def _device_expressible(state) -> bool:
         return True
     except (TypeError, ValueError):
         return False
+
+
+def _vmap_rows(fn, tree):
+    """``torch.func.vmap(fn)(tree)`` over the replica axis of every tensor
+    in ``tree``, where ``tree`` and ``fn``'s result may hold None leaves (a
+    map's absent epochs and tombstones), which vmap itself refuses: the
+    None leaves stay out of the mapped call and are put back around it."""
+    leaves, spec = pytree.tree_flatten(tree)
+    live = [i for i, x in enumerate(leaves) if x is not None]
+    out_shape = {}
+
+    def flat_fn(*xs):
+        full = list(leaves)
+        for i, x in zip(live, xs):
+            full[i] = x
+        out_leaves, out_shape["spec"] = pytree.tree_flatten(
+            fn(pytree.tree_unflatten(full, spec))
+        )
+        out_shape["none"] = [x is None for x in out_leaves]
+        return tuple(x for x in out_leaves if x is not None)
+
+    outs = iter(torch.func.vmap(flat_fn)(*(leaves[i] for i in live)))
+    return pytree.tree_unflatten(
+        [None if none else next(outs) for none in out_shape["none"]],
+        out_shape["spec"],
+    )
 
 
 class ActorCollisionError(RuntimeError):
@@ -404,7 +441,8 @@ class ReplicatedRuntime:
     #: OR-Sets (counter-based tokens allocate row-locally per (elem, actor)
     #: pool: two rows minting under one actor reuse slots)
     _ACTOR_LANE_TYPES = frozenset({
-        "riak_dt_orswot", "riak_dt_gcounter", "lasp_orset", "lasp_orset_gbtree",
+        "riak_dt_orswot", "riak_dt_map", "riak_dt_gcounter",
+        "lasp_orset", "lasp_orset_gbtree",
     })
 
     def _actor_guard_keys(self, var, actor, fresh_offset: int = 0) -> list:
@@ -467,6 +505,12 @@ class ReplicatedRuntime:
             return op[0] == "increment"
         if tn in ("riak_dt_orswot", "lasp_orset", "lasp_orset_gbtree"):
             return op[0] in ("add", "add_all")
+        if tn == "riak_dt_map":
+            # a field update mints a presence dot on the map clock's lane
+            return any(
+                isinstance(s, tuple) and s and s[0] == "update"
+                for s in map_subs(op)
+            )
         return False
 
     # -- client operations ---------------------------------------------------
@@ -477,6 +521,14 @@ class ReplicatedRuntime:
         Under ``debug_actors`` a lane-minting op from a second replica of
         one actor raises :class:`ActorCollisionError`."""
         var = self.store.variable(var_id)
+        if var.type_name == "riak_dt_map":
+            # sync a late-declared map's population before any spec growth
+            # (a grown spec with no population would leave the two apart)
+            self._population(var_id)
+            if self.store.admit_map_fields(var, op):
+                # dynamic field admission grew the field axis: re-lay out
+                # the population before reading this replica's row
+                self._grow_map_population(var)
         guarded = (
             self.debug_actors
             and var.type_name in self._ACTOR_LANE_TYPES
@@ -491,7 +543,7 @@ class ReplicatedRuntime:
         merged = var.codec.merge(var.spec, row, candidate)
         if bool(var.codec.is_inflation(var.spec, row, merged)):
             new_row = self._from_dense_row(var_id, merged)
-            for x, r in zip(pop, new_row):
+            for x, r in zip(tree_leaves(pop), tree_leaves(new_row)):
                 x[replica] = r
             if guarded:
                 # keys re-derived after the apply interned the actor (its
@@ -547,24 +599,30 @@ class ReplicatedRuntime:
     def _batch_begin(self, var_id: str, ops) -> "_PendingBatch | None":
         """The host phases of a batched write: normalize, check the rows,
         the capacity prefix, the actor guard's staging. Returns None for an
-        empty batch; raises batch-level errors (``IndexError`` for a row
-        outside the population, ``ActorCollisionError``) with nothing
-        applied."""
+        empty batch; raises batch-level errors (``ActorCollisionError``)
+        with nothing applied. Rows are taken as given, as JAX takes them: a
+        negative row wraps, and a row outside the population reads as JAX's
+        gathers read it and drops from every scatter, both settled on the
+        host (``_gather_rows``, ``_keep_rows``, ``mesh.ingest``), so the
+        card never sees it; the per-variable arm's dirty marking then
+        raises ``IndexError`` for it, as JAX's does."""
         ops = self._normalize_ops(ops)
         var = self.store.variable(var_id)
         tn = var.type_name
+        if tn == "riak_dt_map":
+            # late-declare sync before admission (the update_at rule), then
+            # pre-admit every first-touched key of the batch and re-lay out
+            # the population once: admission is observably a no-op until its
+            # update lands. The scan validates every op's keys before
+            # anything mutates.
+            self._population(var_id)
+            plan = self.store.scan_map_admissions(var, (op for _r, op, _a in ops))
+            if plan:
+                self.store.grow_map_plan(var, plan)
+                self._grow_map_population(var)
         states = self._population(var_id)
         if not ops:
             return None
-        # rows index the card's scatters, where an out-of-range index is a
-        # device-side assert: refused here, before anything is interned
-        n = self.n_replicas
-        for r, _op, _actor in ops:
-            if not 0 <= r < n:
-                raise IndexError(
-                    f"update_batch({var_id!r}): replica {r!r} out of range "
-                    f"for {n} replicas"
-                )
         # the longest op prefix whose new terms / actors fit applies, then
         # the overflow raises; walked before the guard, so the guard judges
         # exactly the ops that can apply in this call
@@ -778,6 +836,14 @@ class ReplicatedRuntime:
                 return k, err
         return len(ops), None
 
+    #: map field types the vectorized map batch embeds: the batch bodies
+    #: the per-variable arm runs, applied to the field's embedded population
+    _MAP_FIELD_BATCH = {
+        "riak_dt_gcounter": "_gcounter_batch",
+        "lasp_gset": "_gset_batch",
+        "lasp_ivar": "_ivar_batch",
+    }
+
     def _dispatch_batch(self, var, tn, states, ops) -> None:
         if tn == "riak_dt_gcounter":
             self._gcounter_batch(var, states, ops)
@@ -789,11 +855,211 @@ class ReplicatedRuntime:
             self._orswot_batch(var, ops)
         elif tn == "lasp_ivar":
             self._ivar_batch(var, states, ops)
+        elif tn == "riak_dt_map" and all(
+            fcodec.name in self._MAP_FIELD_BATCH
+            for _k, fcodec, _s in var.spec.fields
+        ) and not self._map_reset_remove_batch(var, ops):
+            self._map_batch(var, states, ops)
+        elif tn == "riak_dt_map":
+            # maps embedding a field type with no batch body (OR-Set,
+            # OR-SWOT, a submap), or reset-mode batches holding a remove
+            # (epoch bumps and bottom-resets interleave with inner ops in
+            # ways the two-pass batch cannot express): per-op update_at,
+            # exact sequential semantics at one dispatch per op, loudly
+            warnings.warn(
+                f"update_batch({tn!r}): no vectorized kernel for this "
+                f"shape; applying {len(ops)} ops via per-op update_at "
+                "(one dispatch per op — fine for control-plane writes, "
+                "not for population-scale seeding)",
+                stacklevel=3,
+            )
+            for r, op, actor in ops:
+                self.update_at(r, var.id, op, actor)
         else:
             raise ValueError(f"update_batch: unsupported type {tn!r}")
 
+    @staticmethod
+    def _map_reset_remove_batch(var, ops) -> bool:
+        """True iff the map is in reset mode and the batch holds a field
+        remove (what the two-pass map batch cannot express)."""
+        if not var.spec.reset_on_readd:
+            return False
+        for _r, op, _actor in ops:
+            for sub in map_subs(op):
+                if isinstance(sub, tuple) and sub and sub[0] == "remove":
+                    return True
+        return False
+
+    def _grow_map_population(self, var) -> None:
+        """Re-lay out a map's population after field admission: bottom
+        planes for the new fields. The member's leaf shapes changed, so the
+        dispatch plan regroups (the port compiles no step to drop)."""
+        self.states[var.id] = CrdtMap.grow(var.spec, self.states[var.id])
+        self._invalidate_plan("map_growth")
+
+    def _map_batch(self, var, states, ops) -> None:
+        """Vectorized ``riak_dt_map`` batch with sequential, per-op-atomic
+        semantics: presence dots are simulated on the host over the touched
+        rows only (one gather), embedded field ops land through the batch
+        bodies of their types (:attr:`_MAP_FIELD_BATCH`) on the field's
+        embedded population, and the presence planes land in one scatter
+        each, in place, one write per row.
+
+        Op shapes: ``("update", Key, InnerOp)``, ``("remove", Key)`` and
+        the batched ``("update", [SubOps])``, whose sub-ops apply
+        atomically. A failing op (an absent remove: ``PreconditionError``;
+        interner overflow: ``CapacityError``) applies nothing of itself (an
+        undo log rewinds its partial presence writes) while every op before
+        it persists, then the error raises: the per-op ``update_at`` loop's
+        state, for data-dependent failures. Malformed shapes (unknown
+        verbs, unknown field names, non-positive increments) raise up front
+        with nothing applied."""
+        spec = var.spec
+        # pass 0: flatten and validate shapes (nothing applied yet)
+        flat = []  # (op_index, replica, ("update", f, inner) | ("remove", f, key), actor)
+        for k, (r, op, actor) in enumerate(ops):
+            for sub in map_subs(op):
+                if sub[0] == "update" and len(sub) == 3:
+                    f = spec.field_index(sub[1])  # KeyError: unknown field
+                    inner = sub[2]
+                    if not isinstance(inner, tuple):
+                        raise ValueError(f"update_batch: unsupported op {inner!r}")
+                    _key, fcodec, _fspec = spec.fields[f]
+                    if fcodec.name == "riak_dt_gcounter":
+                        if inner[0] != "increment":
+                            raise ValueError(
+                                f"update_batch: unsupported op {inner!r}"
+                            )
+                        if len(inner) > 1 and inner[1] < 1:
+                            raise ValueError(
+                                "update_batch: G-Counter increment must "
+                                f"be >= 1, got {inner[1]!r}"
+                            )
+                    elif fcodec.name == "lasp_gset":
+                        if inner[0] not in ("add", "add_all"):
+                            raise ValueError(
+                                f"update_batch: unsupported op {inner!r}"
+                            )
+                        if inner[0] == "add_all":
+                            # materialised once: the capacity walk and the
+                            # field body both iterate it
+                            inner = ("add_all", list(inner[1]))
+                    elif inner[0] != "set":
+                        raise ValueError(f"update_batch: unsupported op {inner!r}")
+                    flat.append((k, r, ("update", f, inner), actor))
+                elif sub[0] == "remove" and len(sub) == 2:
+                    try:
+                        f = spec.field_index(sub[1])
+                    except KeyError:
+                        # a never-admitted field is absent: not_present at
+                        # this op's position (pass 1)
+                        f = -1
+                    flat.append((k, r, ("remove", f, sub[1]), actor))
+                else:
+                    raise ValueError(f"update_batch: unsupported map op {sub!r}")
+        if not flat:
+            return
+        # one gather of the touched rows' presence planes; the sorted set of
+        # rows is what de-duplicates the scatters below
+        tr = np.asarray(sorted({r for _k, r, _s, _a in flat}), dtype=np.int64)
+        row_of = {int(r): i for i, r in enumerate(tr)}
+        at = self._gather_rows(tr)
+        local_clock = states.clock[at].cpu().numpy().copy()  # [T, A]
+        local_dots = states.dots[at].cpu().numpy().copy()  # [T, F, A]
+        # pass 1: the sequential walk. Capacity is checked per op against
+        # free counters; presence checks see the simulated state at the op's
+        # own position
+        err = None
+        inner_ops: dict = {}  # field -> [(r, inner, actor)]
+        walk_a = _CapacityWalk(var.actors)
+        walk_e = {f: _CapacityWalk(shim.elems) for f, shim in enumerate(var.map_aux)}
+        for _k, giter in itertools.groupby(flat, key=lambda x: x[0]):
+            group = list(giter)
+            undo: list = []
+            inner_mark = {f: len(v) for f, v in inner_ops.items()}
+            for _k, r, sub, actor in group:
+                t = row_of[int(r)]
+                if sub[0] == "remove":
+                    f = sub[1]
+                    if f < 0 or not (local_dots[t, f] > 0).any():
+                        err = PreconditionError(f"not_present: {sub[2]!r}")
+                        break
+                    undo.append((t, f, local_dots[t, f].copy(), None, None))
+                    local_dots[t, f] = 0
+                    continue
+                _u, f, inner = sub
+                if inner[0] in ("add", "add_all"):
+                    terms = inner[1] if inner[0] == "add_all" else [inner[1]]
+                    err = walk_e[f].take(terms)
+                    if err is not None:
+                        break
+                err = walk_a.take([actor])
+                if err is not None:
+                    break
+                a = var.actors.intern(actor)
+                undo.append((t, f, local_dots[t, f].copy(), a, local_clock[t, a]))
+                local_clock[t, a] += 1
+                # the mint replaces the field's dot row with the fresh single
+                # dot (lattice/dots.py mint_dot, the riak_dt touch)
+                local_dots[t, f] = 0
+                local_dots[t, f, a] = local_clock[t, a]
+                inner_ops.setdefault(f, []).append((r, inner, actor))
+            if err is not None:
+                err.batch_index = _k  # this op and every later one: unapplied
+                # rewind this op's partial presence writes and inner appends
+                for t, f, dots_old, a, clock_old in reversed(undo):
+                    local_dots[t, f] = dots_old
+                    if a is not None:
+                        local_clock[t, a] = clock_old
+                for f, mark in inner_mark.items():
+                    del inner_ops[f][mark:]
+                for f in list(inner_ops):
+                    if f not in inner_mark:
+                        del inner_ops[f]
+                break
+        # pass 2: each touched field's ops through its type's batch body,
+        # into the field's embedded population; then the presence planes
+        for f, fops in inner_ops.items():
+            if not fops:
+                continue
+            _key, fcodec, _fspec = spec.fields[f]
+            body = getattr(self, self._MAP_FIELD_BATCH[fcodec.name])
+            body(var.map_aux[f], states.fields[f], fops)
+        rows, keep = self._keep_rows(tr)
+        if keep.any():
+            # a wrapped negative row can meet its positive twin: the later
+            # entry (sorted order, the scatter's last write) wins alone
+            pos = np.flatnonzero(keep)
+            _u, last = np.unique(rows[pos][::-1], return_index=True)
+            pos = pos[::-1][last]
+            idx = self._index(rows[pos])
+            states.clock[idx] = torch.as_tensor(local_clock[pos], device=self.device)
+            states.dots[idx] = torch.as_tensor(local_dots[pos], device=self.device)
+        if err is not None:
+            raise err  # the earlier ops landed in place
+
     def _index(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, dtype=np.int64), device=self.device)
+
+    def _gather_rows(self, rows) -> torch.Tensor:
+        """Replica rows for a gather, by JAX's plain-indexing rule: a
+        negative row wraps once, then every row clamps into the
+        population (what the per-variable arm's ``x[rows]`` reads)."""
+        idx = np.asarray(rows, dtype=np.int64)
+        idx = np.where(idx < 0, idx + self.n_replicas, idx)
+        return self._index(np.clip(idx, 0, self.n_replicas - 1))
+
+    def _keep_rows(self, rows) -> tuple:
+        """``(rows, keep)`` for a scatter, by JAX's rule: a negative row
+        wraps once, a row still outside the population drops (``keep`` is
+        the host mask of the entries that land)."""
+        return ingest_mod.wrap_index(
+            np.asarray(rows, dtype=np.int64), self.n_replicas
+        )
+
+    # The batch bodies of the leafwise types write only into the ``states``
+    # they are given: a variable's population, or (from ``_map_batch``) a
+    # map field's embedded population.
 
     def _gcounter_batch(self, var, states, ops) -> None:
         rows, lanes, by = [], [], []
@@ -809,9 +1075,11 @@ class ReplicatedRuntime:
             rows.append(r)
             lanes.append(var.actors.intern(actor))
             by.append(amount)
+        rows, keep = self._keep_rows(rows)
         states.counts.index_put_(
-            (self._index(rows), self._index(lanes)),
-            torch.as_tensor(by, dtype=states.counts.dtype, device=self.device),
+            (self._index(rows[keep]), self._index(np.asarray(lanes)[keep])),
+            torch.as_tensor(np.asarray(by)[keep], device=self.device)
+            .to(states.counts.dtype),
             accumulate=True,
         )
 
@@ -827,8 +1095,9 @@ class ReplicatedRuntime:
                     elems.append(var.elems.intern(e))
             else:
                 raise ValueError(f"update_batch: unsupported op {op!r}")
-        if rows:
-            states.mask[self._index(rows), self._index(elems)] = True
+        rows, keep = self._keep_rows(rows)
+        if keep.any():
+            states.mask[self._index(rows[keep]), self._index(np.asarray(elems)[keep])] = True
 
     def _ivar_batch(self, var, states, ops) -> None:
         rows, payloads = [], []
@@ -843,8 +1112,10 @@ class ReplicatedRuntime:
         # already-defined row keeps its value (single assignment)
         _, first = np.unique(rows, return_index=True)
         rows, payloads = rows[first], payloads[first]
-        open_rows = ~states.defined[self._index(rows)].cpu().numpy()
+        open_rows = ~states.defined[self._gather_rows(rows)].cpu().numpy()
         rows, payloads = rows[open_rows], payloads[open_rows]
+        rows, keep = self._keep_rows(rows)
+        rows, payloads = rows[keep], payloads[keep]
         idx = self._index(rows)
         states.defined[idx] = True
         states.value[idx] = torch.as_tensor(
@@ -893,29 +1164,34 @@ class ReplicatedRuntime:
                 bases = np.asarray([it[2] for it in items], dtype=np.int64)
                 pool_idx = bases[:, None] + np.arange(k)[None, :]
                 gathered = exists[
-                    self._index(rows)[:, None], self._index(elems)[:, None],
+                    self._gather_rows(rows)[:, None], self._index(elems)[:, None],
                     self._index(pool_idx),
                 ].cpu().numpy()
                 allocs, err = self._alloc_pool_slots(var.id, items, gathered, k)
                 allocs = allocs[: self._atomic_prefix(items, len(allocs), err)]
-                if allocs:
+                a_rows, keep = self._keep_rows([items[i][0] for i, _ in allocs])
+                if keep.any():
+                    a_elems = np.asarray([items[i][1] for i, _ in allocs])
+                    a_slots = np.asarray([items[i][2] + s for i, s in allocs])
                     idx = (
-                        self._index([items[i][0] for i, _ in allocs]),
-                        self._index([items[i][1] for i, _ in allocs]),
-                        self._index([items[i][2] + s for i, s in allocs]),
+                        self._index(a_rows[keep]),
+                        self._index(a_elems[keep]),
+                        self._index(a_slots[keep]),
                     )
                     exists[idx] = True
                     removed[idx] = False
             else:
                 valid = elems >= 0
                 safe = np.where(valid, elems, 0)
-                r_t, e_t = self._index(rows), self._index(safe)
+                r_t, e_t = self._gather_rows(rows), self._index(safe)
                 live = (exists[r_t, e_t] & ~removed[r_t, e_t]).any(dim=-1)
                 live = live.cpu().numpy() & valid
                 n_ok, err = self._check_removes(items, live)
                 ok = self._atomic_prefix(items, n_ok, err)
-                if ok:
-                    ok_r, ok_e = r_t[:ok], e_t[:ok]
+                ok_r, keep = self._keep_rows(rows[:ok])
+                if keep.any():
+                    ok_r = self._index(ok_r[keep])
+                    ok_e = self._index(safe[:ok][keep])
                     removed[ok_r, ok_e] = removed[ok_r, ok_e] | exists[ok_r, ok_e]
             if err is not None:
                 raise err  # earlier ops already landed in place
@@ -1011,11 +1287,14 @@ class ReplicatedRuntime:
         states = self.states[var_id]
         pairs = sorted({(r, e) for _k, r, e, _a in flat})
         actors = sorted({(r, a) for _k, r, _e, a in flat if a >= 0})
-        pr, pe = self._index([p[0] for p in pairs]), self._index([p[1] for p in pairs])
-        dot_rows = dict(zip(pairs, states.dots[pr, pe].cpu().numpy().copy()))
-        cr = self._index([a[0] for a in actors])
-        ca = self._index([a[1] for a in actors])
-        clocks = dict(zip(actors, states.clock[cr, ca].cpu().numpy().tolist()))
+        pe = np.asarray([p[1] for p in pairs], dtype=np.int64)
+        ca = np.asarray([a[1] for a in actors], dtype=np.int64)
+        dot_rows = dict(zip(pairs, states.dots[
+            self._gather_rows([p[0] for p in pairs]), self._index(pe)
+        ].cpu().numpy().copy()))
+        clocks = dict(zip(actors, states.clock[
+            self._gather_rows([a[0] for a in actors]), self._index(ca)
+        ].cpu().numpy().tolist()))
         for kind, r, e, a in flat:
             if kind == "add":
                 clocks[(r, a)] += 1
@@ -1024,12 +1303,15 @@ class ReplicatedRuntime:
                 dot_rows[(r, e)] = row
             else:
                 dot_rows[(r, e)][:] = 0
-        states.dots[pr, pe] = torch.as_tensor(
-            np.stack([dot_rows[p] for p in pairs]), device=self.device
-        )
-        if actors:
-            states.clock[cr, ca] = torch.as_tensor(
-                np.asarray([clocks[a] for a in actors], dtype=np.int32),
+        pr, keep = self._keep_rows([p[0] for p in pairs])
+        if keep.any():
+            states.dots[self._index(pr[keep]), self._index(pe[keep])] = torch.as_tensor(
+                np.stack([dot_rows[p] for p in pairs])[keep], device=self.device
+            )
+        cr, keep = self._keep_rows([a[0] for a in actors])
+        if keep.any():
+            states.clock[self._index(cr[keep]), self._index(ca[keep])] = torch.as_tensor(
+                np.asarray([clocks[a] for a in actors], dtype=np.int32)[keep],
                 device=self.device,
             )
 
@@ -1103,7 +1385,7 @@ class ReplicatedRuntime:
                 bits = elems[:, None] * d.n_tokens + bases[:, None] + np.arange(k)
                 words, shifts = bits // 32, bits % 32
                 gathered = exists[
-                    self._index(rows)[:, None], self._index(words)
+                    self._gather_rows(rows)[:, None], self._index(words)
                 ].cpu().numpy().view(np.uint32)
                 pools = ((gathered >> shifts.astype(np.uint32)) & 1).astype(bool)
                 allocs, err = self._alloc_pool_slots(var.id, items, pools, k)
@@ -1114,32 +1396,35 @@ class ReplicatedRuntime:
                     b = int(bits[i, slot])
                     wkey = (int(items[i][0]), b // 32)
                     set_masks[wkey] = set_masks.get(wkey, 0) | (1 << (b % 32))
-                if set_masks:
-                    rws = self._index([w[0] for w in set_masks])
-                    wds = self._index([w[1] for w in set_masks])
-                    msk = self._words(list(set_masks.values()))
+                rws, keep = self._keep_rows([w[0] for w in set_masks])
+                if keep.any():
+                    rws = self._index(rws[keep])
+                    wds = self._index(np.asarray([w[1] for w in set_masks])[keep])
+                    msk = self._words(np.asarray(list(set_masks.values()),
+                                                 dtype=np.uint32)[keep])
                     exists[rws, wds] = exists[rws, wds] | msk
                     removed[rws, wds] = removed[rws, wds] & ~msk
             else:
                 elems = np.asarray([it[1] for it in items], dtype=np.int64)
                 valid = elems >= 0
                 safe = np.where(valid, elems, 0)
-                r_t = self._index(rows)
+                r_t = self._gather_rows(rows)
                 ex_rows = exists[r_t].cpu().numpy().view(np.uint32)
                 rm_rows = removed[r_t].cpu().numpy().view(np.uint32)
                 live = ((ex_rows & ~rm_rows) & elem_masks[safe]).any(axis=-1)
                 live = live & valid
                 n_ok, err = self._check_removes(items, live)
                 ok = self._atomic_prefix(items, n_ok, err)
-                if ok:
-                    per_row: dict[int, np.ndarray] = {}
-                    for r, e, _term, _opk in items[:ok]:
-                        m = per_row.setdefault(
-                            int(r), np.zeros(pspec.n_words, np.uint32)
-                        )
-                        m |= elem_masks[int(e)]
-                    urows = self._index(list(per_row))
-                    umasks = self._words(np.stack(list(per_row.values())))
+                per_row: dict[int, np.ndarray] = {}
+                for r, e, _term, _opk in items[:ok]:
+                    m = per_row.setdefault(
+                        int(r), np.zeros(pspec.n_words, np.uint32)
+                    )
+                    m |= elem_masks[int(e)]
+                urows, keep = self._keep_rows(list(per_row))
+                if keep.any():
+                    urows = self._index(urows[keep])
+                    umasks = self._words(np.stack(list(per_row.values()))[keep])
                     removed[urows] = removed[urows] | (exists[urows] & umasks)
             if err is not None:
                 raise err  # earlier ops already landed in place
@@ -1184,9 +1469,9 @@ class ReplicatedRuntime:
             )
         else:
             r_cap, e_cap, t_cap = states.exists.shape
-            r, r_ok = _wrap_index(rows_np, r_cap)
-            e, e_ok = _wrap_index(elems_np, e_cap)
-            t, t_ok = _wrap_index(tokens_np, t_cap)
+            r, r_ok = ingest_mod.wrap_index(rows_np, r_cap)
+            e, e_ok = ingest_mod.wrap_index(elems_np, e_cap)
+            t, t_ok = ingest_mod.wrap_index(tokens_np, t_cap)
             ok = r_ok & e_ok & t_ok
             idx = (self._index(r[ok]), self._index(e[ok]), self._index(t[ok]))
             states.exists[idx] = True
@@ -1228,8 +1513,8 @@ class ReplicatedRuntime:
         lanes_np = np.asarray(lanes, dtype=np.int64).ravel()
         by_np = np.broadcast_to(np.asarray(by), np.shape(rows)).ravel()
         r_cap, l_cap = states.counts.shape
-        r, r_ok = _wrap_index(rows_np, r_cap)
-        lane, l_ok = _wrap_index(lanes_np, l_cap)
+        r, r_ok = ingest_mod.wrap_index(rows_np, r_cap)
+        lane, l_ok = ingest_mod.wrap_index(lanes_np, l_cap)
         ok = r_ok & l_ok
         states.counts.index_put_(
             (self._index(r[ok]), self._index(lane[ok])),
@@ -1276,7 +1561,7 @@ class ReplicatedRuntime:
             flow = {v: dense[v] for v in self.graph._var_ids}
             dense.update(self.graph._round_fn(flow, tables))
         for trig, _touch, _b in self._triggers:
-            for v, cand in torch.func.vmap(trig)(dense).items():
+            for v, cand in _vmap_rows(trig, dense).items():
                 if v not in dense:
                     raise KeyError(f"trigger wrote {v!r} outside its declared touches")
                 var = self.store.variable(v)
@@ -1719,11 +2004,32 @@ class ReplicatedRuntime:
     # -- reads ------------------------------------------------------------------
     def _population(self, var_id: str):
         """The variable's [R, ...] states, replicating a variable declared
-        after the runtime was built."""
+        after the runtime was built, the late-declare rule every read and
+        write routes through. A map's population is re-checked against its
+        spec's field axis here."""
         if var_id not in self.states:
             if var_id not in self.store.ids():
                 raise KeyError(var_id)
             self._sync_graph()
+        var = self.store.variable(var_id)
+        if var.type_name == "riak_dt_map":
+            # fields admitted on the store variable behind this runtime's
+            # back re-lay out the population here (bottom planes, observably
+            # a no-op); more planes than the spec cannot come from growth
+            states = self.states[var_id]
+            if states.dots.shape[-2] > var.spec.n_fields:
+                raise RuntimeError(
+                    f"{var_id}: population states carry "
+                    f"{states.dots.shape[-2]} field planes but the spec "
+                    f"declares {var.spec.n_fields} — the spec shrank "
+                    "behind this runtime's back (field axes only grow; "
+                    "rebuild the runtime from the store)"
+                )
+            # grow() returns the same object when nothing changed
+            grown = CrdtMap.grow(var.spec, states)
+            if grown is not states:
+                self.states[var_id] = grown
+                self._invalidate_plan("map_growth")
         return self.states[var_id]
 
     def coverage_value(self, var_id: str):
@@ -1760,6 +2066,144 @@ class ReplicatedRuntime:
         pop = self._population(var_id)
         codec, spec = self._mesh_meta(var_id)
         return int(divergence(codec, spec, pop))
+
+    # -- compaction -------------------------------------------------------------
+    # The JAX runtime also drops the variable's boundary halo after a
+    # reindex; the port has no partitioned mesh, so there is no halo.
+
+    def _compaction_gates(self, verb: str, var_id: str, why_converged: str,
+                          why_triggers: str) -> None:
+        """Divergence 0 (a dropped tombstone could otherwise come back from
+        a divergent peer) and no trigger touching the variable (closures
+        bake element indices in the old order); the messages are JAX's."""
+        if self.divergence(var_id) != 0:
+            raise RuntimeError(
+                f"{verb}({var_id!r}): population not converged; "
+                f"run_to_convergence first{why_converged}"
+            )
+        for _fn, touch, _b in self._triggers:
+            if touch is None or var_id in touch:
+                raise RuntimeError(
+                    f"{verb}({var_id!r}): a registered trigger touches this "
+                    f"variable {why_triggers}"
+                )
+
+    def compact_orset(self, var_id: str) -> int:
+        """Reclaim the element slots of fully tombstoned OR-Set entries
+        across the whole population (the reclamation the reference's
+        ``waste_pct`` stat cues, ``src/lasp_orset.erl:178-191``). Requires
+        divergence 0: every row is then identical, so one reindex of every
+        row keeps them equivalent. A packed population is unpacked, reindexed
+        and packed again. Returns slots reclaimed."""
+        self._compaction_gates(
+            "compact_orset", var_id,
+            " (a dropped tombstone could be resurrected by a divergent peer)",
+            "— trigger closures typically hold element indices baked in the "
+            "OLD order (intern_terms results), which compaction reassigns",
+        )
+        var = self.store.variable(var_id)
+        dense = self._to_dense_row(var_id, self.states[var_id])
+        # the converged population is the authority
+        row0 = tree_map(lambda x: x[0], dense)
+        order, fresh = self.store.compact_plan(var_id, state=row0)
+        reclaimed = len(var.elems) - len(fresh)
+        if not reclaimed:
+            return 0
+        var.state = self.store.reindex_orset_state(var.state, order)
+        dense = self.store.reindex_orset_state(dense, order)
+        self.states[var_id] = self._from_dense_row(var_id, dense)
+        var.elems = fresh
+        # projection tables follow the element order
+        self.graph.refresh()
+        return reclaimed
+
+    def compact_map_field(self, var_id: str, key) -> int:
+        """Population-wide :meth:`Store.compact_map_field`: reclaim one
+        OR-Set field's fully tombstoned element slots in every replica row
+        (``key`` a field key or a path into nested submaps), under the
+        :meth:`compact_orset` gates. Maps are never packed, so the planes
+        reindex where they lie. Returns slots reclaimed."""
+        self._compaction_gates(
+            "compact_map_field", var_id, "",
+            "(closures bake element orders)",
+        )
+        var = self.store.variable(var_id)
+        states = self._population(var_id)
+        row0 = tree_map(lambda x: x[0], states)
+        idxs, shim, order, fresh = self.store.compact_map_plan(
+            var_id, key, state=row0
+        )
+        reclaimed = len(shim.elems) - len(fresh)
+        if not reclaimed:
+            return 0
+        leaf_of = self.store._nested_field
+        var.state = self.store._replace_nested_field(
+            var.codec, var.spec, var.state, idxs,
+            self.store.reindex_orset_state(leaf_of(var.state, idxs), order),
+        )
+        self.states[var_id] = self.store._replace_nested_field(
+            var.codec, var.spec, states, idxs,
+            self.store.reindex_orset_state(leaf_of(states, idxs), order),
+        )
+        shim.elems = fresh
+        return reclaimed
+
+    @contextlib.contextmanager
+    def compaction_window(self, max_rounds: int = 10_000, edge_mask=None,
+                          block: int = 32):
+        """Stop-the-world tombstone reclamation for a population with
+        registered triggers, which :meth:`compact_orset`'s gates otherwise
+        refuse. Entering requires every trigger to be builder-backed (a
+        plain fn may hold element indices in the old order), quiesces the
+        triggers and runs the engine to its fixed point (the divergence-0
+        gate). The body compacts what it likes. On exit, error or not, the
+        builders run again so the closures re-intern against the compacted
+        order; a trigger whose builder fails is dropped, loudly. Triggers
+        registered inside the body are kept. The port compiles no step, so
+        there is no step cache to drop."""
+        for _fn, _touch, b in self._triggers:
+            if b is None:
+                raise RuntimeError(
+                    "compaction_window: a registered trigger has no "
+                    "builder — register it with register_trigger("
+                    "builder=...) so it can be rebuilt against the "
+                    "compacted element order"
+                )
+        saved = list(self._triggers)
+        self._triggers = []
+        body_ok = False
+        try:
+            self.run_to_convergence(
+                max_rounds=max_rounds, edge_mask=edge_mask, block=block
+            )
+            yield self
+            body_ok = True
+        finally:
+            rebuilt, failures = [], []
+            for _f, touch, b in saved:
+                try:
+                    built = b()
+                    if not callable(built):
+                        raise TypeError(
+                            f"trigger builder returned {built!r}, not a "
+                            "callable"
+                        )
+                    rebuilt.append((built, touch, b))
+                except Exception as exc:  # reported below
+                    failures.append((b, exc))
+            self._triggers = rebuilt + self._triggers
+            if failures:
+                # a failed builder's old closure holds pre-compaction
+                # indices: the trigger is dropped. Raising here would mask
+                # the body's own exception, so only a clean body raises.
+                msg = (
+                    "compaction_window: trigger rebuild failed for "
+                    f"{len(failures)} builder(s); those triggers were "
+                    f"DROPPED (first error: {failures[0][1]!r})"
+                )
+                if body_ok:
+                    raise RuntimeError(msg) from failures[0][1]
+                print(f"lasp_tpu_torch: {msg}", file=sys.stderr)
 
     def read_at(self, replica: int, var_id: str, threshold=None):
         """Non-blocking threshold check against one replica's row (the

@@ -4,14 +4,21 @@
 Ported: ``declare`` (``src/lasp_core.erl:209-218``), ``update`` — apply a
 CRDT op, then bind (``:283-287``) — ``value`` and ``variable`` for
 ``lasp_ivar``, ``lasp_gset``, ``lasp_orset``, ``lasp_orset_gbtree``,
-``riak_dt_gcounter`` and ``riak_dt_orswot``; the bind and watch layer:
-``bind`` (merge + inflation gate + write, ``:291-312``), ``bind_raw``,
-``ingest``, the dirty marks (``dirty_seq`` / ``dirty_since``),
-``redeclare_derived`` for dataflow outputs, and the parked watches of
-``read``, ``read_any`` and ``wait_needed`` (``:329-420``, ``:728-758``).
+``riak_dt_gcounter``, ``riak_dt_orswot`` and ``riak_dt_map``; the bind and
+watch layer: ``bind`` (merge + inflation gate + write, ``:291-312``),
+``bind_raw``, ``ingest``, the dirty marks (``dirty_seq`` /
+``dirty_since``), ``redeclare_derived`` for dataflow outputs, and the
+parked watches of ``read``, ``read_any`` and ``wait_needed``
+(``:329-420``, ``:728-758``).
 
-Not ported yet: ``riak_dt_map`` declarations raise ``NotImplementedError``.
-Telemetry (counters, spans, events) is not carried.
+The map layer: declared schemas (:func:`build_map_spec`), per-field
+variable shims that give each embedded field its own element universe
+and share the map's actor universe, admission of unknown ``{Name, Type}``
+keys on first update at any nesting depth (``scan_map_admissions`` /
+``grow_map_plan``), and the map's decode. Tombstone compaction:
+``compact_orset`` for OR-Set variables and ``compact_map_field`` for an
+OR-Set field of a map, with the liveness plans the replicated runtime
+shares. Telemetry (counters, spans, events) is not carried.
 """
 
 from __future__ import annotations
@@ -21,17 +28,20 @@ import itertools
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..lattice import (
     GCounterSpec,
     GSetSpec,
     IVarSpec,
+    MapSpec,
     ORSetSpec,
     ORSWOTSpec,
     Threshold,
     get_type,
 )
+from ..lattice.map import CrdtMap, MapState, map_subs
 from ..utils.interning import CapacityError, Interner
 
 #: the JAX package's LaspConfig.n_actors default
@@ -52,7 +62,8 @@ DEFAULT_SPECS = {
     ),
 }
 
-#: capacity kwargs each ported type's declare() accepts
+#: capacity kwargs each type's declare() accepts; anything else is a loud
+#: TypeError
 ALLOWED_CAPS = {
     "lasp_ivar": set(),
     "lasp_gset": {"n_elems"},
@@ -60,10 +71,101 @@ ALLOWED_CAPS = {
     "lasp_orset_gbtree": {"n_elems", "n_actors", "tokens_per_actor"},
     "riak_dt_gcounter": {"n_actors"},
     "riak_dt_orswot": {"n_elems", "n_actors"},
+    "riak_dt_map": {"fields", "n_actors", "reset_on_readd"},
 }
 
-#: types the JAX store has and this port does not (yet)
-NOT_PORTED = ("riak_dt_map",)
+
+def resolve_map_field(
+    key, type_name: str, caps, n_actors: int, reset_on_readd: bool = False
+) -> tuple:
+    """``(key, codec, espec)`` for one map field: the one validation path
+    of declared schemas (:func:`build_map_spec`) and dynamic admission
+    (:meth:`Store.resolve_dynamic_field`). ``reset_on_readd`` is the parent
+    map's re-add mode, which nested maps inherit."""
+    caps = dict(caps or {})
+    if type_name == "riak_dt_map":
+        if "reset_on_readd" in caps and bool(
+            caps["reset_on_readd"]
+        ) != bool(reset_on_readd):
+            raise TypeError(
+                f"map field {key!r}: nested reset_on_readd must match "
+                f"the parent map's ({reset_on_readd}) — one reset "
+                "behavior per tree"
+            )
+        if caps.get("n_actors", n_actors) != n_actors:
+            raise TypeError(
+                f"map field {key!r}: n_actors must match the map's "
+                f"({n_actors}); per-field writer universes are not "
+                "separable from the map clock"
+            )
+        unknown = set(caps) - {"fields", "n_actors", "reset_on_readd"}
+        if unknown:
+            raise TypeError(
+                f"map field {key!r} (riak_dt_map): unknown capacity "
+                f"kwargs {sorted(unknown)}"
+            )
+        espec = build_map_spec(
+            caps.get("fields", ()), n_actors, reset_on_readd=reset_on_readd
+        )
+        return (key, get_type("riak_dt_map"), espec)
+    if type_name not in ALLOWED_CAPS:
+        raise TypeError(f"map field {key!r}: unknown type {type_name!r}")
+    unknown = set(caps) - ALLOWED_CAPS[type_name]
+    if unknown:
+        raise TypeError(
+            f"map field {key!r} ({type_name}): unknown capacity kwargs "
+            f"{sorted(unknown)} (allowed: {sorted(ALLOWED_CAPS[type_name])})"
+        )
+    if "n_actors" in ALLOWED_CAPS[type_name]:
+        # field shims share the map's actor interner, so an embedded writer
+        # width must equal the map's
+        if caps.get("n_actors", n_actors) != n_actors:
+            raise TypeError(
+                f"map field {key!r}: n_actors must match the map's "
+                f"({n_actors}); per-field writer universes are not "
+                "separable from the map clock"
+            )
+        caps["n_actors"] = n_actors
+    return (key, get_type(type_name), DEFAULT_SPECS[type_name](**caps))
+
+
+def map_key_type_name(key) -> "str | None":
+    """The embedded type a map field key names, or None. The reference's
+    keys are ``{Name, Type}`` pairs (``riak_test/lasp_kvs_replica_test.erl:57-58``),
+    carried as ``(name, "type_name")`` or as the ETF bridge's tagged
+    ``("tuple", <name_key>, ("atom", "type_name"))``. A bare tagged atom
+    ``("atom", x)`` is not a pair and never admits."""
+    if (
+        isinstance(key, tuple)
+        and len(key) == 2
+        and isinstance(key[1], str)
+        and key[0] != "atom"
+    ):
+        return key[1]
+    if (
+        isinstance(key, tuple)
+        and len(key) == 3
+        and key[0] == "tuple"
+        and isinstance(key[2], tuple)
+        and len(key[2]) == 2
+        and key[2][0] == "atom"
+    ):
+        return str(key[2][1])
+    return None
+
+
+def build_map_spec(fields, n_actors: int, reset_on_readd: bool = False) -> MapSpec:
+    """A map schema from ``[(key, type_name, caps_dict), ...]``. Declaring
+    fields is pre-sizing, not a fence: unknown ``(name, type_name)`` keys
+    admit on first update (:meth:`Store.admit_map_fields`)."""
+    resolved = [
+        resolve_map_field(key, type_name, caps, n_actors,
+                          reset_on_readd=reset_on_readd)
+        for key, type_name, caps in fields
+    ]
+    return MapSpec(
+        fields=tuple(resolved), n_actors=n_actors, reset_on_readd=reset_on_readd
+    )
 
 
 class PreconditionError(RuntimeError):
@@ -111,6 +213,9 @@ class Variable:
     elems: Optional[Interner] = None
     ivar_payloads: Optional[Interner] = None
     actors: Optional[Interner] = None
+    #: riak_dt_map only: per-field Variable shims (codec, spec and
+    #: interners of each embedded lattice)
+    map_aux: Optional[list] = None
 
 
 class Store:
@@ -140,12 +245,6 @@ class Store:
         **caps,
     ) -> str:
         """Idempotent declare (``src/lasp_core.erl:209-218``)."""
-        if type in NOT_PORTED:
-            raise NotImplementedError(
-                f"declare({type}): not ported to lasp_tpu_torch yet "
-                "(this slice carries lasp_ivar, lasp_gset, lasp_orset, "
-                "lasp_orset_gbtree, riak_dt_gcounter and riak_dt_orswot)"
-            )
         if id is None:
             id = f"v{next(self._id_counter)}"
         if id in self._vars:
@@ -161,7 +260,14 @@ class Store:
                 )
             if "n_actors" in allowed:
                 caps.setdefault("n_actors", self.n_actors)
-            spec = DEFAULT_SPECS[type](**caps)
+            if type == "riak_dt_map":
+                spec = build_map_spec(
+                    caps.get("fields", ()),
+                    caps.get("n_actors", self.n_actors),
+                    reset_on_readd=caps.get("reset_on_readd", False),
+                )
+            else:
+                spec = DEFAULT_SPECS[type](**caps)
         var = Variable(
             id=id, type_name=type, codec=codec, spec=spec,
             state=codec.new(spec, device=self.device),
@@ -174,8 +280,184 @@ class Store:
             var.actors = Interner(spec.n_actors, kind="actor")
         if type == "lasp_ivar":
             var.ivar_payloads = Interner(2**31 - 1, kind="ivar payload")
+        if type == "riak_dt_map":
+            var.map_aux = [
+                self._field_shim(id, key, fcodec, fspec, var)
+                for key, fcodec, fspec in spec.fields
+            ]
         self._vars[id] = var
         return id
+
+    @staticmethod
+    def _field_shim(map_id, key, fcodec, fspec, parent: Variable) -> Variable:
+        """A Variable-shaped holder for one embedded map field: its own
+        element / payload universes, the parent map's writer universe."""
+        shim = Variable(
+            id=f"{map_id}.{key!r}",
+            type_name=fcodec.name,
+            codec=fcodec,
+            spec=fspec,
+            state=None,  # the live state lives in the parent MapState
+        )
+        if hasattr(fspec, "n_elems"):
+            shim.elems = Interner(fspec.n_elems, kind="element")
+        shim.actors = parent.actors
+        if fcodec.name == "lasp_ivar":
+            shim.ivar_payloads = Interner(2**31 - 1, kind="ivar payload")
+        if fcodec.name == "riak_dt_map":
+            # a nested map carries its own sub-shims, sharing the one actor
+            # universe all the way down
+            shim.map_aux = [
+                Store._field_shim(shim.id, k2, c2, s2, shim)
+                for k2, c2, s2 in fspec.fields
+            ]
+        return shim
+
+    # -- dynamic map fields ---------------------------------------------------
+    @staticmethod
+    def resolve_dynamic_field(spec: MapSpec, key):
+        """``(key, codec, espec)`` for a key admitted on first touch: the
+        key must name its type (:func:`map_key_type_name`); capacities are
+        the declare-time defaults."""
+        type_name = map_key_type_name(key)
+        if type_name is None:
+            raise KeyError(
+                f"riak_dt_map: unknown field {key!r}; admission on first "
+                "update requires (name, type_name) keys (riak_dt_map's "
+                "{Name, Type}) — or pre-declare the field"
+            )
+        return resolve_map_field(
+            key, type_name, None, spec.n_actors,
+            reset_on_readd=spec.reset_on_readd,
+        )
+
+    @classmethod
+    def scan_map_admissions(cls, var: Variable, ops) -> dict:
+        """Validate-only pass over the update subs of ``ops`` (map client
+        ops), recursive through nested map fields: an admission plan
+        ``{"fresh": [(key, codec, espec), ...], "sub": {field_idx:
+        subplan}}`` (either key absent when empty; ``{}`` = no growth).
+        Raises on a non-admissible key with nothing mutated, so a bad op
+        later in a batch never leaves the spec half grown. Removes never
+        admit."""
+        return cls._scan_level(var.spec, var.map_aux, ops)
+
+    @classmethod
+    def _scan_level(cls, spec: MapSpec, map_aux, ops) -> dict:
+        known = {k: i for i, (k, _c, _s) in enumerate(spec.fields)}
+        fresh: dict = {}  # key -> [codec, espec] (espec evolves for maps)
+        sub_ops: dict = {}  # field_idx -> [inner ops]
+        for op in ops:
+            for sub in map_subs(op):
+                if not (isinstance(sub, tuple) and len(sub) == 3
+                        and sub[0] == "update"):
+                    continue  # removes / malformed: the normal path rules
+                key, inner = sub[1], sub[2]
+                if key in known:
+                    f = known[key]
+                    if spec.fields[f][1].name == "riak_dt_map":
+                        sub_ops.setdefault(f, []).append(inner)
+                elif key in fresh:
+                    codec, espec = fresh[key]
+                    if codec.name == "riak_dt_map":
+                        fresh[key][1] = cls._extend_fresh_subspec(espec, inner)
+                else:
+                    triple = cls.resolve_dynamic_field(spec, key)
+                    entry = [triple[1], triple[2]]
+                    if entry[0].name == "riak_dt_map":
+                        entry[1] = cls._extend_fresh_subspec(entry[1], inner)
+                    fresh[key] = entry
+        plan: dict = {}
+        subs: dict = {}
+        for f, inners in sub_ops.items():
+            # inner ops are map client ops of the submap
+            shim = map_aux[f] if map_aux is not None else None
+            subplan = cls._scan_level(
+                spec.fields[f][2],
+                shim.map_aux if shim is not None else None,
+                inners,
+            )
+            if subplan:
+                subs[f] = subplan
+        if fresh:
+            plan["fresh"] = [(k, c, e) for k, (c, e) in fresh.items()]
+        if subs:
+            plan["sub"] = subs
+        return plan
+
+    @classmethod
+    def _extend_fresh_subspec(cls, espec: MapSpec, inner_op) -> MapSpec:
+        """Fold a fresh nested map field's inner op into its staged spec
+        (the submap has no shims yet)."""
+        subplan = cls._scan_level(espec, None, [inner_op])
+        return cls._apply_plan_to_spec(espec, subplan)
+
+    @classmethod
+    def _apply_plan_to_spec(cls, spec: MapSpec, plan: dict) -> MapSpec:
+        for f, subplan in plan.get("sub", {}).items():
+            spec = spec.replace_field_spec(
+                f, cls._apply_plan_to_spec(spec.fields[f][2], subplan)
+            )
+        if plan.get("fresh"):
+            spec = spec.with_fields(plan["fresh"])
+        return spec
+
+    def admit_map_fields(self, var: Variable, op: tuple) -> int:
+        """Admit the unknown field keys ``op``'s updates name, at any
+        depth (``riak_dt_map`` creates a field the first time ``{update,
+        Key, Op}`` names it). Returns how many fields were admitted; 0 =
+        layout unchanged. Admission is observably a no-op until the update
+        lands (a fresh field has no presence dots)."""
+        plan = self.scan_map_admissions(var, (op,))
+        if not plan:
+            return 0
+        return self.grow_map_plan(var, plan)
+
+    @classmethod
+    def grow_map_plan(cls, var: Variable, plan: dict) -> int:
+        """Apply an admission plan: the grown spec, the shim tree, the
+        state's migration and the parked watches' thresholds (re-laid out
+        so ``threshold_met`` compares same-shaped states). Returns the
+        number of fields admitted across all levels."""
+        var.spec = cls._apply_plan_to_spec(var.spec, plan)
+        count = cls._sync_shims(var)
+        if var.state is not None:
+            var.state = CrdtMap.grow(var.spec, var.state)
+        for watch in list(var.waiting) + list(var.lazy):
+            thr = watch.threshold
+            if thr is not None and isinstance(thr.state, MapState):
+                watch.threshold = Threshold(
+                    CrdtMap.grow(var.spec, thr.state), thr.strict
+                )
+        return count
+
+    @classmethod
+    def grow_map_fields(cls, var: Variable, fresh: list) -> None:
+        """Level-local admission of ``fresh`` triples (a plan with only a
+        ``fresh`` part)."""
+        cls.grow_map_plan(var, {"fresh": list(fresh)})
+
+    @classmethod
+    def _sync_shims(cls, var: Variable) -> int:
+        """Align the shim tree with ``var.spec`` after growth; returns how
+        many shims were created (== fields admitted)."""
+        created = 0
+        for i, (key, fcodec, fspec) in enumerate(var.spec.fields):
+            if i >= len(var.map_aux):
+                var.map_aux.append(cls._field_shim(var.id, key, fcodec, fspec, var))
+                created += 1 + cls._count_fields(fcodec, fspec)
+            elif fcodec.name == "riak_dt_map":
+                shim = var.map_aux[i]
+                if shim.spec is not fspec:
+                    shim.spec = fspec
+                    created += cls._sync_shims(shim)
+        return created
+
+    @classmethod
+    def _count_fields(cls, fcodec, fspec) -> int:
+        if fcodec.name != "riak_dt_map":
+            return 0
+        return sum(1 + cls._count_fields(c, s) for _k, c, s in fspec.fields)
 
     def variable(self, id: str) -> Variable:
         return self._vars[id]
@@ -228,6 +510,10 @@ class Store:
         E)``, ``("remove", E)``, ``("remove_all", [E...])``,
         ``("increment",)``, ``("increment", N)``, ``("set", V)``."""
         var = self._vars[id]
+        if var.type_name == "riak_dt_map":
+            # grow the field axis for keys this op names first, before
+            # reading var.state (growth migrates it)
+            self.admit_map_fields(var, op)
         return self.bind(id, self._apply_op(var, var.state, op, actor))
 
     def bind(self, id: str, state) -> Any:
@@ -439,6 +725,15 @@ class Store:
                         raise PreconditionError(f"not_present: {e!r}")
                     state = codec.remove(spec, state, var.elems.index_of(e))
                 return state
+        elif var.type_name == "riak_dt_map":
+            # ("update", [("update", Key, Op) | ("remove", Key), ...]); a
+            # single field op is accepted too
+            if verb == "update" and len(op) == 2:
+                for sub in op[1]:
+                    state = self._apply_map_field(var, state, sub, actor)
+                return state
+            if verb in ("update", "remove"):
+                return self._apply_map_field(var, state, op, actor)
         elif var.type_name == "riak_dt_gcounter":
             if verb == "increment":
                 by = op[1] if len(op) > 1 else 1
@@ -447,6 +742,26 @@ class Store:
             if verb == "set":
                 return codec.set(spec, state, var.ivar_payloads.intern(op[1]))
         raise ValueError(f"unsupported op {op!r} for type {var.type_name}")
+
+    def _apply_map_field(self, var: Variable, state, sub: tuple, actor):
+        """One ``{update, Key, Op}`` / ``{remove, Key}`` against a map field
+        (``riak_test/lasp_kvs_replica_test.erl:120-133``)."""
+        spec, codec = var.spec, var.codec
+        if sub[0] == "remove":
+            try:
+                f = spec.field_index(sub[1])
+            except KeyError:
+                # a never-admitted field is absent: the remove precondition
+                raise PreconditionError(f"not_present: {sub[1]!r}") from None
+            if not bool(codec.value(spec, state)[f]):
+                raise PreconditionError(f"not_present: {sub[1]!r}")
+            return codec.remove(spec, state, f)
+        _verb, key, inner = sub
+        f = spec.field_index(key)
+        state = codec.touch(spec, state, f, var.actors.intern(actor))
+        shim = var.map_aux[f]
+        new_field = self._apply_op(shim, state.fields[f], inner, actor)
+        return codec.set_field(spec, state, f, new_field)
 
     @staticmethod
     def _check_pool(var: Variable, state, elem_idx: int, actor_idx: int, term):
@@ -494,7 +809,180 @@ class Store:
             if not bool(state.defined):
                 return None
             return var.ivar_payloads.term_of(int(state.value))
+        if var.type_name == "riak_dt_map":
+            present = var.codec.value(var.spec, state).cpu().numpy()
+            # effective_field applies the reset-mode tombstone baselines
+            return {
+                key: self._decode_value(
+                    var.map_aux[f], var.codec.effective_field(var.spec, state, f)
+                )
+                for f, (key, _c, _s) in enumerate(var.spec.fields)
+                if present[f]
+            }
         raise ValueError(var.type_name)
+
+    # -- compaction ----------------------------------------------------------
+    def compact_plan(self, id: str, state=None):
+        """Liveness plan for OR-Set tombstone compaction: ``(order,
+        fresh_interner)``, ``order`` the surviving old element indices in
+        their new positions. ``state`` overrides the authoritative dense
+        state (the runtime passes a converged replica row). Refuses
+        non-OR-Set types and variables with parked watches (their
+        thresholds index the old element order).
+
+        Dropping a fully tombstoned element row forgets its tombstones,
+        sound exactly when no other state can reintroduce those tokens:
+        one store always, a replicated population only at divergence 0
+        (the runtime checks). The reclamation the reference's
+        ``waste_pct`` stat cues (``src/lasp_orset.erl:178-191``)."""
+        var = self._vars[id]
+        if var.type_name not in ("lasp_orset", "lasp_orset_gbtree"):
+            raise TypeError(f"compact: {var.type_name} has no tombstones")
+        if var.waiting or var.lazy:
+            raise RuntimeError(
+                f"cannot compact {id}: watches hold old-order thresholds"
+            )
+        return self._orset_live_plan(
+            var.elems, var.state if state is None else state
+        )
+
+    @staticmethod
+    def _orset_live_plan(elems, state):
+        """``(order, fresh_interner)`` for one OR-Set state: the liveness
+        rule shared by variables and embedded map fields."""
+        exists = state.exists.cpu().numpy()
+        removed = state.removed.cpu().numpy()
+        live = (exists & ~removed).any(axis=-1)
+        order = np.flatnonzero(live)
+        fresh = Interner(elems.capacity, kind=elems.kind)
+        terms = elems.terms()
+        for i in order:
+            fresh.intern(terms[int(i)])
+        return order, fresh
+
+    @staticmethod
+    def _normalize_map_path(key) -> tuple:
+        """A field reference is one ``{Name, Type}`` key or a path (tuple
+        of keys) into nested submaps; a single key becomes a path of one."""
+        if map_key_type_name(key) is not None:
+            return (key,)
+        if (
+            isinstance(key, tuple)
+            and key
+            and all(map_key_type_name(k) is not None for k in key)
+        ):
+            return tuple(key)
+        return (key,)
+
+    @staticmethod
+    def _nested_field(state, idxs):
+        """The embedded state at a path of field indices."""
+        for f in idxs:
+            state = state.fields[f]
+        return state
+
+    def compact_map_plan(self, map_id: str, key, state=None) -> tuple:
+        """Validation and liveness plan for compacting one OR-Set field of
+        a map at ``key`` (a key or a path): ``(field_idxs, shim, order,
+        fresh_interner)``, shared by the store and the runtime. ``state``
+        overrides the authoritative map state."""
+        path = self._normalize_map_path(key)
+        var = self._vars[map_id]
+        if var.type_name != "riak_dt_map":
+            raise TypeError(f"compact_map_field: {var.type_name} is not a map")
+        if var.waiting or var.lazy:
+            raise RuntimeError(
+                f"cannot compact {map_id}: watches hold old-order thresholds"
+            )
+        holder_spec, holder_aux = var.spec, var.map_aux
+        idxs, shim = [], None
+        for depth, k in enumerate(path):
+            f = holder_spec.field_index(k)
+            shim = holder_aux[f]
+            idxs.append(f)
+            if depth < len(path) - 1:
+                if shim.type_name != "riak_dt_map":
+                    raise TypeError(
+                        f"compact_map_field: path element {k!r} is "
+                        f"{shim.type_name}, not a submap"
+                    )
+                holder_spec, holder_aux = shim.spec, shim.map_aux
+        if shim.codec.name not in ("lasp_orset", "lasp_orset_gbtree"):
+            raise TypeError(
+                f"compact_map_field: field {path[-1]!r} is "
+                f"{shim.codec.name}, which has no token tombstones"
+            )
+        authority = var.state if state is None else state
+        order, fresh = self._orset_live_plan(
+            shim.elems, self._nested_field(authority, idxs)
+        )
+        return idxs, shim, order, fresh
+
+    @staticmethod
+    def _replace_nested_field(codec, spec, state, idxs, new_leaf):
+        """``set_field`` through a path of field indices (leading batch
+        dims ride along)."""
+        f = idxs[0]
+        if len(idxs) == 1:
+            return codec.set_field(spec, state, f, new_leaf)
+        new_sub = Store._replace_nested_field(
+            codec, spec.fields[f][2], state.fields[f], idxs[1:], new_leaf
+        )
+        return codec.set_field(spec, state, f, new_sub)
+
+    def compact_map_field(self, map_id: str, key) -> int:
+        """Reclaim the element slots (and with them the tombstoned token
+        slots) of one OR-Set field of a map: what keeps reset-mode remove
+        / re-add churn inside a fixed token pool. Sound as
+        :meth:`compact_orset` is. Returns slots reclaimed."""
+        var = self._vars[map_id]
+        idxs, shim, order, fresh = self.compact_map_plan(map_id, key)
+        reclaimed = len(shim.elems) - len(fresh)
+        if reclaimed:
+            var.state = self._replace_nested_field(
+                var.codec, var.spec, var.state, idxs,
+                self.reindex_orset_state(self._nested_field(var.state, idxs), order),
+            )
+            shim.elems = fresh
+            # the bit layout every edge projection reads changed
+            self.mutations += 1
+            self.dirty_seq[map_id] = self.mutations
+        return reclaimed
+
+    @staticmethod
+    def reindex_orset_state(state, order):
+        """OR-Set planes with the surviving element rows moved to the front
+        (kept verbatim, tombstoned tokens included) and the freed rows
+        zeroed. Works on any leading batch dims."""
+        k = len(order)
+
+        def rebuild(plane):
+            fresh = torch.zeros_like(plane)
+            if k:
+                idx = torch.as_tensor(
+                    np.asarray(order, dtype=np.int64), device=plane.device
+                )
+                fresh[..., :k, :] = plane.index_select(plane.dim() - 2, idx)
+            return fresh
+
+        return state._replace(
+            exists=rebuild(state.exists), removed=rebuild(state.removed)
+        )
+
+    def compact_orset(self, id: str) -> int:
+        """Reclaim the element slots of fully tombstoned OR-Set entries in
+        this store. Returns slots reclaimed. A caller holding a dataflow
+        graph must ``refresh()`` it afterwards (projection tables follow
+        the element order)."""
+        var = self._vars[id]
+        order, fresh = self.compact_plan(id)
+        reclaimed = len(var.elems) - len(fresh)
+        if reclaimed:
+            var.state = self.reindex_orset_state(var.state, order)
+            var.elems = fresh
+            self.mutations += 1
+            self.dirty_seq[id] = self.mutations
+        return reclaimed
 
 
 __all__ = ["PreconditionError", "Store", "Variable", "Watch"]

@@ -1,10 +1,15 @@
 """The port's write path against ``lasp_tpu``'s: grouped ingest
-(``mesh.ingest`` op tables, ``ingest_cycle`` / ``update_batch``) and the
-``debug_actors`` guard. The map-free cases of tests/mesh/test_ingest.py and
-tests/mesh/test_actor_guard.py run through both packages on the same
-inputs: states bit for bit, the same exceptions, the same frontier marks
-and the same cycle reports (tolerance zero)."""
+(``mesh.ingest`` op tables, ``ingest_cycle`` / ``update_batch``), the map's
+per-variable arm and late-declare sync, and the ``debug_actors`` guard. The
+cases of tests/mesh/test_ingest.py, tests/mesh/test_map_late_sync.py and
+tests/mesh/test_actor_guard.py (those free of resize) run through both
+packages on the same inputs: states bit for bit, the same exceptions, the
+same frontier marks and the same cycle reports (tolerance zero)."""
 
+import dataclasses
+import warnings
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,6 +25,7 @@ from lasp_tpu.mesh import ring
 from lasp_tpu.utils.interning import CapacityError as JCapacityError
 from lasp_tpu_torch import bridge_state
 from lasp_tpu_torch.dataflow import Graph as TGraph
+from lasp_tpu_torch.lattice.base import tree_leaves
 from lasp_tpu_torch.utils.interning import CapacityError as TCapacityError
 
 # Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
@@ -42,6 +48,10 @@ def _declare_all(store):
                   tokens_per_actor=4)
     store.declare(id="w", type="riak_dt_orswot", n_elems=8, n_actors=4)
     store.declare(id="i", type="lasp_ivar")
+    store.declare(id="m", type="riak_dt_map",
+                  fields=[("tags", "lasp_gset", {"n_elems": 8}),
+                          ("hits", "riak_dt_gcounter", {})],
+                  n_actors=4)
 
 
 def _build(port, plan="auto", packed=False, debug_actors=False):
@@ -69,11 +79,28 @@ _OPS = {
           (2, ("add", "s1"), "a2")],
     "i": [(0, ("set", "v1"), "x"), (0, ("set", "v2"), "x"),
           (3, ("set", "v3"), "x")],
+    "m": [(0, ("update", "tags", ("add", "t1")), "w0"),
+          (1, ("update", "hits", ("increment", 2)), "w1"),
+          (0, ("remove", "tags"), "w0"),
+          (0, ("update", "tags", ("add", "t2")), "w0")],
 }
 
 
+def _np_leaves(tree) -> list:
+    """The numpy leaves of a converted port state, depth first, None
+    skipped (``jax.tree_util.tree_leaves``'s order)."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [leaf for part in tree for leaf in _np_leaves(part)]
+    return [tree]
+
+
 def _same_var(jrt, trt, v):
-    for a, b in zip(bridge_state.to_numpy(trt.states[v]), jrt.states[v]):
+    got = _np_leaves(bridge_state.to_numpy(trt.states[v]))
+    want = jax.tree_util.tree_leaves(jrt.states[v])
+    assert len(got) == len(want), f"{v}: leaf counts"
+    for a, b in zip(got, want):
         b = np.asarray(b)
         assert a.dtype == b.dtype and np.array_equal(a, b), f"{v}: states"
     fj, ft = jrt._frontier.get(v), trt._frontier.get(v)
@@ -107,7 +134,7 @@ def test_update_batch_matches_jax_and_per_op(var, plan, packed):
     ref = _build(True, plan=plan, packed=packed)
     for r, op, actor in _OPS[var]:
         ref.update_at(r, var, op, actor)
-    for a, b in zip(ref.states[var], trt.states[var]):
+    for a, b in zip(tree_leaves(ref.states[var]), tree_leaves(trt.states[var])):
         assert torch.equal(a, b)
     if plan == "auto":
         assert np.array_equal(ref._frontier[var], trt._frontier[var])
@@ -127,6 +154,9 @@ def test_encoded_tables_match_jax(packed):
             assert err is None
             got.append(table)
         jt, tt = got
+        if var == "m":  # no op table: the map takes the per-variable arm
+            assert jt is None and tt is None
+            continue
         assert (tt.kind, tt.var_id, tt.n_ops, tt.slots) == (
             jt.kind, jt.var_id, jt.n_ops, jt.slots)
         assert list(tt.arrays) == list(jt.arrays)
@@ -150,7 +180,7 @@ def test_plan_auto_matches_plan_off_whole_store(packed):
         off.update_batch(var, list(ops))
     for var in _OPS:
         _same_var(jrt, trt, var)
-        for a, b in zip(off.states[var], trt.states[var]):
+        for a, b in zip(tree_leaves(off.states[var]), tree_leaves(trt.states[var])):
             assert torch.equal(a, b)
 
 
@@ -317,16 +347,51 @@ def test_group_failure_does_not_strand_cycle(monkeypatch):
     assert np.flatnonzero(trt._frontier["g"]).tolist() == [1]
 
 
-def test_rows_outside_the_population_refused():
-    """The port refuses a row outside the population before anything is
-    interned or written (on the card such an index is a device-side
-    assert)."""
-    trt = _build(True)
-    for bad in (N, -1):
-        with pytest.raises(IndexError, match="out of range"):
-            trt.update_batch("g", [(0, ("add", "a"), "x"), (bad, ("add", "b"), "x")])
-    assert len(trt.store.variable("g").elems) == 0
-    assert not trt._frontier["g"].any()
+_EDGE_OPS = {
+    "g": [("add", "a"), ("add", "b"), ("add", "c")],
+    "c": [("increment",), ("increment", 2), ("increment",)],
+    "o": [("add", "e1"), ("add", "e2"), ("remove", "e1")],
+    "w": [("add", "s1"), ("add", "s2"), ("remove", "s1")],
+    "i": [("set", "v1"), ("set", "v2"), ("set", "v3")],
+    "m": [("update", "tags", ("add", "t1")), ("update", "hits", ("increment",)),
+          ("remove", "tags")],
+}
+
+
+@pytest.mark.parametrize("var", sorted(_EDGE_OPS))
+@pytest.mark.parametrize("plan", ["auto", "off"])
+def test_rows_outside_the_population_refused(var, plan):
+    """Rows outside ``[0, R)`` do what they do in JAX, on both ingest arms
+    (``plan="auto"``: the op tables; ``"off"``: the per-variable arm): a
+    negative row wraps, an out-of-range row reads as JAX's gathers read it
+    and drops from every scatter, and the per-variable arm's dirty marking
+    raises ``IndexError``. States, marks, interners, actor-guard sites and
+    the exception (type and text) match; the port's card never sees the
+    bad index (it is filtered on the host)."""
+    for packed in ((False, True) if var == "o" else (False,)):
+        for bad in (N, -1, N + 3):
+            a, b, c = _EDGE_OPS[var]
+            ops = [(0, a, "a0"), (bad, b, "a1"), (bad, c, "a1"), (1, a, "a2")]
+            errs = []
+            rts = []
+            for port in (False, True):
+                rt = _build(port, plan=plan, packed=packed, debug_actors=True)
+                try:
+                    rt.update_batch(var, list(ops))
+                    errs.append(None)
+                except Exception as exc:  # compared below, type and text
+                    errs.append((type(exc).__name__, str(exc)))
+                rts.append(rt)
+            jrt, trt = rts
+            assert errs[0] == errs[1], (packed, bad, errs)
+            _same_var(jrt, trt, var)
+            jv, tv = jrt.store.variable(var), trt.store.variable(var)
+            for name in ("elems", "actors", "ivar_payloads"):
+                ji, ti = getattr(jv, name), getattr(tv, name)
+                assert (ji is None) == (ti is None)
+                if ji is not None:
+                    assert ji.terms() == ti.terms(), name
+            assert trt._actor_sites == jrt._actor_sites
 
 
 def test_normalize_ops_is_copy_on_write():
@@ -529,3 +594,197 @@ def test_guard_seed_increments_shape_error_and_off_by_default():
         rt.update_at(1, "s", ("add", "y"), "w")  # no raise (documented caveat)
 
     _both(off, debug=False)
+
+
+# -- the map's write path (tests/mesh/test_ingest.py, test_map_late_sync.py) --
+
+
+def test_map_rides_the_per_variable_arm():
+    """A multi-variable cycle with a map: one group apply per plan group of
+    the encodable variables, none for the map (its ``fallback_vars``
+    entry), the same report and states as JAX's."""
+    reports = []
+    for port in (False, True):
+        st, graph, mesh, kw = _pkg(port)
+        store = st.Store(n_actors=4, **kw)
+        for g in ("g1", "g2"):
+            store.declare(id=g, type="lasp_gset", n_elems=16)
+        store.declare(id="c1", type="riak_dt_gcounter", n_actors=4)
+        store.declare(id="m1", type="riak_dt_map",
+                      fields=[("hits", "riak_dt_gcounter", {})], n_actors=4)
+        rt = mesh.ReplicatedRuntime(store, graph(store), N, ring(N, 2), **kw)
+        before = tingest.GROUP_APPLIES
+        reports.append((rt, rt.ingest_cycle({
+            "g1": [(0, ("add", "a"), "x")],
+            "g2": [(1, ("add", "b"), "x"), (2, ("add", "c"), "x")],
+            "c1": [(0, ("increment",), "a0")],
+            "m1": [(0, ("update", "hits", ("increment",)), "w0")],
+        })))
+        if port:
+            assert tingest.GROUP_APPLIES - before == 2
+    (jrt, jrep), (trt, trep) = reports
+    _same_report(jrep, trep)
+    assert trep["dispatches"] == 2 and trep["fallback_vars"] == ["m1"]
+    assert trt.coverage_value("m1") == jrt.coverage_value("m1") == {"hits": 1}
+    for v in ("g1", "g2", "c1", "m1"):
+        _same_var(jrt, trt, v)
+
+
+def _late_rt(port):
+    st, graph, mesh, kw = _pkg(port)
+    store = st.Store(n_actors=4, **kw)
+    rt = mesh.ReplicatedRuntime(store, graph(store), N, ring(N, 2), **kw)
+    # declared after the runtime: no population yet, so the late-declare
+    # sync must run before any field admission
+    store.declare(id="m", type="riak_dt_map", n_actors=4)
+    return store, rt
+
+
+KEY = ("S", "lasp_gset")
+KEY2 = ("C", "riak_dt_gcounter")
+
+
+def test_map_late_declared_fields_identical():
+    """Fields admitted mid-batch on a late-declared map: the batch equals
+    JAX's and the port's own per-op ``update_at`` loop."""
+    ops = [
+        (0, ("update", [("update", KEY, ("add", "x"))]), "w0"),
+        (1, ("update", [("update", KEY2, ("increment", 2))]), "w1"),
+        (0, ("update", [("update", KEY2, ("increment",))]), "w0"),
+    ]
+    (_js, jrt), (_ts, trt) = _late_rt(False), _late_rt(True)
+    jrt.update_batch("m", list(ops))
+    trt.update_batch("m", list(ops))
+    _same_var(jrt, trt, "m")
+    _ref_store, ref = _late_rt(True)
+    for r, op, actor in ops:
+        ref.update_at(r, "m", op, actor)
+    assert ref.coverage_value("m") == trt.coverage_value("m")
+    for a, b in zip(tree_leaves(ref.states["m"]), tree_leaves(trt.states["m"])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("verb", ["update_at", "update_batch"])
+def test_late_declared_map_first_update_admits_fresh_key(verb):
+    outs = []
+    for port in (False, True):
+        store, rt = _late_rt(port)
+        if verb == "update_at":
+            rt.update_at(1, "m", ("update", [("update", KEY, ("add", "a"))]), "w")
+            assert rt.replica_value("m", 1) == {KEY: {"a"}}
+        else:
+            rt.update_batch("m", [
+                (0, ("update", [("update", KEY, ("add", "x"))]), "w0"),
+                (2, ("update", [("update", KEY2, ("increment", 2))]), "w2"),
+            ])
+        assert rt.states["m"].dots.shape[-2] == store.variable("m").spec.n_fields
+        outs.append((rt, rt.run_to_convergence()))
+    (jrt, jr), (trt, tr) = outs
+    assert jr == tr
+    assert trt.coverage_value("m") == jrt.coverage_value("m")
+    _same_var(jrt, trt, "m")
+
+
+def test_population_relayouts_fields_admitted_behind_runtimes_back():
+    outs = []
+    for port in (False, True):
+        store, rt = _late_rt(port)
+        rt.update_at(0, "m", ("update", [("update", KEY, ("add", "a"))]), "w")
+        var = store.variable("m")
+        before = var.spec.n_fields
+        # an import path grows the store variable directly
+        triple = type(store).resolve_dynamic_field(var.spec, KEY2)
+        type(store).grow_map_fields(var, [triple])
+        assert rt.states["m"].dots.shape[-2] == before
+        assert rt.replica_value("m", 0) == {KEY: {"a"}}
+        assert rt.states["m"].dots.shape[-2] == before + 1
+        rt.update_at(1, "m", ("update", [("update", KEY2, ("increment",))]), "w2")
+        outs.append((rt, rt.run_to_convergence()))
+        assert rt.coverage_value("m") == {KEY: {"a"}, KEY2: 1}
+    (jrt, jr), (trt, tr) = outs
+    assert jr == tr
+    _same_var(jrt, trt, "m")
+
+
+def test_population_with_more_fields_than_spec_raises():
+    msgs = []
+    for port in (False, True):
+        store, rt = _late_rt(port)
+        rt.update_at(0, "m", ("update", [("update", KEY, ("add", "a"))]), "w")
+        var = store.variable("m")
+        var.spec = dataclasses.replace(var.spec, fields=())
+        with pytest.raises(RuntimeError, match="field planes") as ei:
+            rt.replica_value("m", 0)
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("plan", ["auto", "off"])
+def test_map_batch_failures_identical(plan):
+    """The map batch's per-op atomicity: a remove of an absent field fails
+    at its position (the prefix persists, the failing op's own earlier
+    sub-ops rewind), a malformed sub-op refuses the whole batch, and an
+    unbatchable schema (an OR-Set field) warns and goes per op."""
+    cases = [
+        [(0, ("update", [("update", "tags", ("add", "a")),
+                         ("update", "hits", ("increment",))]), "w0"),
+         (1, ("update", [("update", "tags", ("add", "b")),
+                         ("remove", "nope")]), "w1"),
+         (2, ("update", "hits", ("increment", 3)), "w2")],
+        [(0, ("update", "tags", ("add", "a")), "w0"),
+         (1, ("update", "hits", ("increment", 0)), "w1")],
+        [(0, ("update", "tags", ("add", "a")), "w0"),
+         (1, ("remove", "tags"), "w1"), (1, ("remove", "tags"), "w1")],
+    ]
+    for ops in cases:
+        jrt, trt = _twins(plan=plan, debug_actors=True)
+        errs = []
+        for rt in (jrt, trt):
+            try:
+                rt.update_batch("m", list(ops))
+                errs.append(None)
+            except Exception as exc:  # compared below
+                errs.append((type(exc).__name__, str(exc),
+                             getattr(exc, "batch_index", None)))
+        assert errs[0] == errs[1] and errs[0] is not None
+        _same_var(jrt, trt, "m")
+        assert trt._actor_sites == jrt._actor_sites
+    caught = []
+    for port in (False, True):
+        st, graph, mesh, kw = _pkg(port)
+        store = st.Store(n_actors=4, **kw)
+        store.declare(id="m", type="riak_dt_map", n_actors=4,
+                      fields=[("o", "lasp_orset", {"n_elems": 4})])
+        rt = mesh.ReplicatedRuntime(store, graph(store), N, ring(N, 2),
+                                    plan=plan, **kw)
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            rt.update_batch("m", [(0, ("update", "o", ("add", "x")), "w0"),
+                                  (3, ("update", "o", ("add", "y")), "w3")])
+        caught.append([str(w.message) for w in got])
+        caught.append(rt)
+    assert caught[0] == caught[2] and "no vectorized kernel" in caught[0][0]
+    _same_var(caught[1], caught[3], "m")
+
+
+def test_guard_map_update():
+    """``debug_actors`` on a map: a field update mints a presence dot on
+    the actor's lane, so a second site raises; a remove mints nothing."""
+    key = ("X", "lasp_gset")
+    sites = []
+    for port in (False, True):
+        st, graph, mesh, kw = _pkg(port)
+        store = st.Store(n_actors=4, **kw)
+        m = store.declare(id="m", type="riak_dt_map",
+                          fields=[(key, "lasp_gset", {"n_elems": 4})])
+        rt = mesh.ReplicatedRuntime(store, graph(store), 4, ring(4, 2),
+                                    debug_actors=True, **kw)
+        rt.update_at(0, m, ("update", [("update", key, ("add", "a"))]), "w")
+        with pytest.raises((tmesh if port else jmesh).ActorCollisionError):
+            rt.update_at(2, m, ("update", [("update", key, ("add", "b"))]), "w")
+        rt.run_to_convergence(max_rounds=16)
+        rt.update_at(3, m, ("update", [("remove", key)]), "w")
+        with pytest.raises((tmesh if port else jmesh).ActorCollisionError):
+            rt.update_batch(m, [(1, ("update", key, ("add", "c")), "w")])
+        sites.append(rt._actor_sites)
+    assert sites[0] == sites[1]

@@ -33,7 +33,8 @@ def test_scans_cover_every_ported_module():
     files = {str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")}
     for name in ("lattice.dots", "lattice.orswot", "mesh.plan", "mesh.runtime",
                  "ops.cuda_gossip", "dataflow.edges", "dataflow.engine",
-                 "dataflow.plan", "store.store", "bench_scenarios", "mesh.ingest"):
+                 "dataflow.plan", "store.store", "bench_scenarios", "mesh.ingest",
+                 "lattice.map", "bridge_state"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 

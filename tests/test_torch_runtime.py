@@ -242,8 +242,8 @@ def test_orswot_batch_failure_matches_jax(plan):
 
 
 def test_runtime_refuses_what_is_not_ported():
-    """What is still not ported raises: sharding, mesh programs, resizing,
-    ``riak_dt_map`` declarations and the fused propagate megakernel."""
+    """What is still not ported raises: sharding, mesh programs, resizing
+    and the fused propagate megakernel."""
     store = tstore.Store(device="cpu")
     store.declare(id="s", type="lasp_gset", n_elems=4)
     rt = tmesh.ReplicatedRuntime(store, tdf.Graph(store), 8, ring(8, 2),
@@ -251,8 +251,6 @@ def test_runtime_refuses_what_is_not_ported():
     for call in (rt.shard, rt.register, rt.resize):
         with pytest.raises(NotImplementedError):
             call()
-    with pytest.raises(NotImplementedError):
-        store.declare(id="m", type="riak_dt_map")
     graph = tdf.Graph(store)
     graph.map("s", lambda x: x)
     store.update("s", ("add", 1), "a")

@@ -6,6 +6,7 @@ both packages' ``ingest_cycle``, gives the same states and reports. Only
 counts and values are compared: a time taken on the CPU says nothing about
 the card."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,7 +16,7 @@ import lasp_tpu.dataflow as jdf
 import lasp_tpu.mesh as jmesh
 import lasp_tpu.store as jstore
 import lasp_tpu_torch.bench_scenarios as tb
-from lasp_tpu_torch import bridge_state
+from lasp_tpu_torch.lattice.base import tree_leaves
 
 # Tiny CPU shapes: torch's intra-op threads only add synchronisation here,
 # and under a parallel test run they oversubscribe the cores.
@@ -78,16 +79,23 @@ def test_ingest_schedule_replays_identically_through_both_packages():
                 "lasp_gset": {"n_elems": 16},
                 "riak_dt_orswot": {"n_elems": 8, "n_actors": 4},
                 "lasp_orset": {"n_elems": 8, "n_actors": 4,
-                               "tokens_per_actor": 8}}[tv.type_name]
+                               "tokens_per_actor": 8},
+                # lasp_tpu/bench_scenarios.py's ingest_storm map
+                "riak_dt_map": {"fields": [("tags", "lasp_gset", {"n_elems": 8}),
+                                           ("hits", "riak_dt_gcounter", {})],
+                                "n_actors": 4}}[tv.type_name]
         store.declare(id=v, type=tv.type_name, **caps)
     jrt = jmesh.ReplicatedRuntime(store, jdf.Graph(store), n,
                                   jmesh.random_regular(n, 3, seed=seed))
     for cycle in sched:
         jrep, trep = jrt.ingest_cycle(cycle), trt.ingest_cycle(cycle)
         assert jrep == trep
+    assert {trt.store.variable(v).type_name for v in ids} == set(tb.INGEST_KINDS)
     for v in ids:
-        for a, b in zip(bridge_state.to_numpy(trt.states[v]), jrt.states[v]):
-            assert np.array_equal(a, np.asarray(b)), v
+        tl, jl = tree_leaves(trt.states[v]), jax.tree_util.tree_leaves(jrt.states[v])
+        assert len(tl) == len(jl), v
+        for a, b in zip(tl, jl):
+            assert np.array_equal(a.numpy(), np.asarray(b)), v
         assert np.array_equal(jrt._frontier[v], trt._frontier[v]), v
     assert trt.run_to_convergence(mode="frontier") == jrt.run_to_convergence(
         mode="frontier")
