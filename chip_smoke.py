@@ -7,7 +7,8 @@ Phases, each of which fails the run on any error:
 
 1. build    — compile every CUDA kernel of the port from
                ``lasp_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at
-               once) into ``build/lasp_tpu_torch``;
+               once) into ``build/lasp_tpu_torch``, and the native host store
+               beside them (``make -C native liblaspstore.so``);
 2. parity   — hold each kernel (K1, K2, K3) bit-for-bit against its plain
                PyTorch version on the card (tolerance zero: every value is
                a bit or an integer), changed flags included, on every path
@@ -74,7 +75,33 @@ Phases, each of which fails the run on any error:
                G-Counter passes a threshold) compacts inside the window, and
                the rebuilt trigger must fire after it. Values must equal the
                plain-Python expectation;
-11. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+11. dataflow — ``bench_scenarios.dataflow_chain`` at JAX's defaults (9
+               chains of depth 8) and at 48 chains: ``Graph.propagate`` per
+               edge against fused (same-signature edges stacked under
+               ``torch.func.vmap``, one host sync a block of 8 sweeps), equal
+               rounds and bit-identical states; any ``RuntimeWarning`` fails;
+12. membership — the engine's population (``random_regular(100_000, 3,
+               seed=0)``, packed OR-Set 64 x 16 x 4, G-Counter, OR-SWOT 64
+               elements x 16 actors, 16 writers) on a frontier runtime and a
+               dense twin: ``reseed_row`` on 64 replicas; 16 fresh writes and
+               ``join_rows`` of their ``quorum_read`` join into 4,096 rows of
+               each variable (the twin skips the join; K2 and K3 must launch);
+               ``resize`` to 150,000; writes at rows >= 100,000 and a graceful
+               ``resize`` to 100,000 (they survive); tail writes and a crash
+               leave to 96,000 (only they are lost); ``membership_grow`` to
+               100,000 with ``changed_delivery_rows`` and
+               ``membership_drop_tail`` to 96,000. After each convergence the
+               values equal the plain-Python expectation, divergence 0; the
+               twins' fixed points are bit-identical;
+13. checkpoint — that population through the native host store (the
+               Python log engine fails the run): ``save_runtime`` /
+               ``load_runtime`` bit-equal, ``load_runtime_rows`` +
+               ``reseed_row`` restores the saved row, an elastic
+               ``load_runtime`` onto 150,000 replicas converges to the same
+               values, and a reset-mode map store round-trips through
+               ``save_store`` / ``load_store``; bytes on disk, seconds and the
+               temporary directory's filesystem;
+14. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -84,7 +111,7 @@ Phases, each of which fails the run on any error:
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
                the run;
-12. kernels — each kernel timed at every distinct launch shape phases 3-11
+15. kernels — each kernel timed at every distinct launch shape phases 3-14
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
                phase, read after), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
@@ -94,7 +121,7 @@ Phases, each of which fails the run on any error:
                split by launch class; and K1's column-slab sweep (slab widths
                against whole rows) at each of its shapes and at two shapes
                whose planes fit the L2. Every K2 and K3 shape is replayed
-               once under ``torch.profiler`` before phase 11, which must show
+               once under ``torch.profiler`` before phase 14, which must show
                exactly one device kernel per wrapper call.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
@@ -511,8 +538,9 @@ def _plan_twin(n, nbrs, plan):
 def _capture_rows_inputs(cg, rt, source: str, captured: dict) -> None:
     """Wrap ``rt._rows_round`` so that the first launch of each new K2 / K3
     launch shape (a key of ``cg.SHAPES``) leaves its inputs in ``captured``:
-    ``(kernel, key) -> {"source", "var_ids", "rows", "mask"}``. The kernels
-    phase replays them on the states of the runtime named ``source``."""
+    ``(kernel, key) -> {"source", "var_ids", "rows", "mask", "neighbors"}``.
+    The kernels phase replays them on the states of the runtime named
+    ``source`` (on stand-ins of the launch's size after a resize)."""
     inner = rt._rows_round
     names = ("gossip_round_rows", "gossip_round_rows_vclock")
 
@@ -524,6 +552,7 @@ def _capture_rows_inputs(cg, rt, source: str, captured: dict) -> None:
                 captured.setdefault((n, key), {
                     "source": source, "var_ids": tuple(var_ids),
                     "rows": row_idx.clone(), "mask": mask,
+                    "neighbors": rt.neighbors,
                 })
         return changed
 
@@ -778,9 +807,10 @@ def _host_split(torch, fn, names) -> dict:
 
 
 def _same_populations(torch, a, b, what: str) -> None:
+    """Fail unless two runtimes hold bit-equal populations."""
     for v in a.var_ids:
         if not all(torch.equal(x, y) for x, y in zip(a.states[v], b.states[v])):
-            raise RuntimeError(f"reads: {what}: states of {v} differ")
+            raise RuntimeError(f"{what}: states of {v} differ")
 
 
 def phase_reads(torch, cg, n, nbrs) -> dict:
@@ -806,7 +836,7 @@ def phase_reads(torch, cg, n, nbrs) -> dict:
     rounds = len(host.round_residuals)
     if not torch.equal(row_d.counts, row_h.counts) or int(row_d.counts.sum()) != total:
         raise RuntimeError("reads: read_until rows differ")
-    _same_populations(torch, dev, host, "read_until")
+    _same_populations(torch, dev, host, "reads: read_until")
     if dev.round_residuals != [0] or min(host.round_residuals) <= 0:
         raise RuntimeError(f"reads: residuals {dev.round_residuals} / {host.round_residuals}")
     line["read_until"] = {"replica": reader, "rounds": rounds, "device_s": t1 - t0,
@@ -830,7 +860,7 @@ def phase_reads(torch, cg, n, nbrs) -> dict:
     t2 = time.perf_counter()
     if var_a != var_b or not all(torch.equal(x, y) for x, y in zip(row_a, row_b)):
         raise RuntimeError(f"reads: read_any_until gave {var_a} and {var_b}")
-    _same_populations(torch, a, b, "read_any_until")
+    _same_populations(torch, a, b, "reads: read_any_until")
     line["read_any_until"] = {"replica": reader, "first": var_a,
                               "rounds": len(b.round_residuals), "device_s": t1 - t0,
                               "host_probed_s": t2 - t1}
@@ -852,7 +882,7 @@ def phase_reads(torch, cg, n, nbrs) -> dict:
     t2 = time.perf_counter()
     if first_a != first_b or handle.finish() != first_a:
         raise RuntimeError(f"reads: fused block returned {first_a} and {first_b}")
-    _same_populations(torch, a, b, "begin_fused_steps")
+    _same_populations(torch, a, b, "reads: begin_fused_steps")
     line["fused_handle"] = {"first_quiescent": first_a, "enqueue_s": enqueue_s,
                             "begin_to_finish_s": t1 - t0, "fused_then_cycle_s": t2 - t1}
     _log_line("reads", line)
@@ -1084,6 +1114,302 @@ def phase_compaction(torch, cg) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+#: the dataflow phase's ``dataflow_chain`` shapes: JAX's defaults, then 48
+#: chains (both at depth 8)
+_DATAFLOW_SHAPES = ((9, 8, 3), (48, 8, 3))
+
+
+def phase_dataflow(torch, cg) -> dict:
+    """``bench_scenarios.dataflow_chain`` on the card at each of
+    ``_DATAFLOW_SHAPES``: the per-edge and fused propagate arms, equal
+    rounds and bit-identical states (the scenario asserts both). Any
+    ``RuntimeWarning`` (a fused group demoted or a fallback) fails the run.
+    Returns the launches and launch shapes (store-level states: no gossip
+    kernel runs)."""
+    from lasp_tpu_torch.bench_scenarios import dataflow_chain
+
+    cg.reset_launches()
+    for n_chains, depth, reps in _DATAFLOW_SHAPES:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            out = dataflow_chain(n_chains, depth, reps)
+        if not out["device"].startswith("cuda"):
+            raise RuntimeError(f"dataflow: ran on {out['device']}")
+        t = out["timing"]
+        _log_line("dataflow", {
+            "scenario": out["scenario"], "rounds": out["rounds"],
+            "fused_speedup": out["fused_speedup"], **{
+                arm: {k: t[arm][k] for k in ("seconds", "seconds_each", "sweeps",
+                                             "host_syncs")}
+                for arm in ("per_edge", "fused")},
+            "groups": out["plan"]["groups"],
+            "edges_stacked": out["plan"]["edges_stacked"],
+            "sweep_bytes": out["plan"]["sweep_bytes"],
+        })
+    return {"launches": dict(cg.LAUNCHES), "shapes": _shape_counts(cg)}
+
+
+#: the membership cell: the engine's population
+_MEMBERSHIP_REPLICAS = 100_000
+
+
+def _membership_runtime(torch, n):
+    """The engine's population with an OR-SWOT beside the packed OR-Set and
+    the G-Counter, 16 writers at their home rows (``update_batch``),
+    converged dense. Returns ``(rt, ids, homes, expected)``."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    store = Store(n_actors=16)
+    ids = (store.declare(id="ads", type="lasp_orset", n_elems=64, n_actors=16,
+                         tokens_per_actor=4),
+           store.declare(id="views", type="riak_dt_gcounter", n_actors=16),
+           store.declare(id="tags", type="riak_dt_orswot", n_elems=64, n_actors=16))
+    rt = ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=0),
+                           packed=True)
+    homes = [int(r) for r in np.random.RandomState(5).choice(n, 16, replace=False)]
+    expected = {"ads": set(), "views": 0, "tags": set()}
+    rt.update_batch("ads", [(homes[a], ("add_all", [f"ad{2 * a}", f"ad{2 * a + 1}"]),
+                             f"w{a}") for a in range(16)])
+    rt.update_batch("ads", [(homes[a], ("remove", f"ad{2 * a}"), f"w{a}")
+                            for a in range(0, 16, 4)])
+    expected["ads"] = {f"ad{2 * a + 1}" for a in range(16)} | {
+        f"ad{2 * a}" for a in range(16) if a % 4}
+    first = [(homes[a], a, f"t{a}", a + 1) for a in range(16)]
+    _membership_writes(rt, first)
+    _expect(expected, first)
+    rt.run_to_convergence(mode="dense")
+    return rt, ids, homes, expected
+
+
+def _membership_writes(rt, writes) -> None:
+    """One batch per variable of ``(row, actor, tag, increment)`` writes:
+    the actor increments the G-Counter and adds the tag to the OR-SWOT at
+    the row."""
+    rt.update_batch("views", [(r, ("increment", by), f"w{a}") for r, a, _t, by in writes])
+    rt.update_batch("tags", [(r, ("add", t), f"w{a}") for r, a, t, _by in writes])
+
+
+def _expect(expected, writes) -> None:
+    expected["views"] += sum(by for *_x, by in writes)
+    expected["tags"] |= {t for _r, _a, t, _by in writes}
+
+
+def phase_membership(torch, cg, captured: dict, n: int = _MEMBERSHIP_REPLICAS) -> dict:
+    """The row and membership primitives at the engine's population, on a
+    frontier runtime and a dense twin that skips step 2's ``join_rows``:
+    (1) ``reseed_row`` on 64 replicas; (2) 16 fresh writes, then
+    ``join_rows`` broadcasting their ``quorum_read`` join into 4,096 rows of
+    each variable (frontier: K2 and K3); (3) ``resize`` to 150,000; (4)
+    writes at rows >= 100,000, then a graceful ``resize`` to 100,000; (5)
+    tail writes, then a crash leave to 96,000 (only they are lost); (6)
+    ``membership_grow`` to 100,000 with ``changed_delivery_rows``, then
+    ``membership_drop_tail`` to 96,000. Each step converges (the runtime
+    frontier, the twin dense); ``coverage_value`` must equal the
+    plain-Python expectation and ``divergence`` be 0 on both after each, and
+    the two fixed points must be bit-identical at the end. Returns the
+    launches, launch shapes and the frontier runtime."""
+    from lasp_tpu_torch.membership import changed_delivery_rows
+    from lasp_tpu_torch.mesh import random_regular
+    from lasp_tpu_torch.mesh.gossip import quorum_read
+
+    big, small = n * 3 // 2, n * 24 // 25  # 150,000 and 96,000
+    cg.reset_launches()
+    rt, ids, homes, expected = _membership_runtime(torch, n)
+    twin, _, _, _ = _membership_runtime(torch, n)
+    _capture_rows_inputs(cg, rt, "membership", captured)
+    secs, rounds, epochs = {}, {}, {}
+    rng = np.random.RandomState(11)
+
+    def converge(step: str) -> None:
+        rounds[step], secs[f"{step}_converge"] = _timed_step(
+            torch, lambda: rt.run_to_convergence(mode="frontier"))
+        rounds[f"{step}_dense_twin"], secs[f"{step}_converge_dense_twin"] = _timed_step(
+            torch, lambda: twin.run_to_convergence(mode="dense"))
+        epochs[step] = rt.membership_epoch
+        if twin.membership_epoch != rt.membership_epoch:
+            raise RuntimeError(f"membership: epochs differ after {step}")
+        want = {"ads": frozenset(expected["ads"]), "views": expected["views"],
+                "tags": frozenset(expected["tags"])}
+        for r in (rt, twin):
+            for v in ids:
+                got = r.coverage_value(v)
+                if got != want[v] or r.divergence(v):
+                    raise RuntimeError(f"membership: after {step} {v} is {got!r} "
+                                       f"(divergence {r.divergence(v)}), expected "
+                                       f"{want[v]!r}")
+
+    # 1. reseed 64 replicas to bottom
+    rows64 = [int(r) for r in rng.choice(n, 64, replace=False)]
+    _, secs["reseed_row_x64"] = _timed_step(
+        torch, lambda: [rt.reseed_row(r) for r in rows64])
+    for r in rows64:
+        twin.reseed_row(r)
+    converge("reseed")
+    # 2. fresh writes, then the quorum join broadcast into 4,096 rows
+    fresh = [(homes[a], a, f"f{a}", 2) for a in range(16)]
+    for r in (rt, twin):
+        _membership_writes(r, fresh)
+        r.update_batch("ads", [(homes[a], ("add", f"ad{32 + a}"), f"w{a}")
+                               for a in range(16)])
+    _expect(expected, fresh)
+    expected["ads"] |= {f"ad{32 + a}" for a in range(16)}
+    targets = rng.choice(n, min(4096, n // 2), replace=False)
+    changed = {}
+
+    def broadcast():
+        for v in ids:
+            codec, spec = rt._mesh_meta(v)
+            top = quorum_read(codec, spec, rt.states[v], homes)
+            changed[v] = rt.join_rows(v, targets, top)
+
+    _, secs["join_rows_x3"] = _timed_step(torch, broadcast)
+    before = dict(cg.LAUNCHES)
+    converge("join_rows")
+    if (cg.LAUNCHES["gossip_round_rows"] == before["gossip_round_rows"]
+            or cg.LAUNCHES["gossip_round_rows_vclock"]
+            == before["gossip_round_rows_vclock"]):
+        raise RuntimeError(f"membership: the join_rows convergence launched "
+                           f"{cg.LAUNCHES} (before: {before}): K2 or K3 missing")
+    # 3. grow to 150,000
+    nb_big = random_regular(big, 3, seed=1)
+    _, secs["resize_grow"] = _timed_step(torch, lambda: rt.resize(big, nb_big))
+    twin.resize(big, nb_big)
+    converge("grow")
+    # 4. writes at rows >= 100,000, then a graceful leave back to 100,000
+    high = [(n + (big - n) * a // 16 + 7, a, f"h{a}", 3) for a in range(16)]
+    for r in (rt, twin):
+        _membership_writes(r, high)
+        r.update_batch("ads", [(row, ("add", f"ad{48 + a}"), f"w{a}")
+                               for row, a, _t, _b in high])
+    _expect(expected, high)
+    expected["ads"] |= {f"ad{48 + a}" for a in range(16)}
+    back = random_regular(n, 3, seed=2)
+    _, secs["resize_graceful"] = _timed_step(torch, lambda: rt.resize(n, back))
+    twin.resize(n, back)
+    converge("graceful_leave")
+    # 5. tail writes, then a crash leave to 96,000: only they are lost
+    tail = [(n - n // 100 + a, a, f"lost{a}", 100 + a) for a in range(8)]
+    for r in (rt, twin):
+        _membership_writes(r, tail)  # never gossiped: not expected
+    nb_small = random_regular(small, 3, seed=3)
+    _, secs["resize_crash"] = _timed_step(
+        torch, lambda: rt.resize(small, nb_small, graceful=False))
+    twin.resize(small, nb_small, graceful=False)
+    converge("crash_leave")
+    # 6. the staged commits: grow to 100,000 row-scoped, drop the tail again
+    grown = random_regular(n, 3, seed=4)
+    dirty = changed_delivery_rows(nb_small, grown, small, n)
+    _, secs["membership_grow"] = _timed_step(
+        torch, lambda: rt.membership_grow(n, grown, dirty_rows=dirty))
+    twin.membership_grow(n, grown, dirty_rows=dirty)
+    converge("membership_grow")
+    shrunk = random_regular(small, 3, seed=5)
+    dirty = changed_delivery_rows(grown, shrunk, n, small)
+    _, secs["membership_drop_tail"] = _timed_step(
+        torch, lambda: rt.membership_drop_tail(small, shrunk, dirty_rows=dirty))
+    twin.membership_drop_tail(small, shrunk, dirty_rows=dirty)
+    converge("membership_drop_tail")
+    _same_populations(torch, rt, twin, "membership: the dense twin's fixed point")
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    if any(c == 0 for c in launches.values()):
+        raise RuntimeError(f"membership: a kernel never launched: {launches}")
+    _log_line("membership", {
+        "replicas": n, "seconds": secs, "rounds": rounds, "membership_epoch": epochs,
+        "join_rows_changed": changed, "launches": launches,
+        "final_replicas": rt.n_replicas,
+    })
+    del twin
+    return {"launches": launches, "shapes": shapes, "rt": rt, "ids": ids,
+            "expected": expected}
+
+
+def phase_checkpoint(torch, cg, rt, ids, captured: dict, big: int = 150_000) -> dict:
+    """Checkpoints of the membership phase's population through the native
+    host store (a fall-back to the Python log engine fails the run):
+    ``save_runtime`` / ``load_runtime`` bit-equal; ``load_runtime_rows`` +
+    ``reseed_row`` restores the saved row; an elastic ``load_runtime`` onto
+    150,000 replicas converges to the same values; ``save_store`` /
+    ``load_store`` of a reset-mode map store. Returns the launches and
+    launch shapes."""
+    import os
+    import tempfile
+
+    from lasp_tpu_torch.lattice.base import tree_leaves
+    from lasp_tpu_torch.mesh import random_regular
+    from lasp_tpu_torch.store import Store
+    from lasp_tpu_torch.store.checkpoint import (
+        load_runtime, load_runtime_rows, load_store, save_runtime, save_store)
+    from lasp_tpu_torch.store.host_store import HostStore
+
+    cg.reset_launches()
+    secs, sizes = {}, {}
+    values = {v: rt.coverage_value(v) for v in ids}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fs = subprocess.run(["stat", "-f", "-c", "%T", tmp], capture_output=True,
+                            text=True, check=True).stdout.strip()
+        path = os.path.join(tmp, "runtime.lasp")
+        with HostStore(os.path.join(tmp, "probe.lasp")) as hs:
+            if hs.backend != "native":
+                raise RuntimeError(f"checkpoint: the host store runs {hs.backend}, "
+                                   "not the native engine")
+        # 1. save, load: bit-equal
+        _, secs["save_runtime"] = _timed_step(torch, lambda: save_runtime(rt, path))
+        sizes["runtime"] = os.path.getsize(path)
+        loaded, secs["load_runtime"] = _timed_step(torch, lambda: load_runtime(path))
+        _same_populations(torch, rt, loaded, "checkpoint: the loaded runtime")
+        # 2. one row back from the file into a row gossip has not refilled
+        r = rt.n_replicas // 3
+        rows, secs["load_runtime_rows"] = _timed_step(
+            torch, lambda: load_runtime_rows(path, r))
+        rt.reseed_row(r)
+        _, secs["reseed_row_from_rows"] = _timed_step(
+            torch, lambda: rt.reseed_row(r, rows))
+        _same_populations(torch, rt, loaded,
+                          f"checkpoint: the runtime after restoring row {r}")
+        del loaded
+        # 3. elastic restore onto 150,000 replicas, converged: same values
+        nb = random_regular(big, 3, seed=6)
+        grown, secs["load_runtime_elastic"] = _timed_step(
+            torch, lambda: load_runtime(path, n_replicas=big, neighbors=nb))
+        # its K2 / K3 launches replay on the membership runtime's variables
+        # (the same ones), on stand-ins of this population's size
+        _capture_rows_inputs(cg, grown, "membership", captured)
+        rounds, secs["elastic_converge"] = _timed_step(
+            torch, lambda: grown.run_to_convergence(mode="frontier"))
+        for v in ids:
+            if grown.coverage_value(v) != values[v] or grown.divergence(v):
+                raise RuntimeError(f"checkpoint: the elastic restore changed {v}")
+        del grown
+        # 4. a reset-mode map store
+        store = Store(n_actors=4)
+        m = store.declare(id="kvs", type="riak_dt_map", n_actors=4, reset_on_readd=True,
+                          fields=[(_KX, "lasp_gset", {"n_elems": 16}),
+                                  (_KY, "riak_dt_gcounter", {})])
+        for i in range(8):
+            store.update(m, ("update", [("update", _KX, ("add", f"k{i}")),
+                                        ("update", _KY, ("increment",))]), f"w{i % 4}")
+        store.update(m, ("update", [("remove", _KX)]), "w0")
+        store.update(m, ("update", [("update", _KX, ("add", "back"))]), "w1")
+        spath = os.path.join(tmp, "store.lasp")
+        _, secs["save_store"] = _timed_step(torch, lambda: save_store(store, spath))
+        sizes["store"] = os.path.getsize(spath)
+        got, secs["load_store"] = _timed_step(torch, lambda: load_store(spath))
+        if got.value(m) != store.value(m) or not all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(got.state(m)),
+                                                  tree_leaves(store.state(m)))):
+            raise RuntimeError("checkpoint: the map store did not round-trip")
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log_line("checkpoint", {
+        "replicas": rt.n_replicas, "elastic_replicas": big,
+        "bytes_on_disk": sizes, "seconds": secs,
+        "filesystem": fs, "elastic_rounds": rounds, "launches": launches,
+    })
+    return {"launches": launches, "shapes": shapes}
+
+
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
@@ -1167,20 +1493,28 @@ def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int) -> tuple:
 
 
 def _rows_call(cg, rt, cap):
-    """A replay of one captured K2 / K3 launch on ``rt``'s states, and the
-    row bytes of its members (over every leaf)."""
+    """A replay of one captured K2 / K3 launch on ``rt``'s states, the row
+    bytes of its members (over every leaf) and the launch's neighbour table.
+    A launch from before a resize of ``rt`` replays on stand-in members of
+    its own size, row ``i`` a copy of row ``i mod R``."""
     var_ids = cap["var_ids"]
     codec, spec = rt._mesh_meta(var_ids[0])
     members = [rt.states[v] for v in var_ids]
+    nb = cap["neighbors"]
+    if nb.shape[0] != rt.n_replicas:
+        import torch
+
+        idx = torch.arange(nb.shape[0], device=nb.device) % rt.n_replicas
+        members = [type(m)(*[x[idx] for x in m]) for m in members]
     plan = cg.rows_plan_of(codec, spec, members[0])
     leaves = [list(ls) for ls in zip(*members)]
     row_bytes = sum(ms[0][0].numel() * ms[0].element_size() for ms in leaves)
-    rows, mask, nb = cap["rows"], cap["mask"], rt.neighbors
+    rows, mask = cap["rows"], cap["mask"]
 
     def call():
         return cg.rows_round(plan, leaves, nb, rows, mask)
 
-    return call, leaves, plan, row_bytes
+    return call, leaves, plan, row_bytes, nb
 
 
 def _k1_inputs(torch, r, d, k, seed=7, nbrs=None):
@@ -1281,12 +1615,12 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
     for name in ("gossip_round_rows", "gossip_round_rows_vclock"):
         for key, count in shapes[name].items():
             cap = captured[(name, key)]
-            rt = sources[cap["source"]]
-            call, leaves, plan, row_bytes = _rows_call(cg, rt, cap)
+            call, leaves, plan, row_bytes, nb = _rows_call(
+                cg, sources[cap["source"]], cap)
             ms = _time_ms(torch, call, 10, spin_cycles=_QUEUE_AHEAD_CYCLES // 10)
             k = key[fields[name].index("K")]
             bound, gather = _rows_bound_bytes(cap["rows"].cpu().numpy(),
-                                              rt._host_neighbors, row_bytes, k)
+                                              nb.cpu().numpy(), row_bytes, k)
             per_shape[name].append((key, count, ms, bound / bw * 1e3))
             is_widest = (key == widest_k2 if name == "gossip_round_rows" else
                          key == max(shapes[name], key=lambda x: x[0] * x[1]))
@@ -1295,14 +1629,14 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                 stacked = [torch.stack(ms_) for ms_ in leaves]
                 if plan.kind == "vclock":
                     want, ch_w = cg.gossip_round_rows_vclock_plain(
-                        *stacked, rt.neighbors, cap["rows"], cap["mask"])
+                        *stacked, nb, cap["rows"], cap["mask"])
                     plain = lambda: cg.gossip_round_rows_vclock_plain(  # noqa: E731
-                        *stacked, rt.neighbors, cap["rows"], cap["mask"])
+                        *stacked, nb, cap["rows"], cap["mask"])
                 else:
                     want, ch_w = cg.gossip_round_rows_plain(
-                        plan.op, stacked, rt.neighbors, cap["rows"], cap["mask"])
+                        plan.op, stacked, nb, cap["rows"], cap["mask"])
                     plain = lambda: cg.gossip_round_rows_plain(  # noqa: E731
-                        plan.op, stacked, rt.neighbors, cap["rows"], cap["mask"])
+                        plan.op, stacked, nb, cap["rows"], cap["mask"])
                 err = max(_max_abs_err(torch, got, want),
                           int((ch.int() - ch_w.int()).abs().max()))
                 del got, want
@@ -1318,19 +1652,25 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
     return per_shape, widest, sweeps, k1_adcounter
 
 
+#: warming calls that open each profiled window of the one-kernel check
+_WARM_CALLS = 4
+
+
 def _device_kernels(torch, warm, calls) -> dict:
-    """Run ``warm`` and then each of ``calls`` once under
-    ``torch.profiler``: the device activities (kernels, copies, fills) they
-    put on the card, by name and count. Sleep kernels open and close the
-    window and are left out. The profiler may drop the record of the first
-    kernel of our library in a window (PERF.md), so ``warm`` launches a
-    kernel of that library first, whose name the caller leaves out too."""
+    """Run ``warm`` ``_WARM_CALLS`` times and then each of ``calls`` once
+    under ``torch.profiler``: the device activities (kernels, copies,
+    fills) they put on the card, by name and count. Sleep kernels open and
+    close the window and are left out. The profiler may drop the records
+    of the first kernels of our library in a window (up to three have been
+    seen, PERF.md), so ``warm`` launches kernels of that library first,
+    whose name the caller leaves out too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
-        warm()
+        for _ in range(_WARM_CALLS):
+            warm()
         torch.cuda.synchronize()
         for call in calls:
             call()
@@ -1345,6 +1685,10 @@ def _device_kernels(torch, warm, calls) -> dict:
 _PROFILE_WINDOWS = 3
 
 
+#: wrapper calls replayed in one profiled window of the one-kernel check
+_PROFILE_CHUNK = 16
+
+
 def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
     """Every K2 / K3 shape of the main path replayed once under the
     profiler: each wrapper call must put exactly one kernel, its own, on
@@ -1352,29 +1696,34 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
     so one K3 call warms the window of the K2 calls and one K2 call that of
     the K3 calls, and the warming kernel is left out of the count. A
     dropped record can only lower a count, so a window fails at once on a
-    kernel of another name or more kernels than calls, and the check passes
-    when one of ``_PROFILE_WINDOWS`` windows shows one kernel a call."""
+    kernel of another name or more kernels than calls. The calls go in
+    windows of at most ``_PROFILE_CHUNK``; each chunk passes when one of
+    ``_PROFILE_WINDOWS`` windows shows one kernel a call."""
     names = ("gossip_round_rows", "gossip_round_rows_vclock")
+    keys = {name: list(shapes[name]) for name in names}
     calls = {name: [_rows_call(cg, sources[captured[(name, key)]["source"]],
-                               captured[(name, key)])[0] for key in shapes[name]]
+                               captured[(name, key)])[0] for key in keys[name]]
              for name in names}
     for name, other in zip(names, reversed(names)):
         seen = []
-        for _ in range(_PROFILE_WINDOWS):
-            kernels = {n: c for n, c in _device_kernels(
-                torch, calls[other][0], calls[name]).items()
-                if f"{other}_kernel" not in n}
-            seen.append(sum(kernels.values()))
-            if seen[-1] > len(calls[name]) or any(
-                    f"{name}_kernel" not in n for n in kernels):
-                raise RuntimeError(f"{name}: {len(calls[name])} wrapper calls put "
-                                   f"these on the card: {kernels}")
-            if seen[-1] == len(calls[name]):
-                break
-        else:
-            raise RuntimeError(f"{name}: {len(calls[name])} wrapper calls showed "
-                               f"only {seen} kernels in {_PROFILE_WINDOWS} profiled "
-                               f"windows: {kernels}")
+        for lo in range(0, len(calls[name]), _PROFILE_CHUNK):
+            chunk = calls[name][lo:lo + _PROFILE_CHUNK]
+            for _ in range(_PROFILE_WINDOWS):
+                kernels = {n: c for n, c in _device_kernels(
+                    torch, calls[other][0], chunk).items()
+                    if f"{other}_kernel" not in n}
+                got = sum(kernels.values())
+                if got > len(chunk) or any(f"{name}_kernel" not in n for n in kernels):
+                    raise RuntimeError(f"{name}: {len(chunk)} wrapper calls put "
+                                       f"these on the card: {kernels}")
+                if got == len(chunk):
+                    seen.append(got)
+                    break
+            else:
+                raise RuntimeError(
+                    f"{name}: {len(chunk)} wrapper calls at shapes "
+                    f"{keys[name][lo:lo + _PROFILE_CHUNK]} showed only {got} kernels "
+                    f"in each of {_PROFILE_WINDOWS} profiled windows: {kernels}")
         widest[name]["device_kernels_per_call"] = 1.0
         widest[name]["profiled_windows_kernels"] = seen
 
@@ -1416,8 +1765,16 @@ def main() -> int:
                    f"| published HBM peak {peak_gbps} GB/s")
 
     # 1. build ------------------------------------------------------------------
+    # the native host store (checkpoint phase) builds beside the kernels
+    native = subprocess.Popen(
+        ["make", "-B", "-C", str(Path(__file__).resolve().parent / "native"),
+         "liblaspstore.so"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     secs = _build.build_all()
     _log("build", f"{len(_build.SOURCES)} kernels built in {secs:.2f} s")
+    make_out, _ = native.communicate(timeout=300)
+    if native.returncode != 0:
+        raise RuntimeError(f"make -C native liblaspstore.so failed:\n{make_out}")
+    _log("build", "native/liblaspstore.so built (make -C native liblaspstore.so)")
     for name in _build.SOURCES:
         report = Path(f"{_build.library_path(name)}.ptxas.txt").read_text()
         for line in report.splitlines():
@@ -1526,7 +1883,20 @@ def main() -> int:
     cp = phase_compaction(torch, cg)
     launches["compaction"], shapes["compaction"] = cp["launches"], cp["shapes"]
     _log("launches", f"compaction: {launches['compaction']}")
-    sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"]}
+    # 11. dataflow ----------------------------------------------------------------
+    df = phase_dataflow(torch, cg)
+    launches["dataflow"], shapes["dataflow"] = df["launches"], df["shapes"]
+    _log("launches", f"dataflow: {launches['dataflow']}")
+    # 12. membership --------------------------------------------------------------
+    mb = phase_membership(torch, cg, captured)
+    launches["membership"], shapes["membership"] = mb["launches"], mb["shapes"]
+    _log("launches", f"membership: {launches['membership']}")
+    # 13. checkpoint --------------------------------------------------------------
+    ck = phase_checkpoint(torch, cg, mb["rt"], mb["ids"], captured)
+    launches["checkpoint"], shapes["checkpoint"] = ck["launches"], ck["shapes"]
+    _log("launches", f"checkpoint: {launches['checkpoint']}")
+    sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"],
+               "membership": mb["rt"]}
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
     # their kernel records (PERF.md)
@@ -1539,12 +1909,12 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 11. adcounter ---------------------------------------------------------------
+    # 14. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 12. kernels at the main path's shapes ---------------------------------------
+    # 15. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():

@@ -9,15 +9,20 @@ held bit-for-bit against it by ``tests/test_torch_*.py``. It imports
 Layer map (the slice ported so far):
 
 - ``lasp_tpu_torch.lattice`` — CRDT tensor codecs (G-Set, G-Counter, I-Var,
-  OR-Set, OR-SWOT)
+  OR-Set, OR-SWOT, the CRDT map)
 - ``lasp_tpu_torch.ops``     — packed / flat OR-Sets, the hand-written CUDA
   gossip kernels (``ops.cuda_gossip``) and the fused round loops
 - ``lasp_tpu_torch.mesh``    — topologies, gossip rounds, the dispatch plan
   and the ``ReplicatedRuntime`` dense and frontier engines, with dataflow
-  edges and reactive triggers in its step
-- ``lasp_tpu_torch.store``   — the variable store, binds and threshold watches
+  edges and reactive triggers in its step, the write path, the row and
+  membership verbs (``join_rows``, ``reseed_row``, ``resize``, staged
+  grow / drop)
+- ``lasp_tpu_torch.membership`` — the claim rule and the row-scoped
+  frontier degrade of a membership commit
+- ``lasp_tpu_torch.store``   — the variable store, binds and threshold
+  watches, the host store and checkpoints in the JAX package's format
 - ``lasp_tpu_torch.dataflow``— the combinator graph (map / fold / filter /
-  union / intersection / product / bind_to)
+  union / intersection / product / bind_to) and its fused propagate
 - ``lasp_tpu_torch.bench_scenarios`` — the OR-Set anti-entropy headline and
   the ad counters, the 10M-replica north star included
 - ``lasp_tpu_torch.bridge_state``    — numpy state exchange with the JAX
@@ -31,7 +36,7 @@ __version__ = "0.1.0"
 
 _SUBMODULES = frozenset({
     "bench_scenarios", "bridge_state", "dataflow", "device", "lattice",
-    "mesh", "ops", "store", "utils",
+    "membership", "mesh", "ops", "store", "utils",
 })
 
 

@@ -6,7 +6,8 @@ and intersection edges), ``orset_100k`` and ``pipeline_1m`` (map -> filter
 ``adcounter_10m``, the north star — the advertisement counter's union ->
 product -> filter pipeline, G-Counter views and the server trigger over a
 scale-free population, run to its fixed point by ``converge_on_device``;
-and ``ingest_storm``, the grouped-ingest A/B."""
+``ingest_storm``, the grouped-ingest A/B; and ``dataflow_chain``, the
+per-edge against fused propagate A/B."""
 
 from __future__ import annotations
 
@@ -730,4 +731,153 @@ def ingest_storm(
         "engine": "ReplicatedRuntime.ingest_cycle (mesh.ingest op tables)",
         "check": "bit-identical final states across arms + one group apply "
                  "per active plan group per cycle",
+    }
+
+
+def _build_dataflow_chains(n_chains: int, depth: int, device=None):
+    """The ``dataflow_chain`` graph (``lasp_tpu/bench_scenarios.py:1684``):
+    ``n_chains`` parallel depth-``depth`` chains cycling G-Set ``map``,
+    OR-Set ``filter`` and OR-SWOT ``bind_to``, plus a ``union`` cascade over
+    the G-Set chain tails. Parallel same-kind chains put same-signature
+    edges at every level, the shape the fused compiler stacks."""
+    store = Store(n_actors=2, device=device)
+    g = Graph(store)
+    gset_tails = []
+    for c in range(n_chains):
+        kind = c % 3
+        if kind == 0:
+            cur = store.declare(id=f"g{c}_0", type="lasp_gset", n_elems=8)
+            for d in range(depth):
+                cur = g.map(
+                    cur, (lambda k: (lambda x: x + k))(d + 1),
+                    dst=f"g{c}_{d + 1}", dst_elems=8,
+                )
+            gset_tails.append(cur)
+        elif kind == 1:
+            cur = store.declare(
+                id=f"s{c}_0", type="lasp_orset", n_elems=4, n_actors=2,
+                tokens_per_actor=16,
+            )
+            for d in range(depth):
+                cur = g.filter(cur, lambda t: True, dst=f"s{c}_{d + 1}")
+        else:
+            store.declare(id=f"o{c}_0", type="riak_dt_orswot", n_elems=4, n_actors=2)
+            for d in range(depth):
+                g.bind_to(f"o{c}_{d + 1}", f"o{c}_{d}")
+    u = None
+    for i in range(len(gset_tails) - 1):
+        u = g.union(u or gset_tails[0], gset_tails[i + 1], dst=f"u{i}")
+    return store, g
+
+
+def dataflow_chain(n_chains: int = 9, depth: int = 8, reps: int = 3,
+                   device=None) -> dict:
+    """The fused propagate A/B (``lasp_tpu/bench_scenarios.py:1727``): one
+    write wave (every chain head written once) propagated to its fixed
+    point by ``Graph.propagate(mode="per_edge")`` and ``mode="fused"`` from
+    identical snapshots. Each arm builds its entries in a cold pass outside
+    the clock, then replays the same schedule ``reps`` times (states, dirty
+    marks and edge-ran flags restored each time). Asserts the fusion
+    contract: equal round counts and bit-identical final states.
+
+    The JAX histogram clock has no counterpart here: each arm's seconds are
+    the median of the replays' wall times (``_timed``: synchronized on
+    CUDA), with the sweeps and host syncs of one propagate; the fused
+    arm's ``plan`` gives its entry's groups, stacked edges and the bytes
+    one sweep moves."""
+    device = resolve_device(device)
+
+    def seed(store):
+        for c in range(n_chains):
+            kind = c % 3
+            if kind == 0:
+                store.update(f"g{c}_0", ("add", c), "w")
+            elif kind == 1:
+                store.update(f"s{c}_0", ("add", f"e{c}"), "w")
+            else:
+                store.update(f"o{c}_0", ("add", f"x{c}"), "w")
+
+    def snapshot(store, g):
+        return (
+            {v: tree_map(torch.clone, store.state(v)) for v in store.ids()},
+            dict(store.dirty_seq), store.mutations, g._dirty_cursor,
+        )
+
+    def restore(store, g, snap):
+        states, dirty_seq, mutations, cursor = snap
+        for v, st in states.items():
+            store.variable(v).state = tree_map(torch.clone, st)
+        store.dirty_seq = dict(dirty_seq)
+        store.mutations = mutations
+        g._dirty_cursor = cursor
+        # every edge owes its initial run again: the replay repeats the
+        # cold pass's schedule and hits its built entries
+        g._edge_ran = [False] * len(g.edges)
+        g._clean_mark = None
+
+    results: dict = {}
+    finals: dict = {}
+    n_edges = None
+    plan_shape = None
+    for arm in ("per_edge", "fused"):
+        store, g = _build_dataflow_chains(n_chains, depth, device)
+        n_edges = len(g.edges)
+        seed(store)
+        snap = snapshot(store, g)
+        cold_rounds = g.propagate(mode=arm)  # builds outside the clock
+        if arm == "fused":
+            ents = [e for k, e in g._cache._entries.items() if k[0] == "fused"]
+            plan_shape = {
+                "groups": len(ents[0].groups),
+                "edges_stacked": ents[0].n_stacked,
+                "sweep_bytes": ents[0].sweep_bytes,
+            }
+        secs = []
+        for _ in range(reps):
+            restore(store, g, snap)
+            r, wall = _timed(device, lambda: g.propagate(mode=arm))
+            secs.append(wall)
+            if r != cold_rounds:
+                raise RuntimeError(f"dataflow_chain: {arm} replay took {r} rounds, "
+                                   f"the cold pass {cold_rounds}")
+        results[arm] = {
+            "seconds": float(np.median(secs)),
+            "seconds_each": secs,
+            "rounds": cold_rounds,
+            "sweeps": g.last_propagate["sweeps"],
+            "host_syncs": g.last_propagate["host_syncs"],
+        }
+        finals[arm] = {
+            v: [x.cpu().numpy() for x in tree_leaves(store.state(v))]
+            for v in store.ids()
+        }
+        del store, g
+
+    # the fusion contract at the bench shape
+    if results["per_edge"]["rounds"] != results["fused"]["rounds"]:
+        raise RuntimeError(f"dataflow_chain: rounds differ across arms: {results}")
+    for v, leaves in finals["per_edge"].items():
+        if not all(np.array_equal(a, b) for a, b in zip(leaves, finals["fused"][v])):
+            raise RuntimeError(f"dataflow_chain: scheduler states diverged on {v}")
+    pe_s = results["per_edge"]["seconds"]
+    fu_s = results["fused"]["seconds"]
+    return {
+        "scenario": f"dataflow_chain_{n_edges}e",
+        "n_edges": n_edges,
+        "n_chains": n_chains,
+        "depth": depth,
+        "rounds": results["fused"]["rounds"],
+        "plan": plan_shape,
+        "impl_block_seconds": {"per_edge": pe_s, "fused": fu_s},
+        "timing": {
+            "policy": f"median of {reps} warm replays of the cold schedule "
+                      "per arm, wall time of propagate",
+            "per_edge": results["per_edge"],
+            "fused": results["fused"],
+        },
+        "dataflow_impl": "fused" if fu_s <= pe_s else "per_edge",
+        "fused_speedup": pe_s / fu_s if fu_s > 0 else None,
+        "engine": "Graph.propagate(mode=per_edge|fused)",
+        "check": "bit-identical states + round counts across schedulers",
+        "device": str(device),
     }

@@ -1,5 +1,5 @@
-"""Dataflow layer: the monotone combinator graph as round sweeps (port of
-``lasp_tpu.dataflow``; the fused propagate megakernel is a later slice)."""
+"""Dataflow layer: the monotone combinator graph as round sweeps, with the
+fused propagate (port of ``lasp_tpu.dataflow``)."""
 
 from .edges import BindToEdge, Edge, PairwiseEdge, ProductEdge, ProjectEdge
 from .engine import Graph, PairUniverse

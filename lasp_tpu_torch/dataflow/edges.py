@@ -72,6 +72,11 @@ class Edge:
     #: ``(device, tables)`` of the last upload; dropped when refresh()
     #: changes a host table, so the steady state uploads nothing
     _tables_cache = None
+    #: may this edge stack with same-signature peers in a fused propagate
+    #: (``dataflow.plan``)? The fused compiler's guard sets it False on the
+    #: instance when the edge's group fails to evaluate stacked; an
+    #: operator may pre-poison an edge the same way
+    stackable = True
 
     def describe(self) -> dict:
         """Provenance record: which variables feed this edge's output,
@@ -110,6 +115,13 @@ class Edge:
 
     def contribution(self, tables, *src_states):
         raise NotImplementedError
+
+    def signature(self) -> "tuple | None":
+        """Stacking signature: edges with equal signatures run the same
+        contribution code over same-shaped tables and source states, so a
+        fused propagate sweep evaluates them as one ``torch.func.vmap``
+        over ``[G, ...]`` stacks (``dataflow.plan``). None: never stack."""
+        return None
 
 
 class ProjectEdge(Edge):
@@ -158,6 +170,12 @@ class ProjectEdge(Edge):
 
     def _host_tables(self):
         return (self._keep,) if self.kind == "filter" else (self._proj,)
+
+    def signature(self):
+        # map and fold run one contribution (only the host-built table
+        # differs), so they stack together; filter is its own family
+        stack_kind = "filter" if self.kind == "filter" else "proj"
+        return (stack_kind, self.family, self.src_spec, self.dst_spec)
 
     def contribution(self, tables, src):
         (table,) = tables
@@ -241,6 +259,9 @@ class PairwiseEdge(Edge):
     def _host_tables(self):
         return (self._inv[0], self._valid[0], self._inv[1], self._valid[1])
 
+    def signature(self):
+        return (self.kind, self.family, self.l_spec, self.r_spec, self.dst_spec)
+
     def contribution(self, tables, left, right):
         inv_l, valid_l, inv_r, valid_r = tables
         if self.family == "gset":
@@ -291,6 +312,9 @@ class ProductEdge(Edge):
         self.l_spec, self.r_spec = l_var.spec, r_var.spec
         self.dst_spec = store.variable(dst).spec
 
+    def signature(self):
+        return ("product", self.family, self.l_spec, self.r_spec, self.dst_spec)
+
     def contribution(self, tables, left, right):
         del tables
         if self.family == "gset":
@@ -324,6 +348,9 @@ class BindToEdge(Edge):
         if src_var.spec != dst_var.spec:
             raise TypeError("bind_to requires identically-specced variables")
         self.spec = src_var.spec
+
+    def signature(self):
+        return ("bind_to", self.spec)
 
     def contribution(self, tables, src):
         del tables

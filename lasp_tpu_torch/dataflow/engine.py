@@ -10,18 +10,25 @@ the inflation gate (the ``bind`` rule, ``src/lasp_core.erl:291-312``).
 Joins are associative, commutative and idempotent, so this reaches the
 reference's fixed point; a depth-k pipeline converges in k rounds.
 
-``propagate`` runs the per-edge (frontier-scheduled) loop for every mode
-but ``"fused"``: the JAX package's fused megakernel gives the same values
-and round counts by contract, and is a later slice of the port.
+``propagate`` runs the dirty closure through the fused fixed point by
+default (``"auto"`` / ``"fused"``: ``dataflow.plan``, stacked per-level
+contributions with one host sync a block of sweeps) or the per-edge
+frontier loop (``"per_edge"``); both give the same values and round
+counts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
+
+import torch
 
 from ..lattice.gset import GSetSpec
 from ..lattice.orset import ORSetSpec
+from ..ops import fused as fused_ops
 from ..utils.interning import Interner
+from . import plan as dplan
 from .edges import BindToEdge, Edge, PairwiseEdge, ProductEdge, ProjectEdge
 from .plan import merge_into_dst
 
@@ -87,6 +94,11 @@ class Graph:
         self._edge_ran: list = []
         #: default propagate scheduling (see :meth:`propagate`)
         self.fusion: str = "auto"
+        #: built subset rounds and fused entries, keyed by edge indices
+        self._cache = dplan.PropagateCache()
+        #: the last propagate's path ("fused" / "per_edge"), the sweeps it
+        #: executed and the host syncs they took (the bench's A/B reads it)
+        self.last_propagate: dict = {}
         #: store.mutations value whose writes this graph has propagated
         self._dirty_cursor: int = 0
 
@@ -314,15 +326,22 @@ class Graph:
             return new_states
 
         self._round_fn = round_fn
-        # every edge owes one run against the rebuilt tables
+        # every edge owes one run against the rebuilt tables; the cache is
+        # keyed by edge indices, which a rebuild may have re-meant
         self._edge_ran = [False] * len(edges)
+        self._cache = dplan.PropagateCache()
 
     def _subset_round(self, idx: tuple):
         """The sweep over ONLY the edges named by ``idx`` (indices into
         ``self.edges``): the frontier-scheduled round. Skipped edges'
         contributions are unchanged since their last run and already merged
         into their dst (idempotent join). Returns ``(fn, dst_order)`` with
-        ``fn(states, tables) -> (new_states, changed: list[bool])``."""
+        ``fn(states, tables) -> (new_states, changed: list[bool])``, kept
+        in the graph's :class:`~.plan.PropagateCache`."""
+        key = ("subset", idx)
+        cached = self._cache.get(key)
+        if cached is not None:
+            return cached
         sel = [(i, self.edges[i]) for i in idx]
         dst_order: list = []
         for _i, e in sel:
@@ -343,9 +362,11 @@ class Graph:
                 new = merge_into_dst(codec, spec, cur, contribs[dst])
                 changed.append(~codec.equal(spec, cur, new))
                 new_states[dst] = new
-            return new_states, [bool(c) for c in changed]
+            return new_states, torch.stack(changed).tolist()  # one host sync
 
-        return round_fn, tuple(dst_order)
+        out = (round_fn, tuple(dst_order))
+        self._cache.put(key, out)
+        return out
 
     def propagate(self, max_rounds: "int | None" = None,
                   mode: "str | None" = None) -> int:
@@ -353,11 +374,19 @@ class Graph:
         store (waking threshold watches). Returns the number of rounds that
         performed work.
 
-        ``mode`` (default ``self.fusion``): ``"per_edge"`` and ``"auto"``
-        run the frontier-scheduled loop — each sweep evaluates only the
-        edges whose sources moved. ``"fused"`` (the on-device fixed-point
-        megakernel, bit-identical values and round counts by the JAX
-        package's contract) is a later slice of the port and raises."""
+        ``mode`` (default ``self.fusion`` = ``"auto"``):
+
+        - ``"auto"`` / ``"fused"``: the dirty closure (the edges reachable
+          from the store's dirty set, plus never-ran edges) runs as one
+          fused fixed point (``dataflow.plan``): leveled, same-signature
+          edges stacked into one vmapped contribution per group, sweeps in
+          blocks with one host sync a block. ``"auto"`` falls back to the
+          per-edge loop with a ``RuntimeWarning`` when the fused path
+          fails (the key is then poisoned); ``"fused"`` raises.
+        - ``"per_edge"``: each sweep evaluates only the edges whose
+          sources moved, with one host sync a sweep.
+
+        Both give the same values and round counts."""
         if not self.edges:
             return 0
         if self._clean_mark == (self.store.mutations, len(self.edges)):
@@ -367,12 +396,6 @@ class Graph:
             raise ValueError(
                 f"unknown propagate mode {mode!r} (expected auto/fused/per_edge)"
             )
-        if mode == "fused":
-            raise NotImplementedError(
-                "Graph.propagate(mode='fused'): the fused propagate "
-                "megakernel (lasp_tpu.dataflow.plan) is not ported to "
-                "lasp_tpu_torch yet; mode='auto' runs the per-edge loop"
-            )
         self.refresh()
         if self._round_fn is None:
             self._build()
@@ -380,7 +403,13 @@ class Graph:
         states = {v: self.store.state(v) for v in self._var_ids}
         limit = max_rounds if max_rounds is not None else len(self.edges) + 1
         dirty = self.store.dirty_since(self._dirty_cursor) & set(self._var_ids)
-        rounds = self._propagate_per_edge(states, tables, dirty, limit)
+        rounds = None
+        if mode != "per_edge":
+            rounds = self._propagate_fused(
+                states, tables, dirty, limit, strict=(mode == "fused")
+            )
+        if rounds is None:
+            rounds = self._propagate_per_edge(states, tables, dirty, limit)
         pre_ingest = self.store.mutations
         writes = self.store.ingest(states)
         if self.store.mutations == pre_ingest + writes:
@@ -393,13 +422,63 @@ class Graph:
             self._clean_mark = None
         return rounds
 
+    def _propagate_fused(self, states, tables, dirty, limit, strict: bool):
+        """The fused body: build (or fetch) the dirty closure's entry and
+        run the whole fixed point. Updates ``states`` in place and returns
+        the productive rounds, or None to fall back to the per-edge loop
+        (only before any state was replaced: the entry is functional)."""
+        idx = dplan.closure_edges(self.edges, self._edge_ran, dirty)
+        if not idx:
+            self.last_propagate = {"path": "fused", "sweeps": 0, "host_syncs": 0}
+            return 0  # empty frontier: no edge can move
+        key = ("fused", idx)
+        ent = self._cache.get(key)
+        if ent is dplan.POISON:
+            if strict:
+                raise RuntimeError(
+                    "fused propagate for this dirty pattern previously "
+                    "failed to build; mode='fused' refuses the fallback"
+                )
+            return None
+        try:
+            if ent is None:
+                ent = dplan.compile_fused(self, idx, states, tables)
+                self._cache.put(key, ent)
+            new_states, _counts, sweeps, pending = ent.fn(states, tables, limit)
+        except Exception as exc:  # noqa: BLE001 — the loud-fallback contract
+            self._cache.poison(key)
+            if strict:
+                raise
+            warnings.warn(
+                f"fused propagate fell back to the per-edge path "
+                f"(dirty closure {idx}): {exc!r}",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return None
+        for i in idx:
+            self._edge_ran[i] = True
+        self.last_propagate = {
+            "path": "fused", "sweeps": sweeps,
+            "host_syncs": -(-sweeps // fused_ops.DATAFLOW_BLOCK),
+        }
+        states.update({v: new_states[v] for v in ent.dst_order})
+        if pending:
+            raise RuntimeError(
+                f"dataflow did not converge within {limit} "
+                "rounds (cyclic graph? raise max_rounds)"
+            )
+        # the loop stops right after its first unproductive sweep (the
+        # convergence check), so rounds = sweeps - 1
+        return max(sweeps - 1, 0)
+
     def _propagate_per_edge(self, states, tables, dirty, limit) -> int:
         """Each sweep runs ONLY the edges whose sources moved — seeded from
         the store's dirty set, then from the dsts the previous sweep
         changed. Updates ``states`` in place; returns the productive
         rounds."""
         cur = states
-        rounds = 0
+        rounds = sweeps = 0
         for _ in range(limit):
             eligible = tuple(
                 i
@@ -410,6 +489,7 @@ class Graph:
                 break  # empty frontier: no edge can move
             fn, dst_order = self._subset_round(eligible)
             cur, changed = fn(cur, tables)
+            sweeps += 1
             for i in eligible:
                 self._edge_ran[i] = True
             dirty = {d for d, c in zip(dst_order, changed) if c}
@@ -421,6 +501,9 @@ class Graph:
                 f"dataflow did not converge within {limit} "
                 "rounds (cyclic graph? raise max_rounds)"
             )
+        self.last_propagate = {
+            "path": "per_edge", "sweeps": sweeps, "host_syncs": sweeps,
+        }
         states.update(cur)
         return rounds
 

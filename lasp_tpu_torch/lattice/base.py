@@ -125,6 +125,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(template, leaves):
+    """A state shaped like ``template`` whose leaves are ``leaves`` in
+    :func:`tree_leaves` order (``None`` fields stay ``None``)."""
+    leaves = list(leaves)
+    if len(leaves) != len(tree_leaves(template)):
+        raise ValueError(
+            f"tree_unflatten: {len(leaves)} leaves for a "
+            f"{type(template).__name__} of {len(tree_leaves(template))}"
+        )
+    it = iter(leaves)
+    return tree_map(lambda _x: next(it), template)
+
+
 def _structure(tree):
     if tree is None:
         return None

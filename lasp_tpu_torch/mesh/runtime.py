@@ -54,9 +54,21 @@ G-Sets or IVars takes the vectorized ``_map_batch``, any other shape the
 per-op path with a warning, as in JAX; a map has no op table and no rows
 plan, so it takes the per-variable ingest arm and plain-PyTorch gossip
 rounds. Compaction: ``compact_orset`` (dense and packed),
-``compact_map_field`` and the ``compaction_window`` context. Programs,
-sharding and membership are later slices (``shard``, ``register`` and
-``resize`` raise ``NotImplementedError``); telemetry is not carried.
+``compact_map_field`` and the ``compaction_window`` context.
+
+Row primitives and membership: ``join_rows`` (the masked partial join
+under read-repair, quorum puts and hinted handoff; only changed rows are
+marked dirty), ``reseed_row`` (a row back to bottom or to supplied wire
+rows, e.g. ``store.checkpoint.load_runtime_rows``), ``resize`` (join,
+graceful leave folded into the claim successors, crash leave, topology
+swap) and the staged commits ``membership_grow`` /
+``membership_drop_tail`` with row-scoped ``dirty_rows``. Every membership
+commit advances ``membership_epoch``, re-validates the topology and drops
+every view sized by the old population; departed actor sites move to
+their claim successor or retire to ``-1``.
+
+Programs and sharding are later slices (``shard`` and ``register`` raise
+``NotImplementedError``); telemetry is not carried.
 """
 
 from __future__ import annotations
@@ -72,8 +84,9 @@ import torch.utils._pytree as pytree
 
 from ..dataflow.plan import tree_select
 from ..device import resolve_device
-from ..lattice.base import replicate, tree_leaves, tree_map
+from ..lattice.base import replicate, tree_leaves, tree_map, tree_unflatten
 from ..lattice.map import CrdtMap, map_subs
+from ..membership.plan import claim_targets
 from ..ops import cuda_gossip
 from ..ops.flatpack import FlatORSet, FlatORSetSpec
 from ..store.store import PreconditionError
@@ -316,6 +329,12 @@ class ReplicatedRuntime:
         self._triggers: list = []
         #: edge count the round function was built for (-1: never)
         self._n_edges = -1
+        #: monotone membership epoch, advanced by every resize / staged
+        #: commit (consumers holding population-relative indices fence on it)
+        self.membership_epoch = 0
+        #: ``fn(sources, targets)`` vetting a graceful leave's handoff pairs
+        #: (the chaos layer's guard; None until chaos is ported)
+        self._handoff_guard = None
         self._sync_graph()
 
     def _sync_graph(self) -> None:
@@ -427,9 +446,6 @@ class ReplicatedRuntime:
     # -- not ported yet --------------------------------------------------------
     def shard(self, *args, **kwargs):
         _not_ported("shard")
-
-    def resize(self, *args, **kwargs):
-        _not_ported("resize")
 
     def register(self, *args, **kwargs):
         _not_ported("register (mesh programs)")
@@ -2066,6 +2082,302 @@ class ReplicatedRuntime:
         pop = self._population(var_id)
         codec, spec = self._mesh_meta(var_id)
         return int(divergence(codec, spec, pop))
+
+    # -- row primitives -----------------------------------------------------------
+    def _row_leaf(self, x, live: torch.Tensor) -> torch.Tensor:
+        """One supplied row leaf as a tensor of the live population's dtype
+        on its device. A wire leaf from numpy keeps its bits: JAX's
+        ``uint32`` packed words become the port's ``int32`` view."""
+        if not isinstance(x, torch.Tensor):
+            a = np.asarray(x)
+            if a.dtype == np.uint32 and live.dtype == torch.int32:
+                a = a.view(np.int32)
+            x = torch.from_numpy(np.array(a))  # a copy; 0-d leaves stay 0-d
+        return x.to(device=self.device, dtype=live.dtype)
+
+    def join_rows(self, var_id: str, rows, contribs) -> int:
+        """Masked partial join: merge contribution rows into the named
+        replica rows, the primitive behind read-repair, quorum put
+        replication and hinted handoff. ``rows`` must be UNIQUE replica
+        indices; ``contribs`` is a sequence of wire-format row states (one
+        per row) or a single row state joined into every named row (the
+        read-repair broadcast). Only the rows the join changes are marked
+        frontier-dirty. Returns the number of rows changed; re-applying is
+        a no-op (idempotent join)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.size == 0:
+            return 0
+        if rows.min() < 0 or rows.max() >= self.n_replicas:
+            raise IndexError(
+                f"join_rows({var_id!r}): rows {rows.tolist()} out of "
+                f"range for {self.n_replicas} replicas"
+            )
+        if np.unique(rows).size != rows.size:
+            raise ValueError(
+                f"join_rows({var_id!r}): duplicate rows — fold same-row "
+                "contributions with codec.merge first (the scatter would "
+                "race otherwise)"
+            )
+        pop = self._population(var_id)  # before _mesh_meta (late declare)
+        codec, spec = self._mesh_meta(var_id)
+        n = int(rows.size)
+        # a bare state NamedTuple is ONE row (broadcast); only a plain
+        # list / tuple is a per-row sequence (the reseed_row rule)
+        if isinstance(contribs, (list, tuple)) and not hasattr(contribs, "_fields"):
+            if len(contribs) != n:
+                raise ValueError(
+                    f"join_rows({var_id!r}): {len(contribs)} contribution "
+                    f"rows for {n} target rows"
+                )
+            stacked = tree_map(
+                lambda live, *xs: torch.stack([self._row_leaf(x, live) for x in xs]),
+                pop, *contribs,
+            )
+        else:
+            stacked = tree_map(
+                lambda live, x: self._row_leaf(x, live).unsqueeze(0).expand(
+                    (n,) + tuple(live.shape[1:])),
+                pop, contribs,
+            )
+        idx = self._index(rows)
+        rows_st = tree_map(lambda x: x[idx], pop)
+        merged = codec.merge(spec, rows_st, stacked)
+        changed = (~codec.equal(spec, rows_st, merged)).cpu().numpy()
+        n_changed = int(changed.sum())
+        if n_changed:
+            # every named row takes its merge, as JAX's ``.at[rows].set``
+            for x, m in zip(tree_leaves(pop), tree_leaves(merged)):
+                x[idx] = m
+            self._mark_dirty_rows(var_id, rows[changed])
+        return n_changed
+
+    def _to_dense_states(self, var_id: str):
+        """The variable's population in its dense codec's layout (packed
+        OR-Sets unpacked; the int32 word views stay views)."""
+        if var_id in self._packed_specs:
+            return FlatORSet.unpack(self._packed_specs[var_id], self.states[var_id])
+        return self.states[var_id]
+
+    def reseed_row(self, replica: int, rows: "dict | None" = None) -> None:
+        """Re-seed ONE replica row of every variable, the crash-restore
+        reconstruction (``src/lasp_vnode.erl:454-472``): the row restarts
+        at the lattice bottom, or at the supplied per-variable row
+        ``rows[var_id]`` (a row state in this runtime's mesh wire format,
+        or the leaf list ``store.checkpoint.load_runtime_rows`` returns),
+        and gossip rebuilds the rest from its peers. Leaf shapes are
+        checked against the live rows. Every frontier degrades to all-dirty
+        afterwards: the row must be caught up even from quiescent peers.
+        (JAX also marks the row AAE-dirty; AAE is a later slice.)"""
+        if not 0 <= replica < self.n_replicas:
+            raise IndexError(f"replica {replica} out of range for {self.n_replicas}")
+        for v in self.var_ids:
+            codec, spec = self._mesh_meta(v)
+            st = self.states[v]
+            if rows is not None and v in rows:
+                row = rows[v]
+                if isinstance(row, (list, tuple)) and not hasattr(row, "_fields"):
+                    # leaf-list form (load_runtime_rows)
+                    row = tree_unflatten(tree_map(lambda x: x[0], st), row)
+                for live, rl in zip(tree_leaves(st), tree_leaves(row)):
+                    if tuple(live.shape[1:]) != tuple(np.shape(rl)):
+                        raise ValueError(
+                            f"reseed_row({v!r}): restored row leaf shape "
+                            f"{tuple(np.shape(rl))} does not match the live row "
+                            f"layout {tuple(live.shape[1:])} — restore "
+                            "from a checkpoint of this runtime's spec"
+                        )
+            else:
+                row = codec.new(spec, device=self.device)
+            for x, r in zip(tree_leaves(st), tree_leaves(row)):
+                x[replica] = self._row_leaf(r, x)
+        for v in self.var_ids:
+            self._frontier_fill(v, True)
+        self._invalidate_plan("restore")
+
+    # -- elastic membership --------------------------------------------------------
+    @staticmethod
+    def _validate_topology(new_n: int, new_neighbors) -> np.ndarray:
+        new_neighbors = np.asarray(new_neighbors)
+        if new_neighbors.ndim != 2 or new_neighbors.shape[0] != new_n:
+            raise ValueError(
+                f"new_neighbors must be [new_n={new_n}, K], "
+                f"got {new_neighbors.shape}"
+            )
+        if new_neighbors.size and (
+            new_neighbors.min() < 0 or new_neighbors.max() >= new_n
+        ):
+            raise ValueError("new_neighbors indices out of range")
+        return new_neighbors
+
+    def _handoff(self, codec, spec, head, tail, targets: np.ndarray) -> None:
+        """Graceful leave's fold, in place: each claim target ``t`` of
+        ``head`` joins ``join_all`` of the tail rows that claim it, as JAX's
+        per-target loop does, batched over targets: the sources of every
+        target are folded rank by rank (a target's k-th source in tail
+        order), then merged into the targets at once."""
+        uniq, group = np.unique(targets, return_inverse=True)
+        order = np.argsort(group, kind="stable")  # by target, tail order within
+        rank = np.empty(targets.size, dtype=np.int64)
+        rank[order] = np.arange(targets.size) - np.searchsorted(group[order], group[order])
+        src0 = np.flatnonzero(rank == 0)
+        h = tree_map(lambda x: x[self._index(src0[np.argsort(group[src0])])], tail)
+        for k in range(1, int(rank.max()) + 1):
+            srck = np.flatnonzero(rank == k)
+            pos = self._index(group[srck])
+            cur = tree_map(lambda x: x[pos], h)
+            merged = codec.merge(spec, cur, tree_map(lambda x: x[self._index(srck)], tail))
+            for x, m in zip(tree_leaves(h), tree_leaves(merged)):
+                x[pos] = m
+        tgt = self._index(uniq)
+        merged = codec.merge(spec, tree_map(lambda x: x[tgt], head), h)
+        for x, m in zip(tree_leaves(head), tree_leaves(merged)):
+            x[tgt] = m
+
+    def resize(self, new_n: int, new_neighbors, graceful: bool = True) -> None:
+        """Grow or shrink the replica population mid-run, the one-shot
+        commit of riak_core staged membership (``src/lasp_console.erl:
+        31-94``).
+
+        Join (``new_n > n_replicas``): new rows start at the lattice bottom
+        and catch up by gossip over the new topology. Leave (``new_n <
+        n_replicas``): with ``graceful=True`` each departing row's state
+        joins into its claim successor ``row % new_n``
+        (``membership.plan.claim_targets``) before the rows drop, vetted by
+        ``_handoff_guard`` when one is set; ``graceful=False`` models a
+        crash: departing state is lost unless it already gossiped. The
+        topology is re-supplied (``new_neighbors: int[new_n, K]``, checked
+        by :meth:`_validate_topology`) and the membership epoch advances."""
+        new_neighbors = self._validate_topology(new_n, new_neighbors)
+        old_n = self.n_replicas
+        actor_targets = None
+        targets = None
+        if new_n < old_n and graceful:
+            sources = np.arange(new_n, old_n, dtype=np.int64)
+            targets = claim_targets(old_n, new_n)
+            if self._handoff_guard is not None:
+                self._handoff_guard(sources, targets)
+            actor_targets = {int(s): int(t) for s, t in zip(sources, targets)}
+        for v in self.var_ids:
+            codec, spec = self._mesh_meta(v)
+            st = self.states[v]
+            if new_n < old_n:
+                head = tree_map(lambda x: x[:new_n].clone(), st)
+                if graceful:
+                    self._handoff(codec, spec, head,
+                                  tree_map(lambda x: x[new_n:], st), targets)
+                self.states[v] = head
+            elif new_n > old_n:
+                fresh = replicate(codec.new(spec, device=self.device), new_n - old_n)
+                self.states[v] = tree_map(
+                    lambda a, b: torch.cat([a, b], dim=0), st, fresh
+                )
+        if new_n > old_n:
+            kind = "join"
+        elif new_n < old_n:
+            kind = "leave_graceful" if graceful else "leave_crash"
+        else:
+            kind = "topology_swap"
+        self._finish_membership(
+            kind, old_n, new_n, new_neighbors,
+            dirty_rows=None, actor_targets=actor_targets,
+        )
+
+    def membership_grow(self, new_n: int, new_neighbors, dirty_rows=None) -> None:
+        """Staged-join commit primitive: append ``new_n - n_replicas``
+        bottom rows and advance the membership epoch. ``dirty_rows``
+        (``membership.plan.changed_delivery_rows``) scopes the frontier
+        degrade to the rows whose delivery changed; None keeps the blanket
+        all-dirty."""
+        new_neighbors = self._validate_topology(new_n, new_neighbors)
+        old_n = self.n_replicas
+        if new_n <= old_n:
+            raise ValueError(
+                f"membership_grow: new_n={new_n} must exceed the current "
+                f"{old_n}-replica population"
+            )
+        for v in self.var_ids:
+            codec, spec = self._mesh_meta(v)
+            fresh = replicate(codec.new(spec, device=self.device), new_n - old_n)
+            self.states[v] = tree_map(
+                lambda a, b: torch.cat([a, b], dim=0), self.states[v], fresh
+            )
+        self._finish_membership(
+            "join_staged", old_n, new_n, new_neighbors,
+            dirty_rows=dirty_rows, actor_targets=None,
+        )
+
+    def membership_drop_tail(self, new_n: int, new_neighbors, *,
+                             dirty_rows=None, actor_targets=None,
+                             kind: str = "leave_staged") -> None:
+        """Staged-leave commit primitive: truncate the departing tail
+        without a merge (ownership was handed off row by row before).
+        ``actor_targets`` maps a departing row to the claim successor that
+        received its handoff (missing entries retire to ``-1``);
+        ``dirty_rows`` scopes the frontier degrade; None keeps the
+        blanket."""
+        new_neighbors = self._validate_topology(new_n, new_neighbors)
+        old_n = self.n_replicas
+        if new_n >= old_n:
+            raise ValueError(
+                f"membership_drop_tail: new_n={new_n} must be below the "
+                f"current {old_n}-replica population"
+            )
+        for v in self.var_ids:
+            self.states[v] = tree_map(lambda x: x[:new_n].clone(), self.states[v])
+        self._finish_membership(
+            kind, old_n, new_n, new_neighbors,
+            dirty_rows=dirty_rows, actor_targets=actor_targets,
+        )
+
+    def _finish_membership(self, kind: str, old_n: int, new_n: int,
+                           new_neighbors, *, dirty_rows, actor_targets) -> None:
+        """Shared membership-commit epilogue: advance the epoch, swap the
+        topology and drop every view sized by the old population (the mask
+        views, the frontier's mask reference), degrade frontiers (blanket
+        when ``dirty_rows`` is None, row-scoped otherwise, surviving rows'
+        dirty bits kept), remap or retire departed actor sites, and drop
+        the dispatch plan. ``kind`` names the event for the JAX package's
+        ``record_membership``; telemetry is a later slice."""
+        del kind
+        self.n_replicas = new_n
+        self._host_neighbors = np.asarray(new_neighbors).astype(np.int32)
+        self.neighbors = torch.as_tensor(
+            self._host_neighbors, device=self.device
+        ).contiguous()
+        # the kernels do no bounds checks: nothing sized by the old
+        # population may survive (a reused mask object would skip the
+        # shape check of ``_masks``)
+        self._mask_views = (None, None, None)
+        self._frontier_mask_ref = None
+        keep = min(old_n, new_n)
+        for v in list(self._frontier):
+            old_f = self._frontier[v]
+            if dirty_rows is None:
+                # no transfer knowledge: fresh rows start at bottom and must
+                # be caught up even from quiescent peers
+                self._frontier[v] = np.ones(new_n, dtype=bool)
+                continue
+            f = np.zeros(new_n, dtype=bool)
+            if old_f.shape[0] >= keep:
+                f[:keep] |= old_f[:keep]
+            rows = np.asarray(dirty_rows, dtype=np.int64)
+            if rows.size:
+                f[rows] = True
+            self._frontier[v] = f
+        # a departed actor's tokens may still circulate: a graceful / staged
+        # leave joined its row into the claim successor, where the actor may
+        # continue; otherwise the binding retires to -1, a site no row
+        # matches (the never-reuse-an-actor incarnation rule)
+        if new_n < old_n:
+            for key, site in list(self._actor_sites.items()):
+                if site >= new_n:
+                    target = (
+                        actor_targets.get(site) if actor_targets is not None else None
+                    )
+                    self._actor_sites[key] = int(target) if target is not None else -1
+        self.membership_epoch += 1
+        # the replica extent is part of every grouping signature
+        self._invalidate_plan("resize")
 
     # -- compaction -------------------------------------------------------------
     # The JAX runtime also drops the variable's boundary halo after a

@@ -83,7 +83,51 @@ def fused_frontier_rounds(codec, spec, states, neighbors, frontier,
     return s, f, torch.tensor(i, dtype=torch.int32, device=f.device)
 
 
+#: sweeps a block of :func:`fused_dataflow_rounds` runs between host syncs
+DATAFLOW_BLOCK = 8
+
+
+def fused_dataflow_rounds(round_fn, states, tables, n_dsts: int, max_rounds: int):
+    """The fused propagate's fixed-point loop: the leveled Jacobi sweep
+    ``round_fn(states, tables) -> (states, changed: bool[n_dsts])``
+    (``dataflow.plan.make_round_fn``) repeated until a sweep changes no
+    dst or ``max_rounds`` sweeps ran. JAX runs it in one ``while_loop``;
+    eager PyTorch has none, so sweeps run in blocks of at most 8, each
+    capped by the budget left, with one host sync a block that reads the
+    block's stacked changed flags.
+
+    Returns JAX's ``(new_states, per_dst_counts: int32[n_dsts], sweeps,
+    pending)``: ``sweeps`` counts up to and including the first
+    unproductive sweep, ``per_dst_counts[i]`` the sweeps among those that
+    changed ``dst_order[i]``, and ``pending`` whether the budget ran out
+    while flags were still set. Sweeps a block runs past the fixed point
+    are no-ops by idempotence (the sweep is a function of the states,
+    which the unproductive sweep left unchanged); the states returned are
+    the unproductive sweep's own, as JAX's loop returns them."""
+    s = states
+    counts = torch.zeros((n_dsts,), dtype=torch.int32)
+    sweeps = 0
+    while sweeps < max_rounds:
+        block = min(DATAFLOW_BLOCK, max_rounds - sweeps)
+        outs, flags = [], []
+        for _ in range(block):
+            s, changed = round_fn(s, tables)
+            outs.append(s)
+            flags.append(changed)
+        rows = torch.stack(flags).to(device="cpu", dtype=torch.int32)  # the sync
+        productive = rows.any(dim=1)
+        if bool(productive.all()):
+            counts += rows.sum(dim=0, dtype=torch.int32)
+            sweeps += block
+            continue
+        first = int((~productive).nonzero()[0, 0])
+        counts += rows[: first + 1].sum(dim=0, dtype=torch.int32)
+        return outs[first], counts, sweeps + first + 1, False
+    return s, counts, sweeps, True
+
+
 __all__ = [
+    "fused_dataflow_rounds",
     "fused_frontier_rounds",
     "fused_gossip_rounds",
     "fused_gossip_rounds_count",

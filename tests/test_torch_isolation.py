@@ -34,7 +34,8 @@ def test_scans_cover_every_ported_module():
     for name in ("lattice.dots", "lattice.orswot", "mesh.plan", "mesh.runtime",
                  "ops.cuda_gossip", "dataflow.edges", "dataflow.engine",
                  "dataflow.plan", "store.store", "bench_scenarios", "mesh.ingest",
-                 "lattice.map", "bridge_state"):
+                 "lattice.map", "bridge_state", "membership.plan",
+                 "store.host_store", "store.checkpoint"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -78,6 +79,7 @@ def _entry_points():
     from lasp_tpu_torch.bench_scenarios import (
         adcounter_6,
         adcounter_10m,
+        dataflow_chain,
         gset_1k,
         ingest_storm,
         orset_100k,
@@ -89,6 +91,7 @@ def _entry_points():
     from lasp_tpu_torch.lattice import GSet, GSetSpec
     from lasp_tpu_torch.mesh import ReplicatedRuntime, ring
     from lasp_tpu_torch.store import Store
+    from lasp_tpu_torch.store.checkpoint import load_runtime, load_store
 
     import numpy as np
 
@@ -105,6 +108,10 @@ def _entry_points():
         "orset_100k": lambda: orset_100k(16),
         "pipeline_1m": lambda: pipeline_1m(16),
         "ingest_storm": lambda: ingest_storm(16, 4, 1, 8, reps=1, gate=None),
+        "dataflow_chain": lambda: dataflow_chain(3, 2, reps=1),
+        # the device is resolved before the (absent) file is opened
+        "load_store": lambda: load_store("never-opened.lasp"),
+        "load_runtime": lambda: load_runtime("never-opened.lasp"),
         "codec.new": lambda: GSet.new(GSetSpec(n_elems=4)),
         "from_numpy": lambda: from_numpy(
             "lasp_gset", GSetSpec(n_elems=4), [np.zeros(4, bool)]
@@ -115,7 +122,7 @@ def _entry_points():
 @pytest.mark.parametrize("name", sorted(
     ["Store", "ReplicatedRuntime", "orset_anti_entropy", "adcounter_6",
      "adcounter_10m", "codec.new", "from_numpy", "gset_1k", "orset_100k",
-     "pipeline_1m", "ingest_storm"]
+     "pipeline_1m", "ingest_storm", "dataflow_chain", "load_store", "load_runtime"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the

@@ -242,17 +242,18 @@ def test_orswot_batch_failure_matches_jax(plan):
 
 
 def test_runtime_refuses_what_is_not_ported():
-    """What is still not ported raises: sharding, mesh programs, resizing
-    and the fused propagate megakernel."""
+    """What is still not ported raises: sharding and mesh programs. Resizing
+    and the fused propagate are ported and run."""
     store = tstore.Store(device="cpu")
     store.declare(id="s", type="lasp_gset", n_elems=4)
     rt = tmesh.ReplicatedRuntime(store, tdf.Graph(store), 8, ring(8, 2),
                                  device="cpu")
-    for call in (rt.shard, rt.register, rt.resize):
+    for call in (rt.shard, rt.register):
         with pytest.raises(NotImplementedError):
             call()
+    rt.resize(8, ring(8, 2))  # a topology swap
+    assert rt.membership_epoch == 1
     graph = tdf.Graph(store)
     graph.map("s", lambda x: x)
     store.update("s", ("add", 1), "a")
-    with pytest.raises(NotImplementedError, match="fused"):
-        graph.propagate(mode="fused")
+    assert graph.propagate(mode="fused") == 1
