@@ -16,7 +16,9 @@ Phases, each of which fails the run on any error:
                slabs at 16-, 8- and 4-byte loads; K2 16-, 8-, 4- and 1-byte
                vectors in teams of 1 to 32 lanes, on stacked, view, clone
                and misaligned members, int64 and int32 rows; K3 bulk
-               copies, 4-byte copies and column-chunked rows);
+               copies, 4-byte copies and column-chunked rows); then K2 on
+               every path and K3 on its three under chaos-style masks (about
+               a quarter of the edges dead, one row with every edge dead);
 3. headline — ``bench_scenarios.orset_anti_entropy`` at 2**18 replicas of
                the 8 KiB packed OR-Set (128 elems x 64 actors x 4 tokens),
                random 3-regular gossip, fused blocks of 4;
@@ -101,7 +103,22 @@ Phases, each of which fails the run on any error:
                values, and a reset-mode map store round-trips through
                ``save_store`` / ``load_store``; bytes on disk, seconds and the
                temporary directory's filesystem;
-14. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+14. chaos   — (a) ``bench_scenarios.chaos_heal`` at 100,000 replicas (a
+               10-round ring-cut with a rolling crash, fused mask windows of
+               8, one degraded read with read-repair each faulty round), its
+               healed states bit-equal to the fault-free twin's, with the host
+               time of the reachability BFS and of each degraded read; (b)
+               every preset of ``chaos.PRESETS`` over the membership phase's
+               population, unconverged: ``soak`` frontier (masked K2 / K3)
+               and dense twins with equal per-round residuals and final
+               states bit-equal to one fault-free fixed point, launches and
+               the dispatch plan's recompile time per preset;
+15. quorum  — ``bench_scenarios.quorum_kv`` at 100,000 replicas (8 client
+               rounds of 24 puts and 24 degraded gets, N=3, R=W=2, timeout 4,
+               retries 4) under every preset: no acked write lost, every
+               request resolved; ``rolling-crash`` again with the sequential
+               engine, equal to the batched one in states, trace and results;
+16. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -111,18 +128,20 @@ Phases, each of which fails the run on any error:
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
                the run;
-15. kernels — each kernel timed at every distinct launch shape phases 3-14
+17. kernels — each kernel timed at every distinct launch shape phases 3-16
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
                phase, read after), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
                beside its plain version, its gather model and the host time
                per wrapper call; K1 at the adcounter's shapes on the
                adcounter's own topology, beside its plain version; K2's loss
-               split by launch class; and K1's column-slab sweep (slab widths
-               against whole rows) at each of its shapes and at two shapes
-               whose planes fit the L2. Every K2 and K3 shape is replayed
-               once under ``torch.profiler`` before phase 14, which must show
-               exactly one device kernel per wrapper call.
+               split by launch class; K2's and K3's masked shapes (the chaos
+               soaks') apart, their bound counting one mask byte an edge
+               read; and K1's column-slab sweep (slab widths against whole
+               rows) at each of its shapes and at two shapes whose planes fit
+               the L2. Every K2 and K3 shape is replayed once under
+               ``torch.profiler`` before phase 16, which must show exactly one
+               device kernel per wrapper call.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -269,6 +288,10 @@ def phase_parity(torch, cg) -> None:
                    "cases bit-identical to plain (clock, dots and changed flags); "
                    f"{_parity_k3_paths(torch, cg, gen)} more on the bulk, 4-byte "
                    "and column-chunked paths")
+    k2, k3 = _parity_chaos_masks(torch, cg, gen)
+    _log("parity", f"under chaos masks (~25% dead edges, one row with every edge "
+                   f"dead): K2 {k2} cases on every path, K3 {k3} cases on the bulk, "
+                   "4-byte and column-chunked paths, bit-identical to plain")
 
 
 def _parity_k2(torch, cg, gen) -> int:
@@ -328,6 +351,60 @@ def _parity_k2(torch, cg, gen) -> int:
         raise RuntimeError(f"K2 parity did not take every vector and team width: "
                            f"{sorted(taken)}")
     return cases
+
+
+def _parity_chaos_masks(torch, cg, gen) -> tuple:
+    """K2 on every path of ``rows_paths.K2_PATHS`` and K3 on each path of
+    ``rows_paths.K3_PATHS`` under a chaos-style mask (``rows_paths.
+    chaos_mask``: about a quarter of the edges dead, and row 1 with every
+    edge dead, which each member's rows name), G in {1, 16}, K in {3, 5},
+    stacked members and member lists, against the plain versions. The
+    all-dead row must report no change."""
+    from lasp_tpu_torch.ops import rows_paths as rp
+
+    r, k2, k3 = 500, 0, 0
+    for path, (_dtype, op, *_rest) in rp.K2_PATHS.items():
+        for g in (1, 16):
+            leaves = rp.k2_leaves(path, g, r, gen)
+            for k in (3, 5):
+                nb = torch.randint(0, r, (r, k), dtype=torch.int32, device="cuda",
+                                   generator=gen)
+                mask = rp.chaos_mask(r, k, gen)
+                rows = torch.randint(0, r, (g, 33), device="cuda", generator=gen)
+                rows[:, 1] = 1
+                want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
+                for kind in ("stacked", "views"):
+                    members = [rp.k2_members(x, kind) for x in leaves]
+                    got, ch = cg.gossip_round_rows(op, members, nb, rows, mask)
+                    torch.cuda.synchronize()
+                    if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                            and torch.equal(ch, ch_w) and not ch[:, 1].any()):
+                        raise RuntimeError(f"K2 disagrees with its plain version under "
+                                           f"a chaos mask: {path} G={g} K={k} {kind}")
+                    k2 += 1
+    for path, (a, e, r3) in rp.K3_PATHS.items():
+        for g in (1, 16):
+            clock = torch.randint(0, 7, (g, r3, a), dtype=torch.int32, device="cuda",
+                                  generator=gen)
+            dots = torch.randint(0, 7, (g, r3, e, a), dtype=torch.int32, device="cuda",
+                                 generator=gen)
+            for k in (3, 5):
+                nb = torch.randint(0, r3, (r3, k), dtype=torch.int32, device="cuda",
+                                   generator=gen)
+                mask = rp.chaos_mask(r3, k, gen)
+                rows = torch.randint(0, r3, (g, 33), device="cuda", generator=gen)
+                rows[:, 1] = 1
+                want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
+                for c, d in ((clock, dots), (list(clock.unbind(0)), list(dots.unbind(0)))):
+                    got, ch = cg.gossip_round_rows_vclock(c, d, nb, rows, mask)
+                    torch.cuda.synchronize()
+                    if not (all(torch.equal(x, y) for x, y in zip(got, want))
+                            and torch.equal(ch, ch_w) and not ch[:, 1].any()):
+                        raise RuntimeError(f"K3 disagrees with its plain version under "
+                                           f"a chaos mask: {path} G={g} K={k}")
+                    k3 += 1
+            del clock, dots
+    return k2, k3
 
 
 def _vclock_case(torch, cg, gen, clock, dots, k, masked, bucket, label) -> None:
@@ -422,8 +499,10 @@ def _parity_k3_paths(torch, cg, gen) -> int:
     and unmasked, F in {1, 33}; then 16-byte-aligned actors on members that
     are not 16-byte aligned (the 4-byte path). The schedule each case takes
     is checked."""
+    from lasp_tpu_torch.ops import rows_paths as rp
+
     cases = 0
-    for a, e, r in ((3, 8, 1000), (16, 64, 1000), (64, 512, 128)):
+    for a, e, r in rp.K3_PATHS.values():
         for g in (1, 16, 70):
             clock = torch.randint(0, 7, (g, r, a), dtype=torch.int32,
                                   device="cuda", generator=gen)
@@ -1153,10 +1232,11 @@ def phase_dataflow(torch, cg) -> dict:
 _MEMBERSHIP_REPLICAS = 100_000
 
 
-def _membership_runtime(torch, n):
+def _membership_runtime(torch, n, converge: bool = True):
     """The engine's population with an OR-SWOT beside the packed OR-Set and
     the G-Counter, 16 writers at their home rows (``update_batch``),
-    converged dense. Returns ``(rt, ids, homes, expected)``."""
+    converged dense unless ``converge=False``. Returns ``(rt, ids, homes,
+    expected)``."""
     from lasp_tpu_torch.dataflow import Graph
     from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
     from lasp_tpu_torch.store import Store
@@ -1179,7 +1259,8 @@ def _membership_runtime(torch, n):
     first = [(homes[a], a, f"t{a}", a + 1) for a in range(16)]
     _membership_writes(rt, first)
     _expect(expected, first)
-    rt.run_to_convergence(mode="dense")
+    if converge:
+        rt.run_to_convergence(mode="dense")
     return rt, ids, homes, expected
 
 
@@ -1410,6 +1491,171 @@ def phase_checkpoint(torch, cg, rt, ids, captured: dict, big: int = 150_000) -> 
     return {"launches": launches, "shapes": shapes}
 
 
+class _HostTime:
+    """Host seconds and calls of functions wrapped for one measurement
+    (``wrap`` returns the undo)."""
+
+    def __init__(self):
+        self.seconds = Counter()
+        self.calls = Counter()
+
+    def wrap(self, owner, name: str, label: str):
+        inner = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                self.seconds[label] += time.perf_counter() - t0
+                self.calls[label] += 1
+
+        setattr(owner, name, timed)
+        return lambda: setattr(owner, name, inner)
+
+    def per_call_ms(self) -> dict:
+        return {k: self.seconds[k] / self.calls[k] * 1e3 for k in self.calls}
+
+
+def _launch_delta(cg, before: dict) -> dict:
+    return {k: cg.LAUNCHES[k] - before[k] for k in cg.LAUNCHES}
+
+
+#: the chaos and quorum phases' population (the engine's)
+_CHAOS_REPLICAS = 100_000
+
+
+def phase_chaos(torch, cg, captured: dict, sources: dict, n: int = _CHAOS_REPLICAS) -> dict:
+    """(a) ``bench_scenarios.chaos_heal`` at ``n`` replicas with JAX's other
+    defaults (fanout 3, seed 17, a 10-round ring-cut with a rolling crash,
+    fused windows of 8, one degraded read with read-repair each faulty
+    round), its healed states bit-equal to the fault-free twin's (the
+    scenario raises otherwise); the host time of ``_reachable_live`` and of
+    each degraded read. (b) Every preset of ``chaos.PRESETS`` over the
+    membership phase's population, unconverged: ``soak(mode="frontier")``
+    and ``soak(mode="dense")`` on twins must give the same per-round
+    residuals, and both final states must be bit-equal to one fault-free
+    fixed point; K1 / K2 / K3 launches per preset, and the host time of the
+    dispatch plan's recompiles (a new mask object each round under
+    flaky links invalidates the plan). The frontier twins stay in
+    ``sources`` for the kernels phase."""
+    import lasp_tpu_torch.mesh.runtime as rtmod
+    from lasp_tpu_torch.bench_scenarios import chaos_heal
+    from lasp_tpu_torch.chaos import PRESETS, ChaosRuntime, nemesis
+    from lasp_tpu_torch.chaos.invariants import snapshot_states, states_equal
+
+    # the check's fault-free fixed point, built before the count starts
+    free, ids, _homes, expected = _membership_runtime(torch, n)
+    free_rounds = len(free.round_residuals)
+    free_states = snapshot_states(free)
+    del free
+    cg.reset_launches()
+    host = _HostTime()
+    undo = [host.wrap(ChaosRuntime, "_reachable_live", "reachable_live"),
+            host.wrap(ChaosRuntime, "degraded_read", "degraded_read")]
+    try:
+        heal = chaos_heal(n_replicas=n)
+    finally:
+        for u in undo:
+            u()
+    torch.cuda.synchronize()
+    heal_launches = dict(cg.LAUNCHES)
+    _log_line("chaos", {"part": "chaos_heal", **{k: heal[k] for k in (
+        "scenario", "rounds", "rounds_to_heal", "healed", "crashes", "restores",
+        "degraded_reads", "repaired_rows", "repair_bytes", "fused_windows",
+        "fused_rounds", "stepped_rounds", "residual_syncs", "seconds",
+        "fault_free_seconds", "fault_free_rounds", "check")},
+        "host_ms_per_call": host.per_call_ms(), "launches": heal_launches})
+    if not heal["healed"] or heal["degraded_reads"] == 0 or heal["fused_windows"] == 0:
+        raise RuntimeError(f"chaos: chaos_heal did not exercise its path: {heal}")
+
+    presets = {}
+    for preset in PRESETS:
+        before = dict(cg.LAUNCHES)
+        runs = {}
+        for mode in ("frontier", "dense"):
+            rt, _ids, _h, _e = _membership_runtime(torch, n, converge=False)
+            if mode == "frontier":
+                source = f"chaos {preset}"
+                _capture_rows_inputs(cg, rt, source, captured)
+                sources[source] = rt
+            ch = ChaosRuntime(rt, nemesis(preset, n, rt._host_neighbors, seed=9))
+            rt.round_residuals.clear()
+            plan_time = _HostTime()
+            undo = plan_time.wrap(rtmod, "compile_plan", "compile_plan")
+            mode_before = dict(cg.LAUNCHES)
+            try:
+                rep, secs = _timed_step(torch, lambda: ch.soak(mode=mode))
+            finally:
+                undo()
+            runs[mode] = {
+                "rounds": rep["rounds"], "rounds_to_heal": rep["rounds_to_heal"],
+                "seconds": secs, "residuals": list(rt.round_residuals),
+                "launches": _launch_delta(cg, mode_before),
+                "plan_compiles": plan_time.calls["compile_plan"],
+                "plan_compile_ms_per_round": (
+                    plan_time.seconds["compile_plan"] / rep["rounds"] * 1e3),
+                "duplicates_suppressed": rep["duplicates_suppressed"],
+                "crashes": rep["crashes"],
+            }
+            if not rep["healed"] or not states_equal(snapshot_states(rt), free_states):
+                raise RuntimeError(f"chaos: {preset} {mode} soak did not heal to the "
+                                   "fault-free fixed point")
+            for v in ids:
+                if rt.coverage_value(v) != expected[v]:
+                    raise RuntimeError(f"chaos: {preset} {mode}: {v} has the wrong value")
+            if mode == "dense":
+                del rt, ch
+        if runs["frontier"]["residuals"] != runs["dense"]["residuals"]:
+            raise RuntimeError(f"chaos: {preset}: frontier and dense residuals differ: "
+                               f"{runs}")
+        presets[preset] = {"launches": _launch_delta(cg, before), **runs}
+        _log_line("chaos", {"part": "preset", "preset": preset, "replicas": n,
+                            "fault_free_rounds": free_rounds, **presets[preset]})
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    masked = {name: sum(c for key, c in shapes[name].items()
+                        if key[cg.SHAPE_FIELDS[name].index("masked")])
+              for name in ("gossip_round_rows", "gossip_round_rows_vclock")}
+    if any(c == 0 for c in masked.values()):
+        raise RuntimeError(f"chaos: no masked K2 / K3 launch in the soaks: {masked}")
+    _log("chaos", f"launches {launches}; masked K2 / K3 launches {masked}")
+    return {"launches": launches, "shapes": shapes, "heal": heal, "presets": presets,
+            "masked_launches": masked}
+
+
+def phase_quorum(torch, cg, n: int = _CHAOS_REPLICAS) -> dict:
+    """``bench_scenarios.quorum_kv`` at ``n`` replicas (8 client rounds of 24
+    puts and 24 degraded gets) under every chaos preset at JAX's N=3, R=W=2,
+    timeout 4, retries 4: no acked write lost and every request resolved
+    (the scenario raises otherwise); then ``rolling-crash`` again with the
+    sequential engine, whose final states, protocol trace and results must
+    equal the batched run's."""
+    from lasp_tpu_torch.bench_scenarios import quorum_kv
+
+    cg.reset_launches()
+    kw = dict(n_replicas=n, client_rounds=8, puts_per_round=24, gets_per_round=24)
+    out, secs = _timed_step(torch, lambda: quorum_kv(**kw))
+    batched = out["presets"]
+    for preset, rec in batched.items():
+        if rec["completed"] + rec["failed"] != rec["requests"] or not rec["no_write_lost"]:
+            raise RuntimeError(f"quorum: {preset}: {rec}")
+        _log_line("quorum", {"preset": preset, "replicas": n, "engine": "batched",
+                             **rec})
+    seq = quorum_kv(presets=("rolling-crash",), engine="sequential", **kw)
+    s, b = seq["presets"]["rolling-crash"], batched["rolling-crash"]
+    same = [k for k in b if k not in ("seconds", "fsm_seconds")]
+    if any(s[k] != b[k] for k in same):
+        raise RuntimeError(f"quorum: the sequential engine differs from the batched "
+                           f"one: {s} against {b}")
+    _log_line("quorum", {"preset": "rolling-crash", "engine": "sequential",
+                         "seconds": s["seconds"], "fsm_seconds": s["fsm_seconds"],
+                         "equal_to_batched": same})
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log("quorum", f"all presets in {secs:.3f} s; launches {launches}")
+    return {"launches": launches, "shapes": shapes, "presets": batched,
+            "sequential": s}
+
+
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
@@ -1473,22 +1719,25 @@ def adcounter_profile(torch, ad: dict) -> None:
     _log_line("adcounter", line)
 
 
-def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int) -> tuple:
+def _rows_bound_bytes(rows_np, nbrs_np, row_bytes: int, k: int,
+                      masked: bool = False) -> tuple:
     """The least bytes and the gather model of one K2 / K3 launch over
     ``rows_np [G, F]``, as the kernels are called: each distinct row a
     member's round reads (own and neighbours) once, the row indices in
     their own dtype (the runtime's int64), the distinct rows' int32
-    neighbour indices, the joined rows and the 1-byte changed flags; against
-    the ``(K+2)``-rows-a-slot traffic the kernels issue (with a slot's row
-    index, its K neighbour indices and its flag)."""
+    neighbour indices (and, ``masked``, their K one-byte mask entries), the
+    joined rows and the 1-byte changed flags; against the
+    ``(K+2)``-rows-a-slot traffic the kernels issue (with a slot's row
+    index, its K neighbour indices, its K mask bytes and its flag)."""
     g, f = rows_np.shape
     idx = rows_np.dtype.itemsize
     distinct = sum(np.unique(np.concatenate([r, nbrs_np[np.unique(r)].ravel()])).size
                    for r in rows_np)
+    edge_bytes = 4 + (1 if masked else 0)
     bound = (distinct * row_bytes + g * f * idx
-             + sum(np.unique(r).size for r in rows_np) * k * 4
+             + sum(np.unique(r).size for r in rows_np) * k * edge_bytes
              + g * f * row_bytes + g * f)
-    gather = (k + 2) * g * f * row_bytes + g * f * (idx + 4 * k + 1)
+    gather = (k + 2) * g * f * row_bytes + g * f * (idx + edge_bytes * k + 1)
     return float(bound), float(gather)
 
 
@@ -1561,7 +1810,8 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                   k1_nbrs) -> tuple:
     """Every kernel at every distinct launch shape of the main path (``ms``
     and ``bound_ms`` per shape, ``loss_ms = sum(count * (ms - bound_ms))``),
-    at its widest shape the fields of the kernels line, and K1 at the
+    at its widest shape the fields of the kernels line, each masked K2 / K3
+    shape (the chaos soaks') held against its plain version, and K1 at the
     adcounter's shapes against its plain version (``k1_nbrs``: the
     neighbour table of a path's population, by row count)."""
     fields = cg.SHAPE_FIELDS
@@ -1576,7 +1826,7 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
         ms = _time_ms(torch, lambda: cg._dense_launch(ex, rm, nb, *out, slab), 10)
         row_bytes = 2 * d * 4
         bound = (2 * r * row_bytes + r * k * 4) / bw * 1e3  # planes in + out, indices
-        per_shape["gossip_round_dense"].append((key, count, ms, bound))
+        per_shape["gossip_round_dense"].append((key, count, ms, bound, None))
         want = cg.gossip_round_dense_plain(ex, rm, nb)
         sweeps[f"R={r} D={d} K={k}"] = _k1_sweep(torch, cg, ex, rm, nb, want)
         if r in k1_nbrs:  # the adcounter's shapes, on its own topology
@@ -1619,27 +1869,26 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                 cg, sources[cap["source"]], cap)
             ms = _time_ms(torch, call, 10, spin_cycles=_QUEUE_AHEAD_CYCLES // 10)
             k = key[fields[name].index("K")]
+            masked = bool(key[fields[name].index("masked")])
             bound, gather = _rows_bound_bytes(cap["rows"].cpu().numpy(),
-                                              nb.cpu().numpy(), row_bytes, k)
-            per_shape[name].append((key, count, ms, bound / bw * 1e3))
+                                              nb.cpu().numpy(), row_bytes, k, masked)
             is_widest = (key == widest_k2 if name == "gossip_round_rows" else
                          key == max(shapes[name], key=lambda x: x[0] * x[1]))
-            if is_widest:
-                got, ch = call()
+            err = plain = None
+            if is_widest or masked:  # the soaks' masked shapes, each held
                 stacked = [torch.stack(ms_) for ms_ in leaves]
                 if plan.kind == "vclock":
-                    want, ch_w = cg.gossip_round_rows_vclock_plain(
-                        *stacked, nb, cap["rows"], cap["mask"])
                     plain = lambda: cg.gossip_round_rows_vclock_plain(  # noqa: E731
                         *stacked, nb, cap["rows"], cap["mask"])
                 else:
-                    want, ch_w = cg.gossip_round_rows_plain(
-                        plan.op, stacked, nb, cap["rows"], cap["mask"])
                     plain = lambda: cg.gossip_round_rows_plain(  # noqa: E731
                         plan.op, stacked, nb, cap["rows"], cap["mask"])
+                (got, ch), (want, ch_w) = call(), plain()
                 err = max(_max_abs_err(torch, got, want),
                           int((ch.int() - ch_w.int()).abs().max()))
                 del got, want
+            per_shape[name].append((key, count, ms, bound / bw * 1e3, err))
+            if is_widest:
                 widest[name] = {
                     "max_abs_err": err, "ms": ms,
                     "call_ms": _call_ms(torch, call, 20),
@@ -1656,33 +1905,51 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
 _WARM_CALLS = 4
 
 
-def _device_kernels(torch, warm, calls) -> dict:
-    """Run ``warm`` ``_WARM_CALLS`` times and then each of ``calls`` once
-    under ``torch.profiler``: the device activities (kernels, copies,
-    fills) they put on the card, by name and count. Sleep kernels open and
-    close the window and are left out. The profiler may drop the records
-    of the first kernels of our library in a window (up to three have been
-    seen, PERF.md), so ``warm`` launches kernels of that library first,
-    whose name the caller leaves out too."""
+#: one-element fills that mark where a profiled window's count starts
+_MARKERS = 3
+
+
+def _device_kernels(torch, warm, calls) -> "dict | None":
+    """Run each of ``warm`` and then each of ``calls`` once under
+    ``torch.profiler``: the device activities (kernels, copies, fills) that
+    ``calls`` put on the card, by name and count — those that start after
+    the last of ``_MARKERS`` one-element float64 fills enqueued between the
+    two (the markers, left out with the sleep kernels that open and close
+    the window; no wrapper of the count fills a float64 tensor). In full
+    runs the profiler drops the records of a few device activities of a
+    window (PERF.md), so ``warm`` launches each kernel of the count first,
+    outside it, and a lost marker record leaves the others to mark the
+    start. None when every marker's record is missing (the window cannot
+    be read)."""
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.zeros((1,), dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
-        for _ in range(_WARM_CALLS):
-            warm()
+        for call in warm:
+            call()
         torch.cuda.synchronize()
+        for _ in range(_MARKERS):  # the count starts after these kernels
+            marker.fill_(7.0)
         for call in calls:
             call()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "spin_kernel" not in e.key}
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    is_marker = [("FillFunctor<double>" in e.key) for e in device]
+    marks = [e.time_range.start for e, m in zip(device, is_marker) if m]
+    if not marks:
+        return None
+    start = max(marks)
+    return dict(Counter(e.key for e, m in zip(device, is_marker)
+                        if not m and "spin_kernel" not in e.key
+                        and e.time_range.start > start))
 
 
 #: profiled replays of the K2 / K3 shapes before the one-kernel check gives up
-_PROFILE_WINDOWS = 3
+_PROFILE_WINDOWS = 5
 
 
 #: wrapper calls replayed in one profiled window of the one-kernel check
@@ -1692,13 +1959,13 @@ _PROFILE_CHUNK = 16
 def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
     """Every K2 / K3 shape of the main path replayed once under the
     profiler: each wrapper call must put exactly one kernel, its own, on
-    the card (no cast, no comparison, no fill). K2 and K3 share a library,
-    so one K3 call warms the window of the K2 calls and one K2 call that of
-    the K3 calls, and the warming kernel is left out of the count. A
-    dropped record can only lower a count, so a window fails at once on a
-    kernel of another name or more kernels than calls. The calls go in
-    windows of at most ``_PROFILE_CHUNK``; each chunk passes when one of
-    ``_PROFILE_WINDOWS`` windows shows one kernel a call."""
+    the card (no cast, no comparison, no fill). Each window first runs
+    ``_WARM_CALLS`` calls of the other kernel of the library and the chunk
+    itself, outside the count (``_device_kernels``). A dropped record can
+    only lower a count, so a window fails at once on a kernel of another
+    name or more kernels than calls. The calls go in windows of at most
+    ``_PROFILE_CHUNK``; each chunk passes when one of ``_PROFILE_WINDOWS``
+    windows shows one kernel a call."""
     names = ("gossip_round_rows", "gossip_round_rows_vclock")
     keys = {name: list(shapes[name]) for name in names}
     calls = {name: [_rows_call(cg, sources[captured[(name, key)]["source"]],
@@ -1708,16 +1975,18 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
         seen = []
         for lo in range(0, len(calls[name]), _PROFILE_CHUNK):
             chunk = calls[name][lo:lo + _PROFILE_CHUNK]
-            for _ in range(_PROFILE_WINDOWS):
-                kernels = {n: c for n, c in _device_kernels(
-                    torch, calls[other][0], chunk).items()
-                    if f"{other}_kernel" not in n}
+            for attempt in range(_PROFILE_WINDOWS):
+                kernels = _device_kernels(
+                    torch, [calls[other][0]] * _WARM_CALLS + chunk, chunk)
+                if kernels is None:
+                    got = -1
+                    continue
                 got = sum(kernels.values())
                 if got > len(chunk) or any(f"{name}_kernel" not in n for n in kernels):
                     raise RuntimeError(f"{name}: {len(chunk)} wrapper calls put "
                                        f"these on the card: {kernels}")
                 if got == len(chunk):
-                    seen.append(got)
+                    seen.append([got, attempt + 1])
                     break
             else:
                 raise RuntimeError(
@@ -1725,6 +1994,7 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
                     f"{keys[name][lo:lo + _PROFILE_CHUNK]} showed only {got} kernels "
                     f"in each of {_PROFILE_WINDOWS} profiled windows: {kernels}")
         widest[name]["device_kernels_per_call"] = 1.0
+        # [kernels seen, windows opened] a chunk
         widest[name]["profiled_windows_kernels"] = seen
 
 
@@ -1734,7 +2004,7 @@ def _k2_loss_split(cg, rows) -> dict:
     a group."""
     f = cg.SHAPE_FIELDS["gossip_round_rows"]
     split = {"F<=512": 0.0, "G=1, F>512": 0.0, "G>1, F>512": 0.0}
-    for key, c, ms, b in rows:
+    for key, c, ms, b, _err in rows:
         cls = ("F<=512" if key[f.index("F")] <= 512 else
                "G=1, F>512" if key[f.index("G")] == 1 else "G>1, F>512")
         split[cls] += c * (ms - b)
@@ -1897,6 +2167,14 @@ def main() -> int:
     _log("launches", f"checkpoint: {launches['checkpoint']}")
     sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"],
                "membership": mb["rt"]}
+    # 14. chaos -------------------------------------------------------------------
+    ch = phase_chaos(torch, cg, captured, sources)
+    launches["chaos"], shapes["chaos"] = ch["launches"], ch["shapes"]
+    _log("launches", f"chaos: {launches['chaos']}")
+    # 15. quorum ------------------------------------------------------------------
+    qm = phase_quorum(torch, cg)
+    launches["quorum"], shapes["quorum"] = qm["launches"], qm["shapes"]
+    _log("launches", f"quorum: {launches['quorum']}")
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
     # their kernel records (PERF.md)
@@ -1909,12 +2187,12 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 14. adcounter ---------------------------------------------------------------
+    # 16. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 15. kernels at the main path's shapes ---------------------------------------
+    # 17. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():
@@ -1936,7 +2214,7 @@ def main() -> int:
     _log("kernels", "shapes " + json.dumps({
         name: {"fields": cg.SHAPE_FIELDS[name],
                "rows [key, launches, ms, bound_ms]": [
-                   [list(key), c, round(ms, 5), round(b, 5)] for key, c, ms, b in rows]}
+                   [list(key), c, round(ms, 5), round(b, 5)] for key, c, ms, b, _e in rows]}
         for name, rows in per_shape.items()}))
     for name, fields in profiled.items():
         widest[name].update(fields)
@@ -1960,13 +2238,22 @@ def main() -> int:
             "launches": total_launches(name),
             "launches_by_phase": {p: c[name] for p, c in launches.items()},
             **widest[name], "library_ms": None,
-            "loss_ms": sum(c * (ms - b) for _key, c, ms, b in per_shape[name]),
+            "loss_ms": sum(c * (ms - b) for _key, c, ms, b, _e in per_shape[name]),
             "n_shapes": len(per_shape[name]),
         })
     kernels[0]["adcounter_shapes"] = k1_adcounter
+    for k in kernels[1:]:
+        # the masked launches (the chaos soaks'), one mask byte an edge read
+        f = cg.SHAPE_FIELDS[k["name"]]
+        rows = [row for row in per_shape[k["name"]] if row[0][f.index("masked")]]
+        k["masked_shapes"] = [{"shape": dict(zip(f, key)), "launches": c, "ms": ms,
+                               "bound_ms": b, "max_abs_err": err}
+                              for key, c, ms, b, err in rows]
+        k["masked_loss_ms"] = sum(c * (ms - b) for _key, c, ms, b, _e in rows)
     kernels[1]["loss_split_ms"] = _k2_loss_split(cg, per_shape["gossip_round_rows"])
     if any(k["max_abs_err"] for k in kernels) or any(
-            s["max_abs_err"] for s in k1_adcounter):
+            s["max_abs_err"] for s in k1_adcounter) or any(
+            s["max_abs_err"] for k in kernels[1:] for s in k["masked_shapes"]):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,8 +17,15 @@ Layer map (the slice ported so far):
   edges and reactive triggers in its step, the write path, the row and
   membership verbs (``join_rows``, ``reseed_row``, ``resize``, staged
   grow / drop)
-- ``lasp_tpu_torch.membership`` — the claim rule and the row-scoped
-  frontier degrade of a membership commit
+- ``lasp_tpu_torch.membership`` — the claim rule, the row-scoped
+  frontier degrade of a membership commit and the typed errors
+- ``lasp_tpu_torch.chaos``   — seeded fault timelines, ``ChaosRuntime``
+  (crash / restore, degraded reads with read-repair, fused mask windows,
+  soaks) and the convergence-under-failure invariants
+- ``lasp_tpu_torch.quorum``  — the quorum request FSMs (N=3, R=W=2) as a
+  batched tensor step, hinted handoff and the epoch fence
+- ``lasp_tpu_torch.telemetry`` — the metric registry, spans, the causal
+  event log, Prometheus export and the convergence monitor
 - ``lasp_tpu_torch.store``   — the variable store, binds and threshold
   watches, the host store and checkpoints in the JAX package's format
 - ``lasp_tpu_torch.dataflow``— the combinator graph (map / fold / filter /
@@ -35,8 +42,9 @@ raises unless the caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 _SUBMODULES = frozenset({
-    "bench_scenarios", "bridge_state", "dataflow", "device", "lattice",
-    "membership", "mesh", "ops", "store", "utils",
+    "bench_scenarios", "bridge_state", "chaos", "dataflow", "device",
+    "lattice", "membership", "mesh", "ops", "quorum", "store", "telemetry",
+    "utils",
 })
 
 

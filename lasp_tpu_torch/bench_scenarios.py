@@ -6,8 +6,10 @@ and intersection edges), ``orset_100k`` and ``pipeline_1m`` (map -> filter
 ``adcounter_10m``, the north star — the advertisement counter's union ->
 product -> filter pipeline, G-Counter views and the server trigger over a
 scale-free population, run to its fixed point by ``converge_on_device``;
-``ingest_storm``, the grouped-ingest A/B; and ``dataflow_chain``, the
-per-edge against fused propagate A/B."""
+``ingest_storm``, the grouped-ingest A/B; ``dataflow_chain``, the
+per-edge against fused propagate A/B; ``chaos_heal``, recovery from a
+composite nemesis against a fault-free twin; and ``quorum_kv``, quorum
+puts and gets under every chaos preset."""
 
 from __future__ import annotations
 
@@ -880,4 +882,215 @@ def dataflow_chain(n_chains: int = 9, depth: int = 8, reps: int = 3,
         "engine": "Graph.propagate(mode=per_edge|fused)",
         "check": "bit-identical states + round counts across schedulers",
         "device": str(device),
+    }
+
+
+def chaos_heal(
+    n_replicas: int = 512,
+    fanout: int = 3,
+    seed: int = 17,
+    fault_rounds: int = 10,
+    block: int = 8,
+    device=None,
+) -> dict:
+    """Chaos recovery benchmark (``lasp_tpu/bench_scenarios.py:2155``): a
+    seeded G-Set population rides a COMPOSITE nemesis (a ring-cut partition
+    overlapping a rolling crash/restore) with one degraded read and its
+    read-repair each faulty round; the action-free windows run fused
+    (stacked per-round masks, one host sync a window). Records rounds to
+    heal after the last fault clears, the repair traffic and the soak's
+    seconds beside the fault-free twin's. The healed states must be
+    bit-identical to the fault-free twin's fixed point."""
+    from .chaos import ChaosRuntime, ChaosSchedule, Crash, Partition, Restore
+    from .chaos.invariants import snapshot_states, states_equal
+
+    dev = resolve_device(device)
+    nbrs = random_regular(n_replicas, fanout, seed=seed)
+
+    def build():
+        store = Store(n_actors=8, device=dev)
+        v = store.declare(id="soak", type="lasp_gset", n_elems=128)
+        rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs, device=dev)
+        rng = np.random.RandomState(seed)
+        rows = rng.choice(n_replicas, size=max(4, n_replicas // 64),
+                          replace=False)
+        rt.update_batch(
+            v,
+            [(int(r), ("add", f"w{int(r) % 32}"), f"c{int(r)}")
+             for r in rows],
+        )
+        return rt, v
+
+    rt_free, v = build()
+    free_rounds, free_secs = _timed(dev, lambda: rt_free.run_to_convergence(block=block))
+    free_states = snapshot_states(rt_free)
+    del rt_free
+
+    rng = np.random.RandomState(seed + 1)
+    victims = rng.choice(n_replicas, size=2, replace=False)
+    down = max(2, fault_rounds // 2)
+    events = [Partition(2, 2 + fault_rounds, 2)]
+    for i, r in enumerate(victims):
+        at = 3 + i * 2
+        events.append(Crash(at, int(r)))
+        events.append(Restore(at + down, int(r)))
+    schedule = ChaosSchedule(n_replicas, nbrs, events, seed=seed)
+
+    rt, v = build()
+    chaos = ChaosRuntime(rt, schedule)
+    report, secs = _timed(
+        dev, lambda: chaos.soak(mode="dense", block=block, reads_per_round=1,
+                                read_var=v)
+    )
+    if not states_equal(snapshot_states(rt), free_states):
+        raise RuntimeError("chaos_heal: post-heal state differs from the "
+                           "fault-free fixed point")
+    stepped = report["rounds"] - chaos.fused_rounds
+    return {
+        "scenario": f"chaos_heal_{n_replicas}",
+        "n_replicas": n_replicas,
+        "fanout": fanout,
+        "nemesis": "ring-cut + rolling-crash (composite)",
+        "fault_rounds": fault_rounds,
+        "rounds": report["rounds"],
+        "rounds_to_heal": report["rounds_to_heal"],
+        "healed": report["healed"],
+        "crashes": report["crashes"],
+        "restores": report["restores"],
+        "degraded_reads": report["degraded_reads"],
+        "repaired_rows": report["repaired_rows"],
+        "repair_bytes": report["repair_bytes"],
+        "seconds": secs,
+        "fault_free_seconds": free_secs,
+        "fault_free_rounds": free_rounds,
+        "fused_windows": chaos.fused_windows,
+        "fused_rounds": chaos.fused_rounds,
+        "stepped_rounds": stepped,
+        # one residual read a window and a stepped round (degraded reads
+        # and their repairs read more)
+        "residual_syncs": chaos.fused_windows + stepped,
+        "engine": "ChaosRuntime(fused mask windows)+ReplicatedRuntime",
+        "check": "post-heal state bit-identical to fault-free fixed point",
+        "device": str(dev),
+    }
+
+
+def quorum_kv(
+    n_replicas: int = 64,
+    fanout: int = 3,
+    seed: int = 23,
+    client_rounds: int = 8,
+    puts_per_round: int = 4,
+    gets_per_round: int = 4,
+    *,
+    presets=None,
+    engine: str = "batched",
+    device=None,
+) -> dict:
+    """Dynamo-style KV serving under every chaos nemesis preset
+    (``lasp_tpu/bench_scenarios.py:2252``): a quorum coordination batch
+    (N=3, R=W=2, timeout 4, retries 4) drives an open put/get mix against
+    the population while each preset tears the mesh apart. Records per
+    preset the quorum p50/p99 latency in rounds (get and put), staleness
+    against the acked writes (how many already-acked writes a completed
+    read missed), the wire traffic, retries, failures and hint replays,
+    plus the final state's and the protocol trace's fingerprints (so two
+    engines can be held against each other). The no-acknowledged-write-lost
+    invariant is ASSERTED per preset and every request resolves.
+    ``presets`` (default every preset) and ``engine`` (``"batched"`` or
+    ``"sequential"``) select the runs."""
+    import hashlib
+
+    from .chaos import PRESETS, ChaosRuntime, nemesis
+    from .chaos.invariants import check_no_write_lost, fingerprint, snapshot_states
+    from .quorum import QuorumRuntime
+
+    dev = resolve_device(device)
+    nbrs = random_regular(n_replicas, fanout, seed=seed)
+    out: dict = {}
+    for preset in (PRESETS if presets is None else presets):
+        store = Store(n_actors=64, device=dev)
+        kv = store.declare(id="kv", type="lasp_gset", n_elems=256)
+        rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs, device=dev)
+        sched = nemesis(preset, n_replicas, nbrs, seed=seed, rounds=10)
+        ch = ChaosRuntime(rt, sched)
+        qr = QuorumRuntime(ch, timeout=4, retries=4, engine=engine)
+        #: get rid -> terms acked BEFORE it was submitted
+        target_at_submit: dict = {}
+        rng = np.random.RandomState(seed)
+        put_i = 0
+
+        def tick(n_puts, n_gets):
+            nonlocal put_i
+            live = np.flatnonzero(~ch.crashed)
+            for _ in range(n_puts):
+                coord = int(live[rng.randint(live.size)])
+                qr.submit_put(kv, ("add", f"k{put_i}"), f"c{put_i}",
+                              coordinator=coord)
+                put_i += 1
+            acked_now = frozenset(qr.acked_terms.get(kv, ()))
+            for _ in range(n_gets):
+                coord = int(live[rng.randint(live.size)])
+                rid = qr.submit_get(kv, coordinator=coord, degraded=True)
+                target_at_submit[rid] = acked_now
+            qr.step()
+
+        def run():
+            for _ in range(client_rounds):
+                tick(puts_per_round, gets_per_round)
+            while qr.inflight or ch.round <= sched.horizon:
+                if ch.round >= 512:
+                    raise RuntimeError(
+                        f"quorum_kv[{preset}]: {qr.inflight} request(s) "
+                        "unresolved after 512 rounds"
+                    )
+                tick(0, 0)
+            return rt.run_to_convergence(max_rounds=512)
+
+        converge_rounds, secs = _timed(dev, run)
+        check_no_write_lost(rt, qr.acked_terms)
+        staleness = []
+        for rid, target in target_at_submit.items():
+            res = qr.result(rid, raise_on_error=False)
+            if res["status"] == "done" and res["value"] is not None:
+                staleness.append(len(target - res["value"]))
+        rep = qr.report()
+        if rep["inflight"] or rep["completed"] + rep["failed"] != rep["requests"]:
+            raise RuntimeError(f"quorum_kv[{preset}]: requests left unresolved: {rep}")
+        out[preset] = {
+            "rounds": ch.round,
+            "seconds": secs,
+            "requests": rep["requests"],
+            "completed": rep["completed"],
+            "failed": rep["failed"],
+            "retries": rep["retries"],
+            "get_p50_rounds": rep["get_p50_rounds"],
+            "get_p99_rounds": rep["get_p99_rounds"],
+            "put_p50_rounds": rep["put_p50_rounds"],
+            "put_p99_rounds": rep["put_p99_rounds"],
+            "staleness_mean": (
+                round(float(np.mean(staleness)), 3) if staleness else None
+            ),
+            "staleness_max": int(np.max(staleness)) if staleness else None,
+            "repair_wire_bytes": rep["wire_bytes"],
+            "pushed_rows": rep["pushed_rows"],
+            "repaired_rows": rep["repaired_rows"],
+            "hint_replays": rep["hint_replays"],
+            "no_write_lost": True,
+            "acked_writes": sum(len(ts) for ts in qr.acked_terms.values()),
+            "converge_rounds": converge_rounds,
+            "fsm_seconds": qr.fsm_seconds,
+            "state_fingerprint": fingerprint(snapshot_states(rt)),
+            "trace_sha256": hashlib.sha256(repr(qr.trace).encode()).hexdigest(),
+        }
+    return {
+        "scenario": f"quorum_kv_{n_replicas}",
+        "n_replicas": n_replicas,
+        "fanout": fanout,
+        "n_r_w": [3, 2, 2],
+        "presets": out,
+        "engine": f"QuorumRuntime({engine})+ChaosRuntime",
+        "check": "no acked write lost (hinted handoff) under every "
+                 "preset; all requests resolved",
+        "device": str(dev),
     }

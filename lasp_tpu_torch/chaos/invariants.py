@@ -1,0 +1,311 @@
+"""Convergence-under-failure invariants — the harness the acceptance
+criteria run (port of ``lasp_tpu.chaos.invariants``).
+
+Three properties must hold under EVERY schedule:
+
+1. **per-replica monotone inflation** — every live replica row only
+   moves UP the lattice, round over round (``merge(prev, new) == new``),
+   crash-restore reseeds (``ChaosRuntime.last_restored``) excepted;
+2. **post-heal convergence to the fault-free fixed point** — after the
+   schedule's horizon, the population quiesces to a state BIT-IDENTICAL
+   to a twin run that never saw a fault;
+3. **replay determinism** — the same ``(seed, schedule)`` replays to
+   identical per-round state fingerprints.
+
+Snapshots are host numpy trees in the JAX package's dtypes and leaf order
+(packed words as ``uint32``), so a fingerprint here equals the JAX
+package's for the same states. The AAE harness
+(``check_corruption_detected_and_repaired``, ``run_aae_harness``) waits
+for the AAE layer, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+from ..bridge_state import to_numpy
+from ..lattice.base import tree_leaves, tree_map, tree_unflatten
+from .engine import ChaosRuntime
+
+
+class InvariantViolation(AssertionError):
+    """A chaos invariant failed; the message names the property, the
+    variable, and the offending rows/round."""
+
+
+def snapshot_states(rt) -> dict:
+    """Host copies of every variable's population state (numpy leaves in
+    the JAX package's dtypes; never views of live CPU tensors)."""
+    return {v: tree_map(np.array, to_numpy(rt.states[v])) for v in rt.var_ids}
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    if set(a) != set(b):
+        return False
+    for v in a:
+        la, lb = tree_leaves(a[v]), tree_leaves(b[v])
+        if len(la) != len(lb) or not all(
+            np.array_equal(x, y) for x, y in zip(la, lb)
+        ):
+            return False
+    return True
+
+
+def fingerprint(states: dict) -> str:
+    """Order-stable content hash of a population snapshot — the replay
+    determinism unit (two runs match iff every leaf matches bit-wise);
+    the JAX package's hash of the same states."""
+    h = hashlib.sha256()
+    for v in sorted(states, key=str):
+        h.update(repr(v).encode())
+        for leaf in tree_leaves(states[v]):
+            arr = np.asarray(leaf)
+            h.update(str(arr.dtype).encode())
+            h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _live(rt, v: str, snap):
+    """A host snapshot of ``v`` back as a population on the runtime's
+    device, in its dtypes."""
+    pop = rt.states[v]
+    return tree_unflatten(pop, [
+        rt._row_leaf(h, x) for h, x in zip(tree_leaves(snap), tree_leaves(pop))
+    ])
+
+
+def check_inflation(rt, prev: dict, exempt_rows=()) -> None:
+    """Assert every replica row inflated (``merge(prev, new) == new``)
+    since the ``prev`` snapshot, for every variable — rows in
+    ``exempt_rows`` (a restore's reseed) excepted. Raises
+    :class:`InvariantViolation`."""
+    exempt = np.zeros(rt.n_replicas, dtype=bool)
+    if len(exempt_rows):
+        exempt[np.asarray(list(exempt_rows), dtype=np.int64)] = True
+    for v in rt.var_ids:
+        codec, spec = rt._mesh_meta(v)
+        new = rt.states[v]
+        old = _live(rt, v, prev[v])
+        ok = codec.equal(spec, codec.merge(spec, old, new), new).cpu().numpy()
+        bad = np.flatnonzero(~ok & ~exempt)
+        if bad.size:
+            raise InvariantViolation(
+                f"monotone-inflation violated for {v!r} at replica rows "
+                f"{bad[:8].tolist()}: a round moved state DOWN the "
+                "lattice outside a crash-restore reseed"
+            )
+
+
+def check_no_resurrection(rt, var_id: str, removed_terms) -> None:
+    """Assert no removed element came back: the population's coverage
+    value must be disjoint from ``removed_terms``."""
+    value = rt.coverage_value(var_id)
+    back = set(removed_terms) & set(value)
+    if back:
+        raise InvariantViolation(
+            f"resurrection in {var_id!r}: removed element(s) "
+            f"{sorted(map(repr, back))[:4]} reappeared after "
+            "crash/restore"
+        )
+
+
+def check_no_write_lost(rt, acked_terms) -> None:
+    """Assert no acknowledged write was lost: every term a client was
+    told is durable (``acked_terms``: ``{var_id: terms}`` — the
+    ``QuorumRuntime.acked_terms`` witness set) must appear in the
+    variable's coverage value (the hinted-handoff contract)."""
+    for v, terms in acked_terms.items():
+        value = rt.coverage_value(v)
+        lost = set(terms) - set(value)
+        if lost:
+            raise InvariantViolation(
+                f"acknowledged write(s) lost in {v!r}: "
+                f"{sorted(map(repr, lost))[:4]} were acked at the client "
+                "quorum but are absent from the coverage value after "
+                "heal — hinted handoff failed its contract"
+            )
+
+
+def run_quorum_harness(build, schedule, *, writes, reads=(),
+                       n: int = 3, r: int = 2, w: int = 2,
+                       timeout: int = 4, retries: int = 2,
+                       engine: str = "batched", mode: str = "dense",
+                       hints_path: "str | None" = None,
+                       max_rounds: int = 512, replay: bool = True) -> dict:
+    """The quorum-coordination invariant suite: drive a put/get workload
+    through a fault timeline and assert NO ACKNOWLEDGED WRITE IS LOST.
+
+    ``build()`` constructs a fresh, identically-seeded
+    ``ReplicatedRuntime``. ``writes`` is a list of ``(round, var_id, op,
+    actor, coordinator)`` — each put is submitted just before that round
+    executes; ``reads`` likewise ``(round, var_id, coordinator)`` degraded
+    gets. The harness drains past the schedule horizon, converges, then
+    checks every fault healed and every put resolved,
+    :func:`check_no_write_lost`, and with ``replay=True`` an identical
+    protocol trace and final fingerprint on a second run. Returns the
+    merged report."""
+    from ..quorum import HintLog, QuorumRuntime
+
+    def one_run():
+        rt = build()
+        ch = ChaosRuntime(rt, schedule)
+        hints = HintLog(hints_path)
+        # every run starts from an EMPTY log: the replay run must not
+        # inherit the first run's records
+        hints.prune()
+        qr = QuorumRuntime(ch, n=n, r=r, w=w, timeout=timeout,
+                           retries=retries, engine=engine, hints=hints,
+                           mode=mode)
+        pending = sorted(writes, key=lambda x: (x[0],))
+        pending_reads = sorted(reads, key=lambda x: (x[0],))
+        rids = []
+        while (qr.inflight or pending or pending_reads
+               or ch.round <= schedule.horizon):
+            if ch.round >= max_rounds:
+                raise InvariantViolation(
+                    f"quorum harness did not drain within {max_rounds} "
+                    f"rounds ({qr.inflight} in flight)"
+                )
+            while pending and pending[0][0] <= ch.round:
+                _rnd, var, op, actor, coord = pending.pop(0)
+                rids.append(qr.submit_put(var, op, actor, coord))
+            while pending_reads and pending_reads[0][0] <= ch.round:
+                _rnd, var, coord = pending_reads.pop(0)
+                qr.submit_get(var, coord, degraded=True)
+            qr.step()
+        # post-drain anti-entropy to the fixed point (no faults remain)
+        rt.run_to_convergence(max_rounds=max_rounds)
+        return rt, ch, qr, rids
+
+    rt, ch, qr, rids = one_run()
+    if ch.crashed.any():
+        raise InvariantViolation(
+            "quorum harness ended with replicas still down — the "
+            "schedule must heal within its horizon"
+        )
+    unresolved = [
+        rid for rid in rids
+        if qr.result(rid, raise_on_error=False)["status"]
+        not in ("done", "failed")
+    ]
+    if unresolved:
+        raise InvariantViolation(
+            f"puts {unresolved[:4]} never resolved (done/failed) after "
+            "the drain — the FSM leaked an in-flight request"
+        )
+    check_no_write_lost(rt, qr.acked_terms)
+    report = qr.report()
+    report.update({
+        "acked_terms": {
+            str(v): len(ts) for v, ts in qr.acked_terms.items()
+        },
+        "rounds": ch.round,
+        "healed": True,
+        "no_write_lost": True,
+    })
+    if replay:
+        rt2, _ch2, qr2, _ = one_run()
+        if qr.trace != qr2.trace:
+            first = next(
+                (i for i, (a, b) in enumerate(zip(qr.trace, qr2.trace))
+                 if a != b),
+                min(len(qr.trace), len(qr2.trace)),
+            )
+            raise InvariantViolation(
+                f"quorum replay diverged at trace entry {first}: the "
+                "same (seed, schedule, submits) must replay to an "
+                "identical protocol trace"
+            )
+        if fingerprint(snapshot_states(rt)) != fingerprint(
+            snapshot_states(rt2)
+        ):
+            raise InvariantViolation(
+                "quorum replay reached a different final state"
+            )
+        report["replay_identical"] = True
+    return report
+
+
+def run_harness(build, schedule, mode: str = "dense",
+                max_rounds: int = 512, replay: bool = True,
+                removed_terms: "dict | None" = None,
+                checkpoint: "str | None" = None) -> dict:
+    """Execute the full invariant suite for one workload × schedule ×
+    scheduler mode: a FAULT-FREE twin to its fixed point, the CHAOS run
+    (monotone inflation every round, the healed fixed point bit-equal to
+    the twin's), with ``replay=True`` a second chaos run with per-round
+    fingerprint equality, and with ``removed_terms`` the direct
+    no-resurrection assertion. Every round snapshots the whole population
+    to the host: a test-size device, not a full-size one (``soak`` is).
+    Returns a report dict; raises :class:`InvariantViolation` on any
+    failure."""
+    rt_free = build()
+    free_rounds = rt_free.run_to_convergence(
+        max_rounds=max_rounds, mode=mode if mode == "frontier" else "dense"
+    )
+    free_states = snapshot_states(rt_free)
+    del rt_free
+
+    def chaos_run():
+        rt = build()
+        ch = ChaosRuntime(rt, schedule, checkpoint=checkpoint)
+        prev = snapshot_states(rt)
+        fps = []
+        while ch.round < max_rounds:
+            residual = ch.step(mode=mode)
+            check_inflation(rt, prev, exempt_rows=ch.last_restored)
+            prev = snapshot_states(rt)
+            fps.append(fingerprint(prev))
+            if residual == 0 and ch.round > schedule.horizon:
+                break
+        else:
+            raise InvariantViolation(
+                f"chaos run did not quiesce within {max_rounds} rounds "
+                f"(mode={mode!r})"
+            )
+        return rt, ch, fps
+
+    rt1, ch1, fps1 = chaos_run()
+    if not states_equal(snapshot_states(rt1), free_states):
+        raise InvariantViolation(
+            "post-heal fixed point differs from the fault-free run's "
+            f"(mode={mode!r}): chaos changed the destination, not just "
+            "the journey"
+        )
+    if removed_terms:
+        for v, terms in removed_terms.items():
+            check_no_resurrection(rt1, v, terms)
+    from ..telemetry.convergence import get_monitor
+
+    report = {
+        "mode": mode,
+        "fault_free_rounds": free_rounds,
+        "chaos_rounds": ch1.round,
+        "rounds_to_heal": max(0, ch1.round - schedule.horizon),
+        "healed": not bool(ch1.crashed.any()),
+        "crashes": ch1.crashes,
+        "restores": ch1.restores,
+        "final_fingerprint": fps1[-1],
+        "bit_identical_to_fault_free": True,
+    }
+    if replay:
+        _rt2, _ch2, fps2 = chaos_run()
+        if fps1 != fps2:
+            first = next(
+                (i for i, (a, b) in enumerate(zip(fps1, fps2)) if a != b),
+                min(len(fps1), len(fps2)),
+            )
+            raise InvariantViolation(
+                f"replay diverged at round {first} (mode={mode!r}): the "
+                "same (seed, schedule) must replay to identical "
+                "per-round states"
+            )
+        report["replay_identical"] = True
+    get_monitor().observe_chaos(
+        rounds_to_heal=report["rounds_to_heal"], healed=report["healed"],
+        crashes=report["crashes"], restores=report["restores"],
+        invariants_ok=True,
+    )
+    return report

@@ -333,7 +333,7 @@ class ReplicatedRuntime:
         #: commit (consumers holding population-relative indices fence on it)
         self.membership_epoch = 0
         #: ``fn(sources, targets)`` vetting a graceful leave's handoff pairs
-        #: (the chaos layer's guard; None until chaos is ported)
+        #: (``chaos.ChaosRuntime`` installs its guard here)
         self._handoff_guard = None
         self._sync_graph()
 
@@ -413,6 +413,13 @@ class ReplicatedRuntime:
             dev = torch.as_tensor(host, device=self.device)
             self._mask_views = (edge_mask, host, dev)
         return host, dev
+
+    def _prime_mask(self, dev: torch.Tensor, host: np.ndarray) -> None:
+        """Make ``dev`` (a ``bool[R, K]`` mask on this runtime's device)
+        the cached mask, with ``host`` its host copy: a step under ``dev``
+        then copies the mask neither way (the chaos layer's per-round
+        masks)."""
+        self._mask_views = (dev, host, dev)
 
     # -- reactive triggers -----------------------------------------------------
     def register_trigger(self, fn=None, touches=None, *, builder=None) -> None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..mesh.gossip import _tree_where, gossip_round
+from ..mesh.gossip import _tree_where, gossip_round, gossip_round_grouped
 
 
 def _rounds(codec, spec, states, neighbors, n_rounds, edge_mask, per_round=None):
@@ -55,6 +55,63 @@ def fused_gossip_rounds_count(codec, spec, states, neighbors, n_rounds: int,
 
     out = _rounds(codec, spec, states, neighbors, n_rounds, edge_mask, count)
     return out, prod
+
+
+def window_masks(masks, device) -> torch.Tensor:
+    """A chaos window's ``bool[T, R, K]`` masks on the states' device, in
+    one copy (a numpy stack or a tensor already there)."""
+    return torch.as_tensor(masks, dtype=torch.bool, device=device)
+
+
+def fused_chaos_rounds(codec, spec, states, neighbors, masks):
+    """One window of a chaos schedule — ``masks: bool[T, R, K]``, one
+    edge-alive mask per round (``chaos.ChaosSchedule.masks``) — as T masked
+    rounds. JAX runs them in one ``lax.fori_loop`` over the stacked masks;
+    here the stack goes to the device once and a Python loop runs the same
+    masked :func:`~lasp_tpu_torch.mesh.gossip.gossip_round` per round, so
+    the per-round states are bit-identical to stepping the masks one at a
+    time.
+
+    Returns ``(new_states, residuals)`` with ``residuals: int32[T]`` on the
+    device — replica rows each round changed — read by the caller in one
+    host sync."""
+    dev = states[0].device
+    masks = window_masks(masks, dev)
+    s, res = states, []
+    for t in range(masks.shape[0]):
+        new = gossip_round(codec, spec, s, neighbors, masks[t])
+        res.append(torch.sum(~codec.equal(spec, s, new), dtype=torch.int32))
+        s = new
+    return s, torch.stack(res)
+
+
+def fused_gossip_rounds_grouped(codec, spec, states, neighbors, n_rounds: int,
+                                edge_mask=None):
+    """Grouped member of the fused family: ``states`` leaves are ``[G, R,
+    ...]`` (a dispatch-plan group's stacked variables) and ``n_rounds``
+    rounds of :func:`~lasp_tpu_torch.mesh.gossip.gossip_round_grouped` run
+    over the group. Returns ``(new_states, changed: bool[G])``, which
+    members the block changed at all; bit-identical per member to
+    :func:`fused_gossip_rounds` on each variable alone."""
+    out = states
+    for _ in range(n_rounds):
+        out = gossip_round_grouped(codec, spec, out, neighbors, edge_mask)
+    return out, ~torch.all(codec.equal(spec, states, out), dim=1)
+
+
+def fused_chaos_rounds_grouped(codec, spec, states, neighbors, masks):
+    """Grouped twin of :func:`fused_chaos_rounds`: one chaos window
+    (``masks: bool[T, R, K]``) over one group (leaves ``[G, R, ...]``).
+    Returns ``(new_states, residuals: int32[T, G])`` on the device, replica
+    rows each round changed per member."""
+    dev = states[0].device
+    masks = window_masks(masks, dev)
+    s, res = states, []
+    for t in range(masks.shape[0]):
+        new = gossip_round_grouped(codec, spec, s, neighbors, masks[t])
+        res.append(torch.sum(~codec.equal(spec, s, new), dim=1, dtype=torch.int32))
+        s = new
+    return s, torch.stack(res)
 
 
 def fused_frontier_rounds(codec, spec, states, neighbors, frontier,
@@ -127,9 +184,12 @@ def fused_dataflow_rounds(round_fn, states, tables, n_dsts: int, max_rounds: int
 
 
 __all__ = [
+    "fused_chaos_rounds",
+    "fused_chaos_rounds_grouped",
     "fused_dataflow_rounds",
     "fused_frontier_rounds",
     "fused_gossip_rounds",
     "fused_gossip_rounds_count",
+    "fused_gossip_rounds_grouped",
     "gossip_rounds",
 ]

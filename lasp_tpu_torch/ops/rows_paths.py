@@ -64,3 +64,19 @@ def k2_members(leaf: torch.Tensor, kind: str):
     buf = torch.empty(leaf.numel() + 1, dtype=leaf.dtype, device=leaf.device)
     buf[1:] = leaf.flatten()
     return list(buf[1:].view(leaf.shape).unbind(0))
+
+
+#: K3's ring paths as (A, E, R): 4-byte copies (A = 3), bulk copies (A = 16)
+#: and dots rows wider than a stage, staged in column chunks (E = 512, A = 64)
+K3_PATHS = {"4-byte": (3, 8, 1000), "bulk": (16, 64, 1000),
+            "column-chunked": (64, 512, 128)}
+
+
+def chaos_mask(r: int, k: int, gen: torch.Generator, dead: float = 0.25,
+               dead_row: int = 1) -> torch.Tensor:
+    """A seeded chaos-style ``bool[R, K]`` edge mask on ``gen``'s device:
+    about ``dead`` of the edges dead, and every edge of ``dead_row`` dead
+    (a crashed or isolated replica: its gather must keep its own row)."""
+    mask = torch.rand((r, k), device=gen.device, generator=gen) >= dead
+    mask[dead_row] = False
+    return mask

@@ -136,7 +136,7 @@ def test_dense_kernel_every_schedule_matches_plain_on_card(cuda, slab_words):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a,e,r", [(3, 8, 1000), (16, 64, 1000), (64, 512, 128)])
+@pytest.mark.parametrize("a,e,r", list(rp.K3_PATHS.values()))
 @pytest.mark.parametrize("g", [1, 16, 70])
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("masked", [False, True])
@@ -294,3 +294,50 @@ def test_ingest_packed_bit_31_on_card(cuda):
     assert got[0][0][0, 0].item() == -(2**31) + 1
     assert got[0][0][5, 7].item() == -(2**31)
     assert got[0][1][0, 0].item() == -(2**31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(rp.K2_PATHS))
+@pytest.mark.parametrize("g", [1, 16])
+def test_rows_kernel_under_a_chaos_mask_on_card(cuda, path, g):
+    """K2 under a chaos-style mask (``rows_paths.chaos_mask``: ~25% dead
+    edges and one row with every edge dead, which the rows always name) on
+    every path of its schedule, K = 3 and 5, against its plain version."""
+    _dtype, op, *_ = rp.K2_PATHS[path]
+    gen = torch.Generator(device=cuda).manual_seed(7 * g + rp.row_bytes(path))
+    r = 500
+    leaves = rp.k2_leaves(path, g, r, gen)
+    for k in (3, 5):
+        nb = torch.randint(0, r, (r, k), dtype=torch.int32, device=cuda, generator=gen)
+        mask = rp.chaos_mask(r, k, gen)
+        rows = torch.randint(0, r, (g, 33), device=cuda, generator=gen)
+        rows[:, 1] = 1  # the all-dead row
+        want, ch_w = cg.gossip_round_rows_plain(op, leaves, nb, rows, mask)
+        got, ch = cg.gossip_round_rows(op, leaves, nb, rows, mask)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(ch, ch_w) and not ch[:, 1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(rp.K3_PATHS))
+@pytest.mark.parametrize("g", [1, 16])
+def test_vclock_kernel_under_a_chaos_mask_on_card(cuda, path, g):
+    """K3 on its 4-byte, bulk and column-chunked paths under a chaos-style
+    mask, against its plain version; the all-dead row keeps its state."""
+    a, e, r = rp.K3_PATHS[path]
+    gen = torch.Generator(device=cuda).manual_seed(a + e + g)
+    clock = torch.randint(0, 7, (g, r, a), dtype=torch.int32, device=cuda, generator=gen)
+    dots = torch.randint(0, 7, (g, r, e, a), dtype=torch.int32, device=cuda, generator=gen)
+    members = (list(clock.unbind(0)), list(dots.unbind(0)))
+    nb = torch.randint(0, r, (r, 3), dtype=torch.int32, device=cuda, generator=gen)
+    sched = cg.vclock_launch_schedule(*members, 3)
+    assert sched.bulk == (a % 4 == 0)
+    mask = rp.chaos_mask(r, 3, gen)
+    rows = torch.randint(0, r, (g, 33), device=cuda, generator=gen)
+    rows[:, 1] = 1
+    want, ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
+    got, ch = cg.gossip_round_rows_vclock(*members, nb, rows, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(ch, ch_w) and not ch[:, 1].any()

@@ -35,7 +35,12 @@ def test_scans_cover_every_ported_module():
                  "ops.cuda_gossip", "dataflow.edges", "dataflow.engine",
                  "dataflow.plan", "store.store", "bench_scenarios", "mesh.ingest",
                  "lattice.map", "bridge_state", "membership.plan",
-                 "store.host_store", "store.checkpoint"):
+                 "store.host_store", "store.checkpoint",
+                 "telemetry.registry", "telemetry.sink", "telemetry.spans",
+                 "telemetry.events", "telemetry.export", "telemetry.convergence",
+                 "utils.metrics", "membership.errors", "chaos.schedule",
+                 "chaos.engine", "chaos.invariants", "quorum.fsm",
+                 "quorum.hints", "quorum.engine"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -79,12 +84,14 @@ def _entry_points():
     from lasp_tpu_torch.bench_scenarios import (
         adcounter_6,
         adcounter_10m,
+        chaos_heal,
         dataflow_chain,
         gset_1k,
         ingest_storm,
         orset_100k,
         orset_anti_entropy,
         pipeline_1m,
+        quorum_kv,
     )
     from lasp_tpu_torch.bridge_state import from_numpy
     from lasp_tpu_torch.dataflow import Graph
@@ -92,6 +99,7 @@ def _entry_points():
     from lasp_tpu_torch.mesh import ReplicatedRuntime, ring
     from lasp_tpu_torch.store import Store
     from lasp_tpu_torch.store.checkpoint import load_runtime, load_store
+    from lasp_tpu_torch.quorum.fsm import transition_batched
 
     import numpy as np
 
@@ -109,6 +117,12 @@ def _entry_points():
         "pipeline_1m": lambda: pipeline_1m(16),
         "ingest_storm": lambda: ingest_storm(16, 4, 1, 8, reps=1, gate=None),
         "dataflow_chain": lambda: dataflow_chain(3, 2, reps=1),
+        "chaos_heal": lambda: chaos_heal(16),
+        "quorum_kv": lambda: quorum_kv(16),
+        "transition_batched": lambda: transition_batched(
+            *([np.zeros(1, np.int32)] * 2 + [np.zeros((1, 3), np.int32)]
+              + [np.zeros((1, 3), bool)] * 2 + [np.zeros(1, np.int32)] * 2
+              + [np.zeros(1, bool), np.zeros(8, np.int32), np.ones(8, bool), 0])),
         # the device is resolved before the (absent) file is opened
         "load_store": lambda: load_store("never-opened.lasp"),
         "load_runtime": lambda: load_runtime("never-opened.lasp"),
@@ -122,7 +136,8 @@ def _entry_points():
 @pytest.mark.parametrize("name", sorted(
     ["Store", "ReplicatedRuntime", "orset_anti_entropy", "adcounter_6",
      "adcounter_10m", "codec.new", "from_numpy", "gset_1k", "orset_100k",
-     "pipeline_1m", "ingest_storm", "dataflow_chain", "load_store", "load_runtime"]
+     "pipeline_1m", "ingest_storm", "dataflow_chain", "load_store", "load_runtime",
+     "chaos_heal", "quorum_kv", "transition_batched"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the
