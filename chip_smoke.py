@@ -118,7 +118,37 @@ Phases, each of which fails the run on any error:
                retries 4) under every preset: no acked write lost, every
                request resolved; ``rolling-crash`` again with the sequential
                engine, equal to the batched one in states, trace and results;
-16. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+16. aae     — ``bench_scenarios.aae_scrub`` at 100,000 replicas (JAX's
+               other defaults: fanout 3, 8 nemesis rounds, 8 writers, seed
+               23; a 64-element G-Set and a 32 x 16 OR-SWOT) over every
+               preset of ``PRESETS + CORRUPTION_PRESETS`` with dense rounds
+               and ring-cut again with frontier rounds (K2 / K3): each drill
+               asserts detection within the scrub cadence, exact
+               localization, repair and healed states bit-equal to the
+               fault-free twin; then the incremental rehash of two hot rows
+               against a full rehash of six 64-element G-Sets at 100,000
+               rows (median of 3). Per preset: detections, repairs, repair
+               against full-resync bytes, exchange rounds and comparisons,
+               scrub seconds split into hash, exchange and repair;
+17. rebalance — ``bench_scenarios.elastic_rebalance`` at 100,000 ->
+               150,000 -> 100,000 on ``random_regular(., 3)`` with 12,500
+               transfers a cycle (staged and legacy grown populations
+               bit-equal, no cycle over the cap, staged transfer wire <= the
+               full-resync wire); then ``run_membership_harness`` with a
+               join, a leave and a down under rolling-crash and ring-cut,
+               with quorum writes (no acked write lost, replay identical)
+               and with direct writes (bit-equal to the static twin), at 256
+               replicas (the staging default topology is a ring);
+18. serve   — ``bench_scenarios.serve_load`` at 100,000 replicas with JAX's
+               scenario parameters (10,000 clients, 40 ticks, 1,200 arrivals
+               a tick, a x5 burst, 10,000 seed watches, 100,000 parity
+               thresholds, seed 7) under the composite nemesis: no acked
+               write lost after heal, threshold parity at 100,000 watches,
+               typed sheds only; the host time of ``_backup_of``; the card's
+               busy share over 8 fault-free cycles of 1,200 requests
+               (``torch.profiler``); a ``ServeLoop`` with two client threads,
+               every ticket terminal;
+19. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -128,9 +158,10 @@ Phases, each of which fails the run on any error:
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
                the run;
-17. kernels — each kernel timed at every distinct launch shape phases 3-16
+20. kernels — each kernel timed at every distinct launch shape phases 3-19
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
-               phase, read after), beside its bound, for its loss
+               phase, read after; the shapes of phases 16-18 on seeded
+               members of their layout), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
                beside its plain version, its gather model and the host time
                per wrapper call; K1 at the adcounter's shapes on the
@@ -140,7 +171,7 @@ Phases, each of which fails the run on any error:
                read; and K1's column-slab sweep (slab widths against whole
                rows) at each of its shapes and at two shapes whose planes fit
                the L2. Every K2 and K3 shape is replayed once under
-               ``torch.profiler`` before phase 16, which must show exactly one
+               ``torch.profiler`` before phase 19, which must show exactly one
                device kernel per wrapper call.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
@@ -153,6 +184,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from collections import Counter
@@ -977,11 +1009,13 @@ _KT, _KZ, _KQ = ("T", "lasp_orset"), ("Z", "riak_dt_map"), ("q", "lasp_gset")
 
 
 def _timed_step(torch, fn):
-    """``(result, seconds)``: host clock, synchronized on both sides."""
-    torch.cuda.synchronize()
+    """``(result, seconds)``: host clock, synchronized on both sides (the
+    card's queue, where there is a card)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -1656,6 +1690,313 @@ def phase_quorum(torch, cg, n: int = _CHAOS_REPLICAS) -> dict:
             "sequential": s}
 
 
+def _capture_rows_shapes(cg, captured: dict, phase: str):
+    """For the phases whose runtimes live inside a scenario: wrap
+    ``ReplicatedRuntime._rows_round`` so that the first launch of each new
+    K2 / K3 shape leaves in ``captured`` its rows, mask, neighbour table,
+    kernel plan and member layout — not the members themselves (the
+    rebalance phase's populations take gigabytes). The kernels phase
+    replays such a shape on seeded members of that layout
+    (``_synthetic_members``). Returns the undo."""
+    from lasp_tpu_torch.mesh.runtime import ReplicatedRuntime
+
+    inner = ReplicatedRuntime._rows_round
+    names = ("gossip_round_rows", "gossip_round_rows_vclock")
+
+    def recording(self, var_ids, row_idx, mask):
+        before = {n: set(cg.SHAPES[n]) for n in names}
+        changed = inner(self, var_ids, row_idx, mask)
+        for n in names:
+            for key in set(cg.SHAPES[n]) - before[n]:
+                if (n, key) in captured:
+                    continue
+                codec, spec = self._mesh_meta(var_ids[0])
+                first = self.states[var_ids[0]]
+                layout = tuple((tuple(x.shape), x.dtype) for x in first)
+                captured[(n, key)] = {
+                    "source": None, "phase": phase, "var_ids": tuple(var_ids),
+                    "rows": row_idx.clone(), "mask": mask,
+                    "neighbors": self.neighbors,
+                    "synthetic": {"plan": cg.rows_plan_of(codec, spec, first),
+                                  "key": (len(var_ids), layout)},
+                }
+        return changed
+
+    ReplicatedRuntime._rows_round = recording
+    return lambda: setattr(ReplicatedRuntime, "_rows_round", inner)
+
+
+#: the seeded members of one synthetic layout: (key, members)
+_SYNTH = [None, None]
+
+
+def _synthetic_members(torch, syn) -> list:
+    """``G`` members of the captured layout, made from a seed on the card
+    (random bits, small random integers). One layout is kept at a time."""
+    if _SYNTH[0] != syn["key"]:
+        _SYNTH[:] = [None, None]
+        g, layout = syn["key"]
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        members = []
+        for _ in range(g):
+            members.append(tuple(
+                torch.randint(0, 2, shape, device="cuda", generator=gen).bool()
+                if dtype == torch.bool else
+                torch.randint(0, 1 << 12, shape, dtype=dtype, device="cuda",
+                              generator=gen)
+                for shape, dtype in layout))
+        _SYNTH[:] = [syn["key"], members]
+    return _SYNTH[1]
+
+
+def phase_aae(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS) -> dict:
+    """``bench_scenarios.aae_scrub`` at ``n`` replicas with JAX's other
+    defaults (fanout 3, 8 nemesis rounds, 8 writers, seed 23; a 64-element
+    G-Set and a 32 x 16 OR-SWOT) over every preset of ``PRESETS +
+    CORRUPTION_PRESETS`` (dense rounds), and ring-cut again with frontier
+    rounds (K2 / K3): each drill asserts detection within the cadence,
+    exact localization, repair and the healed states bit-equal to the
+    fault-free twin; then the rehash comparison at ``n`` (six 64-element
+    G-Sets, two hot rows against all, median of 3, each arm's row-hash
+    seconds apart and its device activities a pass counted under
+    ``torch.profiler``). Per preset: detections, repairs, repair against
+    full-resync bytes, exchange rounds and comparisons, scrub seconds split
+    into hash, exchange and repair."""
+    from lasp_tpu_torch.bench_scenarios import aae_scrub, rehash_drill
+
+    cg.reset_launches()
+    undo = _capture_rows_shapes(cg, captured, "aae")
+    try:
+        out, secs = _timed_step(torch, lambda: aae_scrub(
+            n_replicas=n, frontier_presets=("ring-cut",)))
+    finally:
+        undo()
+    for preset, rec in out["presets"].items():
+        if not rec["detected_and_repaired"] or rec["injected"] < 1:
+            raise RuntimeError(f"aae: {preset}: {rec}")
+        _log_line("aae", {"preset": preset, "replicas": n, **rec})
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    # the device activities (kernels, copies, fills) of one pass of each arm
+    # of the rehash comparison, under torch.profiler
+    forest, passes = rehash_drill(n)
+    passes["incremental"]()
+    per_pass = {}
+    for arm, run in passes.items():
+        got = _device_kernels(torch, [run], [run])
+        per_pass[arm] = None if got is None else sum(got.values())
+    del forest, passes
+    _log_line("aae", {"part": "rehash", **out["rehash"], "seconds": secs,
+                      "device_activities_per_pass": per_pass, "launches": launches})
+    return {"launches": launches, "shapes": shapes, "aae": out}
+
+
+def _harness_build(n: int, device=None):
+    """The membership harness's population (``tests/membership``'s): an
+    OR-Set and a G-Set, here on ``random_regular(n, 3)``."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    def build():
+        store = Store(n_actors=32, device=device)
+        store.declare(id="kv", type="lasp_orset", n_elems=64, tokens_per_actor=8)
+        store.declare(id="g", type="lasp_gset", n_elems=64)
+        return ReplicatedRuntime(store, Graph(store), n,
+                                 random_regular(n, 3, seed=n), device=device)
+
+    return build
+
+
+def _harness_runs(torch, cg, h: int, device=None) -> dict:
+    """``run_membership_harness`` at ``h`` replicas with a join to ``3h/2``,
+    a leave back to ``h`` and a down to ``7h/8``, each plan op carrying its
+    ``random_regular(., 3)`` table, under ``rolling-crash`` and
+    ``ring-cut``: once with quorum writes (no acked write lost, every
+    request resolved, replay identical) and once with direct writes held
+    bit for bit against the static twin. ``h / 4`` transfers a cycle (the
+    JAX tests' ratio)."""
+    from lasp_tpu_torch.membership import run_membership_harness
+    from lasp_tpu_torch.mesh import random_regular
+
+    plan_ops = [(r, kind, m, random_regular(m, 3, seed=m)) for r, kind, m in
+                ((3, "join", h * 3 // 2), (9, "leave", h), (15, "down", h - h // 8))]
+    out = {}
+    for preset in ("rolling-crash", "ring-cut"):
+        before = dict(cg.LAUNCHES)
+        q, q_secs = _timed_step(torch, lambda: run_membership_harness(
+            _harness_build(h, device), plan_ops, preset=preset, seed=7,
+            nemesis_rounds=10, per_cycle=h // 4,
+            quorum_writes=[(r, "kv", ("add", f"q{r}"), f"c{r}", (r * 37) % (h // 2))
+                           for r in (1, 4, 8, 10, 13)]))
+        d, d_secs = _timed_step(torch, lambda: run_membership_harness(
+            _harness_build(h, device), plan_ops, preset=preset, seed=7,
+            nemesis_rounds=10, per_cycle=h // 4,
+            build_twin=_harness_build(h - h // 8, device),
+            writes=[(r, (r * 29) % (h // 2), "g" if r % 2 else "kv",
+                     ("add", f"w{r}"), f"a{r}") for r in (1, 5, 10, 14)]))
+        if not (q["no_write_lost"] and q["replay_identical"]
+                and d["bit_identical_to_twin"] and d["replay_identical"]):
+            raise RuntimeError(f"rebalance: harness {preset}: {q} {d}")
+        out[preset] = {"quorum": q, "direct": d, "quorum_seconds": q_secs,
+                       "direct_seconds": d_secs, "launches": _launch_delta(cg, before)}
+    return out
+
+
+def phase_rebalance(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS) -> dict:
+    """(a) ``bench_scenarios.elastic_rebalance`` at ``n`` -> ``3n/2`` ->
+    ``n`` (the membership phase's extents) on ``random_regular(., 3)``,
+    ``per_cycle = n/8`` (JAX's 4 transfer cycles for the joining rows): it
+    asserts the staged and legacy grown populations bit-equal, no cycle
+    over the cap and the staged transfer wire <= the full-resync wire. (b)
+    ``_harness_runs`` at ``n``."""
+    from lasp_tpu_torch.bench_scenarios import elastic_rebalance
+
+    cg.reset_launches()
+    undo = _capture_rows_shapes(cg, captured, "rebalance")
+    try:
+        el, secs = _timed_step(torch, lambda: elastic_rebalance(
+            n_replicas=n, grow_to=n * 3 // 2, per_cycle=n // 8,
+            topology="random_regular"))
+        el_launches = dict(cg.LAUNCHES)
+        harness = _harness_runs(torch, cg, n)
+        for preset, rec in harness.items():
+            _log_line("rebalance", {"part": "harness", "preset": preset,
+                                    "replicas": n, **rec})
+    finally:
+        undo()
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log_line("rebalance", {"part": "elastic_rebalance", **el, "seconds": secs,
+                            "launches": el_launches})
+    return {"launches": launches, "shapes": shapes, "elastic": el,
+            "harness": harness}
+
+
+#: shed reasons the admission controller may give (typed, never silent)
+_SHED_REASONS = ("queue_full", "shed_low_priority", "writes_rejected")
+
+
+def _serve_cycles(torch, n: int, cycles: int = 8, per_cycle: int = 1200) -> dict:
+    """A fault-free ``ServeFrontend`` over ``run_load``'s population at ``n``
+    replicas, fused gossip windows of 4: ``cycles`` cycles of ``per_cycle``
+    writes, reads and watches each, under ``torch.profiler`` (the card's
+    busy share over the cycles)."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.lattice import Threshold
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.serve import ServeFrontend
+    from lasp_tpu_torch.store import Store
+
+    store = Store(n_actors=112)
+    for i in range(6):
+        store.declare(id=f"kv{i}", type="lasp_gset", n_elems=192)
+    store.declare(id="ctr", type="riak_dt_gcounter", n_actors=1024)
+    rt = ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=7))
+    fe = ServeFrontend(rt, gossip_block=4)
+    rng = np.random.RandomState(3)
+    stats = []
+
+    def run():
+        for c in range(cycles):
+            for i in range(per_cycle):
+                r = int(rng.randint(n))
+                kind = i % 10
+                if kind < 5:
+                    fe.submit_write(f"kv{i % 6}", ("add", f"k{int(rng.randint(192))}"),
+                                    f"c{i}", replica=r)
+                elif kind < 8:
+                    fe.submit_read(f"kv{i % 6}", replica=r)
+                else:
+                    fe.submit_watch("ctr", Threshold(int(rng.randint(1, 50))), replica=r)
+            stats.append(fe.cycle()["seconds"])
+
+    busy = _device_busy(torch, run)
+    rep = fe.report()
+    return {"replicas": n, "cycles": cycles, "requests_per_cycle": per_cycle,
+            "cycle_ms": [s * 1e3 for s in stats], **busy,
+            "overlap_seconds": rep["overlap_seconds"],
+            "gossip_rounds": rep["gossip_rounds"], "completed": rep["completed"]}
+
+
+def _serve_loop(torch, n: int, clients: int = 2, per_client: int = 150) -> dict:
+    """A ``ServeLoop`` on the card: ``clients`` threads submit writes and
+    reads concurrently while the loop's thread runs cycles; every ticket
+    must reach a terminal status."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.serve import ServeFrontend, ServeLoop
+    from lasp_tpu_torch.store import Store
+
+    store = Store(n_actors=64)
+    store.declare(id="kv", type="lasp_gset", n_elems=2 * clients * per_client)
+    rt = ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=1))
+    fe = ServeFrontend(rt, gossip_block=2)
+    tickets, lock = [], threading.Lock()
+
+    def client(c):
+        for i in range(per_client):
+            t = (fe.submit_write("kv", ("add", f"k{c}-{i}"), f"c{c}", replica=i % n)
+                 if i % 3 else fe.submit_read("kv", replica=i % n))
+            with lock:
+                tickets.append(t)
+
+    t0 = time.perf_counter()
+    with ServeLoop(fe, idle_sleep=0.001):
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        deadline = time.monotonic() + 60
+        while any(t.status == "queued" for t in tickets) and time.monotonic() < deadline:
+            time.sleep(0.005)
+    secs = time.perf_counter() - t0
+    status = Counter(t.status for t in tickets)
+    writes = sum(1 for c in range(clients) for i in range(per_client) if i % 3)
+    if status.get("queued") or len(rt.coverage_value("kv")) != writes:
+        raise RuntimeError(f"serve: the loop left tickets {dict(status)}")
+    return {"replicas": n, "tickets": len(tickets), "status": dict(status),
+            "seconds": secs, "cycles": fe.cycles}
+
+
+def phase_serve(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS) -> dict:
+    """``bench_scenarios.serve_load`` at ``n`` replicas with JAX's scenario
+    parameters (10,000 clients, 40 ticks, 1,200 arrivals a tick, a x5 burst,
+    10,000 seed watches, 100,000 parity thresholds, seed 7) under the
+    composite nemesis: no acked write lost after heal, threshold parity at
+    100,000 watches, typed sheds only; the host time of ``_backup_of``;
+    then the card's busy share over 8 fault-free cycles and a short
+    ``ServeLoop`` with two client threads, both on ``n`` replicas."""
+    from lasp_tpu_torch.bench_scenarios import serve_load
+    from lasp_tpu_torch.serve import ServeFrontend
+
+    cg.reset_launches()
+    undo = _capture_rows_shapes(cg, captured, "serve")
+    host = _HostTime()
+    undo_host = host.wrap(ServeFrontend, "_backup_of", "backup_of")
+    try:
+        rep, secs = _timed_step(torch, lambda: serve_load(n_replicas=n))
+        load_launches = dict(cg.LAUNCHES)
+        busy = _serve_cycles(torch, n)
+        loop = _serve_loop(torch, n)
+    finally:
+        undo_host()
+        undo()
+    bad = [k for k in rep["shed"] if k.split(":")[-1] not in _SHED_REASONS]
+    if (not rep["no_write_lost"] or not rep["threshold_parity"]["parity"] or bad
+            or not rep["chaos"]["healed"]):
+        raise RuntimeError(f"serve: serve_load failed its checks: {rep}")
+    _log_line("serve", {"part": "serve_load", "replicas": n, "seconds": secs,
+                        **{k: v for k, v in rep.items() if k != "trace"},
+                        "backup_of_host_s": host.seconds["backup_of"],
+                        "backup_of_calls": host.calls["backup_of"],
+                        "launches": load_launches})
+    _log_line("serve", {"part": "cycles", **busy})
+    _log_line("serve", {"part": "serve_loop", **loop})
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    return {"launches": launches, "shapes": shapes, "load": rep, "busy": busy,
+            "loop": loop}
+
+
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
@@ -1745,17 +2086,25 @@ def _rows_call(cg, rt, cap):
     """A replay of one captured K2 / K3 launch on ``rt``'s states, the row
     bytes of its members (over every leaf) and the launch's neighbour table.
     A launch from before a resize of ``rt`` replays on stand-in members of
-    its own size, row ``i`` a copy of row ``i mod R``."""
-    var_ids = cap["var_ids"]
-    codec, spec = rt._mesh_meta(var_ids[0])
-    members = [rt.states[v] for v in var_ids]
+    its own size, row ``i`` a copy of row ``i mod R``; a launch captured
+    without its members (``_capture_rows_shapes``) on seeded members of its
+    layout (``rt`` is then None)."""
     nb = cap["neighbors"]
-    if nb.shape[0] != rt.n_replicas:
+    syn = cap.get("synthetic")
+    if syn is not None:
         import torch
 
-        idx = torch.arange(nb.shape[0], device=nb.device) % rt.n_replicas
-        members = [type(m)(*[x[idx] for x in m]) for m in members]
-    plan = cg.rows_plan_of(codec, spec, members[0])
+        members, plan = _synthetic_members(torch, syn), syn["plan"]
+    else:
+        var_ids = cap["var_ids"]
+        codec, spec = rt._mesh_meta(var_ids[0])
+        members = [rt.states[v] for v in var_ids]
+        if nb.shape[0] != rt.n_replicas:
+            import torch
+
+            idx = torch.arange(nb.shape[0], device=nb.device) % rt.n_replicas
+            members = [type(m)(*[x[idx] for x in m]) for m in members]
+        plan = cg.rows_plan_of(codec, spec, members[0])
     leaves = [list(ls) for ls in zip(*members)]
     row_bytes = sum(ms[0][0].numel() * ms[0].element_size() for ms in leaves)
     rows, mask = cap["rows"], cap["mask"]
@@ -1810,8 +2159,8 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                   k1_nbrs) -> tuple:
     """Every kernel at every distinct launch shape of the main path (``ms``
     and ``bound_ms`` per shape, ``loss_ms = sum(count * (ms - bound_ms))``),
-    at its widest shape the fields of the kernels line, each masked K2 / K3
-    shape (the chaos soaks') held against its plain version, and K1 at the
+    at its widest shape the fields of the kernels line, every K2 / K3
+    shape held against its plain version, and K1 at the
     adcounter's shapes against its plain version (``k1_nbrs``: the
     neighbour table of a path's population, by row count)."""
     fields = cg.SHAPE_FIELDS
@@ -1861,12 +2210,14 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
         sweeps[f"R={r} D={d} K={k} (off the main path)"] = _k1_sweep(
             torch, cg, ex, rm, nb, want)
         del ex, rm, nb, want
-    # K2 / K3: the captured launches replayed on their runtime's states
+    # K2 / K3: the captured launches replayed on their runtime's states (or
+    # on seeded members of their layout, one layout at a time)
     for name in ("gossip_round_rows", "gossip_round_rows_vclock"):
-        for key, count in shapes[name].items():
+        for key, count in sorted(shapes[name].items(),
+                                 key=lambda kc: _layout_order(captured[(name, kc[0])])):
             cap = captured[(name, key)]
             call, leaves, plan, row_bytes, nb = _rows_call(
-                cg, sources[cap["source"]], cap)
+                cg, sources.get(cap["source"]), cap)
             ms = _time_ms(torch, call, 10, spin_cycles=_QUEUE_AHEAD_CYCLES // 10)
             k = key[fields[name].index("K")]
             masked = bool(key[fields[name].index("masked")])
@@ -1874,19 +2225,18 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                                               nb.cpu().numpy(), row_bytes, k, masked)
             is_widest = (key == widest_k2 if name == "gossip_round_rows" else
                          key == max(shapes[name], key=lambda x: x[0] * x[1]))
-            err = plain = None
-            if is_widest or masked:  # the soaks' masked shapes, each held
-                stacked = [torch.stack(ms_) for ms_ in leaves]
-                if plan.kind == "vclock":
-                    plain = lambda: cg.gossip_round_rows_vclock_plain(  # noqa: E731
-                        *stacked, nb, cap["rows"], cap["mask"])
-                else:
-                    plain = lambda: cg.gossip_round_rows_plain(  # noqa: E731
-                        plan.op, stacked, nb, cap["rows"], cap["mask"])
-                (got, ch), (want, ch_w) = call(), plain()
-                err = max(_max_abs_err(torch, got, want),
-                          int((ch.int() - ch_w.int()).abs().max()))
-                del got, want
+            # every shape held against its plain version on the same inputs
+            stacked = [torch.stack(ms_) for ms_ in leaves]
+            if plan.kind == "vclock":
+                plain = lambda: cg.gossip_round_rows_vclock_plain(  # noqa: E731
+                    *stacked, nb, cap["rows"], cap["mask"])
+            else:
+                plain = lambda: cg.gossip_round_rows_plain(  # noqa: E731
+                    plan.op, stacked, nb, cap["rows"], cap["mask"])
+            (got, ch), (want, ch_w) = call(), plain()
+            err = max(_max_abs_err(torch, got, want),
+                      int((ch.int() - ch_w.int()).abs().max()))
+            del got, want, ch, ch_w
             per_shape[name].append((key, count, ms, bound / bw * 1e3, err))
             if is_widest:
                 widest[name] = {
@@ -1897,8 +2247,16 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                     "gather_model_bound_ms": gather / bw * 1e3,
                     "shape": dict(zip(fields[name], key)),
                 }
-                del stacked
+            del call, leaves, stacked, plain
+    _SYNTH[:] = [None, None]
     return per_shape, widest, sweeps, k1_adcounter
+
+
+def _layout_order(cap) -> str:
+    """Sort key keeping the shapes of one seeded layout together (the
+    replays of captured members first)."""
+    syn = cap.get("synthetic")
+    return "" if syn is None else repr(syn["key"])
 
 
 #: warming calls that open each profiled window of the one-kernel check
@@ -1967,17 +2325,34 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
     ``_PROFILE_CHUNK``; each chunk passes when one of ``_PROFILE_WINDOWS``
     windows shows one kernel a call."""
     names = ("gossip_round_rows", "gossip_round_rows_vclock")
-    keys = {name: list(shapes[name]) for name in names}
-    calls = {name: [_rows_call(cg, sources[captured[(name, key)]["source"]],
-                               captured[(name, key)])[0] for key in keys[name]]
-             for name in names}
+
+    def call_of(name, key):
+        cap = captured[(name, key)]
+        return _rows_call(cg, sources.get(cap["source"]), cap)[0]
+
+    # chunks of one seeded layout at most (its members are made before the
+    # counted calls, by the window's warm calls)
+    chunks = {}
+    for name in names:
+        keys = sorted(shapes[name], key=lambda k: _layout_order(captured[(name, k)]))
+        chunks[name] = []
+        for key in keys:
+            layout = _layout_order(captured[(name, key)])
+            last = chunks[name][-1] if chunks[name] else None
+            if last is None or last[0] != layout or len(last[1]) == _PROFILE_CHUNK:
+                chunks[name].append((layout, []))
+            chunks[name][-1][1].append(key)
+    # the other kernel's warm call: a shape replayed on captured members
+    first = {name: next((k for k in shapes[name] if captured[(name, k)]["source"]),
+                        next(iter(shapes[name]))) for name in names}
+    warm = {name: call_of(name, first[name]) for name in names}
     for name, other in zip(names, reversed(names)):
         seen = []
-        for lo in range(0, len(calls[name]), _PROFILE_CHUNK):
-            chunk = calls[name][lo:lo + _PROFILE_CHUNK]
+        for _layout, keys in chunks[name]:
+            chunk = [call_of(name, key) for key in keys]
             for attempt in range(_PROFILE_WINDOWS):
                 kernels = _device_kernels(
-                    torch, [calls[other][0]] * _WARM_CALLS + chunk, chunk)
+                    torch, [warm[other]] * _WARM_CALLS + chunk, chunk)
                 if kernels is None:
                     got = -1
                     continue
@@ -1991,11 +2366,13 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
             else:
                 raise RuntimeError(
                     f"{name}: {len(chunk)} wrapper calls at shapes "
-                    f"{keys[name][lo:lo + _PROFILE_CHUNK]} showed only {got} kernels "
+                    f"{keys} showed only {got} kernels "
                     f"in each of {_PROFILE_WINDOWS} profiled windows: {kernels}")
+            del chunk
         widest[name]["device_kernels_per_call"] = 1.0
         # [kernels seen, windows opened] a chunk
         widest[name]["profiled_windows_kernels"] = seen
+    _SYNTH[:] = [None, None]
 
 
 def _k2_loss_split(cg, rows) -> dict:
@@ -2175,6 +2552,20 @@ def main() -> int:
     qm = phase_quorum(torch, cg)
     launches["quorum"], shapes["quorum"] = qm["launches"], qm["shapes"]
     _log("launches", f"quorum: {launches['quorum']}")
+    # 16. aae ---------------------------------------------------------------------
+    aa = phase_aae(torch, cg, captured)
+    launches["aae"], shapes["aae"] = aa["launches"], aa["shapes"]
+    _log("launches", f"aae: {launches['aae']}")
+    # 17. rebalance ---------------------------------------------------------------
+    rb = phase_rebalance(torch, cg, captured)
+    launches["rebalance"], shapes["rebalance"] = rb["launches"], rb["shapes"]
+    _log("launches", f"rebalance: {launches['rebalance']}")
+    del rb
+    # 18. serve -------------------------------------------------------------------
+    sv = phase_serve(torch, cg, captured)
+    launches["serve"], shapes["serve"] = sv["launches"], sv["shapes"]
+    _log("launches", f"serve: {launches['serve']}")
+    del sv
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
     # their kernel records (PERF.md)
@@ -2187,12 +2578,12 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 16. adcounter ---------------------------------------------------------------
+    # 19. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 17. kernels at the main path's shapes ---------------------------------------
+    # 20. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():
@@ -2250,10 +2641,16 @@ def main() -> int:
                                "bound_ms": b, "max_abs_err": err}
                               for key, c, ms, b, err in rows]
         k["masked_loss_ms"] = sum(c * (ms - b) for _key, c, ms, b, _e in rows)
+        # every shape of the main path, each held against its plain version
+        errs = [err for _key, _c, _ms, _b, err in per_shape[k["name"]]]
+        k["held_shapes"] = len(errs)
+        k["max_abs_err_all_shapes"] = max(errs)
+        _log("kernels", f"{k['name']}: {len(errs)} main-path shapes held against "
+                        f"the plain version, max_abs_err {max(errs)}")
     kernels[1]["loss_split_ms"] = _k2_loss_split(cg, per_shape["gossip_round_rows"])
     if any(k["max_abs_err"] for k in kernels) or any(
             s["max_abs_err"] for s in k1_adcounter) or any(
-            s["max_abs_err"] for k in kernels[1:] for s in k["masked_shapes"]):
+            k["max_abs_err_all_shapes"] for k in kernels[1:]):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,20 +18,27 @@ Layer map (the slice ported so far):
   membership verbs (``join_rows``, ``reseed_row``, ``resize``, staged
   grow / drop)
 - ``lasp_tpu_torch.membership`` — the claim rule, the row-scoped
-  frontier degrade of a membership commit and the typed errors
+  frontier degrade, staged plans, the handoff engine, the
+  ``MembershipCoordinator``, its invariant harness and the typed errors
 - ``lasp_tpu_torch.chaos``   — seeded fault timelines, ``ChaosRuntime``
   (crash / restore, degraded reads with read-repair, fused mask windows,
   soaks) and the convergence-under-failure invariants
 - ``lasp_tpu_torch.quorum``  — the quorum request FSMs (N=3, R=W=2) as a
   batched tensor step, hinted handoff and the epoch fence
+- ``lasp_tpu_torch.aae``     — active anti-entropy: row hashes on the card,
+  the incremental hash forest, the tree exchange and ``AAEScrubber``
+- ``lasp_tpu_torch.serve``   — the serving front-end: admission and the
+  degradation ladder, batched threshold watches, ``ServeFrontend``,
+  ``ServeLoop`` and the open-loop load harness
 - ``lasp_tpu_torch.telemetry`` — the metric registry, spans, the causal
   event log, Prometheus export and the convergence monitor
 - ``lasp_tpu_torch.store``   — the variable store, binds and threshold
   watches, the host store and checkpoints in the JAX package's format
 - ``lasp_tpu_torch.dataflow``— the combinator graph (map / fold / filter /
   union / intersection / product / bind_to) and its fused propagate
-- ``lasp_tpu_torch.bench_scenarios`` — the OR-Set anti-entropy headline and
-  the ad counters, the 10M-replica north star included
+- ``lasp_tpu_torch.bench_scenarios`` — the OR-Set anti-entropy headline,
+  the ad counters (the 10M-replica north star included) and the scenarios
+  of every ported layer
 - ``lasp_tpu_torch.bridge_state``    — numpy state exchange with the JAX
   package's state pytrees
 
@@ -42,9 +49,9 @@ raises unless the caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 _SUBMODULES = frozenset({
-    "bench_scenarios", "bridge_state", "chaos", "dataflow", "device",
-    "lattice", "membership", "mesh", "ops", "quorum", "store", "telemetry",
-    "utils",
+    "aae", "bench_scenarios", "bridge_state", "chaos", "dataflow", "device",
+    "lattice", "membership", "mesh", "ops", "quorum", "serve", "store",
+    "telemetry", "utils",
 })
 
 

@@ -9,7 +9,10 @@ scale-free population, run to its fixed point by ``converge_on_device``;
 ``ingest_storm``, the grouped-ingest A/B; ``dataflow_chain``, the
 per-edge against fused propagate A/B; ``chaos_heal``, recovery from a
 composite nemesis against a fault-free twin; and ``quorum_kv``, quorum
-puts and gets under every chaos preset."""
+puts and gets under every chaos preset; ``serve_load``, the open-loop
+serving front-end under the composite nemesis; ``aae_scrub``, silent
+corruption against the anti-entropy scrubber; and ``elastic_rebalance``,
+staged membership grow and leave against the legacy resize."""
 
 from __future__ import annotations
 
@@ -1092,5 +1095,463 @@ def quorum_kv(
         "engine": f"QuorumRuntime({engine})+ChaosRuntime",
         "check": "no acked write lost (hinted handoff) under every "
                  "preset; all requests resolved",
+        "device": str(dev),
+    }
+
+
+def serve_load(
+    n_replicas: int = 64,
+    n_clients: int = 10_000,
+    ticks: int = 40,
+    arrivals_per_tick: int = 1200,
+    burst_factor: int = 5,
+    seed_watches: int = 10_000,
+    parity_thresholds: int = 100_000,
+    seed: int = 7,
+    device=None,
+) -> dict:
+    """Open-loop serving benchmark (``lasp_tpu/bench_scenarios.py:2364``):
+    ``n_clients`` simulated clients drive a Zipf-hot write + read + watch
+    mix through ``ServeFrontend`` while gossip runs under the composite
+    nemesis, with a mid-run ``burst_factor``x burst. Asserted in-scenario
+    (``serve.harness.run_load``): no acked write lost after heal and
+    convergence, vectorized-vs-per-watch threshold parity at
+    ``parity_thresholds`` watches; sheds are typed."""
+    from .serve.harness import run_load
+
+    dev = resolve_device(device)
+    report, secs = _timed(dev, lambda: run_load(
+        n_replicas=n_replicas,
+        n_clients=n_clients,
+        ticks=ticks,
+        arrivals_per_tick=arrivals_per_tick,
+        chaos=True,
+        burst_at=max(2, ticks // 2),
+        burst_ticks=max(2, ticks // 8),
+        burst_factor=burst_factor,
+        seed_watches=seed_watches,
+        parity_thresholds=parity_thresholds,
+        seed=seed,
+        device=dev,
+    ))
+    report.update({
+        "scenario": f"serve_load_{n_replicas}",
+        "seconds": secs,
+        "engine": "ServeFrontend(coalescing+vectorized fan-out)"
+                  "+ChaosRuntime",
+        "check": "no acked write lost after heal; vectorized threshold "
+                 f"fan-out parity at {parity_thresholds} watches; "
+                 "typed sheds only (never silent drop)",
+        "device": str(dev),
+    })
+    return report
+
+
+def aae_scrub(
+    n_replicas: int = 48,
+    fanout: int = 3,
+    rounds: int = 8,
+    writers: int = 8,
+    seed: int = 23,
+    frontier_presets=(),
+    device=None,
+) -> dict:
+    """Active anti-entropy benchmark (``lasp_tpu/bench_scenarios.py:2415``):
+    silent corruption (the corruption presets, plus a CorruptRows overlay
+    on every classic preset) against the hash-forest scrubber. Every
+    preset's drill asserts ``check_corruption_detected_and_repaired``
+    in-scenario (detected within the cadence, localized exactly, repaired,
+    healed population bit-equal to a fault-free twin); records detection
+    latency, repair bytes against a full-state resync, exchange work and
+    the scrub seconds split into hash (device work included), exchange and
+    repair; then times the incremental refresh of two hot rows against a
+    full rehash of six 64-element G-Sets at ``max(n_replicas, 1024)`` rows,
+    median of 3. The presets named
+    in ``frontier_presets`` are drilled a second time with frontier
+    rounds, under ``"<preset> (frontier)"``."""
+    from .chaos import (
+        CORRUPTION_PRESETS,
+        PRESETS,
+        ChaosSchedule,
+        CorruptRows,
+        Crash,
+        Restore,
+        nemesis,
+    )
+    from .chaos.invariants import run_aae_harness
+
+    dev = resolve_device(device)
+    nbrs = random_regular(n_replicas, fanout, seed=seed)
+
+    def build():
+        store = Store(n_actors=max(16, writers), device=dev)
+        g = store.declare(id="g", type="lasp_gset", n_elems=64)
+        o = store.declare(id="o", type="riak_dt_orswot", n_elems=32,
+                          n_actors=16)
+        rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs, device=dev)
+        rt.update_batch(
+            g,
+            [((w * n_replicas) // writers, ("add", f"item{w}"),
+              f"writer{w}") for w in range(writers)],
+        )
+        rt.update_at(1, o, ("add", "x"), "a0")
+        rt.update_at(3, o, ("add", "y"), "a1")
+        return rt
+
+    def with_corruption(preset: str):
+        """The preset's schedule carrying corruption: the corruption
+        presets natively, every classic preset through a CorruptRows
+        overlay at action-free rounds."""
+        base = nemesis(preset, n_replicas, nbrs, seed=seed, rounds=rounds)
+        if preset in CORRUPTION_PRESETS:
+            return base
+        used = {ev.at for ev in base.events
+                if isinstance(ev, (Crash, Restore))}
+        free = ([r for r in range(2, base.horizon) if r not in used]
+                or [base.horizon])[:2]
+        overlay = [
+            CorruptRows(free[0], kind="bitflip"),
+        ] + ([CorruptRows(free[1], kind="rollback")]
+             if len(free) > 1 else [])
+        return ChaosSchedule(n_replicas, nbrs,
+                             tuple(base.events) + tuple(overlay), seed=seed)
+
+    presets: dict = {}
+    drills = [(p, "dense") for p in PRESETS + CORRUPTION_PRESETS]
+    drills += [(p, "frontier") for p in frontier_presets]
+    for preset, mode in drills:
+        sched = with_corruption(preset)
+        report, secs = _timed(dev, lambda: run_aae_harness(
+            build, sched, scrub_every=1, replay=False, mode=mode,
+        ))
+        if mode != "dense":
+            preset = f"{preset} ({mode})"
+        lat = report["detection_latency_rounds"]
+        presets[preset] = {
+            "injected": report["injected"],
+            "detected": report["detected"],
+            "detection_latency_rounds_max": max(lat, default=0),
+            "repaired_overwrites": report["repaired_overwrites"],
+            "repaired_joins": report["repaired_joins"],
+            "repair_bytes": report["repair_bytes"],
+            "full_resync_bytes": report["full_resync_bytes"],
+            "repair_frac_of_resync": (
+                report["repair_bytes"] / max(report["full_resync_bytes"], 1)
+            ),
+            "rows_hashed": report["rows_hashed"],
+            "exchange_rounds": report["exchange_rounds"],
+            "comparisons": report["comparisons"],
+            "scrubs": report["scrubs"],
+            "rounds": report["rounds"],
+            "seconds": secs,
+            "scrub_seconds": report["seconds"],
+            "detected_and_repaired": report["detected_and_repaired"],
+        }
+        if max(lat, default=0) > 1:
+            raise RuntimeError(f"{preset}: detection exceeded the scrub cadence")
+
+    # incremental-vs-full rehash: the dirty-mask refresh of a FEW hot rows
+    # against the whole forest's rehash (median of 3)
+    rehash_replicas = max(int(n_replicas), 1024)
+    forest, passes = rehash_drill(rehash_replicas, device=dev)
+    passes["incremental"]()  # warm the subset gather outside the clock
+    rehash = {}
+    for arm, run in passes.items():
+        runs = []
+        for _ in range(3):
+            h0 = forest.hash_seconds
+            secs = _timed(dev, run)[1]
+            runs.append((secs, forest.hash_seconds - h0))
+        rehash[arm] = sorted(runs)[1]
+    (inc_s, inc_hash), (full_s, full_hash) = rehash["incremental"], rehash["full"]
+    return {
+        "scenario": f"aae_scrub_{n_replicas}",
+        "n_replicas": n_replicas,
+        "fanout": fanout,
+        "presets": presets,
+        "rehash": {
+            "n_replicas": rehash_replicas,
+            "incremental_seconds": inc_s,
+            "full_seconds": full_s,
+            # the row hashes' share of each (device dispatches and the
+            # host read of the hashes); the rest is host bookkeeping
+            "incremental_hash_seconds": inc_hash,
+            "full_hash_seconds": full_hash,
+            "hot_rows": 2,
+            "speedup": full_s / inc_s if inc_s > 0 else None,
+        },
+        "engine": "AAEScrubber(HashForest+exchange+quorum repair)"
+                  "+ChaosRuntime",
+        "check": "every injection detected within the scrub cadence, "
+                 "localized exactly, repaired; healed population "
+                 "bit-equal to the fault-free twin (asserted per preset)",
+        "device": str(dev),
+    }
+
+
+def rehash_drill(n_replicas: int, hot_rows: int = 2, device=None) -> tuple:
+    """The rehash comparison's forest: six 64-element G-Sets at
+    ``n_replicas`` rows, committed once. Returns ``(forest, {"incremental":
+    fn, "full": fn})``: each ``fn`` marks ``hot_rows`` rows (or every row)
+    of every variable dirty and refreshes."""
+    from .aae import HashForest
+
+    dev = resolve_device(device)
+    store = Store(n_actors=16, device=dev)
+    for i in range(6):
+        store.declare(id=f"g{i}", type="lasp_gset", n_elems=64)
+    rt = ReplicatedRuntime(store, Graph(store), n_replicas,
+                           ring(n_replicas, 2), device=dev)
+    forest = HashForest(rt)
+    forest.refresh()  # commit the baseline (and warm the hash)
+    hot = [i * n_replicas // hot_rows for i in range(hot_rows)]
+
+    def incremental_pass():
+        for v in rt.var_ids:
+            rt._aae_mark(v, hot)
+        forest.refresh()
+
+    def full_pass():
+        for v in rt.var_ids:
+            rt._aae_mark(v, None)
+        forest.refresh()
+
+    return forest, {"incremental": incremental_pass, "full": full_pass}
+
+
+def elastic_rebalance(
+    n_replicas: int = 64,
+    grow_to: int = 96,
+    seed: int = 31,
+    waves_during: int = 6,
+    waves_after: int = 5,
+    per_cycle: int = 8,
+    topology: str = "ring",
+    device=None,
+) -> dict:
+    """Elastic membership under sustained serving
+    (``lasp_tpu/bench_scenarios.py:2828``): grow ``n_replicas`` ->
+    ``grow_to`` with the STAGED coordinator (seed transfers, row-scoped
+    frontier, capped per-cycle work, serving interleaved), then leave back
+    down, against the LEGACY ``resize`` baseline (blanket all-dirty
+    resync). Asserted in-scenario: the two arms' grown populations are
+    bit-identical, no cycle exceeds the cap, and the staged transfer wire
+    stays at or below the bottom-restore full-resync wire (dense resync
+    rounds x the runtime's per-round ``_traffic_estimate``).
+
+    ``topology``: ``"ring"`` (JAX's ``ring(n, 2)``) or ``"random_regular"``
+    (``random_regular(n, 3, seed)``): a ring's diameter is half the
+    population, so a write reaches every row of a large ring only after
+    that many rounds. JAX's ledger-attributed staged gossip bytes are
+    reported as None (the kernel ledger is not ported)."""
+    from .membership import MembershipCoordinator
+    from .bridge_state import to_numpy
+    from .utils.metrics import Timer
+
+    dev = resolve_device(device)
+    if topology == "ring":
+        def topo(n):
+            return ring(n, 2)
+    elif topology == "random_regular":
+        def topo(n):
+            return random_regular(n, 3, seed=seed)
+    else:
+        raise ValueError(f"unknown topology {topology!r}")
+    nbrs_small = topo(n_replicas)
+    nbrs_big = topo(grow_to)
+    rng = np.random.RandomState(seed)
+    # the deterministic serve mix: every wave writes 3 vars at rows that
+    # exist in EVERY membership (< n_replicas); reads are 3-row quorum joins
+    waves = []
+    for i in range(waves_during + waves_after):
+        rows = rng.choice(n_replicas, size=4, replace=False)
+        waves.append([
+            ("kv", [(int(r), ("add", f"k{i}_{j}"), f"c{int(r)}")
+                    for j, r in enumerate(rows)]),
+            ("tag", [(int(rows[0]), ("add", f"t{i}"), f"a{i % 16}")]),
+            ("clk", [(int(rows[1]), ("add", f"e{i}"), f"b{i % 16}")]),
+        ])
+    read_rows = np.asarray([0, 1, 2], dtype=np.int64)
+
+    def build():
+        store = Store(n_actors=64, device=dev)
+        store.declare(id="kv", type="lasp_gset", n_elems=256)
+        store.declare(id="tag", type="lasp_orset", n_elems=64)
+        store.declare(id="clk", type="riak_dt_orswot", n_elems=64)
+        rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs_small,
+                               device=dev)
+        rt.update_batch(
+            "kv", [(r, ("add", f"seed{r % 8}"), f"s{r % 32}")
+                   for r in range(0, n_replicas, 4)],
+        )
+        rt.run_to_convergence()
+        return rt
+
+    def run_arm(staged: bool, with_waves: bool = True):
+        rt = build()
+        mc = None
+        if staged:
+            mc = MembershipCoordinator(rt, per_cycle=per_cycle)
+            mc.stage_join(grow_to, nbrs_big)
+            mc.commit()
+        else:
+            rt.resize(grow_to, nbrs_big)
+        during, after = [], []
+        transfers_per_cycle: list = []
+        pending_hw = 0
+        n_waves = waves_during if with_waves else 0
+        i = 0
+        rounds = 0
+        while True:
+            if rounds >= 256:
+                raise RuntimeError("elastic_rebalance: grow never settled")
+            wave = waves[i] if i < n_waves else None
+            with Timer() as t:
+                if wave is not None:
+                    for var, ops in wave:
+                        rt.update_batch(var, ops)
+                rt.quorum_value("kv", read_rows)
+                if mc is not None:
+                    out = mc.step(mode="frontier")
+                    transfers_per_cycle.append(out["transfers"])
+                    pending_hw = max(pending_hw, out["outstanding"])
+                    residual = out["residual"]
+                else:
+                    residual = rt.frontier_step()
+            during.append(t.elapsed)
+            rounds += 1
+            i += 1
+            settled = mc is None or not mc.rebalancing
+            if settled and i >= n_waves and residual == 0:
+                break
+        settle_rounds = (
+            mc.settle_rounds[0] if mc and mc.settle_rounds else rounds
+        )
+        # after the transfer window: the same tick shape, no transfers
+        for j in range(waves_during, waves_during + (
+            waves_after if with_waves else 0
+        )):
+            with Timer() as t:
+                for var, ops in waves[j]:
+                    rt.update_batch(var, ops)
+                rt.quorum_value("kv", read_rows)
+                rt.frontier_step()
+            after.append(t.elapsed)
+        while rt.frontier_step() != 0:
+            pass
+        return {
+            "rt": rt,
+            "mc": mc,
+            "during": during,
+            "after": after,
+            "transfer_bytes": (
+                int(mc.report()["transfer_bytes"]) if mc is not None else 0
+            ),
+            "transfer_seconds": (
+                mc.transfer_seconds if mc is not None else None
+            ),
+            "transfers_per_cycle": transfers_per_cycle,
+            "pending_high_water": pending_hw,
+            "settle_rounds": int(settle_rounds),
+            "rounds": rounds,
+        }
+
+    staged, staged_secs = _timed(dev, lambda: run_arm(True))
+    baseline, base_secs = _timed(dev, lambda: run_arm(False))
+    # the two arms reach the SAME grown fixed point, bit for bit
+    for v in staged["rt"].var_ids:
+        a = to_numpy(staged["rt"].states[v])
+        b = to_numpy(baseline["rt"].states[v])
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(
+                "staged grow diverged from the legacy-resize fixed point"
+            )
+    del baseline
+    # no stop-the-world: per-cycle transfer work is CAPPED
+    if not all(t <= per_cycle for t in staged["transfers_per_cycle"]):
+        raise RuntimeError("a transfer cycle exceeded the per-cycle cap")
+    if staged["pending_high_water"] > grow_to - n_replicas:
+        raise RuntimeError("pending transfers exceeded the joining rows")
+    # the WIRE gate on the pure resync phase (no serve waves): TRANSFER
+    # bytes against the bottom-restore full resync (dense resync rounds x
+    # the runtime's per-round traffic estimate)
+    resync_staged = run_arm(True, with_waves=False)
+    del resync_staged["rt"], resync_staged["mc"]
+    rt_base = build()
+    rt_base.resize(grow_to, nbrs_big)
+    base_rounds = 0
+    while rt_base.step() != 0:
+        base_rounds += 1
+        if base_rounds >= 256:
+            raise RuntimeError("baseline resync never quiesced")
+    base_wire = int(base_rounds * rt_base._traffic_estimate())
+    del rt_base
+    staged_wire = resync_staged["transfer_bytes"]
+    if staged_wire > base_wire:
+        raise RuntimeError(
+            f"staged transfer wire {staged_wire} exceeded the bottom-"
+            f"restore full-resync baseline {base_wire} "
+            f"({base_rounds} dense rounds)"
+        )
+
+    # shrink leg: staged leave back to n_replicas
+    rt = staged["rt"]
+    mc = staged["mc"]
+    mc.stage_leave(n_replicas, nbrs_small)
+    mc.commit()
+    grow_transfer_seconds = mc.transfer_seconds
+    leave_report, leave_secs = _timed(
+        dev, lambda: mc.run_to_settled(mode="frontier")
+    )
+    if rt.n_replicas != n_replicas:
+        raise RuntimeError("the staged leave did not drop the tail")
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs), q)) * 1e3 if xs else None
+
+    return {
+        "scenario": f"elastic_rebalance_{n_replicas}_{grow_to}",
+        "n_replicas": n_replicas,
+        "grow_to": grow_to,
+        "per_cycle_cap": per_cycle,
+        "topology": topology,
+        "epoch": rt.membership_epoch,
+        "grow": {
+            "settle_rounds": staged["settle_rounds"],
+            "rounds": staged["rounds"],
+            "transfer_bytes": resync_staged["transfer_bytes"],
+            "staged_gossip_ledger_bytes": None,
+            "full_resync_bytes": base_wire,
+            "full_resync_rounds": base_rounds,
+            "wire_vs_full_resync": base_wire / max(staged_wire, 1),
+            "max_cycle_transfers": max(staged["transfers_per_cycle"] or [0]),
+            "pending_high_water": staged["pending_high_water"],
+            "transfer_seconds": resync_staged["transfer_seconds"],
+            "seconds": staged_secs,
+            "baseline_seconds": base_secs,
+        },
+        "leave": {
+            "settle_rounds": (
+                leave_report["settle_rounds"][-1]
+                if leave_report["settle_rounds"] else None
+            ),
+            "transfer_bytes": leave_report["transfer_bytes"],
+            "transfer_seconds": mc.transfer_seconds - grow_transfer_seconds,
+            "seconds": leave_secs,
+        },
+        "serve_tick_ms": {
+            # tick 0 follows the grow (new shapes everywhere): apart
+            "first_tick_ms": pct(staged["during"][:1], 50),
+            "during_p50": pct(staged["during"][1:], 50),
+            "during_p99": pct(staged["during"][1:], 99),
+            "after_p50": pct(staged["after"], 50),
+            "after_p99": pct(staged["after"], 99),
+        },
+        "engine": "MembershipCoordinator(frontier)+HandoffEngine",
+        "check": (
+            "staged grow bit-identical to legacy resize; per-cycle "
+            "transfers capped (no stop-the-world); staged transfer "
+            "wire <= bottom-restore full-resync baseline"
+        ),
         "device": str(dev),
     }

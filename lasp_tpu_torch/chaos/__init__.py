@@ -11,16 +11,19 @@ crash/recovery, and convergence-under-failure invariants.
   :meth:`~ChaosRuntime.soak` driver;
 - :mod:`.invariants` — the harness asserting monotone inflation,
   post-heal bit-equality with a fault-free run, replay determinism, no
-  resurrection, and (with the quorum layer) no acknowledged write lost.
+  resurrection, (with the quorum layer) no acknowledged write lost, and
+  (with an AAE scrubber) corruption detected, localized and repaired.
 """
 
 from .engine import ChaosRuntime, ReplicaDownError
 from .invariants import (
     InvariantViolation,
+    check_corruption_detected_and_repaired,
     check_inflation,
     check_no_resurrection,
     check_no_write_lost,
     fingerprint,
+    run_aae_harness,
     run_harness,
     run_quorum_harness,
     snapshot_states,
@@ -60,11 +63,13 @@ __all__ = [
     "ReplicaDownError",
     "Restore",
     "SlowShard",
+    "check_corruption_detected_and_repaired",
     "check_inflation",
     "check_no_resurrection",
     "check_no_write_lost",
     "fingerprint",
     "nemesis",
+    "run_aae_harness",
     "run_harness",
     "run_quorum_harness",
     "snapshot_states",

@@ -98,9 +98,13 @@ class ChaosRuntime:
         self.last_corrupted: list = []
         #: full injection ledger: {"round", "var", "row", "kind"}
         self.injected_corruptions: list = []
-        #: an attached AAE scrubber (``on_round_start`` / ``on_round_end``);
-        #: the AAE layer itself is not ported yet
+        #: an attached AAE scrubber (``aae.AAEScrubber``: ``on_round_start``
+        #: / ``on_round_end``)
         self.aae = None
+        #: the reachability of the last (round, crash state) asked about:
+        #: [key, mask, int32[R] labels or None, {label: reachable bool[R]}],
+        #: see :meth:`_labels`
+        self._label_memo = [None, None, None, {}]
         self.degraded_reads = 0
         self.repair_bytes = 0
         self.repaired_rows = 0
@@ -533,15 +537,56 @@ class ChaosRuntime:
     def live_replicas(self) -> np.ndarray:
         return np.flatnonzero(~self.crashed)
 
+    def _labels(self, rnd: int) -> np.ndarray:
+        """``int32[R]`` live-component labels under the round-``rnd`` mask
+        and the current crash state (``quorum.fsm.components``), memoized:
+        every caller in one round and crash state (a scrub's pairing, each
+        written row's backup, a degraded read) shares one labelling."""
+        from ..quorum.fsm import components
+
+        memo = self._reach_memo(rnd)
+        if memo[2] is None:
+            memo[2] = components(self.rt._host_neighbors, memo[1], ~self.crashed)
+        return memo[2]
+
+    def _reach_memo(self, rnd: int) -> list:
+        """The memo entry of round ``rnd`` under the current crash state,
+        its mask compiled once (``schedule.mask_at`` recompiles per call)."""
+        key = (int(rnd), id(self.schedule), self.rt.membership_epoch,
+               np.packbits(self.crashed).tobytes())
+        if self._label_memo[0] != key:
+            self._label_memo = [key, self.schedule.mask_at(int(rnd)), None, {}]
+        return self._label_memo
+
     def _reachable_live(self, coordinator: int,
                         rnd: "int | None" = None) -> np.ndarray:
         """``bool[R]``: live replicas the coordinator can actually REACH
         over links alive under the round-``rnd`` mask (default: the
-        CURRENT round; chaos masks are pair-symmetric, so this is
-        undirected connectivity over the neighbor table's live pairs).
-        A quorum must come from here — a host-side read spanning a
-        partition would be a side channel through the cut. A host BFS of
-        up to R sweeps, as in JAX."""
+        CURRENT round). A quorum must come from here — a host-side read
+        spanning a partition would be a side channel through the cut.
+        Chaos masks are pair-symmetric, so this is undirected connectivity
+        over the live pairs: the rows sharing the coordinator's label in
+        the memoized labelling (:meth:`_labels`), masked by ``live``. A
+        crashed coordinator's label is its own index, which no live row
+        carries, so it reaches nothing — what JAX's BFS
+        (:meth:`_reachable_live_bfs`) gives."""
+        live = ~self.crashed
+        rnd = self.round if rnd is None else int(rnd)
+        if self._reach_memo(rnd)[1] is None:
+            return live
+        label = self._labels(rnd)
+        by_label = self._label_memo[3]
+        lab = int(label[int(coordinator)])
+        got = by_label.get(lab)
+        if got is None:
+            got = by_label[lab] = (label == lab) & live
+            got.flags.writeable = False  # shared by the component's callers
+        return got
+
+    def _reachable_live_bfs(self, coordinator: int,
+                            rnd: "int | None" = None) -> np.ndarray:
+        """The plain version of :meth:`_reachable_live`: JAX's host BFS of
+        up to R sweeps over the live pairs."""
         live = ~self.crashed
         mask = self.schedule.mask_at(
             self.round if rnd is None else int(rnd)

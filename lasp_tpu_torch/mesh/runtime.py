@@ -92,7 +92,15 @@ from ..ops.flatpack import FlatORSet, FlatORSetSpec
 from ..store.store import PreconditionError
 from ..utils.interning import CapacityError
 from . import ingest as ingest_mod
-from .gossip import divergence, frontier_reach, gossip_round, gossip_round_rows, join_all, quorum_read
+from .gossip import (
+    divergence,
+    frontier_reach,
+    gossip_round,
+    gossip_round_rows,
+    join_all,
+    quorum_read,
+    round_traffic_bytes,
+)
 from .plan import compile_plan
 
 #: store types held flat-bit-packed on the mesh when ``packed=True``
@@ -335,6 +343,16 @@ class ReplicatedRuntime:
         #: ``fn(sources, targets)`` vetting a graceful leave's handoff pairs
         #: (``chaos.ChaosRuntime`` installs its guard here)
         self._handoff_guard = None
+        #: per-var row footprint, cleared with the plan (:meth:`_row_bytes`)
+        self._row_bytes_cache: dict = {}
+        #: AAE bookkeeping (``aae.HashForest``): an attached forest parks its
+        #: dirty accumulator here and every tracked row mutation ORs into it
+        #: (:meth:`_aae_mark`). Structural events bump the STATE epoch
+        #: (committed hashes drop), a mask flip bumps the TREE epoch (only the
+        #: tree levels rebuild): :meth:`_invalidate_plan`.
+        self._aae_dirty: "dict | None" = None
+        self._aae_state_epoch = 0
+        self._aae_tree_epoch = 0
         self._sync_graph()
 
     def _sync_graph(self) -> None:
@@ -366,7 +384,16 @@ class ReplicatedRuntime:
         """Drop the compiled dispatch plan so the next stepping call
         regroups. ``reason``: ``var_set`` (late declare) or ``mask_change``
         (edge-mask identity changed), the port's triggers of the JAX set
-        (which also counts them by reason; telemetry is not carried)."""
+        (which also counts them by reason; telemetry is not carried). The
+        row-footprint cache drops with it, and the AAE epochs advance as
+        JAX's do: a mask flip bumps the tree epoch, a restore neither (the
+        reseeded row is marked AAE-dirty itself), anything else the state
+        epoch."""
+        self._row_bytes_cache.clear()
+        if reason == "mask_change":
+            self._aae_tree_epoch += 1
+        elif reason != "restore":
+            self._aae_state_epoch += 1
         self._plan = None
 
     def _ensure_plan(self):
@@ -1559,6 +1586,22 @@ class ReplicatedRuntime:
             self._sync_graph()
         return self.graph.device_tables(self.device)
 
+    def _traffic_estimate(self) -> int:
+        """Bytes ONE pull round moves: every variable's whole population,
+        once per neighbour slot (``mesh.gossip.round_traffic_bytes``)."""
+        k = int(self._host_neighbors.shape[1]) if self._host_neighbors.ndim == 2 else 0
+        return sum(round_traffic_bytes(st, k) for st in self.states.values())
+
+    def _row_bytes(self, var_id: str) -> int:
+        """One variable's per-replica-row byte footprint (metadata only,
+        cached until a shape-changing event clears it with the plan)."""
+        rb = self._row_bytes_cache.get(var_id)
+        if rb is None:
+            leaves = tree_leaves(self.states[var_id])
+            total = sum(x.numel() * x.element_size() for x in leaves)
+            rb = self._row_bytes_cache[var_id] = total // max(self.n_replicas, 1)
+        return rb
+
     def _needed(self) -> frozenset:
         """The variables the local round views dense: the graph's and the
         triggers' touch sets, or every variable when a trigger declared
@@ -1760,6 +1803,7 @@ class ReplicatedRuntime:
                 raise KeyError(v)
             if rows is None:
                 self._frontier[v] = np.ones(self.n_replicas, dtype=bool)
+                self._aae_mark(v, None)
             else:
                 self._mark_dirty_rows(v, rows)
 
@@ -1768,6 +1812,25 @@ class ReplicatedRuntime:
         if f is None or f.shape[0] != self.n_replicas:
             f = self._frontier[var_id] = np.zeros(self.n_replicas, bool)
         f[np.asarray(rows, dtype=np.int64)] = True
+        self._aae_mark(var_id, rows)
+
+    def _aae_mark(self, var_id: "str | None" = None, rows=None) -> None:
+        """OR tracked row mutations into an attached AAE forest's dirty
+        accumulator (``var_id`` None = every variable, ``rows`` None = every
+        row); one attribute read when no forest is attached. A mutation that
+        bypasses this (direct state surgery without :meth:`mark_dirty`) is
+        what the AAE verify pass flags as silent corruption."""
+        d = self._aae_dirty
+        if d is None:
+            return
+        for v in ((var_id,) if var_id is not None else self.var_ids):
+            m = d.get(v)
+            if m is None or m.shape[0] != self.n_replicas:
+                m = d[v] = np.zeros(self.n_replicas, dtype=bool)
+            if rows is None:
+                m.fill(True)
+            else:
+                m[np.asarray(rows, dtype=np.int64)] = True
 
     def _frontier_sync_mask(self, edge_mask) -> None:
         """Frontier knowledge holds only for the mask it was learned under:
@@ -1790,10 +1853,16 @@ class ReplicatedRuntime:
         quiescent (empty frontier); anything else changed unknown rows."""
         for v, r in zip(self.var_ids, np.asarray(res_vec).tolist()):
             self._frontier_fill(v, bool(r))
+            if r:
+                self._aae_mark(v, None)
 
     def _frontier_after_opaque(self, quiescent: bool) -> None:
+        """After a fused block: quiescence clears every frontier, anything
+        else degrades them to all-dirty. AAE dirtiness degrades always: a
+        block that quiesced still changed rows on its way."""
         for v in self.var_ids:
             self._frontier_fill(v, not quiescent)
+            self._aae_mark(v, None)
 
     def frontier_size(self, var_id: str) -> int:
         self._population(var_id)
@@ -1881,6 +1950,8 @@ class ReplicatedRuntime:
             for v, mask in zip(dense_ids, self._plan_dense_round(dense_ids, edge_mask)):
                 self._frontier[v] = mask
                 changed_of[v] = int(mask.sum())
+                if changed_of[v]:
+                    self._aae_mark(v, np.flatnonzero(mask))
             dense_falls += len(dense_subset)
             rows_touched += self.n_replicas * len(dense_subset)
             if sparse_subset:
@@ -1898,9 +1969,12 @@ class ReplicatedRuntime:
                 )
                 for i, (v, rows) in enumerate(sparse_subset):
                     mask = np.zeros(self.n_replicas, dtype=bool)
-                    mask[rows[changed[i, : rows.size]]] = True
+                    ch = changed[i, : rows.size]
+                    mask[rows[ch]] = True
                     self._frontier[v] = mask
                     changed_of[v] = int(mask.sum())
+                    if changed_of[v]:
+                        self._aae_mark(v, rows[ch])
         return {
             "per_var_changed": [changed_of.get(v, 0) for v in self.var_ids],
             "rows_touched": rows_touched,
@@ -1981,6 +2055,8 @@ class ReplicatedRuntime:
             changed_mask = self._frontier_sparse_round(v, rows, edge_mask)
             touched, dense = int(rows.size), 0
         self._frontier[v] = changed_mask
+        if changed_mask.any():
+            self._aae_mark(v, np.flatnonzero(changed_mask))
         return int(changed_mask.sum()), touched, dense
 
     def _frontier_bucket(self, n: int) -> int:
@@ -2173,8 +2249,8 @@ class ReplicatedRuntime:
         or the leaf list ``store.checkpoint.load_runtime_rows`` returns),
         and gossip rebuilds the rest from its peers. Leaf shapes are
         checked against the live rows. Every frontier degrades to all-dirty
-        afterwards: the row must be caught up even from quiescent peers.
-        (JAX also marks the row AAE-dirty; AAE is a later slice.)"""
+        afterwards: the row must be caught up even from quiescent peers. AAE
+        dirtiness stays row-scoped (only this row's state changed)."""
         if not 0 <= replica < self.n_replicas:
             raise IndexError(f"replica {replica} out of range for {self.n_replicas}")
         for v in self.var_ids:
@@ -2199,6 +2275,7 @@ class ReplicatedRuntime:
                 x[replica] = self._row_leaf(r, x)
         for v in self.var_ids:
             self._frontier_fill(v, True)
+        self._aae_mark(None, [replica])
         self._invalidate_plan("restore")
 
     # -- elastic membership --------------------------------------------------------

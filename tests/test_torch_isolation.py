@@ -40,7 +40,11 @@ def test_scans_cover_every_ported_module():
                  "telemetry.events", "telemetry.export", "telemetry.convergence",
                  "utils.metrics", "membership.errors", "chaos.schedule",
                  "chaos.engine", "chaos.invariants", "quorum.fsm",
-                 "quorum.hints", "quorum.engine"):
+                 "quorum.hints", "quorum.engine", "aae.hashtree",
+                 "aae.exchange", "aae.repair", "membership.handoff",
+                 "membership.coordinator", "membership.harness",
+                 "serve.requests", "serve.admission", "serve.subscriptions",
+                 "serve.engine", "serve.harness"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -82,16 +86,19 @@ def test_no_forbidden_import_in_source(path):
 
 def _entry_points():
     from lasp_tpu_torch.bench_scenarios import (
+        aae_scrub,
         adcounter_6,
         adcounter_10m,
         chaos_heal,
         dataflow_chain,
+        elastic_rebalance,
         gset_1k,
         ingest_storm,
         orset_100k,
         orset_anti_entropy,
         pipeline_1m,
         quorum_kv,
+        serve_load,
     )
     from lasp_tpu_torch.bridge_state import from_numpy
     from lasp_tpu_torch.dataflow import Graph
@@ -119,6 +126,9 @@ def _entry_points():
         "dataflow_chain": lambda: dataflow_chain(3, 2, reps=1),
         "chaos_heal": lambda: chaos_heal(16),
         "quorum_kv": lambda: quorum_kv(16),
+        "aae_scrub": lambda: aae_scrub(16),
+        "elastic_rebalance": lambda: elastic_rebalance(),
+        "serve_load": lambda: serve_load(16),
         "transition_batched": lambda: transition_batched(
             *([np.zeros(1, np.int32)] * 2 + [np.zeros((1, 3), np.int32)]
               + [np.zeros((1, 3), bool)] * 2 + [np.zeros(1, np.int32)] * 2
@@ -137,7 +147,8 @@ def _entry_points():
     ["Store", "ReplicatedRuntime", "orset_anti_entropy", "adcounter_6",
      "adcounter_10m", "codec.new", "from_numpy", "gset_1k", "orset_100k",
      "pipeline_1m", "ingest_storm", "dataflow_chain", "load_store", "load_runtime",
-     "chaos_heal", "quorum_kv", "transition_batched"]
+     "chaos_heal", "quorum_kv", "transition_batched", "aae_scrub",
+     "elastic_rebalance", "serve_load"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the

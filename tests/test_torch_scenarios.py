@@ -101,3 +101,73 @@ def test_ingest_schedule_replays_identically_through_both_packages():
         mode="frontier")
     for v in ids:
         assert trt.coverage_value(v) == jrt.coverage_value(v)
+
+
+def _without_seconds(rec):
+    if isinstance(rec, dict):
+        return {k: _without_seconds(v) for k, v in rec.items()
+                if "seconds" not in k and k not in ("device", "speedup")}
+    return rec
+
+
+def test_aae_scrub_matches_jax_at_24():
+    """Every preset's drill (asserted in both scenarios): the same
+    injections, detections, repairs, bytes and exchange counts."""
+    want = jb.aae_scrub(n_replicas=24)
+    got = tb.aae_scrub(n_replicas=24, device="cpu")
+    assert list(got["presets"]) == list(want["presets"])
+    for preset, rec in want["presets"].items():
+        rec = _without_seconds(rec)
+        mine = _without_seconds(got["presets"][preset])
+        mine.pop("scrubs"), mine.pop("rounds")
+        # JAX rounds the fraction to 4 places; the port reports it whole
+        assert round(mine.pop("repair_frac_of_resync"), 4) == rec.pop(
+            "repair_frac_of_resync")
+        assert mine == rec, preset
+    assert got["rehash"]["n_replicas"] == 1024 and got["rehash"]["hot_rows"] == 2
+
+
+def test_elastic_rebalance_matches_jax_at_64_96():
+    want = jb.elastic_rebalance()
+    got = tb.elastic_rebalance(device="cpu")
+    for leg in ("grow", "leave"):
+        w, g = _without_seconds(want[leg]), _without_seconds(got[leg])
+        if leg == "grow":
+            w.pop("staged_gossip_ledger_bytes")
+            assert g.pop("staged_gossip_ledger_bytes") is None
+            assert round(g.pop("wire_vs_full_resync"), 2) == w.pop("wire_vs_full_resync")
+        assert g == w, leg
+    assert got["epoch"] == want["epoch"] == 2
+    assert got["grow"]["transfer_bytes"] <= got["grow"]["full_resync_bytes"]
+
+
+def test_elastic_rebalance_random_regular_small(monkeypatch):
+    """The card's topology (``random_regular(n, 3, seed)``) held against
+    JAX's scenario, whose ``ring`` import is swapped for the same table:
+    every count of both legs equal."""
+    monkeypatch.setattr(jmesh, "ring",
+                        lambda n, _k=2: jmesh.random_regular(n, 3, seed=31))
+    want = jb.elastic_rebalance(n_replicas=48, grow_to=72, per_cycle=6)
+    got = tb.elastic_rebalance(n_replicas=48, grow_to=72, per_cycle=6,
+                               topology="random_regular", device="cpu")
+    for leg in ("grow", "leave"):
+        w, g = _without_seconds(want[leg]), _without_seconds(got[leg])
+        if leg == "grow":
+            w.pop("staged_gossip_ledger_bytes")
+            assert g.pop("staged_gossip_ledger_bytes") is None
+            assert round(g.pop("wire_vs_full_resync"), 2) == w.pop("wire_vs_full_resync")
+        assert g == w, leg
+    assert got["grow"]["max_cycle_transfers"] <= 6
+    assert got["grow"]["pending_high_water"] <= 24
+    assert got["leave"]["transfer_bytes"] > 0
+
+
+def test_serve_load_matches_jax_small():
+    kw = dict(n_replicas=16, n_clients=300, ticks=8, arrivals_per_tick=60,
+              seed_watches=50, parity_thresholds=400, seed=7)
+    want = jb.serve_load(**kw)
+    got = tb.serve_load(device="cpu", **kw)
+    for rep in (want, got):
+        rep.pop("overlap_seconds")
+    assert _without_seconds(got) == _without_seconds(want)
+    assert got["no_write_lost"] and got["threshold_parity"]["parity"]
