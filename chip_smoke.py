@@ -148,7 +148,22 @@ Phases, each of which fails the run on any error:
                busy share over 8 fault-free cycles of 1,200 requests
                (``torch.profiler``); a ``ServeLoop`` with two client threads,
                every ticket terminal;
-19. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+19. programs — ``bench_scenarios.riak_index_2i`` at 100,000 replicas on
+               ``random_regular(100_000, 3)``: a total ``RiakIndexProgram``
+               with auto views, the 16 views it registers (index specs over
+               2 names x 8 values) and an ``ExampleKeylistProgram``, JAX's
+               program sizes (two ``bool[64, 64]`` planes a row, ~13.9 GB
+               for the 17 index views); 1,024 seeded events over 48 keys
+               (80% put, 10% delete, 10% handoff) through ``process`` at
+               ``crc32(key) % n``, filled views compacting through
+               ``CapacityError``; convergence under the normal scheduler
+               (K2); ``ring_coverage_execute`` over 4 shards equal to
+               per-program ``execute``, a quorum execute over 3 rows and the
+               plain host model; the grouped sweep's device activities at
+               G=17 equal to G=1 (``torch.profiler``); events/s, process ms
+               p50 / p99, compactions, rounds, sweep bytes and GB/s against
+               the capability row's peak, peak memory;
+20. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -157,8 +172,8 @@ Phases, each of which fails the run on any error:
                totals equal the reference semantics and ``ads`` / ``active``
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
-               the run;
-20. kernels — each kernel timed at every distinct launch shape phases 3-19
+               the run; both carry the flight ring (``flight_rounds`` 64);
+21. kernels — each kernel timed at every distinct launch shape phases 3-20
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
                phase, read after; the shapes of phases 16-18 on seeded
                members of their layout), beside its bound, for its loss
@@ -171,8 +186,18 @@ Phases, each of which fails the run on any error:
                read; and K1's column-slab sweep (slab widths against whole
                rows) at each of its shapes and at two shapes whose planes fit
                the L2. Every K2 and K3 shape is replayed once under
-               ``torch.profiler`` before phase 19, which must show exactly one
-               device kernel per wrapper call.
+               ``torch.profiler`` before phase 20, which must show exactly one
+               device kernel per wrapper call;
+22. telemetry — ``telemetry.device_capability()`` names the card and gives
+               the peak every bound of the script reads; the kernel cost
+               ledger's families and records after every earlier phase, its
+               bytes for K1, K2 and K3 at their widest shapes equal to the
+               kernels phase's gather model (row moves), its achieved share
+               of peak beside the kernels phase's; the north star's flight
+               ring: the timed run's windows 9 rounds, the profiled twin's
+               window equal round for round to a third build's unfused
+               ``step`` residuals, states bit-equal; ``measure_overhead``'s
+               arms against JAX's 5% budget (reported, never failing).
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -205,19 +230,6 @@ def _log_line(phase: str, fields: dict) -> None:
     """A phase's JSON line, with the card's name and power limit beside its
     numbers."""
     _log(phase, json.dumps({"card": _CARD, **fields}))
-
-
-def _peak_hbm_gbps(name: str) -> float:
-    """Published HBM bandwidth of the card (NVIDIA data sheets)."""
-    if "H200" in name:
-        return 4800.0
-    if "H100" in name:
-        if "PCIe" in name:
-            return 2000.0
-        if "NVL" in name:
-            return 3900.0
-        return 3350.0  # H100 SXM
-    raise RuntimeError(f"no published HBM bandwidth on record for {name!r}")
 
 
 #: clock cycles the card spins before a timed window (~0.5 s at H100 clocks)
@@ -262,11 +274,21 @@ def _call_ms(torch, fn, reps: int) -> float:
 
 
 def _max_abs_err(torch, got, want) -> int:
-    return max(
-        int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-        if g.numel() else 0
-        for g, w in zip(got, want)
-    )
+    """The largest absolute difference over the leaves (bool leaves: 0 or
+    1), taken a slice of rows at a time: an int64 copy of a whole wide
+    output would take gigabytes."""
+    err = 0
+    for g, w in zip(got, want):
+        if not g.numel():
+            continue
+        if g.dtype == torch.bool:
+            err = max(err, int((g != w).any()))
+            continue
+        step = max(1, (1 << 26) // max(1, g[0].numel()))
+        for i in range(0, g.shape[0], step):
+            err = max(err, int((g[i:i + step].to(torch.int64)
+                                - w[i:i + step].to(torch.int64)).abs().max()))
+    return err
 
 
 def _parity_k1(torch, cg, words, gen) -> int:
@@ -682,8 +704,11 @@ def _device_busy(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the runtime's spans annotate the trace (``record_function``): their
+    # device-side ranges are not device work
     device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in device) / 1e6
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
     return {"wall_s": wall, "device_s": busy, "device_share": busy / wall,
@@ -2002,49 +2027,257 @@ _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
 
 def phase_adcounter(torch, cg) -> dict:
-    """The north star through the port's entry points, and a second
-    full-size build left ready to converge. Returns the launches and launch
-    shapes of the first run, the twin (its neighbour table feeds the
-    kernels phase) and the fields of the phase's line."""
-    from lasp_tpu_torch.bench_scenarios import adcounter_10m, adcounter_setup
+    """The north star through the port's entry points. Returns the launches
+    and launch shapes of the run, its neighbour table (the kernels phase
+    times K1 on it) and the fields of the phase's line, with the run's
+    flight windows."""
+    from lasp_tpu_torch.bench_scenarios import adcounter_10m, adcounter_topology
+    from lasp_tpu_torch.telemetry import device as tdev
 
     n = _ADCOUNTER_REPLICAS
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 1e9  # earlier phases' states
     torch.cuda.reset_peak_memory_stats()
     cg.reset_launches()
+    n_windows = len(tdev.windows("converge"))
     t0 = time.perf_counter()
     out = adcounter_10m(n, threshold=5)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    # the flight ring's windows of the run: the warm round, then the rest
+    windows = [{"rounds": w.rounds, "overwritten": w.overwritten,
+                "quiescent": w.quiescent, "curve": w.residual_curve()}
+               for w in tdev.windows("converge")[n_windows:]]
     peak = torch.cuda.max_memory_allocated() / 1e9
     if out["live_ads"] != 6 or out["active_pairs"] != 6:
         raise RuntimeError(f"adcounter: {out}")
     if launches["gossip_round_dense"] == 0:
         raise RuntimeError("the adcounter never launched K1")
-    t1 = time.perf_counter()
-    twin, _views, _lanes = adcounter_setup(n, 5, None)
-    torch.cuda.synchronize()
     line = {
         "replicas": n, "rounds": out["rounds"], "warm_rounds": 1,
         "seconds": out["seconds"], "under_60s": out["under_60s"],
         "state_bytes_per_replica": out["state_bytes_per_replica"],
         "ad_totals": out["ad_totals"], "live_ads": out["live_ads"],
         "active_pairs": out["active_pairs"], "driver": out["driver"],
-        "scenario_wall_s": wall, "setup_s": time.perf_counter() - t1,
+        "scenario_wall_s": wall,
         "peak_allocated_GB": peak, "resident_before_GB": resident,
         "k1_launches_by_shape": {
             str(dict(zip(cg.SHAPE_FIELDS["gossip_round_dense"], key))): c
             for key, c in shapes["gossip_round_dense"].items()},
+        "flight_windows": windows,
     }
-    return {"launches": launches, "shapes": shapes, "twin": twin, "line": line}
+    # the kernels phase times K1 at the adcounter's shapes on its topology;
+    # the profiled twin is built after that phase (phase 20's memory back)
+    nbrs = torch.as_tensor(adcounter_topology(n), dtype=torch.int32, device="cuda")
+    return {"launches": launches, "shapes": shapes, "neighbors": nbrs, "line": line}
+
+
+#: the programs phase (a Riak 2i index over the chaos phases' population):
+#: ``bench_scenarios.riak_index_2i``'s event stream and program sizes
+_PROGRAMS = {"n_events": 1024, "n_keys": 48, "index_names": 2, "index_values": 8,
+             "n_shards": 4, "seed": 29}
+
+
+def phase_programs(torch, cg, captured: dict, peak_gbps: float,
+                   n: int = _CHAOS_REPLICAS) -> dict:
+    """``bench_scenarios.riak_index_2i`` at ``n`` replicas on
+    ``random_regular(n, 3)``: a total ``RiakIndexProgram`` with auto views,
+    the 16 views it registers from specs over 2 index names x 8 values and
+    an ``ExampleKeylistProgram`` (JAX's defaults: 64 elements, 64 tokens,
+    one actor: two ``bool[64, 64]`` planes a row), 1,024 seeded events over
+    48 keys through ``process`` at ``crc32(key) % n`` (filled views compact
+    through ``CapacityError`` -> ``compact_orset`` -> ``run_to_convergence``),
+    the runtime's normal scheduler to convergence (K2 launches there), then
+    ``ring_coverage_execute`` over 4 shards, which must equal per-program
+    ``execute``, a quorum execute over 3 rows and the plain host model.
+    Then the grouped sweep alone at G=17 and G=1 under ``torch.profiler``:
+    its device activities must not grow with G."""
+    from lasp_tpu_torch.bench_scenarios import riak_index_2i
+    from lasp_tpu_torch.programs.riak_index import BASE_NAME
+    from lasp_tpu_torch.quorum import coverage
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cg.reset_launches()
+    undo = _capture_rows_shapes(cg, captured, "programs")
+    try:
+        out, secs = _timed_step(torch, lambda: riak_index_2i(
+            n_replicas=n, keep_runtime=True, **_PROGRAMS))
+    finally:
+        undo()
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    peak = torch.cuda.max_memory_allocated()
+    rt = out.pop("runtime")
+    if out["programs"] != 18 or out["views"] != 16:
+        raise RuntimeError(f"programs: {out['programs']} programs, {out['views']} views")
+    if not sum(launches.values()):
+        raise RuntimeError("programs: the views' convergence launched no K1 / K2 / K3")
+    index_ids = [p.id for name, p in rt.programs.items() if name != "keylist"]
+    all_ids = [p.id for p in rt.programs.values()]
+    g, rb = len(index_ids), rt._row_bytes(index_ids[0])
+    # the sweep's least bytes: every program's population read once
+    read_bytes = sum(rt._row_bytes(v) for v in all_ids) * n
+    stack_bytes = 2 * g * n * rb  # the group's copy: read and written once
+    # the grouped sweep alone (the stacked group's plan), at G=17 and G=1
+    codec, spec = rt._mesh_meta(index_ids[0])
+    sweep_g = coverage._sweep_fn(codec, spec, g, n, _PROGRAMS["n_shards"])
+    members = [rt._population(v) for v in index_ids]
+    acts_g = _device_kernels(torch, [lambda: sweep_g(members)], [lambda: sweep_g(members)])
+    sweep_ms = _time_ms(torch, lambda: sweep_g(members), 3,
+                        spin_cycles=_QUEUE_AHEAD_CYCLES // 10)
+    sweep_1 = coverage._sweep_fn(codec, spec, 1, n, _PROGRAMS["n_shards"])
+    acts_1 = _device_kernels(torch, [lambda: sweep_1(members[:1])],
+                             [lambda: sweep_1(members[:1])])
+    if acts_g is None or acts_1 is None or sum(acts_g.values()) != sum(acts_1.values()):
+        raise RuntimeError(f"programs: the sweep's device activities grew with G: "
+                           f"G={g}: {acts_g}, G=1: {acts_1}")
+    del members, rt
+    _log_line("programs", {
+        **{k: v for k, v in out.items() if k != "values"}, "values": out["values"],
+        "index_program": BASE_NAME, "phase_s": secs,
+        "sweep_read_bytes": read_bytes, "sweep_stack_copy_bytes": stack_bytes,
+        "sweep_GBps_read_once": read_bytes / out["sweep_s"] / 1e9,
+        "sweep_share_of_peak": read_bytes / out["sweep_s"] / 1e9 / peak_gbps,
+        "sweep_fn_ms_G17": sweep_ms,
+        "sweep_fn_GBps_G17": g * n * rb / (sweep_ms / 1e3) / 1e9,
+        "sweep_fn_share_of_peak_G17": g * n * rb / (sweep_ms / 1e3) / 1e9 / peak_gbps,
+        "peak_GBps": peak_gbps,
+        "sweep_device_activities": {f"G={g}": sum(acts_g.values()),
+                                    "G=1": sum(acts_1.values())},
+        "peak_allocated_GB": peak / 1e9, "resident_before_GB": resident / 1e9,
+        "launches": launches,
+    })
+    return {"launches": launches, "shapes": shapes, "line": out}
+
+
+def north_star_flight(torch, ad: dict) -> dict:
+    """The flight ring on the north star: the adcounter's windows (its
+    timed run: one warm round, then the rest; its profiled twin: one window
+    from scratch) against a third full-size build stepped one unfused round
+    at a time: the twin's window must hold the same per-round residuals the
+    runtime's ``step`` reports, in the same rounds, to bit-equal states."""
+    from lasp_tpu_torch.bench_scenarios import adcounter_setup
+    from lasp_tpu_torch.bridge_state import to_numpy
+    from lasp_tpu_torch.telemetry import device as tdev
+
+    twin_window, twin_states = ad.pop("twin_window"), ad.pop("twin_states")
+    rt, _views, _lanes = adcounter_setup(_ADCOUNTER_REPLICAS, 5, None)
+    per_round = []
+    while True:
+        per_round.append(rt.step())
+        if per_round[-1] == 0 or len(per_round) > 64:
+            break
+    curve = [t for _r, t in twin_window.residual_curve()]
+    same = all(
+        all(np.array_equal(a, b) for a, b in zip(to_numpy(rt.states[v]), twin_states[v]))
+        for v in rt.var_ids)
+    del rt
+    run_windows = ad["line"]["flight_windows"]
+    line = {
+        "replicas": _ADCOUNTER_REPLICAS,
+        "flight_rounds": tdev.flight_rounds(),
+        "timed_run_windows": run_windows,
+        "timed_run_rounds": sum(w["rounds"] for w in run_windows),
+        "twin_window": {"rounds": twin_window.rounds, "overwritten": twin_window.overwritten,
+                        "quiescent": twin_window.quiescent, "curve": curve},
+        "unfused_step_residuals": per_round,
+        "states_bit_equal": same,
+        "seconds_ring_on": ad["line"]["seconds"], "seconds_pr10_no_ring": 1.8445,
+    }
+    if (line["timed_run_rounds"] != 9 or twin_window.rounds != 9 or len(per_round) != 9
+            or curve != per_round or twin_window.overwritten or not same):
+        raise RuntimeError(f"telemetry: the north star's flight ring disagrees: {line}")
+    return line
+
+
+def phase_telemetry(torch, cg, kind: str, peak_gbps: float, widest: dict,
+                    flight: dict) -> None:
+    """The ledger, the capability row and the flight ring on the card: the
+    capability record names the card; the kernel cost ledger's families and
+    records after every earlier phase; its bytes for K1, K2 and K3 at their
+    widest shapes beside the kernels phase's gather model; its achieved
+    share of peak beside the kernels phase's; the north star's flight line;
+    ``measure_overhead``'s arms against JAX's 5% budget (an arm over it is a
+    finding, not a failure)."""
+    from lasp_tpu_torch.telemetry import device_capability, get_ledger, kernel_traffic
+    from lasp_tpu_torch.telemetry import device as tdev
+    from lasp_tpu_torch.telemetry.overhead import measure_overhead
+
+    cap = device_capability()
+    if cap["device_kind"] != kind or cap["peak_GBps"] != peak_gbps or (
+            kind == "NVIDIA H100 80GB HBM3" and cap["peak_GBps"] != 3350.0):
+        raise RuntimeError(f"telemetry: capability {cap} for {kind!r}")
+    rows = get_ledger().snapshot()
+    families: dict = {}
+    for r in rows:
+        f = families.setdefault(r["family"], {"signatures": 0, "dispatches": 0,
+                                              "compile_dispatches": 0, "rounds": 0,
+                                              "bytes": 0, "seconds": 0.0})
+        f["signatures"] += 1
+        for k in ("dispatches", "compile_dispatches", "rounds", "bytes", "seconds"):
+            f[k] += r[k]
+    kernels_ledger = {}
+    for name, fam in (("gossip_round_dense", "cuda_dense"), ("gossip_round_rows", "cuda_rows"),
+                      ("gossip_round_rows_vclock", "cuda_rows")):
+        w = widest[name]
+        sh = w["shape"]
+        g, f = (1, sh["R"]) if fam == "cuda_dense" else (sh["G"], sh["F"])
+        est = kernel_traffic(fam, row_bytes=w["row_bytes"], n_replicas=sh["R"],
+                             fanout=sh["K"], rows=None if fam == "cuda_dense" else f,
+                             g_active=g)
+        index_bytes = 0 if fam == "cuda_dense" else g * f * (sh["K"] + 2) * 4
+        moves = est.bytes_moved - index_bytes
+        if moves != w["gather_model_row_moves_bytes"]:
+            raise RuntimeError(f"telemetry: the ledger's {fam} bytes {est.bytes_moved} "
+                               f"disagree with {name}'s gather model {w}")
+        # K3 is the OR-SWOT's (vclock) row round, K2 every other codec's
+        vclock = name == "gossip_round_rows_vclock"
+        kernels_ledger[name] = {
+            "ledger_bytes_moved": est.bytes_moved, "ledger_index_bytes": index_bytes,
+            "gather_model_bytes": w["gather_model_bytes"],
+            "gather_model_row_moves_bytes": w["gather_model_row_moves_bytes"],
+            "kernels_phase_share_of_peak_gather_model":
+                w["gather_model_bound_ms"] / w["ms"],
+            "ledger_signatures": [
+                {k: r[k] for k in ("kernel", "dispatches", "bytes", "seconds",
+                                   "achieved_GBps", "roofline_frac")}
+                for r in rows if r["family"] == fam
+                and (fam == "cuda_dense" or (r["codec"] == "ORSWOT") == vclock)
+            ][:6],
+        }
+    summary, log = get_ledger().summary(), tdev.stats()
+    # (the guard measures in a scratch registry: the live ledger and window
+    # log are read before it)
+    over = measure_overhead()
+    arms = {"emission": over["overhead_frac"], "frontier": over["frontier"]["overhead_frac"],
+            "ledger_dense": over["ledger"]["dense_overhead_frac"],
+            "ledger_frontier": over["ledger"]["frontier_overhead_frac"],
+            "dataflow": over["dataflow"]["overhead_frac"], "aae": over["aae"]["overhead_frac"],
+            "flight": over["flight"]["overhead_frac"]}
+    _log_line("telemetry", {"part": "capability", **cap})
+    _log_line("telemetry", {"part": "ledger", "families": families,
+                            "summary": summary, "kernels": kernels_ledger})
+    _log_line("telemetry", {"part": "flight", **flight, "log": log})
+    _log_line("telemetry", {"part": "overhead", "arms": arms,
+                            "over_budget": sorted(a for a, x in arms.items() if x >= 0.05),
+                            "report": over})
 
 
 def adcounter_profile(torch, ad: dict) -> None:
-    """The adcounter's second build converged under the profiler; logs the
-    phase's line."""
-    twin, line = ad.pop("twin"), ad["line"]
+    """The adcounter's second build, made now, converged under the profiler;
+    keeps its flight window and states (on the host) for the telemetry
+    phase; logs the phase's line."""
+    from lasp_tpu_torch.bench_scenarios import adcounter_setup
+    from lasp_tpu_torch.bridge_state import to_numpy
+    from lasp_tpu_torch.telemetry import device as tdev
+
+    line = ad["line"]
+    t1 = time.perf_counter()
+    twin, _views, _lanes = adcounter_setup(_ADCOUNTER_REPLICAS, 5, None)
+    torch.cuda.synchronize()
+    line["setup_s"] = time.perf_counter() - t1
     rounds = [None]
     busy = _device_busy(torch, lambda: rounds.__setitem__(0, twin.converge_on_device()))
     live = twin.coverage_value("ads")
@@ -2052,6 +2285,10 @@ def adcounter_profile(torch, ad: dict) -> None:
             f"ad{a}" for a in range(10) if a % 8 + 1 < 5}:
         raise RuntimeError(f"adcounter: the profiled twin took {rounds[0]} rounds "
                            f"and left ads {live}")
+    # the twin's flight window and its states (on the host) for the
+    # telemetry phase's unfused third build
+    ad["twin_window"] = tdev.last_window("converge")
+    ad["twin_states"] = {v: to_numpy(twin.states[v]) for v in twin.var_ids}
     del twin
     line["profiled_converge (a second full-size build)"] = busy
     # converge_on_device runs whole blocks of 8: the profiled run from
@@ -2201,6 +2438,9 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                     torch, lambda: cg.gossip_round_dense_plain(ex, rm, nb), 3),
                 "bound_ms": bound, "bound_by": "bytes",
                 "gather_model_bound_ms": (k + 2) * r * row_bytes / bw * 1e3,
+                "row_bytes": row_bytes,
+                "gather_model_bytes": (k + 2) * r * row_bytes,
+                "gather_model_row_moves_bytes": (k + 2) * r * row_bytes,
                 "shape": dict(zip(fields["gossip_round_dense"], key)),
             }
         del ex, rm, nb, out, want
@@ -2245,6 +2485,9 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                     "plain_ms": _time_ms(torch, plain, 3),
                     "bound_ms": bound / bw * 1e3, "bound_by": "bytes",
                     "gather_model_bound_ms": gather / bw * 1e3,
+                    "row_bytes": row_bytes,
+                    "gather_model_bytes": int(gather),
+                    "gather_model_row_moves_bytes": (k + 2) * cap["rows"].numel() * row_bytes,
                     "shape": dict(zip(fields[name], key)),
                 }
             del call, leaves, stacked, plain
@@ -2295,7 +2538,8 @@ def _device_kernels(torch, warm, calls) -> "dict | None":
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     is_marker = [("FillFunctor<double>" in e.key) for e in device]
     marks = [e.time_range.start for e, m in zip(device, is_marker) if m]
     if not marks:
@@ -2399,6 +2643,7 @@ def main() -> int:
     from lasp_tpu_torch.mesh import random_regular
     from lasp_tpu_torch.ops import _build
     from lasp_tpu_torch.ops import cuda_gossip as cg
+    from lasp_tpu_torch.telemetry import device_capability
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2407,9 +2652,13 @@ def main() -> int:
     global _CARD
     _CARD = smi
     kind = torch.cuda.get_device_name(0)
-    peak_gbps = _peak_hbm_gbps(kind)
+    # every bound below reads the peak from the port's one capability table
+    cap = device_capability()
+    peak_gbps = cap["peak_GBps"]
+    if peak_gbps is None:
+        raise RuntimeError(f"no published HBM bandwidth on record for {kind!r}")
     _log("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} "
-                   f"| published HBM peak {peak_gbps} GB/s")
+                   f"| published HBM peak {peak_gbps} GB/s (device_capability: {cap})")
 
     # 1. build ------------------------------------------------------------------
     # the native host store (checkpoint phase) builds beside the kernels
@@ -2566,6 +2815,11 @@ def main() -> int:
     launches["serve"], shapes["serve"] = sv["launches"], sv["shapes"]
     _log("launches", f"serve: {launches['serve']}")
     del sv
+    # 19. programs ----------------------------------------------------------------
+    pg = phase_programs(torch, cg, captured, peak_gbps)
+    launches["programs"], shapes["programs"] = pg["launches"], pg["shapes"]
+    _log("launches", f"programs: {launches['programs']}")
+    del pg
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
     # their kernel records (PERF.md)
@@ -2578,12 +2832,12 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 19. adcounter ---------------------------------------------------------------
+    # 20. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 20. kernels at the main path's shapes ---------------------------------------
+    # 21. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():
@@ -2596,7 +2850,7 @@ def main() -> int:
                            f"{head_keys}")
     per_shape, widest, sweeps, k1_adcounter = phase_kernels(
         torch, cg, bw, main_shapes, captured, sources, widest_k2,
-        {_ADCOUNTER_REPLICAS: ad["twin"].neighbors})
+        {_ADCOUNTER_REPLICAS: ad.pop("neighbors")})
     if len(k1_adcounter) != len(shapes["adcounter"]["gossip_round_dense"]):
         raise RuntimeError("K1 was not held at every adcounter shape")
     for shape, sweep in sweeps.items():
@@ -2610,6 +2864,9 @@ def main() -> int:
     for name, fields in profiled.items():
         widest[name].update(fields)
     adcounter_profile(torch, ad)
+    # 22. telemetry: the capability row, the ledger, the flight ring -----------
+    flight = north_star_flight(torch, ad)
+    phase_telemetry(torch, cg, kind, peak_gbps, widest, flight)
 
     def total_launches(name):
         return sum(c[name] for c in launches.values())

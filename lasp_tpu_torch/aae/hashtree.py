@@ -23,9 +23,9 @@ The arithmetic runs in ``int64`` holding ``uint32`` values: torch has no
 halves (no product passes 2^49) and masked to 32 bits, which keeps the
 shifts logical; torch has no XOR reduction, so a row's words fold pairwise,
 zero-padded after the mix (zero is the fold's identity). Rows are hashed in
-chunks, so a temporary holds at most ``_CHUNK_WORDS`` words. The JAX
-package's ``aae_hash`` ledger record is not carried (its kernel ledger is
-not ported); :attr:`HashForest.hash_seconds` totals the hash time instead.
+chunks, so a temporary holds at most ``_CHUNK_WORDS`` words. Each hash
+dispatch is an ``aae_hash`` record of the kernel cost ledger;
+:attr:`HashForest.hash_seconds` totals the hash time.
 """
 
 from __future__ import annotations
@@ -263,13 +263,34 @@ class HashForest:
         """One variable's row hashes — all rows (``rows`` None) or the
         named subset (host uint32)."""
         pop = self.rt._population(v)
+        codec, _spec = self.rt._mesh_meta(v)
         with Timer() as t:
             if rows is None:
                 out = row_hashes(pop)
             else:
                 out = subset_row_hashes(pop, rows)
         self.hash_seconds += t.elapsed
+        self._ledger(
+            codec.__name__, t.elapsed,
+            self.rt.n_replicas if rows is None else int(rows.size),
+            self.rt._row_bytes(v),
+        )
         return out
+
+    def _ledger(self, codec_name: str, seconds: float, rows: int,
+                row_bytes: int, g_active: int = 1) -> None:
+        """One hash dispatch into the ``aae_hash`` roofline family (its
+        seconds close on the hashes' host read)."""
+        from ..telemetry import get_ledger
+        from ..telemetry import registry as _reg
+
+        if not _reg.enabled():
+            return
+        get_ledger().record(
+            "aae_hash", codec_name,
+            n_replicas=self.rt.n_replicas, fanout=1, seconds=seconds,
+            row_bytes=row_bytes, rows=rows, g_active=g_active,
+        )
 
     def refresh(self, verify: bool = False) -> dict:
         """One tree refresh: rehash every DIRTY row (committing it — tracked

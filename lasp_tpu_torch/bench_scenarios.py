@@ -30,6 +30,7 @@ from .mesh.gossip import converged, diverged_rows
 from .mesh.runtime import ReplicatedRuntime
 from .mesh.topology import locality_order, random_regular, ring, scale_free
 from .store import Store
+from .telemetry.roofline import get_ledger
 from .ops.fused import fused_gossip_rounds_count, gossip_rounds
 from .ops.packed import PackedORSet, PackedORSetSpec
 
@@ -235,6 +236,13 @@ def adcounter_6(device=None) -> dict:
 _AD_PUB, _AD_CONTRACTS, _AD_LANES = 5, 5, 8
 
 
+def adcounter_topology(n_replicas: int) -> np.ndarray:
+    """The north star's neighbour table: scale-free gossip (fanout 3, seed
+    11), locality-ordered (an isomorphism: semantics unchanged)."""
+    _, nbrs = locality_order(scale_free(n_replicas, 3, seed=11))
+    return nbrs
+
+
 def adcounter_setup(n_replicas: int, threshold: int, device=None):
     """The north star's population, written and with its server trigger
     registered, ready to converge (``adcounter_10m`` runs it; a profiler
@@ -266,9 +274,8 @@ def adcounter_setup(n_replicas: int, threshold: int, device=None):
         for a in range(n_ads)
     ]
 
-    # locality-ordered topology (an isomorphism: semantics unchanged)
-    _, nbrs = locality_order(scale_free(n_replicas, 3, seed=11))
-    rt = ReplicatedRuntime(store, graph, n_replicas, nbrs, packed=True, device=dev)
+    rt = ReplicatedRuntime(store, graph, n_replicas, adcounter_topology(n_replicas),
+                           packed=True, device=dev)
 
     # publishers seed their ad sets at their server replicas
     rt.update_batch(ads_a, [(0, ("add_all", [f"ad{i}" for i in range(n_pub)]), "pub_a")])
@@ -1342,8 +1349,8 @@ def elastic_rebalance(
     ``topology``: ``"ring"`` (JAX's ``ring(n, 2)``) or ``"random_regular"``
     (``random_regular(n, 3, seed)``): a ring's diameter is half the
     population, so a write reaches every row of a large ring only after
-    that many rounds. JAX's ledger-attributed staged gossip bytes are
-    reported as None (the kernel ledger is not ported)."""
+    that many rounds. ``staged_gossip_ledger_bytes`` is the kernel cost
+    ledger's gossip bytes over the staged arm without waves, as JAX's."""
     from .membership import MembershipCoordinator
     from .bridge_state import to_numpy
     from .utils.metrics import Timer
@@ -1387,8 +1394,17 @@ def elastic_rebalance(
         rt.run_to_convergence()
         return rt
 
+    def gossip_bytes():
+        # the ledger's gossip families (every family but the transfer
+        # joins and the quorum control plane)
+        return sum(
+            r["bytes"] for r in get_ledger().snapshot()
+            if r["family"] not in ("handoff_transfer", "quorum_step")
+        )
+
     def run_arm(staged: bool, with_waves: bool = True):
         rt = build()
+        led0 = gossip_bytes()
         mc = None
         if staged:
             mc = MembershipCoordinator(rt, per_cycle=per_cycle)
@@ -1444,6 +1460,7 @@ def elastic_rebalance(
             "mc": mc,
             "during": during,
             "after": after,
+            "gossip_bytes": int(gossip_bytes() - led0),
             "transfer_bytes": (
                 int(mc.report()["transfer_bytes"]) if mc is not None else 0
             ),
@@ -1520,7 +1537,7 @@ def elastic_rebalance(
             "settle_rounds": staged["settle_rounds"],
             "rounds": staged["rounds"],
             "transfer_bytes": resync_staged["transfer_bytes"],
-            "staged_gossip_ledger_bytes": None,
+            "staged_gossip_ledger_bytes": resync_staged["gossip_bytes"],
             "full_resync_bytes": base_wire,
             "full_resync_rounds": base_rounds,
             "wire_vs_full_resync": base_wire / max(staged_wire, 1),
@@ -1555,3 +1572,159 @@ def elastic_rebalance(
         ),
         "device": str(dev),
     }
+
+
+def riak_index_events(seed: int, n_events: int, n_keys: int,
+                      index_names: int = 2, index_values: int = 8) -> list:
+    """A Riak object-event stream made from ``seed`` with numpy:
+    ``[((key, vclock, metadata, index_specs), reason), ...]``, 80% put, 10%
+    delete, 10% handoff over ``n_keys`` keys, a vclock distinct per event,
+    one or two ``("add", name, value)`` specs over ``index_names`` x
+    ``index_values``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_events):
+        key = f"key{int(rng.integers(n_keys))}"
+        u = rng.random()
+        reason = "put" if u < 0.8 else ("delete" if u < 0.9 else "handoff")
+        specs = tuple(
+            ("add", f"idx{int(rng.integers(index_names))}",
+             f"v{int(rng.integers(index_values))}")
+            for _ in range(int(rng.integers(1, 3)))
+        )
+        out.append(((key, ("vc", i), f"m{i}", specs), reason))
+    return out
+
+
+def riak_index_reference(events, keylist: str = "keylist") -> dict:
+    """The plain reference of the 2i index programs over ``events``, a host
+    dict model that never touches a runtime: ``{program name: keys}`` for
+    the total index, every subset view it registered and the keylist. A put
+    replaces a key's entries (a view keeps the key only when the put
+    carries its spec), a delete removes them, a handoff re-indexes only a
+    key the program holds no entry for; the total index registers one view
+    per observed spec, which first sees the NEXT event."""
+    from .programs.riak_index import BASE_NAME, view_name
+
+    indexes: dict = {BASE_NAME: (None, set())}  # name -> (spec | None, keys)
+    keys_seen: set = set()
+    for (key, _vclock, _meta, specs), reason in events:
+        keys_seen.add(key)
+        adds = [(n, v) for op, n, v in specs if op == "add"]
+        created = []
+        for name, (spec, keys) in list(indexes.items()):
+            if reason == "handoff" and key in keys:
+                continue  # an indexed key keeps its entry
+            keys.discard(key)
+            if reason == "delete":
+                continue
+            if spec is None or spec in adds:
+                keys.add(key)
+            if spec is None:
+                created += [s for s in adds if view_name(*s) not in indexes]
+        for s in created:
+            indexes.setdefault(view_name(*s), (s, set()))
+    out = {name: keys for name, (_spec, keys) in indexes.items()}
+    out[keylist] = keys_seen
+    return out
+
+
+def riak_index_2i(n_replicas: int = 64, n_events: int = 1024, n_keys: int = 48,
+                  index_names: int = 2, index_values: int = 8, n_shards: int = 4,
+                  seed: int = 29, device=None, keep_runtime: bool = False) -> dict:
+    """Lasp's programs end to end: a total ``RiakIndexProgram`` with auto
+    views (one 2i view per observed ``(name, value)`` spec) and an
+    ``ExampleKeylistProgram`` registered over ``n_replicas`` replicas on
+    ``random_regular(n, 3)``, every program at JAX's defaults (64 elements,
+    64 tokens, one actor). Each event of :func:`riak_index_events` goes
+    through ``process`` at row ``crc32(key) % n`` (a filled view compacts
+    through ``CapacityError``, ``compact_orset`` and ``run_to_convergence``,
+    as JAX's program does); the population converges under the runtime's
+    normal scheduler (``run_to_convergence(mode="auto")``); then one
+    ``ring_coverage_execute`` over ``n_shards`` shards answers every
+    program. It must equal per-program ``execute``, a quorum execute over
+    three rows and :func:`riak_index_reference`. With ``keep_runtime`` the
+    runtime rides in the report under ``"runtime"``."""
+    import zlib
+
+    from .programs import ExampleKeylistProgram, RiakIndexProgram
+    from .programs.riak_index import BASE_NAME
+    from .quorum.coverage import ring_coverage_execute
+
+    dev = resolve_device(device)
+    store = Store(n_actors=16, device=dev)
+    rt = ReplicatedRuntime(store, Graph(store), n_replicas,
+                           random_regular(n_replicas, 3, seed=seed), device=dev)
+    rt.register(BASE_NAME, RiakIndexProgram)
+    rt.register("keylist", ExampleKeylistProgram)
+    compactions = [0]
+    inner = rt.compact_orset
+
+    def counting(var_id):
+        out = inner(var_id)
+        compactions[0] += 1
+        return out
+
+    rt.compact_orset = counting
+    events = riak_index_events(seed, n_events, n_keys, index_names, index_values)
+    per_event = []
+    t_all = time.perf_counter()
+    for obj, reason in events:
+        row = zlib.crc32(obj[0].encode()) % n_replicas
+        t0 = time.perf_counter()
+        rt.process(obj, reason, "idx", replica=row)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        per_event.append(time.perf_counter() - t0)
+    process_s = time.perf_counter() - t_all
+    rounds, converge_s = _timed(dev, lambda: rt.run_to_convergence(mode="auto"))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    swept, sweep_s = _timed(dev, lambda: ring_coverage_execute(rt, n_shards=n_shards))
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    want = riak_index_reference(events)
+    names = sorted(rt.programs)
+    if sorted(want) != names:
+        raise RuntimeError(f"riak_index_2i: programs {names} != reference {sorted(want)}")
+    quorum_rows = np.random.default_rng(seed).choice(n_replicas, 3, replace=False)
+    for name in names:
+        got = swept[name]
+        if got != rt.execute(name):
+            raise RuntimeError(f"riak_index_2i: {name}: the sweep != execute")
+        if got != rt.execute(name, replicas=quorum_rows.tolist()):
+            raise RuntimeError(f"riak_index_2i: {name}: the sweep != quorum execute")
+        if got != want[name]:
+            raise RuntimeError(f"riak_index_2i: {name}: {sorted(got)} != "
+                               f"reference {sorted(want[name])}")
+    views = [n for n in names if n not in (BASE_NAME, "keylist")]
+    row_bytes = {n: rt._row_bytes(rt.programs[n].id) for n in names}
+    ms = np.asarray(per_event) * 1e3
+    out = {
+        "scenario": f"riak_index_2i_{n_replicas}",
+        "n_replicas": n_replicas,
+        "events": n_events,
+        "keys": n_keys,
+        "reasons": {r: sum(1 for _o, rr in events if rr == r)
+                    for r in ("put", "delete", "handoff")},
+        "programs": len(names),
+        "views": len(views),
+        "index_row_bytes": row_bytes[BASE_NAME],
+        "resident_index_bytes": sum(row_bytes[n] for n in names
+                                    if n != "keylist") * n_replicas,
+        "events_per_s": n_events / process_s,
+        "process_ms_p50": float(np.percentile(ms, 50)),
+        "process_ms_p99": float(np.percentile(ms, 99)),
+        "process_s": process_s,
+        "compactions": compactions[0],
+        "converge_rounds": rounds,
+        "converge_s": converge_s,
+        "sweep_s": sweep_s,
+        "sweep_shards": n_shards,
+        "sweep_peak_allocated_bytes": peak,
+        "values": {n: len(swept[n]) for n in names},
+        "check": "sweep == execute == quorum(3 rows) == host reference",
+        "device": str(dev),
+    }
+    if keep_runtime:
+        out["runtime"] = rt
+    return out

@@ -29,11 +29,14 @@ K2 / K3 read the ``bool[R, K]`` mask in frontier rounds; a masked dense
 round is plain PyTorch (K1 takes no mask), as in JAX. A fused window
 stacks its masks on the device once and runs the runtime's dense round per
 round with that round's slice, reading the ``int32[T, V]`` residuals in
-one host sync; the flight drain and the kernel ledger of the JAX window
-are not carried (their telemetry is not ported).
+one host sync; those rows are the window's flight record
+(``chaos_window``), drained into the telemetry plane with its ledger
+row.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -506,6 +509,7 @@ class ChaosRuntime:
         masks = self.schedule.masks(self.round, self.round + n_rounds)
         states_in = dict(rt.states)
         with span("chaos.fused_window", rounds=n_rounds):
+            t0 = time.perf_counter()
             try:
                 dev_masks = window_masks(masks, rt.device)
                 res = []
@@ -518,11 +522,20 @@ class ChaosRuntime:
             except Exception:
                 rt._restore_states(states_in)
                 raise
+            elapsed = time.perf_counter() - t0
         totals = res.sum(axis=1) if res.size else np.zeros(n_rounds, np.int64)
         # masks varied inside the block: even a zero tail only proves a
         # MASKED fixed point — degrade (the opaque-block rule)
         rt._frontier_after_opaque(False)
         rt.round_residuals.append(int(totals[-1]))
+        rt._record_rounds(n_rounds)
+        # flight drain: the window's [T, V] residual rows are its record
+        # (T rows, no modulo; quiescent=None — a masked zero round proves
+        # only a MASKED fixed point), plus the exact ledger join tally; the
+        # stacked-mask window is its own ledger family, keyed by length
+        joins = rt._drain_flight("chaos_window", res, n_rounds, None, elapsed)
+        rt._ledger_record_store("chaos_window", elapsed, n_rounds,
+                                block=n_rounds, joins=joins)
         self.fused_windows += 1
         self.fused_rounds += n_rounds
         for t in range(n_rounds):

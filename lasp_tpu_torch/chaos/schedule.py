@@ -144,7 +144,7 @@ class CorruptRows(NamedTuple):
     bit-rot, a bad kernel, a botched restore). Pure function of
     ``(seed, schedule, round)`` like every other event; no mask
     effect. Detection/repair is the AAE layer's job
-    (the AAE layer, not ported yet) — without it, gossip happily joins the
+    (the AAE layer) — without it, gossip happily joins the
     corruption outward."""
 
     at: int

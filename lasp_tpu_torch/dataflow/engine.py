@@ -20,6 +20,7 @@ counts.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 
 import torch
@@ -440,13 +441,25 @@ class Graph:
                     "failed to build; mode='fused' refuses the fallback"
                 )
             return None
+        from ..telemetry import counter
+
+        t0 = time.perf_counter()
         try:
             if ent is None:
                 ent = dplan.compile_fused(self, idx, states, tables)
                 self._cache.put(key, ent)
-            new_states, _counts, sweeps, pending = ent.fn(states, tables, limit)
+            out = ent.fn(states, tables, limit)
         except Exception as exc:  # noqa: BLE001 — the loud-fallback contract
             self._cache.poison(key)
+            counter(
+                "dataflow_plan_fallbacks_total",
+                help="fused-propagate fallbacks, by reason: `stack` = a "
+                     "same-signature group failed to trace stacked and "
+                     "was demoted to per-edge evaluation; `dispatch` = "
+                     "a fused megakernel failed to build or run and the "
+                     "propagate fell back to the per-edge path",
+                reason="dispatch",
+            ).inc()
             if strict:
                 raise
             warnings.warn(
@@ -456,6 +469,10 @@ class Graph:
                 stacklevel=3,
             )
             return None
+        secs = time.perf_counter() - t0
+        new_states, _counts, sweeps, pending = out[:4]
+        self._drain_propagate(ent, idx, out[4] if len(out) > 4 else None,
+                              sweeps, pending, secs)
         for i in idx:
             self._edge_ran[i] = True
         self.last_propagate = {
@@ -471,6 +488,39 @@ class Graph:
         # the loop stops right after its first unproductive sweep (the
         # convergence check), so rounds = sweeps - 1
         return max(sweeps - 1, 0)
+
+    @staticmethod
+    def _drain_propagate(ent, idx, ring, sweeps: int, pending: bool,
+                         secs: float) -> None:
+        """The fused propagate's flight drain and ledger row: the per-sweep
+        changed-flag ring into the window log (``dataflow_fused``) and one
+        ``dataflow_fused`` ledger record, its joins the exact (dst, sweep)
+        inflations when the ring kept every sweep."""
+        from ..telemetry import device as tel_flight
+        from ..telemetry import registry as tel_registry
+        from ..telemetry.roofline import get_ledger
+
+        joins = len(idx) * sweeps
+        if ring is not None and tel_registry.enabled():
+            records, overwritten = tel_flight.decode_ring(ring, sweeps)
+            if not overwritten:
+                joins = sum(sum(r) for r in records)
+            tel_flight.record_window(tel_flight.FlightWindow(
+                family="dataflow_fused",
+                columns=tuple(ent.dst_order),
+                rounds=sweeps,
+                overwritten=overwritten,
+                records=records,
+                seconds=secs,
+                quiescent=not pending,
+            ))
+        get_ledger().record(
+            "dataflow_fused", "Graph",
+            n_replicas=1, fanout=len(idx), seconds=secs,
+            row_bytes=ent.sweep_bytes, window=sweeps, rounds=sweeps,
+            bytes_moved=ent.sweep_bytes * sweeps,
+            joins=joins, n_vars=len(idx),
+        )
 
     def _propagate_per_edge(self, states, tables, dirty, limit) -> int:
         """Each sweep runs ONLY the edges whose sources moved — seeded from

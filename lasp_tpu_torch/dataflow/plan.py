@@ -18,8 +18,9 @@ each dst in edge-index order through the one merge chain
 edge's contribution is already absorbed in its dst (idempotent join).
 
 The built entries live in one FIFO-bounded :class:`PropagateCache` shared
-with the per-edge path's subset rounds. The JAX module's counters and
-gauges are not carried (telemetry is a later slice).
+with the per-edge path's subset rounds. Each compiled entry carries the
+flight ring's depth (``telemetry.device.flight_rounds``) and sets the
+``dataflow_plan_groups`` gauge, as JAX's.
 """
 
 from __future__ import annotations
@@ -337,8 +338,22 @@ def compile_fused(graph, idx, states, tables) -> FusedPropagate:
     meta = {d: graph._meta(d) for d in dst_order}
     round_fn = make_round_fn(edges, groups, meta, tuple(dst_order))
     n_dsts = len(dst_order)
+    # per-sweep changed flags into a modulo-K flight ring, drained on the
+    # syncs the propagate already performs
+    from ..telemetry import gauge
+    from ..telemetry.device import flight_rounds
+
+    flight_k = flight_rounds()
+    gauge(
+        "dataflow_plan_groups",
+        help="edge groups in the last compiled fused-propagate "
+             "megakernel (same-signature edges stack into one vmapped "
+             "contribution per group)",
+    ).set(len(groups))
     return FusedPropagate(
-        fn=lambda s, t, lim: fused_dataflow_rounds(round_fn, s, t, n_dsts, lim),
+        fn=lambda s, t, lim: fused_dataflow_rounds(
+            round_fn, s, t, n_dsts, lim, flight_rounds=flight_k
+        ),
         dst_order=tuple(dst_order),
         groups=tuple(tuple(g) for g in groups),
         n_stacked=sum(len(g) for g in groups if len(g) > 1),

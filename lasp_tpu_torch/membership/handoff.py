@@ -17,12 +17,15 @@ pairs) execute INCREMENTALLY, interleaved with live gossip / serve cycles:
 - **idempotent**: a transfer is a partial join, so the coordinator's
   finalize SWEEP re-joins pairs until a clean pass.
 
-The JAX package's ``handoff_transfer`` ledger record is not carried (its
-kernel ledger is not ported); :attr:`HandoffEngine.transfer_seconds`
-totals the dispatches' host time, device work included.
+Each plan group's transfer is one ``handoff_transfer`` record in the
+kernel cost ledger (``rows`` the real pairs: the port builds no pad slot);
+:attr:`HandoffEngine.transfer_seconds` totals the dispatches' host time,
+device work included.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ import torch
 from ..lattice.base import tree_leaves, tree_map
 from ..mesh.plan import signature_of
 from ..telemetry import counter, events as tel_events, gauge, span
+from ..telemetry.roofline import get_ledger
 from ..utils.metrics import Timer
 
 _OUTCOMES_HELP = (
@@ -64,6 +68,7 @@ def grouped_transfer(rt, pairs) -> int:
     total_changed = 0
     with span("membership.transfer", rows=len(pairs), groups=len(by_sig)):
         for members in by_sig.values():
+            t0 = time.perf_counter()
             for v in members:
                 pop = rt._population(v)
                 codec, spec = rt._mesh_meta(v)
@@ -77,6 +82,19 @@ def grouped_transfer(rt, pairs) -> int:
                 if ch_rows.size:
                     rt._mark_dirty_rows(v, ch_rows)
                     total_changed += int(ch_rows.size)
+            # the members' changed flags came to the host: the group's
+            # seconds close there
+            codec, _spec = rt._mesh_meta(members[0])
+            get_ledger().record(
+                "handoff_transfer",
+                getattr(codec, "name", type(codec).__name__),
+                n_replicas=rt.n_replicas,
+                fanout=1,
+                seconds=time.perf_counter() - t0,
+                row_bytes=rt._row_bytes(members[0]),
+                rows=len(pairs),
+                g_active=len(members),
+            )
     return total_changed
 
 

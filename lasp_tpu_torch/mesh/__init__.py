@@ -1,6 +1,7 @@
 """Mesh layer: replication, gossip / anti-entropy, the dispatch plan and
 reads over a leading replica axis, grouped ingest and the parked reads
-(port of ``lasp_tpu.mesh``; sharding and quorum FSMs are later slices)."""
+and the mesh programs (port of ``lasp_tpu.mesh``; sharding is a later
+slice)."""
 
 from .gossip import (
     converged,

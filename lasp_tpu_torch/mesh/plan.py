@@ -17,8 +17,8 @@ Grouping and order are exactly the JAX package's: groups in first-appearance
 order of their signature, members in ``var_ids`` order, and a variable whose
 spec does not hash rides alone as a singleton group after the others. The
 plan is host bookkeeping only; the runtime owns compilation and
-invalidation. The JAX module's telemetry counters and gauges are not
-carried.
+invalidation. Each compilation counts ``plan_compile_total`` and sets the
+``gossip_plan_groups`` / ``gossip_plan_vars_per_dispatch`` gauges, as JAX's.
 
 :func:`stack_group` / :func:`unstack_group` are the ``[G, R, ...]`` stacking
 helpers of the JAX plan. The port's runtime does not stack member
@@ -34,6 +34,7 @@ import dataclasses
 import torch
 
 from ..lattice.base import tree_map
+from ..telemetry import counter, gauge
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +110,23 @@ def compile_plan(runtime) -> DispatchPlan:
     for v in singletons:
         codec, spec = runtime._mesh_meta(v)
         groups.append(PlanGroup(var_ids=(v,), codec=codec, spec=spec))
-    return DispatchPlan(groups=tuple(groups), n_replicas=runtime.n_replicas)
+    plan = DispatchPlan(groups=tuple(groups), n_replicas=runtime.n_replicas)
+    counter(
+        "plan_compile_total",
+        help="dispatch-plan compilations (grouping walks, host-side)",
+    ).inc()
+    gauge(
+        "gossip_plan_groups",
+        help="variable groups in the current dispatch plan (same-codec "
+             "variables stack into one kernel per group)",
+    ).set(len(plan.groups))
+    if plan.groups:
+        gauge(
+            "gossip_plan_vars_per_dispatch",
+            help="mean variables served per stacked dispatch under the "
+                 "current plan (refreshed per planned frontier round)",
+        ).set(round(plan.n_vars / len(plan.groups), 3))
+    return plan
 
 
 def stack_group(states_seq):

@@ -67,8 +67,15 @@ commit advances ``membership_epoch``, re-validates the topology and drops
 every view sized by the old population; departed actor sites move to
 their claim successor or retire to ``-1``.
 
-Programs and sharding are later slices (``shard`` and ``register`` raise
-``NotImplementedError``); telemetry is not carried.
+Mesh programs: ``register`` / ``process`` / ``execute`` / ``programs``
+(``mesh.programs.MeshSession`` binds a program's reads and writes to one
+row, or to the coverage join). Telemetry: every stepping entry feeds the
+metric registry, the ConvergenceMonitor, the causal event log and the
+kernel cost ledger (``_emit_step_telemetry``, ``_emit_frontier_telemetry``,
+``_ledger_record_var`` / ``_ledger_record_store``), and the fused windows
+(``begin_fused_steps``, ``converge_on_device``) carry a flight ring on the
+device, drained after their sync (``_drain_flight``). Sharding is a later
+slice (``shard`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -90,9 +98,16 @@ from ..membership.plan import claim_targets
 from ..ops import cuda_gossip
 from ..ops.flatpack import FlatORSet, FlatORSetSpec
 from ..store.store import PreconditionError
+from ..telemetry import counter, gauge, histogram, span
+from ..telemetry import device as tel_flight
+from ..telemetry import events as tel_events
+from ..telemetry import registry as tel_registry
+from ..telemetry.convergence import get_monitor, record_membership
+from ..telemetry.roofline import get_ledger
 from ..utils.interning import CapacityError
 from . import ingest as ingest_mod
 from .gossip import (
+    _word_planes,
     divergence,
     frontier_reach,
     gossip_round,
@@ -246,14 +261,21 @@ class FusedBlockHandle:
     round bookkeeping ``fused_steps`` does inline. ``finish`` is
     idempotent: the first call resolves, later calls return the result."""
 
-    __slots__ = ("_rt", "_first_zero", "_states_in", "_result")
+    __slots__ = ("_rt", "_block", "_first_zero", "_states_in", "_flight",
+                 "_t0", "_result")
 
-    def __init__(self, rt, first_zero, states_in):
+    def __init__(self, rt, block, first_zero, states_in, flight, t0):
         self._rt = rt
+        self._block = block
         self._first_zero = first_zero
         #: the states from before the window, held until the sync
         #: succeeds: the port never donates, so a failed sync restores them
         self._states_in = states_in
+        #: the window's flight ring (``int32[K, V]`` per-round residual
+        #: records on the device), drained after the sync; None with
+        #: telemetry off
+        self._flight = flight
+        self._t0 = t0
         self._result: "int | None" = None
 
     @property
@@ -272,8 +294,21 @@ class FusedBlockHandle:
             raise
         finally:
             self._states_in = None
+        elapsed = time.perf_counter() - self._t0
+        block = self._block
         rt._frontier_after_opaque(first_zero >= 0)
         rt.round_residuals.append(-1 if first_zero < 0 else 0)
+        rt._record_rounds(block)  # the block runs every one of its rounds
+        # the flight drain rides the sync above: real per-round residual
+        # records, and the exact changed-state tally for the ledger
+        flight, self._flight = self._flight, None
+        joins = None
+        if flight is not None:
+            joins = rt._drain_flight(
+                "fused_block", flight, block, first_zero >= 0, elapsed
+            )
+        rt._ledger_record_store("fused_block", elapsed, block, block=block,
+                                joins=joins)
         self._result = first_zero
         return first_zero
 
@@ -353,6 +388,14 @@ class ReplicatedRuntime:
         self._aae_dirty: "dict | None" = None
         self._aae_state_epoch = 0
         self._aae_tree_epoch = 0
+        #: mesh-level programs by name and their session (:meth:`register`)
+        self._programs: dict = {}
+        self._program_session = None
+        #: hot-path instrument cache (:meth:`_instruments`)
+        self._tel_cache = None
+        #: bytes one pull round moves (``_traffic_estimate``), refreshed by
+        #: every stepping entry
+        self._round_traffic = 0
         self._sync_graph()
 
     def _sync_graph(self) -> None:
@@ -384,7 +427,7 @@ class ReplicatedRuntime:
         """Drop the compiled dispatch plan so the next stepping call
         regroups. ``reason``: ``var_set`` (late declare) or ``mask_change``
         (edge-mask identity changed), the port's triggers of the JAX set
-        (which also counts them by reason; telemetry is not carried). The
+        (``plan_invalidation_total`` counts them by reason). The
         row-footprint cache drops with it, and the AAE epochs advance as
         JAX's do: a mask flip bumps the tree epoch, a restore neither (the
         reseeded row is marked AAE-dirty itself), anything else the state
@@ -394,7 +437,14 @@ class ReplicatedRuntime:
             self._aae_tree_epoch += 1
         elif reason != "restore":
             self._aae_state_epoch += 1
+        if self._plan is None:
+            return
         self._plan = None
+        counter(
+            "plan_invalidation_total",
+            help="dispatch-plan invalidations by trigger",
+            reason=reason,
+        ).inc()
 
     def _ensure_plan(self):
         """The current :class:`~.plan.DispatchPlan`, or None with planning
@@ -477,12 +527,78 @@ class ReplicatedRuntime:
             (fn, frozenset(touches) if touches is not None else None, builder)
         )
 
+    # -- mesh-level programs (L5 over L2, src/lasp_vnode.erl:276-366) ----------
+    def _session(self):
+        if self._program_session is None:
+            from .programs import MeshSession
+
+            self._program_session = MeshSession(self)
+        return self._program_session
+
+    def register(self, name: str, program_cls, *args, **kwargs) -> str:
+        """Deploy a program over the replica population — ``lasp:register/4
+        global`` (``src/lasp_register_global_fsm.erl:103-130``). ``init``
+        declares the program's accumulator variable, which the runtime
+        replicates over every row on its device (register on every
+        partition). Idempotent, like the vnode's dets check
+        (``src/lasp_vnode.erl:283-291``)."""
+        if name in self._programs:
+            return name
+        program = program_cls(*args, **kwargs)
+        program.init(self._session())
+        self._programs[name] = program
+        return name
+
+    def process(self, object, reason, actor, replica: int = 0) -> None:
+        """Targeted object-event delivery — ``lasp:process/4`` via the
+        PROCESS_R=1 FSM (``src/lasp_process_fsm.erl:113-135``): every
+        registered program's ``process`` runs against the ONE replica row
+        named by ``replica``, whose local view it reads and writes; the
+        write spreads to the population by gossip. Deliver all events for
+        one logical key to the same row: remove-then-add programs (the 2i
+        index) read their own earlier writes from the local row."""
+        if not 0 <= replica < self.n_replicas:
+            raise IndexError(
+                f"replica {replica} out of range for {self.n_replicas}"
+            )
+        session = self._session()
+        prev = session.replica
+        session.replica = replica
+        try:
+            # snapshot: a program may register programs (create_views); a
+            # view registered by this event first sees the NEXT event, like
+            # the reference's async spawn
+            for program in list(self._programs.values()):
+                program.process(session, object, reason, actor)
+        finally:
+            session.replica = prev
+
+    def execute(self, name: str, replicas=None):
+        """Program result over the population. ``replicas=None`` is the
+        ring-coverage execute: the program reads the GLOBAL join of its
+        accumulator (``src/lasp_execute_coverage_fsm.erl:57-94``). A replica
+        list is the preflist-quorum variant (``src/lasp_execute_fsm.erl:
+        135-148``): the join of just those rows."""
+        program = self._programs[name]
+        session = self._session()
+        # save/restore: a program's process callback may call execute
+        # (consulting another program's result); the row binding must
+        # survive for the rest of the delivery loop
+        prev_replica, prev_quorum = session.replica, session.quorum
+        session.replica, session.quorum = None, replicas
+        try:
+            return program.value(program.execute(session))
+        finally:
+            session.replica, session.quorum = prev_replica, prev_quorum
+
+    @property
+    def programs(self) -> dict:
+        """Registered programs by name (a copy)."""
+        return dict(self._programs)
+
     # -- not ported yet --------------------------------------------------------
     def shard(self, *args, **kwargs):
         _not_ported("shard")
-
-    def register(self, *args, **kwargs):
-        _not_ported("register (mesh programs)")
 
     # -- the actor guard (debug_actors) ----------------------------------------
     #: the types whose ops mint per-actor lane events: the OR-SWOT (vclock
@@ -799,9 +915,25 @@ class ReplicatedRuntime:
         report["fallback_vars"] = [
             p.var_id for p in pendings if p.table is None and not p.encode_failed
         ]
+        if tabled or report["ops"]:
+            self._observe_ingest(report)
         if errors and not isolate_errors:
             raise next(iter(errors.values()))
         return report
+
+    def _observe_ingest(self, report: dict) -> None:
+        """Fold the cycle's ingest accounting into the convergence
+        observatory (``health()["ingest"]``): a dict update."""
+        if self._instruments() is None:  # telemetry disabled
+            return
+        get_monitor().observe_ingest(
+            ops=report["ops"],
+            dispatches=report["dispatches"],
+            grouped_vars=report["grouped_vars"],
+            fallback_vars=len(report["fallback_vars"]),
+            pad_slots=report.get("pad_slots", 0),
+            table_slots=report.get("table_slots", 0),
+        )
 
     def _ingest_apply_groups(self, tabled: list) -> dict:
         """Land the cycle's op tables: group them by the gossip plan's
@@ -819,6 +951,7 @@ class ReplicatedRuntime:
         n_groups = slots = padded = 0
         for (_sig, kind), members in groups.items():
             tables = [p.table for p in members]
+            t0 = time.perf_counter()
             try:
                 changed = ingest_mod.apply_group(
                     kind, [self.states[p.var_id] for p in members], tables,
@@ -831,9 +964,34 @@ class ReplicatedRuntime:
             for p, ch in zip(members, changed):
                 p.marks = np.flatnonzero(ch)
             buckets, pad_slots = ingest_mod.table_buckets(tables)
+            self._ledger_record_var(
+                "ingest_apply", members[0].var_id, time.perf_counter() - t0,
+                rows=max((b for _n, b in buckets), default=0),
+                g_active=len(members),
+            )
             n_groups += 1
             slots += sum(b for _n, b in buckets) * len(members)
             padded += pad_slots
+        if n_groups:
+            counter(
+                "ingest_apply_dispatches_total",
+                help="grouped ingest kernel dispatches (one per active "
+                     "dispatch-plan group per cycle)",
+            ).inc(n_groups)
+            counter(
+                "ingest_ops_total",
+                help="client ops applied through the grouped ingest arm",
+            ).inc(sum(p.table.n_ops for p in tabled))
+            counter(
+                "ingest_pad_slots_total",
+                help="bucket-padding waste of stacked ingest tables "
+                     "(pad scatter slots, dropped in-kernel)",
+            ).inc(padded)
+            gauge(
+                "ingest_group_occupancy",
+                help="variables served per grouped ingest dispatch in "
+                     "the last cycle (mean)",
+            ).set(round(len([p for p in tabled if p.table.slots]) / n_groups, 3))
         return {
             "dispatches": n_groups,
             "groups": n_groups,
@@ -848,6 +1006,15 @@ class ReplicatedRuntime:
         superset), the edge tables' refresh (a failed batch's persisted
         prefix interned terms too), the actor guard's site commits for the
         ops that applied."""
+        counter(
+            "update_batch_ops_total",
+            help="client ops submitted through update_batch",
+        ).inc(len(p.ops))
+        # one coarse causal record per batch (the hot-path rule)
+        tel_events.emit(
+            "update", var=p.var_id, ops=len(p.ops), type=p.tn,
+            failed=p.err is not None,
+        )
         if p.marks is not None:
             if len(p.marks):
                 self._mark_dirty_rows(p.var_id, p.marks)
@@ -1577,6 +1744,310 @@ class ReplicatedRuntime:
             # site for rows that were never written
             self._actor_sites.update(staged)
 
+    # -- per-step telemetry (the registry, the monitor, the event log, the
+    # kernel cost ledger and the flight ring) ----------------------------------
+    def _instruments(self) -> "dict | None":
+        """Hot-path instrument cache (None when telemetry is disabled): the
+        name + label registry lookups are resolved once, keyed on the
+        registry generation (``telemetry.reset()`` detaches them), the var
+        set and the edge-kind census."""
+        if not tel_registry.enabled():
+            return None
+        gen = tel_registry.generation()
+        kinds = tuple(e.kind for e in self.graph.edges)
+        cache = self._tel_cache
+        if (cache is not None and cache[0] == gen and cache[1] == self.var_ids
+                and cache[2] == kinds):
+            return cache[3]
+        reg = tel_registry.get_registry()
+        by_kind: dict = {}
+        for k in kinds:
+            by_kind[k] = by_kind.get(k, 0) + 1
+        inst = {
+            "rounds": reg.counter(
+                "gossip_rounds_total", help="gossip rounds executed"
+            ),
+            "bytes": reg.counter(
+                "gossip_bytes_exchanged_total",
+                help="estimated bytes moved by gossip gathers (see "
+                     "gossip.round_traffic_bytes)",
+            ),
+            "round_seconds": reg.histogram(
+                "gossip_round_seconds",
+                help="wall time per unfused gossip round",
+            ),
+            "residual": [
+                reg.gauge(
+                    "gossip_residual",
+                    help="replicas whose state the last round changed, "
+                         "per var",
+                    var=v,
+                )
+                for v in self.var_ids
+            ],
+            "frontier_rows": [
+                reg.gauge(
+                    "gossip_frontier_rows",
+                    help="dirty-replica frontier size after the last "
+                         "frontier round, per var",
+                    var=v,
+                )
+                for v in self.var_ids
+            ],
+            "frontier_last": [None] * len(self.var_ids),
+            "residual_last": [None] * len(self.var_ids),
+            "frontier_rounds": reg.counter(
+                "gossip_frontier_rounds_total",
+                help="frontier-scheduled gossip rounds executed",
+            ),
+            "plan_vars_per_dispatch": reg.gauge(
+                "gossip_plan_vars_per_dispatch",
+                help="mean variables served per stacked dispatch under "
+                     "the current plan (refreshed per planned frontier "
+                     "round)",
+            ),
+            # each step re-evaluates every edge's contribution once per
+            # round: (counter, edges of the kind)
+            "edge_recomputes": [
+                (
+                    reg.counter(
+                        "dataflow_edge_recomputes_total",
+                        help="edge contribution evaluations, by "
+                             "combinator kind",
+                        kind=k,
+                    ),
+                    cnt,
+                )
+                for k, cnt in by_kind.items()
+            ],
+        }
+        self._tel_cache = (gen, self.var_ids, kinds, inst)
+        return inst
+
+    def _record_rounds(self, n: int) -> None:
+        """Registry bookkeeping for ``n`` executed gossip rounds — the one
+        emission point of every dense stepping entry."""
+        tel = self._instruments()
+        if tel is None:
+            return
+        tel["rounds"].inc(n)
+        tel["bytes"].inc(self._round_traffic * n)
+        for c, edges_of_kind in tel["edge_recomputes"]:
+            c.inc(n * edges_of_kind)
+
+    def _ledger_fanout(self) -> int:
+        """The per-replica neighbour fanout: the one definition behind the
+        ledger's signatures and the bytes counter."""
+        return (
+            int(self._host_neighbors.shape[1])
+            if self._host_neighbors.ndim == 2 else 0
+        )
+
+    def _ledger_record_var(self, family: str, var_id: str, seconds: float,
+                           rows: "int | None" = None,
+                           g_active: int = 1) -> None:
+        """Attribute one per-var / per-group dispatch to the kernel cost
+        ledger under its (codec, R, fanout, bucket, G) signature."""
+        if not tel_registry.enabled():
+            return
+        codec, _spec = self._mesh_meta(var_id)
+        get_ledger().record(
+            family,
+            codec.__name__,
+            n_replicas=self.n_replicas,
+            fanout=self._ledger_fanout(),
+            seconds=seconds,
+            row_bytes=self._row_bytes(var_id),
+            rows=rows,
+            g_active=g_active,
+            leafwise=getattr(codec, "leafwise_join", None) is not None,
+        )
+
+    def _ledger_record_store(self, family: str, seconds: float, rounds: int,
+                             block: "int | None" = None,
+                             joins: "int | None" = None) -> None:
+        """Attribute one whole-store window (step, fused block, converge,
+        chaos window): bytes are the per-round wire estimate the bytes
+        counter uses; ``block`` keys fixed-length windows; ``joins``, when
+        the flight ring kept every round, is the exact changed-state tally
+        in place of the ``R·fanout·V·rounds`` bound."""
+        if not tel_registry.enabled():
+            return
+        n_vars = max(len(self.var_ids), 1)
+        get_ledger().record(
+            family,
+            f"store{n_vars}",
+            n_replicas=self.n_replicas,
+            fanout=self._ledger_fanout(),
+            seconds=seconds,
+            bytes_moved=self._round_traffic * rounds,
+            joins=(
+                joins if joins is not None
+                else self.n_replicas * self._ledger_fanout() * n_vars * rounds
+            ),
+            rounds=rounds,
+            rows=block,
+            n_vars=n_vars,
+        )
+
+    def _emit_step_telemetry(self, res_vec, residual: int,
+                             elapsed: float) -> None:
+        """The whole per-step host-side emission (factored out so the
+        overhead guard times exactly this path): the residual trace always
+        records; registry, monitor and events no-op when disabled."""
+        self.round_residuals.append(residual)
+        self._record_rounds(1)
+        self._ledger_record_store("step", elapsed, 1)
+        tel = self._instruments()
+        if tel is not None:
+            res_list = [int(r) for r in res_vec.tolist()]
+            res_last = tel["residual_last"]
+            for i, (g, r) in enumerate(zip(tel["residual"], res_list)):
+                g.set(r)
+                # keeps the frontier path's skip-if-unchanged cache coherent
+                res_last[i] = r
+            tel["round_seconds"].observe(elapsed)
+            mon = get_monitor()
+            mon.observe_round(self.var_ids, res_list, elapsed, self.n_replicas)
+            tel_events.set_round(mon.round)
+            tel_events.emit(
+                "delivery",
+                residual=int(residual),
+                seconds=round(elapsed, 6),
+                n_replicas=self.n_replicas,
+            )
+
+    def _flight_ring(self):
+        """A fresh flight ring for one fused window (``int32[K, V]`` on the
+        runtime's device), or None with telemetry off."""
+        if not tel_registry.enabled():
+            return None
+        return tel_flight.ring_init(
+            tel_flight.flight_rounds(), len(self.var_ids), device=self.device
+        )
+
+    def _drain_flight(self, family: str, ring, rounds: int,
+                      quiescent: "bool | None", elapsed: float) -> "int | None":
+        """Drain one fused window's flight ring into the host telemetry
+        plane, after the sync the caller already made: per retained round
+        ``ConvergenceMonitor.observe_round`` (the curve points the unfused
+        step gives) and one ``delivery`` event with round provenance; the
+        overwritten prefix only advances the monitor's clock; the window
+        lands in ``telemetry.device``'s log. Returns the exact
+        changed-state total (the ledger's joins), or None when telemetry
+        is off or the ring lost rounds."""
+        if rounds <= 0 or self._instruments() is None:
+            return None
+        ids = self.var_ids
+        records, overwritten = tel_flight.decode_ring(ring, rounds)
+        mon = get_monitor()
+        if overwritten:
+            mon.observe_opaque_rounds(overwritten, None)
+        first_round = mon.round + 1
+        per_round = elapsed / max(rounds, 1)
+        for rec in records:
+            mon.observe_round(ids, rec, per_round, self.n_replicas)
+        tel_events.set_round(mon.round)
+        for i, rec in enumerate(records):
+            tel_events.emit(
+                "delivery",
+                round=first_round + i,
+                residual=int(sum(rec)),
+                fused=family,
+                n_replicas=self.n_replicas,
+            )
+        tel_flight.record_window(tel_flight.FlightWindow(
+            family=family,
+            columns=tuple(str(v) for v in ids),
+            rounds=int(rounds),
+            overwritten=int(overwritten),
+            records=records,
+            seconds=float(elapsed),
+            quiescent=quiescent,
+            first_round=first_round,
+        ))
+        total = sum(sum(rec) for rec in records)
+        return None if overwritten else int(total)
+
+    @staticmethod
+    def _record_quiescence(rounds: int) -> int:
+        histogram(
+            "gossip_rounds_to_quiescence",
+            help="rounds a convergence run took to reach the fixed point",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 1024),
+        ).observe(rounds)
+        return rounds
+
+    def _emit_frontier_telemetry(self, per_var_changed, total: int,
+                                 rows_touched: int, skipped: int,
+                                 dense_falls: int, elapsed: float,
+                                 dispatches: int) -> None:
+        """The frontier round's host-side emission, the frontier twin of
+        :meth:`_emit_step_telemetry`: the same trace row and monitor feed,
+        bytes scaled by the rows actually gathered, per-var gauges set only
+        when their value moved."""
+        self.round_residuals.append(total)
+        tel = self._instruments()
+        if tel is None:
+            return
+        tel["rounds"].inc(1)
+        frac = rows_touched / max(self.n_replicas * len(self.var_ids), 1)
+        tel["bytes"].inc(int(self._round_traffic * frac))
+        for c, edges_of_kind in tel["edge_recomputes"]:
+            c.inc(edges_of_kind)
+        tel["frontier_rounds"].inc()
+        if dense_falls:
+            counter(
+                "gossip_frontier_dense_fallbacks_total",
+                help="dense rounds/runs taken where frontier "
+                     "scheduling was requested, by reason",
+                reason="crossover",
+            ).inc(dense_falls)
+        res_last, f_last = tel["residual_last"], tel["frontier_last"]
+        for i, c in enumerate(per_var_changed):
+            c = int(c)
+            if res_last[i] != c:
+                tel["residual"][i].set(c)
+                res_last[i] = c
+            # the post-round frontier IS the round's changed mask
+            if f_last[i] != c:
+                tel["frontier_rows"][i].set(c)
+                f_last[i] = c
+        if dispatches and self._plan is not None:
+            tel["plan_vars_per_dispatch"].set(
+                round((len(self.var_ids) - skipped) / dispatches, 3)
+            )
+        tel["round_seconds"].observe(elapsed)
+        mon = get_monitor()
+        mon.observe_round(self.var_ids, per_var_changed, elapsed, self.n_replicas)
+        mon.observe_frontier(self.var_ids, per_var_changed)
+        tel_events.set_round(mon.round)
+        tel_events.emit(
+            "delivery",
+            residual=int(total),
+            seconds=round(elapsed, 6),
+            n_replicas=self.n_replicas,
+            frontier_rows=int(rows_touched),
+        )
+        if skipped:
+            tel_events.emit(
+                "frontier_skip", skipped=int(skipped), of=len(self.var_ids),
+            )
+
+    def _kernel_family(self, var_id: str, masked: bool, rows: bool) -> str:
+        """The ledger family of one dispatch of ``var_id``: the CUDA
+        kernel's (``cuda_rows`` for K2 / K3, ``cuda_dense`` for K1) where
+        the round launches it, else the plain arm's (``rows`` /
+        ``dense``)."""
+        codec, spec = self._mesh_meta(var_id)
+        st = self.states[var_id]
+        if st[0].device.type == "cuda":
+            if rows and cuda_gossip.rows_plan_of(codec, spec, st) is not None:
+                return "cuda_rows"
+            if not rows and not masked and _word_planes(codec, st):
+                return "cuda_dense"
+        return "rows" if rows else "dense"
+
     # -- dense engine ----------------------------------------------------------
     def _ensure_step(self) -> tuple:
         """Shared prologue of every dense stepping call: fold in edges added
@@ -1584,12 +2055,15 @@ class ReplicatedRuntime:
         anew (client writes grow the interners the tables index)."""
         if self._n_edges != len(self.graph.edges):
             self._sync_graph()
+        # the per-round wire estimate behind gossip_bytes_exchanged_total and
+        # the whole-store ledger rows (metadata only)
+        self._round_traffic = self._traffic_estimate()
         return self.graph.device_tables(self.device)
 
     def _traffic_estimate(self) -> int:
         """Bytes ONE pull round moves: every variable's whole population,
         once per neighbour slot (``mesh.gossip.round_traffic_bytes``)."""
-        k = int(self._host_neighbors.shape[1]) if self._host_neighbors.ndim == 2 else 0
+        k = self._ledger_fanout()
         return sum(round_traffic_bytes(st, k) for st in self.states.values())
 
     def _row_bytes(self, var_id: str) -> int:
@@ -1668,28 +2142,45 @@ class ReplicatedRuntime:
         CHANGED (0 on the quiescent round)."""
         tables = self._ensure_step()
         self._frontier_sync_mask(edge_mask)
-        res_vec = self._dense_round(edge_mask, tables).cpu()
+        with span("gossip.round", annotate=True):
+            t0 = time.perf_counter()
+            # the host read of the residual vector closes the timing window
+            res_vec = self._dense_round(edge_mask, tables).cpu()
+            elapsed = time.perf_counter() - t0
         residual = int(res_vec.sum())
         self._frontier_after_dense(res_vec.numpy())
-        self.round_residuals.append(residual)
+        self._emit_step_telemetry(res_vec, residual, elapsed)
         return residual
 
-    def _enqueue_block(self, block: int, edge_mask, tables) -> torch.Tensor:
+    def _enqueue_block(self, block: int, edge_mask, tables, ring=None,
+                       base: int = 0, gated: bool = False) -> torch.Tensor:
         """Enqueue ``block`` full steps; returns the device-side 0-based
         index of the block's first quiescent round, or -1, without a host
-        sync."""
+        sync. With a flight ``ring``, round ``i``'s per-var residual vector
+        lands at slot ``(base + i) % K``: the block's rounds in one copy
+        after the block, or, ``gated``, one write a round (its index kept on
+        the device) of only the rounds up to and including the first
+        quiescent one (``converge_on_device``'s loop stops there, so the
+        no-op rounds after it are not rounds of the run)."""
         first_zero = torch.full((), -1, dtype=torch.int32, device=self.device)
+        index = (
+            torch.arange(block, dtype=torch.int64, device=self.device) + base
+            if ring is not None and gated else None
+        )
+        records = []
         for i in range(block):
-            residual = self._dense_round(edge_mask, tables).sum()
+            res_vec = self._dense_round(edge_mask, tables)
+            if index is not None:
+                tel_flight.ring_write(ring, index[i], res_vec, when=first_zero < 0)
+            elif ring is not None:
+                records.append(res_vec)
             first_zero = torch.where(
-                (first_zero < 0) & (residual == 0), i, first_zero
+                (first_zero < 0) & (res_vec.sum() == 0), i, first_zero
             )
+        if records:
+            # an ungated window keeps every round: one copy for the block
+            tel_flight.ring_write_block(ring, base, records)
         return first_zero
-
-    def _fused_block(self, block: int, edge_mask, tables) -> int:
-        """``block`` full steps with one host sync at the end: the 0-based
-        index of the first quiescent round, or -1."""
-        return int(self._enqueue_block(block, edge_mask, tables))
 
     def _restore_states(self, states_in: dict) -> None:
         """Put back the populations of a window that failed (the port never
@@ -1708,12 +2199,14 @@ class ReplicatedRuntime:
         tables = self._ensure_step()
         self._frontier_sync_mask(edge_mask)
         states_in = dict(self.states)
+        t0 = time.perf_counter()
+        ring = self._flight_ring()
         try:
-            first_zero = self._enqueue_block(block, edge_mask, tables)
+            first_zero = self._enqueue_block(block, edge_mask, tables, ring)
         except Exception:
             self._restore_states(states_in)
             raise
-        return FusedBlockHandle(self, first_zero, states_in)
+        return FusedBlockHandle(self, block, first_zero, states_in, ring, t0)
 
     def fused_steps(self, block: int, edge_mask=None) -> int:
         """Run ``block`` full steps (sweep + triggers + gossip + residual)
@@ -1737,9 +2230,11 @@ class ReplicatedRuntime:
         included (the :meth:`run_to_convergence` count). When the budget
         runs out it raises, or with ``strict=False`` returns
         ``-rounds_executed``. Up to 7 no-op rounds may run past the fixed
-        point inside the last block. ``sync_every`` is checked as in JAX;
-        the partitioned arm that reads it stays with ``shard``, which is
-        not ported."""
+        point inside the last block; the flight ring (``_drain_flight``,
+        family ``converge``) records only the rounds JAX's loop runs, the
+        quiescent one included. ``sync_every`` is checked as in JAX; the
+        partitioned arm that reads it stays with ``shard``, which is not
+        ported."""
         if max_rounds < 1:
             raise ValueError("max_rounds must be >= 1")
         if sync_every < 0:
@@ -1748,18 +2243,38 @@ class ReplicatedRuntime:
         self._frontier_sync_mask(edge_mask)
         rounds = 0
         signed = None
-        while signed is None:
-            block = min(_CONVERGE_BLOCK, max_rounds - rounds)
-            first = self._fused_block(block, edge_mask, tables)
-            if first >= 0:
-                signed = rounds + first + 1
-            else:
-                rounds += block
-                if rounds >= max_rounds:
-                    signed = -rounds
+        with span("gossip.converge", annotate=True):
+            t0 = time.perf_counter()
+            # the flight ring records the rounds JAX's while loop runs, in
+            # its order: a block's no-op rounds after the fixed point are
+            # gated out on the device
+            ring = self._flight_ring()
+            while signed is None:
+                block = min(_CONVERGE_BLOCK, max_rounds - rounds)
+                first = int(self._enqueue_block(
+                    block, edge_mask, tables, ring, base=rounds, gated=True
+                ))  # the block's one host sync
+                if first >= 0:
+                    signed = rounds + first + 1
+                else:
+                    rounds += block
+                    if rounds >= max_rounds:
+                        signed = -rounds
+            elapsed = time.perf_counter() - t0
         self._frontier_after_opaque(signed > 0)
         # 0 = reached the fixed point; -1 = the budget ran out
         self.round_residuals.append(0 if signed > 0 else -1)
+        self._record_rounds(abs(signed))
+        joins = None
+        if ring is not None:
+            joins = self._drain_flight(
+                "converge", ring, abs(signed), signed > 0, elapsed
+            )
+        if signed:
+            self._ledger_record_store("converge", elapsed, abs(signed),
+                                      joins=joins)
+        if signed > 0:
+            self._record_quiescence(signed)
         if signed < 0 and strict:
             raise RuntimeError(f"no convergence within {-signed} rounds")
         return signed
@@ -1779,18 +2294,27 @@ class ReplicatedRuntime:
                 return self._frontier_convergence(max_rounds, edge_mask)
             if mode == "frontier":
                 raise RuntimeError(f"frontier gossip unavailable here: {reason}")
+            # auto degraded to dense, observably
+            key = "dataflow"
+            counter(
+                "gossip_frontier_dense_fallbacks_total",
+                help="dense rounds/runs taken where frontier scheduling "
+                     "was requested, by reason",
+                reason=key,
+            ).inc()
+            tel_events.emit("frontier_skip", fallback=key, mode="auto")
         if block > 1:
             rounds = 0
             while rounds < max_rounds:
                 b = min(block, max_rounds - rounds)
                 first_zero = self.fused_steps(b, edge_mask)
                 if first_zero >= 0:
-                    return rounds + first_zero + 1
+                    return self._record_quiescence(rounds + first_zero + 1)
                 rounds += b
             raise RuntimeError(f"no convergence within {max_rounds} rounds")
         for i in range(max_rounds):
             if self.step(edge_mask) == 0:
-                return i + 1
+                return self._record_quiescence(i + 1)
         raise RuntimeError(f"no convergence within {max_rounds} rounds")
 
     # -- frontier engine -------------------------------------------------------
@@ -1892,27 +2416,37 @@ class ReplicatedRuntime:
         if reason is not None:
             raise RuntimeError(f"frontier_step unavailable: {reason}")
         self._frontier_sync_mask(edge_mask)
+        if not self._round_traffic:
+            self._round_traffic = self._traffic_estimate()
         plan = self._ensure_plan()
-        if plan is None:
-            stats = self._frontier_round_pervar(edge_mask)
-        else:
-            stats = self._frontier_round_planned(plan, edge_mask)
+        skipped = sum(not self._frontier_mask_of(v).any() for v in self.var_ids)
+        with span("gossip.frontier_round", annotate=True):
+            t0 = time.perf_counter()
+            if plan is None:
+                stats = self._frontier_round_pervar(edge_mask)
+            else:
+                stats = self._frontier_round_planned(plan, edge_mask)
+            elapsed = time.perf_counter() - t0
         total = sum(stats["per_var_changed"])
         self.frontier_rows_last = stats["rows_touched"]
         self.frontier_dense_falls_last = stats["dense_falls"]
-        self.round_residuals.append(total)
+        self._emit_frontier_telemetry(
+            stats["per_var_changed"], total, stats["rows_touched"], skipped,
+            stats["dense_falls"], elapsed, stats["dispatches"],
+        )
         return total
 
     def _frontier_round_pervar(self, edge_mask) -> dict:
         """One round with one dispatch per variable (``plan="off"``)."""
-        per_var, rows_touched, dense_falls = [], 0, 0
+        per_var, rows_touched, dense_falls, dispatches = [], 0, 0, 0
         for v in self.var_ids:
             changed, touched, dense = self._frontier_round_onevar(v, edge_mask)
             per_var.append(changed)
             rows_touched += touched
             dense_falls += dense
+            dispatches += touched > 0
         return {"per_var_changed": per_var, "rows_touched": rows_touched,
-                "dense_falls": dense_falls}
+                "dense_falls": dense_falls, "dispatches": dispatches}
 
     def _frontier_round_planned(self, plan, edge_mask) -> dict:
         """One round under the dispatch plan: per group, the active members'
@@ -1923,7 +2457,7 @@ class ReplicatedRuntime:
         per-variable round. Per-member states and residuals are those of
         the per-variable round."""
         changed_of: dict = {}
-        rows_touched = dense_falls = 0
+        rows_touched = dense_falls = dispatches = 0
         for group in plan.groups:
             if len(group) == 1:
                 v = group.var_ids[0]
@@ -1932,6 +2466,7 @@ class ReplicatedRuntime:
                 )
                 rows_touched += touched
                 dense_falls += dense
+                dispatches += touched > 0
                 continue
             active = []  # (var_id, reachable rows)
             for v in group.var_ids:
@@ -1947,6 +2482,7 @@ class ReplicatedRuntime:
             dense_subset = [(v, r) for v, r in active if r.size > thresh]
             sparse_subset = [(v, r) for v, r in active if r.size <= thresh]
             dense_ids = [v for v, _r in dense_subset]
+            dispatches += bool(dense_ids) + bool(sparse_subset)
             for v, mask in zip(dense_ids, self._plan_dense_round(dense_ids, edge_mask)):
                 self._frontier[v] = mask
                 changed_of[v] = int(mask.sum())
@@ -1979,14 +2515,23 @@ class ReplicatedRuntime:
             "per_var_changed": [changed_of.get(v, 0) for v in self.var_ids],
             "rows_touched": rows_touched,
             "dense_falls": dense_falls,
+            "dispatches": dispatches,
         }
 
     def _plan_dense_round(self, var_ids, edge_mask) -> list:
         """Dense crossover arm for a group's hot members: each member's full
         round and per-row change mask. The JAX plan stacks the members and
         vmaps one round; here each member steps where it lies (a stack would
-        copy every member population), with the same values."""
-        return [self._frontier_dense_round(v, edge_mask) for v in var_ids]
+        copy every member population), with the same values. The ledger
+        takes the group's one ``grouped_dense`` row, as JAX's dispatch."""
+        if not var_ids:
+            return []
+        t0 = time.perf_counter()
+        out = [self._frontier_dense_round(v, edge_mask, ledger=False)
+               for v in var_ids]
+        self._ledger_record_var("grouped_dense", var_ids[0],
+                                time.perf_counter() - t0, g_active=len(var_ids))
+        return out
 
     def _plan_sparse_round(self, var_ids, rows_mat: np.ndarray,
                            valid: np.ndarray, edge_mask) -> np.ndarray:
@@ -1994,8 +2539,16 @@ class ReplicatedRuntime:
         ``[G, F]``, bucket-padded); returns ``changed: bool[G, F]`` on the
         host, valid slots only."""
         _host, mask = self._masks(edge_mask)
+        t0 = time.perf_counter()
         changed = self._rows_round(var_ids, self._index(rows_mat), mask)
-        return changed.cpu().numpy() & valid
+        changed = changed.cpu().numpy() & valid  # the dispatch's sync
+        family = self._kernel_family(var_ids[0], mask is not None, rows=True)
+        self._ledger_record_var(
+            "cuda_rows" if family == "cuda_rows" else "grouped_rows",
+            var_ids[0], time.perf_counter() - t0, rows=int(rows_mat.shape[1]),
+            g_active=len(var_ids),
+        )
+        return changed
 
     def _rows_round(self, var_ids, row_idx: torch.Tensor, mask) -> torch.Tensor:
         """The row-sparse round of same-signature members ``var_ids`` over
@@ -2078,26 +2631,39 @@ class ReplicatedRuntime:
             padded = np.full(bucket, rows[0], dtype=np.int64)
             padded[: rows.size] = rows
         _host, mask = self._masks(edge_mask)
+        t0 = time.perf_counter()
         changed = self._rows_round((var_id,), self._index(padded)[None], mask)[0]
         out = np.zeros(self.n_replicas, dtype=bool)
-        out[rows[changed[: rows.size].cpu().numpy()]] = True
+        out[rows[changed[: rows.size].cpu().numpy()]] = True  # the sync
+        self._ledger_record_var(
+            self._kernel_family(var_id, mask is not None, rows=True), var_id,
+            time.perf_counter() - t0, rows=int(padded.size),
+        )
         return out
 
-    def _frontier_dense_round(self, var_id: str, edge_mask) -> np.ndarray:
+    def _frontier_dense_round(self, var_id: str, edge_mask,
+                              ledger: bool = True) -> np.ndarray:
         """Dense crossover arm of :meth:`frontier_step` for one variable:
         the full round plus the per-row change vector."""
         codec, spec = self._mesh_meta(var_id)
         _host, mask = self._masks(edge_mask)
+        t0 = time.perf_counter()
         prev = self.states[var_id]
         new = gossip_round(codec, spec, prev, self.neighbors, mask)
         changed = ~codec.equal(spec, prev, new)
         self.states[var_id] = new
-        return changed.cpu().numpy().copy()
+        out = changed.cpu().numpy().copy()  # the dispatch's sync
+        if ledger:
+            self._ledger_record_var(
+                self._kernel_family(var_id, mask is not None, rows=False),
+                var_id, time.perf_counter() - t0,
+            )
+        return out
 
     def _frontier_convergence(self, max_rounds: int, edge_mask) -> int:
         for i in range(max_rounds):
             if self.frontier_step(edge_mask) == 0:
-                return i + 1
+                return self._record_quiescence(i + 1)
         raise RuntimeError(f"no convergence within {max_rounds} rounds")
 
     # -- reads ------------------------------------------------------------------
@@ -2420,9 +2986,9 @@ class ReplicatedRuntime:
         views, the frontier's mask reference), degrade frontiers (blanket
         when ``dirty_rows`` is None, row-scoped otherwise, surviving rows'
         dirty bits kept), remap or retire departed actor sites, and drop
-        the dispatch plan. ``kind`` names the event for the JAX package's
-        ``record_membership``; telemetry is a later slice."""
-        del kind
+        the dispatch plan. ``kind`` names the event for
+        ``record_membership`` (the monitor and the causal log)."""
+        record_membership(kind, old_n, new_n)
         self.n_replicas = new_n
         self._host_neighbors = np.asarray(new_neighbors).astype(np.int32)
         self.neighbors = torch.as_tensor(

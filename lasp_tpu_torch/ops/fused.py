@@ -144,7 +144,8 @@ def fused_frontier_rounds(codec, spec, states, neighbors, frontier,
 DATAFLOW_BLOCK = 8
 
 
-def fused_dataflow_rounds(round_fn, states, tables, n_dsts: int, max_rounds: int):
+def fused_dataflow_rounds(round_fn, states, tables, n_dsts: int, max_rounds: int,
+                          flight_rounds: int = 0):
     """The fused propagate's fixed-point loop: the leveled Jacobi sweep
     ``round_fn(states, tables) -> (states, changed: bool[n_dsts])``
     (``dataflow.plan.make_round_fn``) repeated until a sweep changes no
@@ -160,10 +161,21 @@ def fused_dataflow_rounds(round_fn, states, tables, n_dsts: int, max_rounds: int
     while flags were still set. Sweeps a block runs past the fixed point
     are no-ops by idempotence (the sweep is a function of the states,
     which the unproductive sweep left unchanged); the states returned are
-    the unproductive sweep's own, as JAX's loop returns them."""
+    the unproductive sweep's own, as JAX's loop returns them.
+
+    With ``flight_rounds=K > 0`` a fifth output is the modulo-``K`` flight
+    ring (``telemetry.device``) of per-sweep changed flags, ``int32[K,
+    n_dsts]`` with sweep ``i`` at slot ``i % K``, holding the sweeps JAX's
+    loop runs (the unproductive one included, the no-op sweeps after it
+    not). The flags reach the host with each block's sync, so the ring is
+    written there and costs the card nothing."""
+    from ..telemetry.device import ring_init, ring_write
+
+    ring = ring_init(flight_rounds, n_dsts) if flight_rounds else None
     s = states
     counts = torch.zeros((n_dsts,), dtype=torch.int32)
     sweeps = 0
+    out = None
     while sweeps < max_rounds:
         block = min(DATAFLOW_BLOCK, max_rounds - sweeps)
         outs, flags = [], []
@@ -173,14 +185,18 @@ def fused_dataflow_rounds(round_fn, states, tables, n_dsts: int, max_rounds: int
             flags.append(changed)
         rows = torch.stack(flags).to(device="cpu", dtype=torch.int32)  # the sync
         productive = rows.any(dim=1)
-        if bool(productive.all()):
-            counts += rows.sum(dim=0, dtype=torch.int32)
-            sweeps += block
-            continue
-        first = int((~productive).nonzero()[0, 0])
-        counts += rows[: first + 1].sum(dim=0, dtype=torch.int32)
-        return outs[first], counts, sweeps + first + 1, False
-    return s, counts, sweeps, True
+        kept = block if bool(productive.all()) else int((~productive).nonzero()[0, 0]) + 1
+        counts += rows[:kept].sum(dim=0, dtype=torch.int32)
+        if ring is not None:
+            for i in range(kept):
+                ring_write(ring, sweeps + i, rows[i])
+        sweeps += kept
+        if kept < block or not bool(productive[kept - 1]):
+            out = (outs[kept - 1], counts, sweeps, False)
+            break
+    if out is None:
+        out = (s, counts, sweeps, True)
+    return out + (ring,) if ring is not None else out
 
 
 __all__ = [

@@ -9,11 +9,14 @@ chaos masks give.
 - :mod:`.engine` — :class:`QuorumRuntime`: submit / step / drain over a
   ``ChaosRuntime``, read-repair and put replication as two-phase masked
   partial joins, timeouts, retries, the epoch fence and the report;
-- :mod:`.hints` — the durable hint log behind hinted handoff on restore.
-
-Ring-coverage queries (``lasp_tpu.quorum.coverage``) need the mesh
-programs and the sharded gossip, which are not ported yet.
+- :mod:`.hints` — the durable hint log behind hinted handoff on restore;
+- :mod:`.coverage` — ring-coverage queries: ``coverage_sweep`` (grouped
+  partition-sweep map-merge, one plan per dispatch-plan group) and
+  ``ring_coverage_execute`` over the mesh programs. They need only the
+  contiguous ``shard_rows`` blocks, never the sharded gossip.
 """
+
+from .coverage import coverage_sweep, ring_coverage_execute
 
 from ..membership.errors import StaleEpochError
 from .engine import PartialQuorumError, QuorumRuntime
@@ -32,4 +35,6 @@ __all__ = [
     "DONE",
     "FAILED",
     "STATE_NAMES",
+    "coverage_sweep",
+    "ring_coverage_execute",
 ]

@@ -42,9 +42,9 @@ coverage value, at least as fresh as the reference's buffered replies
 with scalar transitions (``fsm.transition_sequential``) and
 per-request joins — the oracle the batched engine is held bit-identical
 against: results, repair writes, ack sequences, final population states.
-The kernel cost ledger's ``quorum_step`` record is not carried (the
-ledger is not ported); :attr:`QuorumRuntime.fsm_seconds` keeps the host
-time of the transition steps instead.
+Each transition step lands in the kernel cost ledger as a
+``quorum_step`` record; :attr:`QuorumRuntime.fsm_seconds` totals the host
+time of the transition steps.
 """
 
 from __future__ import annotations
@@ -686,6 +686,7 @@ class QuorumRuntime:
                     (new_state, new_acks, newly, quorum_now, timeout_now,
                      done_now) = fsm.transition_sequential(*args)
             self.fsm_seconds += t.elapsed
+            self._ledger_record(len(active), t.elapsed)
             self._state[idx] = new_state
             self._acks[idx] = new_acks
             # -- host resolution, rid order (both engines identical) ----
@@ -876,6 +877,26 @@ class QuorumRuntime:
             kind=what,
         ).inc(frame_bytes)
         return len(contribs)
+
+    def _ledger_record(self, b_active: int, seconds: float) -> None:
+        """One FSM-step dispatch into the kernel cost ledger — the
+        ``quorum_step`` family (control-plane traffic: the struct-of-
+        arrays slices + the shared component labeling). The batched
+        transition returns host arrays, so its seconds close on that
+        read."""
+        from ..telemetry import get_ledger
+        from ..telemetry import registry as _reg
+
+        if not _reg.enabled():
+            return
+        get_ledger().record(
+            "quorum_step",
+            "fsm" if self.engine == "batched" else "fsm_seq",
+            n_replicas=self.rt.n_replicas,
+            fanout=self.n_max,
+            seconds=seconds,
+            rows=fsm.bucket_of(b_active),
+        )
 
     # -- driving / results ----------------------------------------------------
     def drain(self, max_rounds: int = 4096) -> dict:

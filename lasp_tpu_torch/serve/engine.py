@@ -729,9 +729,19 @@ class ServeFrontend:
                 "ingest_grouped_ops": self._ingest_grouped_ops,
                 "admission": self.admission.snapshot(),
             }
-            # the last fused gossip window's flight record: JAX reads its
-            # device flight ring here, which is not ported
-            rep["flight"] = None
+            # flight plane: the last fused gossip window's per-round
+            # residual curve (drained by FusedBlockHandle.finish) — the
+            # in-cycle forensic the collapsed gossip_rounds total hides
+            from ..telemetry import device as tel_flight
+
+            w = tel_flight.last_window("fused_block")
+            rep["flight"] = None if w is None else {
+                "rounds": w.rounds,
+                "overwritten": w.overwritten,
+                "quiescent": w.quiescent,
+                "residual_curve": w.residual_curve(),
+                "seconds": round(w.seconds, 6),
+            }
         get_monitor().observe_serve(**{
             "cycles": rep["cycles"],
             "offered": sum(rep["offered"].values()),

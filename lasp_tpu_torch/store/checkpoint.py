@@ -21,8 +21,8 @@ What makes the files common to both packages:
   views of packed word planes go to disk as ``uint32`` and come back as
   views (``bridge_state.to_numpy``).
 
-The JAX store's metric counters are a later slice here: the port writes an
-empty ``metrics`` map in the counters record and keeps ``mutations``.
+The counters record carries the store's ``metrics`` (binds, inflations,
+ignored binds, reads) and ``mutations``, as JAX's does.
 """
 
 from __future__ import annotations
@@ -234,7 +234,8 @@ def save_store(store: Store, path: str) -> None:
         # the counters record's schema is the JAX package's: {"schema": 1,
         # "metrics": {...}, "mutations": int}
         hs.put("counters", dumps_manifest(
-            {"schema": 1, "metrics": {}, "mutations": store.mutations}))
+            {"schema": 1, "metrics": store.metrics.snapshot(),
+             "mutations": store.mutations}))
         hs.put("manifest", dumps_manifest(header))
 
 
@@ -250,7 +251,9 @@ def load_store(path: str, device=None) -> Store:
         store = Store(n_actors=header["n_actors"], device=device)
         counters = hs.get("counters")
         if counters is not None:
-            store.mutations = loads_manifest(counters).get("mutations", 0)
+            counters = loads_manifest(counters)
+            store.metrics.update(counters.get("metrics", {}))
+            store.mutations = counters.get("mutations", 0)
         if header.get("kind") == "runtime":
             raise IOError(
                 f"{path} is a runtime checkpoint (replicated [R, ...] "
@@ -266,6 +269,7 @@ def load_store(path: str, device=None) -> Store:
         elif "vars" in header:
             # the older layout: entries and counters inline in the manifest
             entries = list(header["vars"].items())
+            store.metrics.update(header.get("metrics", {}))
             store.mutations = header.get("mutations", store.mutations)
         else:
             raise IOError(

@@ -18,7 +18,9 @@ keys on first update at any nesting depth (``scan_map_admissions`` /
 ``grow_map_plan``), and the map's decode. Tombstone compaction:
 ``compact_orset`` for OR-Set variables and ``compact_map_field`` for an
 OR-Set field of a map, with the liveness plans the replicated runtime
-shares. Telemetry (counters, spans, events) is not carried.
+shares. The store counts binds, inflations, ignored binds and reads in
+``metrics`` (checkpoints carry them) and emits the registry counters and
+``bind`` events JAX's store emits.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..config import get_config
 from ..device import resolve_device
 from ..lattice import (
     GCounterSpec,
@@ -42,10 +45,9 @@ from ..lattice import (
     get_type,
 )
 from ..lattice.map import CrdtMap, MapState, map_subs
+from ..telemetry import events as tel_events
+from ..telemetry.registry import CounterGroup, counter
 from ..utils.interning import CapacityError, Interner
-
-#: the JAX package's LaspConfig.n_actors default
-DEFAULT_N_ACTORS = 16
 
 DEFAULT_SPECS = {
     "lasp_ivar": lambda **kw: IVarSpec(),
@@ -224,8 +226,16 @@ class Store:
     def __init__(self, n_actors: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         self._vars: dict[str, Variable] = {}
-        self.n_actors = n_actors if n_actors is not None else DEFAULT_N_ACTORS
+        # default per-variable writer capacity (LASP_N_ACTORS overridable)
+        self.n_actors = (
+            n_actors if n_actors is not None else get_config().n_actors
+        )
         self._id_counter = itertools.count()
+        #: typed fixed-key counters (telemetry.CounterGroup), as JAX's store
+        #: keeps them; checkpoints carry them
+        self.metrics = CounterGroup(
+            ("binds", "inflations", "ignored_binds", "reads")
+        )
         #: bumped on every effective write; lets the dataflow engine skip
         #: propagation when nothing changed since its last fixed point
         self.mutations = 0
@@ -520,11 +530,24 @@ class Store:
         """Merge + inflation gate + write (``src/lasp_core.erl:291-312``);
         a non-inflation is silently ignored (``:305-311``)."""
         var = self._vars[id]
+        self.metrics["binds"] += 1
+        counter("store_binds_total", help="bind verbs dispatched").inc()
         if bool(var.codec.equal(var.spec, var.state, state)):
+            tel_events.emit("bind", var=id, outcome="noop")
             return var.state
         merged = var.codec.merge(var.spec, var.state, state)
         if bool(var.codec.is_inflation(var.spec, var.state, merged)):
+            self.metrics["inflations"] += 1
+            counter("store_inflations_total", help="binds that inflated").inc()
+            tel_events.emit("bind", var=id, outcome="inflated")
             self._write(var, merged)
+        else:
+            self.metrics["ignored_binds"] += 1
+            counter(
+                "store_ignored_binds_total",
+                help="binds ignored by the inflation gate",
+            ).inc()
+            tel_events.emit("bind", var=id, outcome="ignored")
         return var.state
 
     def bind_raw(self, id: str, state) -> Any:
@@ -578,6 +601,8 @@ class Store:
         otherwise. Every read also offers its threshold to lazy
         wait_needed watches (:348-349)."""
         var = self._vars[id]
+        self.metrics["reads"] += 1
+        counter("store_reads_total", help="threshold reads issued").inc()
         thr = self._resolve_threshold(var, threshold)
         self._offer_to_lazy(var, thr)
         watch = Watch("read", id, thr)

@@ -1,6 +1,7 @@
-"""Telemetry core (port of ``lasp_tpu.telemetry``): the metric registry,
-span tracing, the causal event log, Prometheus / JSONL export and the
-:class:`ConvergenceMonitor`.
+"""Telemetry (port of ``lasp_tpu.telemetry``): the metric registry, span
+tracing, the causal event log, Prometheus / JSONL export, the
+:class:`ConvergenceMonitor`, the kernel cost ledger, the capability row and
+the device flight ring.
 
 - ``counter/gauge/histogram`` — typed instruments on the process-global
   registry (see :mod:`.registry`); ``set_enabled(False)`` flips them to
@@ -13,18 +14,25 @@ span tracing, the causal event log, Prometheus / JSONL export and the
   (see :mod:`.convergence`).
 - ``render_prometheus`` / ``dump_jsonl`` — the scrape / offline surfaces
   (see :mod:`.export`).
+- ``get_ledger()`` / ``kernel_traffic`` — the kernel cost ledger and its
+  analytic traffic model (see :mod:`.roofline`); ``device_capability()``
+  — the peak-bandwidth row of the attached card (see :mod:`.capability`).
+- :mod:`.device` — the flight ring every fused path carries on the card
+  and the host's log of drained windows.
+- :mod:`.overhead` — what the always-on emission costs a step.
 
 Registry, sink, spans, events and export are copies of the JAX package's
 pure-Python modules; the same emissions render the same text and records
-in both packages. The kernel cost ledger, the device flight ring and the
-runtime's per-step emission are not ported yet.
+in both packages. The runtime's per-step emission feeds all of them.
 """
 
 from __future__ import annotations
 
-from . import convergence, events
+from . import convergence, device, events
+from .capability import device_capability, peak_gbps_for_kind
 from .convergence import ConvergenceMonitor, get_monitor
 from .export import dump_jsonl, metric_events, render_prometheus
+from .roofline import KernelLedger, get_ledger, kernel_traffic
 from .registry import (
     DEFAULT_BUCKETS,
     Counter,
@@ -51,19 +59,25 @@ __all__ = [
     "DEFAULT_BUCKETS",
     "Gauge",
     "Histogram",
+    "KernelLedger",
     "MetricRegistry",
     "clear_spans",
     "configure",
     "convergence",
     "counter",
     "current_path",
+    "device",
+    "device_capability",
     "dump_jsonl",
     "enabled",
     "events",
     "gauge",
+    "get_ledger",
     "get_monitor",
     "get_registry",
     "histogram",
+    "kernel_traffic",
+    "peak_gbps_for_kind",
     "metric_events",
     "render_prometheus",
     "reset",

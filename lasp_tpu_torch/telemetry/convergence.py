@@ -29,13 +29,11 @@ read:
   callbacks over the snapshot.
 
 Hot-path contract: :meth:`observe_round` is dict updates plus cached
-gauge writes, no device work. In this package the runtime's own per-step
-emission is not carried yet, so the feeds are the chaos soaks
-(:meth:`observe_chaos`), the quorum reports (:meth:`observe_quorum`) and
-whoever calls :meth:`observe_round` directly; :meth:`probe` reads the
-populations on demand. The partitioned-mesh half of :meth:`probe` and the
-roofline view of :meth:`health` wait for the sharded mesh and the kernel
-ledger, which are not ported.
+gauge writes, no device work. The feeds are the runtime's per-step
+emission and flight drains, the chaos soaks (:meth:`observe_chaos`) and
+the quorum reports (:meth:`observe_quorum`); :meth:`probe` reads the
+populations on demand. The partitioned-mesh half of :meth:`probe` waits
+for the sharded mesh, which is not ported.
 """
 
 from __future__ import annotations
@@ -557,8 +555,13 @@ class ConvergenceMonitor:
         # concurrent with stepping must never pair round-N fields with
         # round-N+1 alerts
         snap["alerts"] = self.alerts(snap)
-        # the roofline view is the kernel cost ledger's, not ported yet
-        snap["roofline"] = None
+        # the roofline view: the kernel cost ledger's condensation
+        try:
+            from .roofline import get_ledger
+
+            snap["roofline"] = get_ledger().summary()
+        except Exception:
+            snap["roofline"] = None
         return snap
 
 

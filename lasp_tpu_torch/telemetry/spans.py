@@ -15,8 +15,8 @@ other's lineage. Finished spans land in
   the traced operation.
 
 ``annotate=True`` additionally wraps the region in a
-``torch.profiler.record_function``, so spans show up as named ranges in a
-``torch.profiler`` trace.
+``torch.profiler.record_function`` while a profiler records, so spans show
+up as named ranges in a ``torch.profiler`` trace.
 
 Span taxonomy (documented in docs/OBSERVABILITY.md): ``gossip.round``,
 ``gossip.converge``, ``merge.<crdt_type>``, ``mesh.update_batch``,
@@ -92,8 +92,11 @@ def span(name: str, annotate: bool = False, **attrs):
     if annotate:
         import torch
 
-        ann = torch.profiler.record_function(name)
-        ann.__enter__()
+        # only while a profiler records (JAX's annotates only once jax is
+        # imported): an idle ``record_function`` costs ~10 µs a span
+        if torch._C._autograd._profiler_enabled():
+            ann = torch.profiler.record_function(name)
+            ann.__enter__()
     ts = time.time()
     t0 = time.perf_counter()
     err: "str | None" = None

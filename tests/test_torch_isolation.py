@@ -44,7 +44,11 @@ def test_scans_cover_every_ported_module():
                  "aae.exchange", "aae.repair", "membership.handoff",
                  "membership.coordinator", "membership.harness",
                  "serve.requests", "serve.admission", "serve.subscriptions",
-                 "serve.engine", "serve.harness"):
+                 "serve.engine", "serve.harness", "programs.base",
+                 "programs.examples", "programs.riak_index", "mesh.programs",
+                 "quorum.coverage", "config", "telemetry.capability",
+                 "telemetry.roofline", "telemetry.device",
+                 "telemetry.overhead"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -106,7 +110,10 @@ def _entry_points():
     from lasp_tpu_torch.mesh import ReplicatedRuntime, ring
     from lasp_tpu_torch.store import Store
     from lasp_tpu_torch.store.checkpoint import load_runtime, load_store
+    from lasp_tpu_torch.programs import ExampleKeylistProgram
+    from lasp_tpu_torch.quorum import ring_coverage_execute
     from lasp_tpu_torch.quorum.fsm import transition_batched
+    from lasp_tpu_torch.telemetry.overhead import measure_overhead
 
     import numpy as np
 
@@ -140,6 +147,14 @@ def _entry_points():
         "from_numpy": lambda: from_numpy(
             "lasp_gset", GSetSpec(n_elems=4), [np.zeros(4, bool)]
         ),
+        # the runtime a program registers on resolves the device first
+        "register": lambda: ReplicatedRuntime(
+            store, Graph(store), 8, ring(8, 2)
+        ).register("keys", ExampleKeylistProgram),
+        "ring_coverage_execute": lambda: ring_coverage_execute(
+            ReplicatedRuntime(store, Graph(store), 8, ring(8, 2))
+        ),
+        "measure_overhead": lambda: measure_overhead(n_replicas=8),
     }
 
 
@@ -148,7 +163,8 @@ def _entry_points():
      "adcounter_10m", "codec.new", "from_numpy", "gset_1k", "orset_100k",
      "pipeline_1m", "ingest_storm", "dataflow_chain", "load_store", "load_runtime",
      "chaos_heal", "quorum_kv", "transition_batched", "aae_scrub",
-     "elastic_rebalance", "serve_load"]
+     "elastic_rebalance", "serve_load", "register", "ring_coverage_execute",
+     "measure_overhead"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the
@@ -168,3 +184,20 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_programs_and_coverage_run_on_the_cpu_when_asked():
+    """``device="cpu"`` is the one way off the card: a program registers,
+    takes events and answers both executes there."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, ring
+    from lasp_tpu_torch.programs import ExampleKeylistProgram
+    from lasp_tpu_torch.quorum import ring_coverage_execute
+    from lasp_tpu_torch.store import Store
+
+    store = Store(device="cpu")
+    rt = ReplicatedRuntime(store, Graph(store), 8, ring(8, 2), device="cpu")
+    rt.register("keys", ExampleKeylistProgram, n_elems=4)
+    rt.process(("k", 1), "put", "a", replica=5)
+    assert rt.execute("keys") == ring_coverage_execute(rt)["keys"] == {"k"}
+    assert rt.states[rt.programs["keys"].id][0].device.type == "cpu"

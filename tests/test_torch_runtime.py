@@ -242,15 +242,19 @@ def test_orswot_batch_failure_matches_jax(plan):
 
 
 def test_runtime_refuses_what_is_not_ported():
-    """What is still not ported raises: sharding and mesh programs. Resizing
+    """What is still not ported raises: sharding. Resizing, mesh programs
     and the fused propagate are ported and run."""
+    from lasp_tpu_torch.programs import ExampleKeylistProgram
+
     store = tstore.Store(device="cpu")
     store.declare(id="s", type="lasp_gset", n_elems=4)
     rt = tmesh.ReplicatedRuntime(store, tdf.Graph(store), 8, ring(8, 2),
                                  device="cpu")
-    for call in (rt.shard, rt.register):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        rt.shard()
+    rt.register("keys", ExampleKeylistProgram, n_elems=4)
+    rt.process(("k", 1), "put", "a", replica=3)
+    assert rt.execute("keys") == {"k"}
     rt.resize(8, ring(8, 2))  # a topology swap
     assert rt.membership_epoch == 1
     graph = tdf.Graph(store)

@@ -540,8 +540,13 @@ def test_gossip_windows_overlap_ingest_like_jax():
             fe.cycle()
         obs.append([_ticket_obs(t) for t in ts])
         rep = fe.report()
-        obs.append((rep["gossip_rounds"], rep["cycles"], rep["flight"] is None
-                    if P.port else True, rep["ingest_dispatches"]))
+        # the last fused window's flight record (its curve's round clock is
+        # the process-wide monitor's, so the totals are compared)
+        fl = rep["flight"]
+        obs.append((rep["gossip_rounds"], rep["cycles"], fl["rounds"],
+                    fl["overwritten"], fl["quiescent"],
+                    [t for _r, t in fl["residual_curve"]],
+                    rep["ingest_dispatches"]))
         obs.append(_fp(P, rt))
 
     _twin(scen)
@@ -571,11 +576,14 @@ def test_serve_loop_resolves_concurrent_submissions():
 def test_report_feeds_health_serve_section():
     from lasp_tpu_torch.telemetry import get_monitor
 
+    from lasp_tpu_torch.telemetry import device as tdev
+
+    tdev.clear()  # the window log is process-wide
     _s, rt = _fe_rt(_pkg(True))
     fe = tserve.ServeFrontend(rt, gossip_block=0)
     fe.submit_write("kv", ("add", "x"), "c0")
     fe.cycle()
     rep = fe.report()
-    assert rep["flight"] is None
+    assert rep["flight"] is None  # no fused window ran
     health = get_monitor().health()
     assert health["serve"]["offered"] >= 1 and "level" in health["serve"]
