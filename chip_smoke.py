@@ -7,8 +7,11 @@ Phases, each of which fails the run on any error:
 
 1. build    — compile every CUDA kernel of the port from
                ``lasp_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at
-               once) into ``build/lasp_tpu_torch``, and the native host store
-               beside them (``make -C native liblaspstore.so``);
+               once) into ``build/lasp_tpu_torch``, and beside them the
+               native host store (``make -C native liblaspstore.so``) and
+               the bridge's native ETF codec (the port's own build of
+               ``native/laspetf.cpp``, ``bridge.etf.build_native``), which
+               must pass its conformance gate (``IMPL == "native"``);
 2. parity   — hold each kernel (K1, K2, K3) bit-for-bit against its plain
                PyTorch version on the card (tolerance zero: every value is
                a bit or an integer), changed flags included, on every path
@@ -163,7 +166,39 @@ Phases, each of which fails the run on any error:
                G=17 equal to G=1 (``torch.profiler``); events/s, process ms
                p50 / p99, compactions, rounds, sweep bytes and GB/s against
                the capability row's peak, peak memory;
-20. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
+20. session — the engine cell's population through ``Session``: the
+               packed OR-Set (64 x 16 x 4), a G-Counter and a ``map`` edge over
+               a 16-element G-Set, ``replicate(100_000, topology="random",
+               fanout=3, seed=0, packed=True)``, 16 writers through
+               ``update_batch``, ``run_to_convergence`` (K1); states bit-equal
+               to a runtime built by hand on ``locality_order(random_regular(
+               100_000, 3, seed=0))``, values equal to a single-store session;
+               then ``nemesis`` (ring-cut soak, healed), ``quorum`` (a put and
+               a get resolved), ``aae`` (one scrub), ``serve`` (a write done
+               in one cycle) and ``register`` / ``process`` / ``execute``;
+21. bridge  — a loopback ``BridgeServer`` on the card: ``bridge_throughput()``
+               at JAX's defaults under the native and the Python ETF arm; a
+               seeded stream of 20,000 requests over 1,024 variables (16 in
+               each of riak_core's 64 partitions, ``ingest_storm``'s five
+               kinds, one request in ten a 16-variable ``merge_batch``) in
+               durable mode, every response equal byte for byte to a CPU
+               server's in this process, every variable read back equal after
+               a restart on the same ``data_dir``; requests/s, p50 / p99 ms
+               and the card's busy share over 2,000 requests;
+22. scenarios — ``frontier_sparse(n_replicas=100_000)``, ``many_vars(
+               n_replicas=100_000, n_vars=128)``, ``packed_vs_dense`` at
+               524,288 replicas (cut from JAX's 1,048,576: the dense arm's
+               map output ran out of memory) and ``roofline_workload()``,
+               each with its
+               own check, their K1 / K2 / K3 probes held at max_abs_err 0;
+               ``partitioned_gossip`` / ``mesh_scale`` must raise
+               ``NotImplementedError`` (sharding is not ported);
+23. cli     — ``python -m lasp_tpu_torch.cli`` in subprocesses on the card:
+               ``status`` (names the card), ``simulate``, ``scenario
+               gset_1k``, ``roofline --export`` (``roofline_frac`` not null)
+               and ``inspect`` of the checkpoint phase's map store, each
+               output parsed as JSON;
+24. adcounter — the north star, ``bench_scenarios.adcounter_10m`` at
                10,485,760 replicas (threshold 5): ``Store``, ``Graph``
                (union -> product -> filter), ``ReplicatedRuntime(packed=True)``,
                ``seed_increments``, ``register_trigger(builder=...)`` and
@@ -173,9 +208,9 @@ Phases, each of which fails the run on any error:
                have converged. A second full-size build converges under
                ``torch.profiler`` for the card's busy share, at the end of
                the run; both carry the flight ring (``flight_rounds`` 64);
-21. kernels — each kernel timed at every distinct launch shape phases 3-20
+25. kernels — each kernel timed at every distinct launch shape phases 3-24
                gave it (``cuda_gossip.SHAPES``, counts zeroed before each
-               phase, read after; the shapes of phases 16-18 on seeded
+               phase, read after; the shapes of phases 16-23 on seeded
                members of their layout), beside its bound, for its loss
                ``sum(count * (ms - bound_ms))``; at its widest shape also
                beside its plain version, its gather model and the host time
@@ -186,9 +221,9 @@ Phases, each of which fails the run on any error:
                read; and K1's column-slab sweep (slab widths against whole
                rows) at each of its shapes and at two shapes whose planes fit
                the L2. Every K2 and K3 shape is replayed once under
-               ``torch.profiler`` before phase 20, which must show exactly one
+               ``torch.profiler`` before phase 24, which must show exactly one
                device kernel per wrapper call;
-22. telemetry — ``telemetry.device_capability()`` names the card and gives
+26. telemetry — ``telemetry.device_capability()`` names the card and gives
                the peak every bound of the script reads; the kernel cost
                ledger's families and records after every earlier phase, its
                bytes for K1, K2 and K3 at their widest shapes equal to the
@@ -209,6 +244,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -1465,16 +1501,18 @@ def phase_membership(torch, cg, captured: dict, n: int = _MEMBERSHIP_REPLICAS) -
             "expected": expected}
 
 
-def phase_checkpoint(torch, cg, rt, ids, captured: dict, big: int = 150_000) -> dict:
+def phase_checkpoint(torch, cg, rt, ids, captured: dict, keep: str,
+                     big: int = 150_000) -> dict:
     """Checkpoints of the membership phase's population through the native
     host store (a fall-back to the Python log engine fails the run):
     ``save_runtime`` / ``load_runtime`` bit-equal; ``load_runtime_rows`` +
     ``reseed_row`` restores the saved row; an elastic ``load_runtime`` onto
     150,000 replicas converges to the same values; ``save_store`` /
-    ``load_store`` of a reset-mode map store. Returns the launches and
-    launch shapes."""
+    ``load_store`` of a reset-mode map store, a copy of whose file is left
+    at ``keep`` (the cli phase inspects it). Returns the launches and launch
+    shapes."""
     import os
-    import tempfile
+    import shutil
 
     from lasp_tpu_torch.lattice.base import tree_leaves
     from lasp_tpu_torch.mesh import random_regular
@@ -1536,6 +1574,7 @@ def phase_checkpoint(torch, cg, rt, ids, captured: dict, big: int = 150_000) -> 
         spath = os.path.join(tmp, "store.lasp")
         _, secs["save_store"] = _timed_step(torch, lambda: save_store(store, spath))
         sizes["store"] = os.path.getsize(spath)
+        shutil.copyfile(spath, keep)
         got, secs["load_store"] = _timed_step(torch, lambda: load_store(spath))
         if got.value(m) != store.value(m) or not all(
                 torch.equal(x, y) for x, y in zip(tree_leaves(got.state(m)),
@@ -1716,39 +1755,39 @@ def phase_quorum(torch, cg, n: int = _CHAOS_REPLICAS) -> dict:
 
 
 def _capture_rows_shapes(cg, captured: dict, phase: str):
-    """For the phases whose runtimes live inside a scenario: wrap
-    ``ReplicatedRuntime._rows_round`` so that the first launch of each new
-    K2 / K3 shape leaves in ``captured`` its rows, mask, neighbour table,
-    kernel plan and member layout — not the members themselves (the
-    rebalance phase's populations take gigabytes). The kernels phase
-    replays such a shape on seeded members of that layout
-    (``_synthetic_members``). Returns the undo."""
-    from lasp_tpu_torch.mesh.runtime import ReplicatedRuntime
+    """For the phases whose runtimes live inside a scenario or a verb, and
+    the scenarios' kernel probes (which call ``cg.rows_round`` themselves):
+    wrap ``cg.rows_round`` so that the first launch of each new K2 / K3
+    shape leaves in ``captured`` its rows, mask, neighbour table, kernel
+    plan and member layout — not the members themselves (the rebalance
+    phase's populations take gigabytes). The kernels phase replays such a
+    shape on seeded members of that layout (``_synthetic_members``).
+    Returns the undo."""
+    import torch
 
-    inner = ReplicatedRuntime._rows_round
+    inner = cg.rows_round
     names = ("gossip_round_rows", "gossip_round_rows_vclock")
 
-    def recording(self, var_ids, row_idx, mask):
+    def recording(plan, leaves, neighbors, rows, edge_mask=None):
         before = {n: set(cg.SHAPES[n]) for n in names}
-        changed = inner(self, var_ids, row_idx, mask)
+        out = inner(plan, leaves, neighbors, rows, edge_mask)
         for n in names:
             for key in set(cg.SHAPES[n]) - before[n]:
                 if (n, key) in captured:
                     continue
-                codec, spec = self._mesh_meta(var_ids[0])
-                first = self.states[var_ids[0]]
-                layout = tuple((tuple(x.shape), x.dtype) for x in first)
+                # each leaf a [G, R, ...] tensor or its G member tensors
+                g = (leaves[0].shape[0] if isinstance(leaves[0], torch.Tensor)
+                     else len(leaves[0]))
+                layout = tuple((tuple(leaf[0].shape), leaf[0].dtype) for leaf in leaves)
                 captured[(n, key)] = {
-                    "source": None, "phase": phase, "var_ids": tuple(var_ids),
-                    "rows": row_idx.clone(), "mask": mask,
-                    "neighbors": self.neighbors,
-                    "synthetic": {"plan": cg.rows_plan_of(codec, spec, first),
-                                  "key": (len(var_ids), layout)},
+                    "source": None, "phase": phase,
+                    "rows": rows.clone(), "mask": edge_mask, "neighbors": neighbors,
+                    "synthetic": {"plan": plan, "key": (g, layout)},
                 }
-        return changed
+        return out
 
-    ReplicatedRuntime._rows_round = recording
-    return lambda: setattr(ReplicatedRuntime, "_rows_round", inner)
+    cg.rows_round = recording
+    return lambda: setattr(cg, "rows_round", inner)
 
 
 #: the seeded members of one synthetic layout: (key, members)
@@ -2022,6 +2061,366 @@ def phase_serve(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS) -> dict:
             "loop": loop}
 
 
+#: the session phase: the engine cell's population through ``Session``
+_SESSION_REPLICAS = 100_000
+
+
+def _session_ops(n: int) -> dict:
+    """The engine cell's 16 writers (``_engine``) at their rows: OR-Set and
+    G-Counter ops, and one tag each into the G-Set the ``map`` edge reads."""
+    writers = np.random.RandomState(5).choice(n, 16, replace=False)
+    ops = {"ads": [], "views": [], "tags": []}
+    for a, r in enumerate(writers):
+        mine = [f"ad{(a * 4 + j) % 64}" for j in range(4)]
+        ops["ads"].append((int(r), ("add_all", mine), f"w{a}"))
+        if a % 4 == 0:
+            ops["ads"].append((int(r), ("remove", mine[0]), f"w{a}"))
+        ops["views"].append((int(r), ("increment", a + 1), f"w{a}"))
+        ops["tags"].append((int(r), ("add", f"t{a % 8}"), f"w{a}"))
+    return ops
+
+
+def _session_declare(store, graph) -> None:
+    """The session's variables and its ``map`` edge (through a ``Session``
+    or a bare ``Store`` and ``Graph``). The edge reads a 16-element G-Set:
+    a ``map`` of the 64 x 64-token OR-Set derives an OR-Set of 64 x 4,096
+    tokens (JAX's rule, ``Graph._project``), 512 KiB a replica, 52 GB at
+    100,000 replicas."""
+    store.declare(type="lasp_orset", id="ads", n_elems=64, n_actors=16,
+                  tokens_per_actor=4)
+    store.declare(type="riak_dt_gcounter", id="views", n_actors=16)
+    store.declare(type="lasp_gset", id="tags", n_elems=16)
+    graph.map("tags", lambda x: x + "!", dst="seen")
+
+
+def phase_session(torch, cg, captured: dict, n: int = _SESSION_REPLICAS) -> dict:
+    """The engine cell's population through the ``Session`` verbs: a
+    ``Session`` on the card declares the OR-Set (64 elements x 16 actors x 4
+    tokens), a G-Counter and a ``map`` edge over a 16-element G-Set
+    (``_session_declare``), ``replicate(n,
+    topology="random", fanout=3, seed=0, packed=True)`` (K1), the 16
+    writers through ``update_batch`` and ``run_to_convergence``. A runtime
+    built by hand on ``locality_order(random_regular(n, 3, seed=0))``
+    converges the same writes: the states must be bit-equal, the rounds
+    equal and the values equal to a single-store ``Session`` given the same
+    ops. Then ``nemesis`` (ring-cut soak), ``quorum`` (a put and a
+    get), ``aae`` (one scrub), ``serve`` (a write and a cycle) and
+    ``register`` / ``process`` / ``execute`` (a keylist program), each
+    once with JAX's defaults, each checked."""
+    from lasp_tpu_torch import Session
+    from lasp_tpu_torch.bridge_state import to_numpy
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, locality_order, random_regular
+    from lasp_tpu_torch.programs import ExampleKeylistProgram
+    from lasp_tpu_torch.store import Store
+
+    cg.reset_launches()
+    undo = _capture_rows_shapes(cg, captured, "session")
+    secs = {}
+    try:
+        s = Session(n_actors=16)
+        _session_declare(s, s)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # the locality note
+            rt, secs["replicate"] = _timed_step(torch, lambda: s.replicate(
+                n, topology="random", fanout=3, seed=0, packed=True))
+        ops = _session_ops(n)
+        for v, vops in ops.items():
+            rt.update_batch(v, vops)
+        rounds, secs["converge"] = _timed_step(torch, rt.run_to_convergence)
+        k1 = dict(cg.LAUNCHES)
+        # the hand-built twin on the same table (dense rounds too: a
+        # dataflow edge keeps the frontier scheduler off, as in JAX)
+        perm, nbrs = locality_order(random_regular(n, 3, seed=0))
+        store = Store(n_actors=16)
+        graph = Graph(store)
+        _session_declare(store, graph)
+        twin = ReplicatedRuntime(store, graph, n, nbrs, packed=True)
+        for v, vops in ops.items():
+            twin.update_batch(v, vops)
+        twin_rounds, secs["twin_converge"] = _timed_step(torch, twin.run_to_convergence)
+        if not np.array_equal(rt.locality_perm, perm) or twin_rounds != rounds:
+            raise RuntimeError(f"session: {rounds} rounds, the twin {twin_rounds}")
+        names = ("ads", "views", "tags", "seen")
+        for v in names:
+            for a, b in zip(to_numpy(rt.states[v]), to_numpy(twin.states[v])):
+                if not np.array_equal(a, b):
+                    raise RuntimeError(f"session: {v} differs from the hand-built twin")
+        del twin, store, graph
+        single = Session(n_actors=16)
+        _session_declare(single, single)
+        for v, vops in ops.items():
+            for _r, op, actor in vops:
+                single.update(v, op, actor)
+        values = {v: rt.coverage_value(v) for v in names}
+        if (len(values["ads"]) != 60 or values["views"] != sum(range(1, 17))
+                or values["seen"] != {f"t{i}!" for i in range(8)}
+                or values != {v: single.value(v) for v in names}):
+            raise RuntimeError(f"session: values {values} against the single store")
+        # the wrapping verbs, once each
+        chaos = s.nemesis(rt, "ring-cut", seed=0)
+        soak, secs["nemesis_soak"] = _timed_step(torch, chaos.soak)
+        if not soak["healed"] or any(rt.divergence(v) for v in values):
+            raise RuntimeError(f"session: the nemesis soak did not heal: {soak}")
+        kv = s.quorum(chaos)
+        put = kv.submit_put("ads", ("add", "ad63"), "w0")  # a writer of the 16
+        get = kv.submit_get("ads")
+
+        def resolve():
+            for _ in range(64):
+                kv.step()
+                if kv.result(put)["status"] != "pending" and \
+                        kv.result(get)["status"] != "pending":
+                    return
+            raise RuntimeError("session: the quorum requests did not resolve")
+
+        _, secs["quorum"] = _timed_step(torch, resolve)
+        if kv.result(put)["status"] not in ("done", "acked"):
+            raise RuntimeError(f"session: the quorum put: {kv.result(put)}")
+        scrub = s.aae(rt)
+        stats, secs["aae_scrub"] = _timed_step(torch, scrub.scrub)
+        fe = s.serve(rt)
+        ticket = fe.submit_write("views", ("increment",), "w1")
+        _, secs["serve_cycle"] = _timed_step(torch, fe.cycle)
+        if ticket.status != "done":
+            raise RuntimeError(f"session: the served write ended {ticket.status}")
+        s.register("keys", ExampleKeylistProgram, n_elems=16)
+        s.process(("k1", 1), "put", "w0")
+        if s.execute("keys") != {"k1"}:
+            raise RuntimeError(f"session: execute gave {s.execute('keys')}")
+    finally:
+        undo()
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    if not k1["gossip_round_dense"]:
+        raise RuntimeError(f"session: the packed convergence never launched K1: {k1}")
+    _log_line("session", {
+        "replicas": n, "rounds": rounds, "seconds": secs,
+        "converge_launches": k1, "values": {"ads": len(values["ads"]),
+                                            "views": values["views"],
+                                            "seen": len(values["seen"])},
+        "nemesis": {k: soak[k] for k in ("rounds_to_heal", "healed") if k in soak},
+        "quorum": {"put": kv.result(put)["status"], "get": kv.result(get)["status"]},
+        "aae": {k: stats[k] for k in ("divergent_rows", "corrupt_detected",
+                                      "rows_hashed")},
+        "launches": launches,
+    })
+    return {"launches": launches, "shapes": shapes, "rounds": rounds}
+
+
+#: the bridge phase's request stream (``bench_scenarios.bridge_stream``)
+_BRIDGE = {"n_requests": 20_000, "n_partitions": 64, "vars_per_partition": 16,
+           "merge_every": 10, "seed": 0}
+
+
+def _gets(stream: dict) -> dict:
+    """A stream of one ``get`` per variable, partition by partition."""
+    from lasp_tpu_torch.bridge import Atom
+
+    return {"setup": [st for st in stream["setup"] if str(st[1][0]) == "start"],
+            "requests": [(p, (Atom("get"), v)) for p, v in stream["vars"]]}
+
+
+def phase_bridge(torch, cg) -> dict:
+    """A loopback ``BridgeServer`` on the card: ``bridge_throughput()`` at
+    JAX's defaults with the native arm serving, then again with the Python
+    arm (``LaspConfig(etf="python")``); then
+    the seeded stream of 20,000 requests over 1,024 variables (16 in each
+    of riak_core's 64 partitions, ``ingest_storm``'s five kinds; one in ten
+    a 16-variable ``merge_batch``) in durable mode, every response equal
+    byte for byte to a second server's on the CPU in this process; the
+    server restarted on the same ``data_dir`` must read every variable back
+    as it answered before (no acked write lost). Requests/s, p50 / p99 ms,
+    and the card's busy share over 2,000 requests of an in-memory server."""
+    import os
+    import shutil
+
+    from lasp_tpu_torch.bench_scenarios import (bridge_stream, bridge_throughput,
+                                                run_bridge_stream)
+    from lasp_tpu_torch.bridge import BridgeServer, etf
+
+    from lasp_tpu_torch.config import LaspConfig, get_config, set_config
+
+    cg.reset_launches()
+    thr, thr_s = _timed_step(torch, bridge_throughput)
+    if thr["etf_impl"] != "native" or thr["device"] != "cuda":
+        raise RuntimeError(f"bridge: bridge_throughput served by {thr}")
+    # the Python arm's rates on the same frames (JAX's fallback codec)
+    config = get_config()
+    set_config(LaspConfig(etf="python"))
+    try:
+        thr_py = bridge_throughput()
+    finally:
+        set_config(config)
+    if thr_py["etf_impl"] != "python" or etf.IMPL != "native":
+        raise RuntimeError(f"bridge: the codec did not switch arms: {thr_py}")
+    stream = bridge_stream(**_BRIDGE)
+    tmp = tempfile.mkdtemp()
+    try:
+        dirs = {d: os.path.join(tmp, d) for d in ("cuda", "cpu")}
+        with BridgeServer(data_dir=dirs["cuda"]) as server:
+            run = run_bridge_stream(server.port, stream)
+            before = run_bridge_stream(server.port, _gets(stream))["responses"]
+        with BridgeServer(data_dir=dirs["cpu"], device="cpu") as server:
+            ref = run_bridge_stream(server.port, stream)
+        diff = [i for i, (a, b) in enumerate(zip(run["responses"], ref["responses"]))
+                if a != b]
+        if diff or len(run["responses"]) != len(ref["responses"]):
+            i = diff[0] if diff else None
+            raise RuntimeError(f"bridge: {len(diff)} responses differ from the CPU "
+                               f"server's, first at {i}: {stream['requests'][i]}")
+        with BridgeServer(data_dir=dirs["cuda"]) as server:
+            after, restart_s = _timed_step(
+                torch, lambda: run_bridge_stream(server.port, _gets(stream)))
+        if after["responses"] != before:
+            raise RuntimeError("bridge: a variable read back changed after the restart")
+        disk = sum(os.path.getsize(os.path.join(dirs["cuda"], f))
+                   for f in os.listdir(dirs["cuda"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    window = {"setup": stream["setup"], "requests": stream["requests"][:2000]}
+    with BridgeServer() as server:
+        run_bridge_stream(server.port, window, requests=False)
+        busy = _device_busy(torch, lambda: run_bridge_stream(server.port, window))
+    ms = np.asarray(run["latency_s"]) * 1e3
+    errors = sum(1 for r in run["responses"]
+                 if etf.decode(r)[0] == etf.ERROR)
+    kinds = Counter(str(t[0]) for _p, t in stream["requests"])
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log_line("bridge", {
+        "throughput": thr, "throughput_s": thr_s, "throughput_python_arm": thr_py,
+        "requests": len(stream["requests"]), "variables": len(stream["vars"]),
+        "partitions": _BRIDGE["n_partitions"], "kinds": dict(kinds),
+        "error_responses": errors, "durable_bytes_on_disk": disk,
+        "requests_per_s": len(ms) / run["seconds"],
+        "cpu_server_requests_per_s": len(ms) / ref["seconds"],
+        "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+        "restart_readback_s": restart_s, "busy": busy, "launches": launches,
+    })
+    return {"launches": launches, "shapes": shapes}
+
+
+#: ``packed_vs_dense``'s population, cut from JAX's 1,048,576: the dense
+#: arm's ``map`` output derives 16 x 512 tokens a replica (16 GB of state at
+#: 1,048,576), and its round's copies ran out of the card's 80 GB there
+_PACKED_VS_DENSE = 1 << 19
+
+
+def phase_scenarios(torch, cg, captured: dict) -> dict:
+    """The scenarios this slice ports, each with its own check:
+    ``frontier_sparse(n_replicas=100_000)`` (dense and frontier fixed points
+    bit-identical, K2 held against its plain version), ``many_vars(
+    n_replicas=100_000, n_vars=128)`` (``plan="off"`` and ``"auto"``:
+    residuals and states identical), ``packed_vs_dense`` at 524,288
+    replicas (one value; JAX's 1,048,576 ran out of memory),
+    ``roofline_workload()`` (its K1 and K2 / K3
+    probes held at max_abs_err 0, the ledger's ``cuda_*`` families), and
+    ``partitioned_gossip`` / ``mesh_scale`` raising ``NotImplementedError``
+    (sharding, ROADMAP A5)."""
+    from lasp_tpu_torch.bench_scenarios import (frontier_sparse, many_vars,
+                                                mesh_scale, packed_vs_dense,
+                                                partitioned_gossip, roofline_workload)
+    from lasp_tpu_torch.telemetry import get_ledger
+
+    cg.reset_launches()
+    undo = _capture_rows_shapes(cg, captured, "scenarios")
+    out = {}
+    try:
+        for name, fn in (
+                ("frontier_sparse", lambda: frontier_sparse(n_replicas=100_000)),
+                ("many_vars", lambda: many_vars(n_replicas=100_000, n_vars=128)),
+                ("packed_vs_dense", lambda: packed_vs_dense(_PACKED_VS_DENSE))):
+            before = dict(cg.LAUNCHES)
+            rec, secs = _timed_step(torch, fn)
+            rec["phase_s"], rec["launches"] = secs, _launch_delta(cg, before)
+            out[name] = rec
+            _log_line("scenarios", {"scenario": name, **rec})
+        before = dict(cg.LAUNCHES)
+        rt, secs = _timed_step(torch, roofline_workload)
+        families = sorted({e["kernel"].split(":")[0] for e in get_ledger().snapshot()})
+        out["roofline_workload"] = {
+            "phase_s": secs, "launches": _launch_delta(cg, before),
+            "cuda_rows": rt.cuda_rows_probe, "cuda_dense": rt.cuda_dense_probe,
+            "families": families}
+        del rt
+    finally:
+        undo()
+    for name in ("frontier_sparse", "many_vars"):
+        probe = out[name]["cuda_rows"]
+        if probe is None or probe["max_abs_err"] or probe["mode"] != "cuda":
+            raise RuntimeError(f"scenarios: {name}'s K2 probe: {probe}")
+    rw = out["roofline_workload"]
+    for k in ("cuda_rows", "cuda_dense"):
+        if rw[k]["max_abs_err"] or rw[k]["mode"] != "cuda" or k not in rw["families"]:
+            raise RuntimeError(f"scenarios: roofline_workload's {k}: {rw}")
+    for fn in (partitioned_gossip, mesh_scale):
+        try:
+            fn()
+        except NotImplementedError:
+            continue
+        raise RuntimeError(f"scenarios: {fn.__name__} did not raise")
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log_line("scenarios", {"scenario": "roofline_workload", **rw})
+    return {"launches": launches, "shapes": shapes}
+
+
+def phase_cli(torch, checkpoint: str, out_dir: str) -> dict:
+    """``python -m lasp_tpu_torch.cli`` in subprocesses on the card, all
+    started together: ``status`` (must name the card), ``simulate``,
+    ``scenario gset_1k``, ``roofline --export`` (``roofline_frac`` not
+    null) and ``inspect`` on the checkpoint phase's map store. Each output
+    must parse as JSON."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    export = os.path.join(out_dir, "roofline.json")
+    verbs = {
+        "status": ["status"],
+        "simulate": ["simulate"],
+        "scenario": ["scenario", "gset_1k"],
+        "roofline": ["roofline", "--export", export],
+        "inspect": ["inspect", checkpoint],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "lasp_tpu_torch.cli", *argv], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in verbs.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise RuntimeError(f"cli {name}: rc={p.returncode}\n{err[-2000:]}")
+            outs[name] = out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    parsed = {name: json.loads(outs[name]) for name in verbs if name != "roofline"}
+    with open(export) as f:
+        parsed["roofline"] = json.load(f)
+    kind = torch.cuda.get_device_name(0)
+    if kind not in parsed["status"]["devices"] or parsed["status"]["platform"] != "cuda":
+        raise RuntimeError(f"cli status: {parsed['status']}")
+    if parsed["roofline"]["summary"]["roofline_frac"] is None:
+        raise RuntimeError("cli roofline: roofline_frac is null on the card")
+    if parsed["inspect"]["vars"] != {"kvs": "riak_dt_map"}:
+        raise RuntimeError(f"cli inspect: {parsed['inspect']}")
+    if parsed["scenario"]["check"] != "matches-global-reference":
+        raise RuntimeError(f"cli scenario: {parsed['scenario']}")
+    _log_line("cli", {
+        "wall_s": wall, "status": parsed["status"],
+        "simulate": {k: parsed["simulate"][k] for k in
+                     ("replicas", "rounds_to_convergence", "seconds", "device")},
+        "scenario": parsed["scenario"],
+        "roofline_summary": parsed["roofline"]["summary"],
+        "inspect": {k: parsed["inspect"][k] for k in ("kind", "vars")},
+    })
+    return parsed
+
+
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
@@ -2068,7 +2467,7 @@ def phase_adcounter(torch, cg) -> dict:
         "flight_windows": windows,
     }
     # the kernels phase times K1 at the adcounter's shapes on its topology;
-    # the profiled twin is built after that phase (phase 20's memory back)
+    # the profiled twin is built after that phase (phase 24's memory back)
     nbrs = torch.as_tensor(adcounter_topology(n), dtype=torch.int32, device="cuda")
     return {"launches": launches, "shapes": shapes, "neighbors": nbrs, "line": line}
 
@@ -2639,6 +3038,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     from lasp_tpu_torch.bench_scenarios import orset_anti_entropy
+    from lasp_tpu_torch.bridge import etf
     from lasp_tpu_torch.bridge_state import to_numpy
     from lasp_tpu_torch.mesh import random_regular
     from lasp_tpu_torch.ops import _build
@@ -2665,12 +3065,30 @@ def main() -> int:
     native = subprocess.Popen(
         ["make", "-B", "-C", str(Path(__file__).resolve().parent / "native"),
          "liblaspstore.so"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # and the bridge's native ETF arm: the port's own build of
+    # native/laspetf.cpp (g++), beside the nvcc jobs
+    etf_build: dict = {}
+
+    def build_etf():
+        try:
+            etf_build["path"] = etf.build_native()
+        except Exception as exc:  # noqa: BLE001 — raised below, in this thread
+            etf_build["error"] = exc
+
+    etf_thread = threading.Thread(target=build_etf)
+    etf_thread.start()
     secs = _build.build_all()
     _log("build", f"{len(_build.SOURCES)} kernels built in {secs:.2f} s")
     make_out, _ = native.communicate(timeout=300)
     if native.returncode != 0:
         raise RuntimeError(f"make -C native liblaspstore.so failed:\n{make_out}")
     _log("build", "native/liblaspstore.so built (make -C native liblaspstore.so)")
+    etf_thread.join(timeout=300)
+    if "error" in etf_build:
+        raise etf_build["error"]
+    if etf.reselect() != "native":
+        raise RuntimeError("the bridge's native ETF arm failed its conformance gate")
+    _log("build", f"bridge ETF codec: native ({etf_build['path']})")
     for name in _build.SOURCES:
         report = Path(f"{_build.library_path(name)}.ptxas.txt").read_text()
         for line in report.splitlines():
@@ -2788,7 +3206,9 @@ def main() -> int:
     launches["membership"], shapes["membership"] = mb["launches"], mb["shapes"]
     _log("launches", f"membership: {launches['membership']}")
     # 13. checkpoint --------------------------------------------------------------
-    ck = phase_checkpoint(torch, cg, mb["rt"], mb["ids"], captured)
+    run_dir = tempfile.TemporaryDirectory()
+    kept_store = str(Path(run_dir.name) / "store.lasp")
+    ck = phase_checkpoint(torch, cg, mb["rt"], mb["ids"], captured, kept_store)
     launches["checkpoint"], shapes["checkpoint"] = ck["launches"], ck["shapes"]
     _log("launches", f"checkpoint: {launches['checkpoint']}")
     sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"],
@@ -2820,6 +3240,20 @@ def main() -> int:
     launches["programs"], shapes["programs"] = pg["launches"], pg["shapes"]
     _log("launches", f"programs: {launches['programs']}")
     del pg
+    # 20. session -----------------------------------------------------------------
+    se = phase_session(torch, cg, captured)
+    launches["session"], shapes["session"] = se["launches"], se["shapes"]
+    _log("launches", f"session: {launches['session']}")
+    # 21. bridge ------------------------------------------------------------------
+    br = phase_bridge(torch, cg)
+    launches["bridge"], shapes["bridge"] = br["launches"], br["shapes"]
+    _log("launches", f"bridge: {launches['bridge']}")
+    # 22. scenarios ---------------------------------------------------------------
+    sc = phase_scenarios(torch, cg, captured)
+    launches["scenarios"], shapes["scenarios"] = sc["launches"], sc["shapes"]
+    _log("launches", f"scenarios: {launches['scenarios']}")
+    # 23. cli (subprocesses: their launches are their own, not counted here) ----
+    phase_cli(torch, kept_store, run_dir.name)
     # K2 and K3 replayed under the profiler before the adcounter: in windows
     # opened after the 10,485,760-replica phase the profiler lost some of
     # their kernel records (PERF.md)
@@ -2832,12 +3266,12 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
-    # 20. adcounter ---------------------------------------------------------------
+    # 24. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
     _log("launches", f"adcounter: {launches['adcounter']}")
 
-    # 21. kernels at the main path's shapes ---------------------------------------
+    # 25. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
     main_shapes = {name: {} for name in cg.LAUNCHES}
     for phase_shapes in shapes.values():
@@ -2864,7 +3298,7 @@ def main() -> int:
     for name, fields in profiled.items():
         widest[name].update(fields)
     adcounter_profile(torch, ad)
-    # 22. telemetry: the capability row, the ledger, the flight ring -----------
+    # 26. telemetry: the capability row, the ledger, the flight ring -----------
     flight = north_star_flight(torch, ad)
     phase_telemetry(torch, cg, kind, peak_gbps, widest, flight)
 
@@ -2909,6 +3343,7 @@ def main() -> int:
             s["max_abs_err"] for s in k1_adcounter) or any(
             k["max_abs_err_all_shapes"] for k in kernels[1:]):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
+    run_dir.cleanup()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,12 @@ Layer map (the slice ported so far):
   of every ported layer
 - ``lasp_tpu_torch.bridge_state``    — numpy state exchange with the JAX
   package's state pytrees
+- ``lasp_tpu_torch.api``     — the public Lasp verb set (``Session``)
+- ``lasp_tpu_torch.programs`` — Lasp's distributed incremental programs
+- ``lasp_tpu_torch.bridge``  — the Erlang ``lasp_backend`` bridge: the ETF
+  wire codec and the ``{packet, 4}`` server and client
+- ``lasp_tpu_torch.config``  — the typed ``LASP_*`` configuration
+- ``lasp_tpu_torch.cli``     — the console, ``python -m lasp_tpu_torch.cli``
 
 Every entry point takes ``device=None``, meaning CUDA; without CUDA it
 raises unless the caller passes ``device="cpu"``.
@@ -48,11 +54,18 @@ raises unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
+# Lazy submodule / attribute loading (PEP 562), as the JAX package does:
+# importing the package builds nothing and touches no device.
 _SUBMODULES = frozenset({
-    "aae", "bench_scenarios", "bridge_state", "chaos", "dataflow", "device",
-    "lattice", "membership", "mesh", "ops", "quorum", "serve", "store",
-    "telemetry", "utils",
+    "aae", "api", "bench_scenarios", "bridge", "bridge_state", "chaos", "cli",
+    "config", "dataflow", "device", "lattice", "membership", "mesh", "ops",
+    "programs", "quorum", "serve", "store", "telemetry", "utils",
 })
+_ATTRS = {
+    "Session": ("api", "Session"),
+    "LaspConfig": ("config", "LaspConfig"),
+    "get_config": ("config", "get_config"),
+}
 
 
 def __getattr__(name):
@@ -60,8 +73,11 @@ def __getattr__(name):
 
     if name in _SUBMODULES:
         return importlib.import_module(f".{name}", __name__)
+    if name in _ATTRS:
+        mod, attr = _ATTRS[name]
+        return getattr(importlib.import_module(f".{mod}", __name__), attr)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(set(globals()) | _SUBMODULES)
+    return sorted(set(globals()) | _SUBMODULES | set(_ATTRS))

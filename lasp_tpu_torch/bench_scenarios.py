@@ -1728,3 +1728,874 @@ def riak_index_2i(n_replicas: int = 64, n_events: int = 1024, n_keys: int = 48,
     if keep_runtime:
         out["runtime"] = rt
     return out
+
+
+# -- the roofline workload, the engine A/Bs and the bridge's throughput ------
+
+
+def _arm_roofline(arms: dict) -> dict:
+    """Per-arm achieved GB/s and roofline fraction of an A/B scenario
+    (``lasp_tpu/bench_scenarios.py:32``): ``arms`` maps arm name ->
+    (ledger-attributed bytes, measured seconds). The denominator is the
+    capability row's peak, None off the card (no CPU number stands in for
+    a device metric); an arm whose byte delta is zero (telemetry disabled)
+    reports nulls rather than a fake 0 GB/s."""
+    from .telemetry.capability import device_capability
+
+    peak = device_capability()["peak_GBps"]
+    out = {}
+    for arm, (bytes_moved, secs) in arms.items():
+        if bytes_moved and secs > 0:
+            g = bytes_moved / secs / 1e9
+            out[arm] = {
+                "achieved_GBps": round(g, 3),
+                "roofline_frac": round(g / peak, 4) if peak else None,
+            }
+        else:
+            out[arm] = {"achieved_GBps": None, "roofline_frac": None}
+    return out
+
+
+def roofline_entry(bytes_moved: int, secs: float,
+                   peak: "float | None") -> dict:
+    """Achieved GB/s and HBM roofline fraction for one timed region — the
+    single formatting rule for per-arm entries
+    (``lasp_tpu/bench_scenarios.py:58``). Three significant figures, not
+    fixed decimals: a small probe's rate must stay visibly non-null, never
+    round to 0.0."""
+    gbps = bytes_moved / secs / 1e9 if secs > 0 else None
+    return {
+        "achieved_GBps": (
+            float(f"{gbps:.3g}") if gbps is not None else None
+        ),
+        "roofline_frac": (
+            float(f"{gbps / peak:.3g}")
+            if gbps is not None and peak else None
+        ),
+    }
+
+
+def _probe_mode(dev: torch.device) -> str:
+    # the CPU runs the kernels' plain versions (JAX's interpret mode there)
+    return "cuda" if dev.type == "cuda" else "plain-parity"
+
+
+def _cuda_rows_probe(rt, ids, bucket: int = 16) -> "dict | None":
+    """The row-sparse kernel's arm record (JAX's ``_pallas_rows_probe``,
+    ``lasp_tpu/bench_scenarios.py:78``): one bucket-shaped call of K2 (or
+    K3 for an OR-SWOT) on a copy of a live population, held against its
+    plain PyTorch version (states and changed flags, max_abs_err 0), feeding
+    the ``cuda_rows`` ledger family twice (the first record banks as the
+    compile bucket, so the table shows a warm row). On the CPU the wrapper
+    runs the plain version: a parity check only. Returns None when no
+    variable has a rows plan."""
+    from .ops import cuda_gossip as cg
+    from .telemetry.capability import device_capability
+    from .telemetry.roofline import kernel_traffic
+
+    target = None
+    for v in ids:
+        codec, spec = rt._mesh_meta(v)
+        plan = cg.rows_plan_of(codec, spec, rt.states[v])
+        if plan is not None:
+            target = (v, codec, plan)
+            break
+    if target is None:
+        return None
+    v, codec, plan = target
+    dev = rt.device
+    bucket = min(bucket, rt.n_replicas)
+    rows = torch.arange(bucket, device=dev)[None]
+    leaves = [x[None] for x in tree_map(torch.clone, rt.states[v])]
+    if plan.kind == "vclock":
+        want = cg.gossip_round_rows_vclock_plain(*leaves, rt.neighbors, rows)
+        want = (list(want[0]), want[1])
+    else:
+        want = cg.gossip_round_rows_plain(plan.op, leaves, rt.neighbors, rows)
+    row_bytes = rt._row_bytes(v)
+    secs = []
+    for _ in range(2):
+        got, s = _timed(dev, lambda: cg.rows_round(plan, leaves, rt.neighbors, rows))
+        secs.append(s)
+        get_ledger().record(
+            "cuda_rows", codec.__name__,
+            n_replicas=rt.n_replicas, fanout=rt._ledger_fanout(),
+            seconds=s, row_bytes=row_bytes, rows=bucket, rounds=1,
+        )
+    err = max(
+        int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        for a, b in zip(list(got[0]) + [got[1]], list(want[0]) + [want[1]])
+    )
+    if err:
+        raise AssertionError(
+            f"row-sparse kernel diverged from its plain version (max_abs_err {err})"
+        )
+    est = kernel_traffic(
+        "cuda_rows", row_bytes=row_bytes, n_replicas=rt.n_replicas,
+        fanout=rt._ledger_fanout(), rows=bucket,
+    )
+    warm = min(secs)
+    return {
+        "seconds": round(warm, 6),
+        "bytes_moved": est.bytes_moved,
+        **roofline_entry(
+            est.bytes_moved, warm, device_capability()["peak_GBps"]
+        ),
+        "mode": _probe_mode(dev),
+        "kernel": "gossip_round_rows_vclock" if plan.kind == "vclock"
+        else "gossip_round_rows",
+        "codec": codec.__name__,
+        "bucket": bucket,
+        "max_abs_err": err,
+        "check": "equal to the plain PyTorch version",
+    }
+
+
+def _cuda_dense_probe(n_replicas: int = 64, fanout: int = 3,
+                      device=None) -> dict:
+    """The dense kernel's twin of :func:`_cuda_rows_probe` (JAX's
+    ``_pallas_dense_probe``, ``lasp_tpu/bench_scenarios.py:161``): a small
+    packed OR-Set population runs one round of K1 against its plain
+    version, held bit for bit, feeding the ``cuda_dense`` ledger family
+    twice."""
+    from .ops import cuda_gossip as cg
+    from .telemetry.capability import device_capability
+    from .telemetry.roofline import kernel_traffic
+
+    dev = resolve_device(device)
+    spec = PackedORSetSpec(n_elems=16, n_actors=8, tokens_per_actor=8)
+    states = replicate(PackedORSet.new(spec, device=dev), n_replicas)
+    i = torch.arange(n_replicas, device=dev)
+    states = PackedORSet.add(spec, states, i % spec.n_elems, i % spec.n_actors)
+    nbrs = torch.as_tensor(random_regular(n_replicas, fanout, seed=11),
+                           dtype=torch.int32, device=dev)
+    fe = states.exists.reshape(n_replicas, -1)
+    fr = states.removed.reshape(n_replicas, -1)
+    row_bytes = 2 * spec.n_elems * spec.n_words * 4
+    secs = []
+    for _ in range(2):
+        (oe, orr), s = _timed(dev, lambda: cg.gossip_round_dense(fe, fr, nbrs))
+        secs.append(s)
+        get_ledger().record(
+            "cuda_dense", PackedORSet.__name__,
+            n_replicas=n_replicas, fanout=fanout, seconds=s,
+            row_bytes=row_bytes, rounds=1,
+        )
+    we, wr = cg.gossip_round_dense_plain(fe, fr, nbrs)
+    err = max(int((oe.long() - we.long()).abs().max()),
+              int((orr.long() - wr.long()).abs().max()))
+    if err:
+        raise AssertionError(
+            f"dense kernel diverged from its plain version (max_abs_err {err})"
+        )
+    est = kernel_traffic(
+        "cuda_dense", row_bytes=row_bytes, n_replicas=n_replicas,
+        fanout=fanout,
+    )
+    warm = min(secs)
+    return {
+        "seconds": round(warm, 6),
+        **roofline_entry(
+            est.bytes_moved, warm, device_capability()["peak_GBps"]
+        ),
+        "mode": _probe_mode(dev),
+        "kernel": "gossip_round_dense",
+        "max_abs_err": err,
+        "check": "equal to the plain PyTorch version",
+    }
+
+
+def roofline_workload(n_replicas: int = 128, n_vars: int = 12,
+                      rounds: int = 3, device=None):
+    """Drive every kernel-cost-ledger family of the port on a mixed-codec
+    store — the workload behind the CLI's ``roofline`` verb
+    (``lasp_tpu/bench_scenarios.py:255``): ``rounds`` re-dirty /
+    convergence cycles of frontier stepping (cycle 0 banks as compile time)
+    over G-Set / G-Counter / OR-SWOT variables, then dense steps and fused
+    blocks; the K2 / K3 and K1 probes (``cuda_rows``, ``cuda_dense``); two
+    fused propagates over a small combinator chain (``dataflow_fused``).
+    JAX's partitioned ``shard_exchange`` wave is not run: sharding is not
+    ported (ROADMAP A5). Returns the runtime."""
+    dev = resolve_device(device)
+    kinds = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot")
+    store = Store(n_actors=4, device=dev)
+    ids = []
+    for i in range(n_vars):
+        kind = kinds[i % len(kinds)]
+        if kind == "lasp_gset":
+            ids.append(store.declare(id=f"v{i}", type=kind, n_elems=16))
+        elif kind == "riak_dt_gcounter":
+            ids.append(store.declare(id=f"v{i}", type=kind, n_actors=4))
+        else:
+            ids.append(store.declare(id=f"v{i}", type=kind, n_elems=8,
+                                     n_actors=4))
+    rt = ReplicatedRuntime(
+        store, Graph(store), n_replicas,
+        random_regular(n_replicas, 3, seed=7), device=dev,
+    )
+    for rep in range(rounds + 1):
+        for i, v in enumerate(ids):
+            if i % 3 == 1:
+                rt.update_batch(
+                    v, [((i + rep) % n_replicas, ("increment",),
+                         ("lane", i % 4))]
+                )
+            else:
+                rt.update_batch(
+                    v, [((i + rep) % n_replicas, ("add", f"x{rep}"),
+                         f"a{i}")]
+                )
+        while rt.frontier_step():
+            pass
+    rt.step()
+    rt.step()
+    rt.fused_steps(4)
+    rt.fused_steps(4)
+    rt.cuda_rows_probe = _cuda_rows_probe(rt, ids)
+    rt.cuda_dense_probe = _cuda_dense_probe(device=dev)
+    df_store, df_g = _build_dataflow_chains(n_chains=3, depth=2, device=dev)
+    for rep in range(2):
+        for c in range(3):
+            kind = c % 3
+            if kind == 0:
+                df_store.update(f"g{c}_0", ("add", rep), "w")
+            elif kind == 1:
+                df_store.update(f"s{c}_0", ("add", f"e{rep}"), "w")
+            else:
+                df_store.update(f"o{c}_0", ("add", f"x{rep}"), "w")
+        df_g.propagate(mode="fused")
+    return rt
+
+
+def frontier_sparse(
+    n_replicas: int = 1 << 13,
+    fanout: int = 3,
+    write_frac: float = 0.02,
+    n_elems: int = 256,
+    n_vars: int = 8,
+    write_vars: int = 2,
+    block: int = 4,
+    seed: int = 13,
+    device=None,
+) -> dict:
+    """Sparse-update convergence A/B (``lasp_tpu/bench_scenarios.py:1035``):
+    ``n_vars`` G-Sets of which ``write_vars`` take client writes at
+    ``write_frac`` of the replicas, re-converged from identical seeds by the
+    dense scheduler (fused blocks, K1-free G-Set rounds) and by the frontier
+    engine (``run_to_convergence(mode="frontier")``: untouched variables
+    skipped, touched ones gather and join only reachable rows through K2,
+    with the dense crossover). Both arms are timed warm, best of two
+    replays from a snapshot; the frontier arm then autotunes its crossover
+    (measured break-even density) and re-times. The arms' fixed points must
+    be bit-identical for every variable. The ``cuda_rows`` probe holds K2
+    against its plain version on the frontier arm's population."""
+    dev = resolve_device(device)
+    n_writes = max(1, int(write_frac * n_replicas))
+    write_vars = min(write_vars, n_vars)
+    nbrs = random_regular(n_replicas, fanout, seed=seed)
+
+    def build():
+        store = Store(n_actors=4, device=dev)
+        ids = [
+            store.declare(id=f"v{i}", type="lasp_gset", n_elems=n_elems)
+            for i in range(n_vars)
+        ]
+        rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs, device=dev)
+        rng = np.random.RandomState(seed)
+        for v in ids[:write_vars]:
+            rows = rng.choice(n_replicas, size=n_writes, replace=False)
+            rt.update_batch(
+                v,
+                [
+                    (int(r), ("add", f"w{int(r) % 8}"), f"client{int(r)}")
+                    for r in rows
+                ],
+            )
+        return rt, ids
+
+    def timed_rep(rt, run):
+        """One measured replay from the snapshot (restored by the caller):
+        seconds, rounds, rows touched and the ledger's byte delta."""
+        rows_before = rt.frontier_rows_total
+        bytes_before = get_ledger().totals()["bytes"]
+        rounds, secs = _timed(dev, run)
+        return secs, rounds, (
+            rt.frontier_rows_total - rows_before
+        ), get_ledger().totals()["bytes"] - bytes_before
+
+    results = {}
+    finals = {}
+    autotuned = None
+    cuda_arm = None
+    for arm in ("dense", "frontier"):
+        rt, ids = build()
+        snap = _snapshot_runtime(rt)
+        run = (
+            (lambda: rt.run_to_convergence(block=block))
+            if arm == "dense"
+            else (lambda: rt.run_to_convergence(mode="frontier"))
+        )
+        cold_rounds = run()
+        reps = []
+        for _ in range(2):
+            _restore_runtime(rt, snap)
+            secs, rounds, rows, rep_bytes = timed_rep(rt, run)
+            if rounds != cold_rounds:
+                raise AssertionError(
+                    f"{arm}: a replay took {rounds} rounds, the cold pass "
+                    f"{cold_rounds}"
+                )
+            reps.append((secs, rounds, rows, rep_bytes))
+        if arm == "frontier":
+            secs, _r, rows, _b = min(reps)
+            d_row = results["dense"]["seconds"] / max(
+                cold_rounds * n_replicas * n_vars, 1
+            )
+            if rows:
+                autotuned = round(min(1.0, d_row / (secs / rows)), 4)
+                rt.frontier_crossover = autotuned
+                _restore_runtime(rt, snap)
+                run()  # untimed: the re-scheduled run's first pass
+                _restore_runtime(rt, snap)
+                reps.append(timed_rep(rt, run))
+        secs, rounds, rows, arm_bytes = min(reps)
+        results[arm] = {
+            "seconds": secs, "rounds": rounds, "rows_touched": rows,
+            "bytes_moved": arm_bytes,
+        }
+        if any(rt.divergence(v) for v in ids):
+            raise AssertionError(f"{arm}: a variable did not converge")
+        finals[arm] = (
+            {v: [x.cpu() for x in tree_leaves(rt.states[v])] for v in ids},
+            {v: rt.coverage_value(v) for v in ids},
+        )
+        if arm == "frontier":
+            cuda_arm = _cuda_rows_probe(rt, ids)
+        del rt
+
+    if finals["dense"][1] != finals["frontier"][1] or not all(
+        torch.equal(a, b)
+        for v in finals["dense"][0]
+        for a, b in zip(finals["dense"][0][v], finals["frontier"][0][v])
+    ):
+        raise AssertionError("frontier_sparse: the arms' states diverged")
+
+    dense_s, frontier_s = (
+        results["dense"]["seconds"], results["frontier"]["seconds"],
+    )
+    rows = results["frontier"]["rows_touched"]
+    impl_roofline = _arm_roofline(
+        {a: (results[a]["bytes_moved"], results[a]["seconds"])
+         for a in results}
+    )
+    impl_block_seconds = {
+        "dense": round(dense_s, 6),
+        "frontier": round(frontier_s, 6),
+    }
+    if cuda_arm is not None:
+        impl_block_seconds["cuda_rows"] = cuda_arm["seconds"]
+        impl_roofline["cuda_rows"] = {
+            "achieved_GBps": cuda_arm["achieved_GBps"],
+            "roofline_frac": cuda_arm["roofline_frac"],
+        }
+    return {
+        "scenario": f"frontier_sparse_{n_replicas}",
+        "n_replicas": n_replicas,
+        "n_vars": n_vars,
+        "write_vars": write_vars,
+        "write_density": round(n_writes / n_replicas, 4),
+        "fanout": fanout,
+        "rounds": results["frontier"]["rounds"],
+        "dense_rounds": results["dense"]["rounds"],
+        "frontier_rows_touched": rows,
+        "dense_rows_touched": (
+            results["dense"]["rounds"] * n_replicas * n_vars
+        ),
+        "impl_block_seconds": impl_block_seconds,
+        "impl_roofline": impl_roofline,
+        "cuda_rows": cuda_arm,
+        "gossip_impl": "frontier" if frontier_s <= dense_s else "dense",
+        "frontier_speedup": round(dense_s / frontier_s, 2),
+        "autotuned_crossover": autotuned,
+        "engine": "ReplicatedRuntime(frontier_step)",
+        "check": "fixed points bit-identical across schedulers",
+        "device": str(dev),
+    }
+
+
+_MANY_VARS_KINDS = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot")
+
+
+def many_vars_runtime(n_replicas: int, n_vars: int, hot_vars: int, fanout: int,
+                      seed: int, plan: str, device=None):
+    """The ``many_vars`` population (``lasp_tpu/bench_scenarios.py:1260``):
+    ``n_vars`` small variables cycling G-Set / G-Counter / OR-SWOT on
+    ``random_regular(n_replicas, fanout, seed)``, every one written once
+    and the first ``hot_vars`` at an eighth of the replicas. Returns
+    ``(runtime, ids)``."""
+    dev = resolve_device(device)
+    nbrs = random_regular(n_replicas, fanout, seed=seed)
+    n_hot_rows = max(2, n_replicas // 8)
+    store = Store(n_actors=4, device=dev)
+    ids = []
+    for i in range(n_vars):
+        kind = _MANY_VARS_KINDS[i % 3]
+        if kind == "lasp_gset":
+            ids.append(store.declare(id=f"v{i}", type=kind, n_elems=16))
+        elif kind == "riak_dt_gcounter":
+            ids.append(store.declare(id=f"v{i}", type=kind, n_actors=4))
+        else:
+            ids.append(store.declare(id=f"v{i}", type=kind, n_elems=8,
+                                     n_actors=4))
+    rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs, plan=plan,
+                           device=dev)
+    rng = np.random.RandomState(seed)
+    for j, v in enumerate(ids):
+        rows = rng.choice(
+            n_replicas, n_hot_rows if j < hot_vars else 1, replace=False
+        )
+        kind = _MANY_VARS_KINDS[j % 3]
+        if kind == "lasp_gset":
+            ops = [(int(r), ("add", f"e{int(r) % 8}"), f"a{int(r)}")
+                   for r in rows]
+        elif kind == "riak_dt_gcounter":
+            ops = [(int(r), ("increment",), ("lane", int(r) % 4))
+                   for r in rows]
+        else:
+            ops = [(int(r), ("add", f"x{int(r) % 8}"), f"w{int(r) % 4}")
+                   for r in rows]
+        rt.update_batch(v, ops)
+    return rt, ids
+
+
+def many_vars(
+    n_replicas: int = 256,
+    n_vars: int = 128,
+    hot_vars: int = 2,
+    fanout: int = 3,
+    seed: int = 23,
+    reps: int = 3,
+    device=None,
+) -> dict:
+    """Cross-variable dispatch A/B (``lasp_tpu/bench_scenarios.py:1228``):
+    the :func:`many_vars_runtime` population re-converged from identical
+    seeds by frontier rounds under ``plan="off"`` (one K2 / K3 launch per
+    active variable a round) and ``plan="auto"`` (same-codec variables in
+    one launch per active group). Both arms are timed warm, the median of
+    ``reps`` snapshot replays; the scenario asserts bit-identical final
+    states, identical per-round residual sequences and round counts, and
+    holds K2 / K3 against their plain version on the planned population."""
+    dev = resolve_device(device)
+
+    def drive(rt) -> list:
+        residuals = []
+        for _ in range(4096):
+            r = rt.frontier_step()
+            residuals.append(r)
+            if r == 0:
+                return residuals
+        raise RuntimeError("no convergence within 4096 rounds")
+
+    results = {}
+    finals = {}
+    residual_seqs = {}
+    plan_shape = None
+    cuda_arm = None
+    for arm, plan in (("per_var", "off"), ("planned", "auto")):
+        rt, ids = many_vars_runtime(n_replicas, n_vars, hot_vars, fanout, seed,
+                                    plan, device=dev)
+        snap = _snapshot_runtime(rt)
+        cold_residuals = drive(rt)
+        if plan == "auto":
+            plan_shape = rt._ensure_plan().describe()
+        rep_secs = []
+        arm_bytes0 = get_ledger().totals()["bytes"]
+        for _ in range(reps):
+            _restore_runtime(rt, snap)
+            residuals, secs = _timed(dev, lambda: drive(rt))
+            if residuals != cold_residuals:
+                raise AssertionError(f"{arm}: a replay's residuals differ")
+            rep_secs.append(secs)
+        arm_bytes = get_ledger().totals()["bytes"] - arm_bytes0
+        residual_seqs[arm] = cold_residuals
+        results[arm] = {
+            "seconds": float(np.median(rep_secs)),
+            "seconds_each": [round(s, 6) for s in rep_secs],
+            "noise_band": round(max(rep_secs) / max(min(rep_secs), 1e-9), 2),
+            "rounds": len(cold_residuals),
+            "bytes_moved": arm_bytes,
+            "reps_seconds_total": round(sum(rep_secs), 6),
+        }
+        if any(rt.divergence(v) for v in ids):
+            raise AssertionError(f"{arm}: a variable did not converge")
+        finals[arm] = {v: [x.cpu() for x in tree_leaves(rt.states[v])]
+                       for v in ids}
+        if arm == "planned":
+            cuda_arm = _cuda_rows_probe(rt, ids)
+        del rt
+
+    if residual_seqs["per_var"] != residual_seqs["planned"]:
+        raise AssertionError("many_vars: the arms' residual sequences differ")
+    if not all(torch.equal(a, b) for v in finals["per_var"]
+               for a, b in zip(finals["per_var"][v], finals["planned"][v])):
+        raise AssertionError("many_vars: the arms' states diverged")
+
+    pv_s = results["per_var"]["seconds"]
+    pl_s = results["planned"]["seconds"]
+    impl_roofline = _arm_roofline(
+        {a: (results[a]["bytes_moved"], results[a]["reps_seconds_total"])
+         for a in results}
+    )
+    impl_block_seconds = {"per_var": round(pv_s, 6), "planned": round(pl_s, 6)}
+    if cuda_arm is not None:
+        impl_block_seconds["cuda_rows"] = cuda_arm["seconds"]
+        impl_roofline["cuda_rows"] = {
+            "achieved_GBps": cuda_arm["achieved_GBps"],
+            "roofline_frac": cuda_arm["roofline_frac"],
+        }
+    return {
+        "scenario": f"many_vars_{n_vars}x{n_replicas}",
+        "n_replicas": n_replicas,
+        "n_vars": n_vars,
+        "hot_vars": hot_vars,
+        "fanout": fanout,
+        "rounds": results["planned"]["rounds"],
+        "residuals": residual_seqs["planned"],
+        "plan": plan_shape,
+        "impl_block_seconds": impl_block_seconds,
+        "impl_roofline": impl_roofline,
+        "cuda_rows": cuda_arm,
+        "timing": {
+            "policy": f"median of {reps} warm snapshot replays per arm",
+            "per_var": results["per_var"],
+            "planned": results["planned"],
+        },
+        "gossip_impl": "planned" if pl_s <= pv_s else "per_var",
+        "plan_speedup": round(pv_s / pl_s, 2),
+        "engine": "ReplicatedRuntime(frontier_step, dispatch plan)",
+        "check": "bit-identical states + residual sequences across arms",
+        "device": str(dev),
+    }
+
+
+def packed_vs_dense(n_replicas: int = 1 << 20, blocks: int = 4, block: int = 8,
+                    device=None) -> dict:
+    """The same engine workload (an OR-Set source, a map edge, random
+    gossip) with dense codec state and with ``packed=True`` (K1)
+    (``lasp_tpu/bench_scenarios.py:1887``), identical seeds: ``blocks``
+    fused blocks timed after one warm block, per-round seconds for each
+    mode, then both run to convergence and must give the same value. Every
+    round of every block runs whether or not the population has converged,
+    so this compares the modes' rounds, not a convergence time."""
+    dev = resolve_device(device)
+    nbrs = random_regular(n_replicas, 3, seed=9)
+
+    def build(packed: bool) -> ReplicatedRuntime:
+        store = Store(n_actors=8, device=dev)
+        graph = Graph(store)
+        v = store.declare(
+            id="src", type="lasp_orset", n_elems=16, n_actors=8,
+            tokens_per_actor=4,
+        )
+        graph.map(v, lambda x: x + "!", dst="out", dst_elems=16)
+        rt = ReplicatedRuntime(store, graph, n_replicas, nbrs, packed=packed,
+                               device=dev)
+        rt.update_batch(
+            v, [(0, ("add_all", [f"e{i}" for i in range(8)]), "w")]
+        )
+        return rt
+
+    per_round: dict = {}
+    values: dict = {}
+    rounds: dict = {}
+    for mode in ("dense", "packed"):
+        rt = build(mode == "packed")
+        rt.fused_steps(block)  # warm outside the clock
+
+        def timed_blocks():
+            for _ in range(blocks):
+                rt.fused_steps(block)
+
+        _none, secs = _timed(dev, timed_blocks)
+        per_round[mode] = secs / (blocks * block)
+        rounds[mode] = rt.run_to_convergence(block=block)
+        values[mode] = rt.coverage_value("out")
+        del rt
+    if values["dense"] != values["packed"] or values["dense"] != frozenset(
+            f"e{i}!" for i in range(8)):
+        raise AssertionError(f"packed_vs_dense: values differ: {values}")
+    return {
+        "scenario": f"packed_vs_dense_{n_replicas}",
+        "n_replicas": n_replicas,
+        "rounds_timed": blocks * block,
+        "rounds_after": rounds,
+        "per_round_s": {k: round(v, 6) for k, v in per_round.items()},
+        "packed_speedup": round(per_round["dense"] / per_round["packed"], 2),
+        "engine": "Graph+ReplicatedRuntime",
+        "check": "dense==packed value",
+        "device": str(dev),
+    }
+
+
+def bridge_throughput(n_ops: int = 1500, device=None) -> dict:
+    """ETF codec and loopback bridge throughput
+    (``lasp_tpu/bench_scenarios.py:1944``): a BEAM node delegating its
+    ``lasp_backend`` behaviour pays one ETF decode + dispatch + encode per
+    op, and bulk anti-entropy pays it per ``merge_batch`` frame. Raw codec
+    rates on two frames (a small client op; a 16-store OR-Set
+    ``merge_batch``), end-to-end loopback round trips a second against a
+    server whose store lives on ``device``, and which codec served them
+    (``etf_impl``)."""
+    from .bridge import BridgeClient, BridgeServer, etf
+    from .bridge.etf import Atom
+
+    op_frame = (Atom("update"), b"counter", (Atom("increment"), 5), b"w0")
+    orset_state = [
+        (f"elem{i}".encode(), [(t, t % 3 == 0) for t in range(8)])
+        for i in range(32)
+    ]
+    caps = {Atom("n_elems"): 64, Atom("n_actors"): 4,
+            Atom("tokens_per_actor"): 16}
+    batch_frame = (
+        Atom("merge_batch"),
+        [(f"s{i}".encode(), (Atom("lasp_orset"), orset_state, caps))
+         for i in range(16)],
+    )
+
+    codec = {}
+    for name, frame in (("small_op", op_frame),
+                        ("merge_batch_16x32elem", batch_frame)):
+        raw = etf.encode(frame)
+        reps = max(100, min(20_000, 4_000_000 // max(1, len(raw))))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            etf.encode(frame)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            etf.decode(raw)
+        dec_s = time.perf_counter() - t0
+        codec[name] = {
+            "frame_bytes": len(raw),
+            "encodes_per_s": round(reps / enc_s, 1),
+            "decodes_per_s": round(reps / dec_s, 1),
+            "decode_MBps": round(len(raw) * reps / dec_s / 1e6, 1),
+        }
+
+    with BridgeServer(device=device) as server:
+        with BridgeClient("127.0.0.1", server.port) as c:
+            c.start("bench")
+            c.declare(b"counter", "riak_dt_gcounter", n_actors=8)
+            ok, _ = c.update(b"counter", (Atom("increment"),), b"w0")
+            if ok != Atom("ok"):
+                raise AssertionError(f"bridge_throughput: update refused: {ok}")
+            t0 = time.perf_counter()
+            for _ in range(n_ops):
+                c.update(b"counter", (Atom("increment"),), b"w0")
+            loop_s = time.perf_counter() - t0
+            _ok, total = c.read(b"counter")
+            if total != n_ops + 1:
+                raise AssertionError(
+                    f"bridge_throughput: counter {total}, sent {n_ops + 1}"
+                )
+
+    return {
+        "scenario": f"bridge_throughput_{n_ops}",
+        "etf_impl": etf.IMPL,
+        "codec": codec,
+        "loopback_roundtrips_per_s": round(n_ops / loop_s, 1),
+        "check": "counter total == ops sent",
+        "device": str(server.device),
+    }
+
+
+#: riak_core's default ring size (``ring_creation_size``, 64 partitions):
+#: one durable bridge store (``{start, Name}``) per partition
+BRIDGE_PARTITIONS = 64
+
+#: the caps each of ``ingest_storm``'s five kinds is declared with over the
+#: wire (the map's two fields as in ``ingest_storm``: ``tags`` and ``hits``)
+_BRIDGE_CAPS = {
+    "lasp_gset": {"n_elems": 32},
+    "riak_dt_gcounter": {"n_actors": 16},
+    "riak_dt_orswot": {"n_elems": 32, "n_actors": 16},
+    "lasp_orset": {"n_elems": 32, "n_actors": 16, "tokens_per_actor": 4},
+    "riak_dt_map": {"n_actors": 16},
+}
+
+
+def bridge_stream(n_requests: int = 20_000, n_partitions: int = BRIDGE_PARTITIONS,
+                  vars_per_partition: int = 16, merge_every: int = 10,
+                  seed: int = 0) -> dict:
+    """A seeded bridge workload: ``vars_per_partition`` variables in each of
+    ``n_partitions`` stores, cycling :data:`INGEST_KINDS`, and
+    ``n_requests`` requests over them — every ``merge_every``-th a
+    ``merge_batch`` of one portable state for each variable of a partition
+    (the anti-entropy RPC), the rest 70% updates (each wrapped in ``{idem,
+    ReqId, _}`` with a seeded id, as the client sends writes), 15% reads and
+    15% gets. OR-Set / OR-SWOT removes name terms the stream added and
+    has not removed. Pure function of the seed: returns ``{"setup":
+    [(partition, term)], "requests": [(partition, term)], "vars":
+    [(partition, var_id)]}`` with ``partition`` a store name (``p<k>``) and
+    terms of this package's ``Atom``."""
+    from .bridge.etf import Atom
+
+    rng = np.random.RandomState(seed)
+    actors = [f"a{i}".encode() for i in range(8)]
+    elems = [f"e{i}".encode() for i in range(24)]
+    setup, variables, kinds = [], [], {}
+    for p in range(n_partitions):
+        name = f"p{p}"
+        setup.append((name, (Atom("start"), Atom(name))))
+        for i in range(vars_per_partition):
+            kind = INGEST_KINDS[(p * vars_per_partition + i) % len(INGEST_KINDS)]
+            vid = f"v{p}_{i}".encode()
+            caps = {Atom(k): v for k, v in _BRIDGE_CAPS[kind].items()}
+            if kind == "riak_dt_map":
+                caps[Atom("fields")] = [
+                    (b"tags", Atom("lasp_gset"), {Atom("n_elems"): 8}),
+                    (b"hits", Atom("riak_dt_gcounter"), {}),
+                ]
+            setup.append((name, (Atom("declare"), vid, Atom(kind), caps)))
+            variables.append((name, vid))
+            kinds[vid] = kind
+    live: dict = {}  # OR-Set / OR-SWOT var -> terms added and not removed
+
+    def update(vid):
+        kind, actor = kinds[vid], actors[rng.randint(len(actors))]
+        if kind == "riak_dt_gcounter":
+            op = (Atom("increment"), int(rng.randint(1, 4)))
+        elif kind == "riak_dt_map":
+            op = ((Atom("update"), b"hits", (Atom("increment"),))
+                  if rng.rand() < 0.5 else
+                  (Atom("update"), b"tags",
+                   (Atom("add"), elems[rng.randint(8)])))
+        elif kind == "lasp_gset":
+            op = (Atom("add"), elems[rng.randint(len(elems))])
+        else:
+            bag = live.setdefault(vid, [])
+            if bag and rng.rand() < 0.2:
+                op = (Atom("remove"), bag.pop(rng.randint(len(bag))))
+            else:
+                term = elems[rng.randint(len(elems))]
+                op = (Atom("add"), term)
+                if term not in bag:
+                    bag.append(term)
+        return (Atom("idem"), rng.bytes(16), (Atom("update"), vid, op, actor))
+
+    def portable(vid):
+        kind = kinds[vid]
+        a = [actors[i] for i in rng.choice(len(actors), 2, replace=False)]
+        if kind == "lasp_gset":
+            return [elems[i] for i in rng.choice(len(elems), 3, replace=False)]
+        if kind == "riak_dt_gcounter":
+            return [(x, int(rng.randint(1, 40))) for x in a]
+        if kind == "lasp_orset":
+            return [(elems[i], [(int(rng.randint(64)), False)])
+                    for i in rng.choice(len(elems), 2, replace=False)]
+        clock = [(x, int(rng.randint(1, 4))) for x in a]
+        dots = [(a[0], int(rng.randint(1, clock[0][1] + 1)))]
+        if kind == "riak_dt_orswot":
+            return (clock, [(elems[rng.randint(len(elems))], dots)])
+        return (clock, [(b"hits", dots, [(a[1], int(rng.randint(1, 9)))])])
+
+    requests = []
+    for n in range(n_requests):
+        name, vid = variables[rng.randint(len(variables))]
+        if merge_every and n % merge_every == merge_every - 1:
+            items = [(v, portable(v)) for pn, v in variables if pn == name]
+            requests.append((name, (Atom("merge_batch"), items)))
+            continue
+        roll = rng.rand()
+        if roll < 0.7:
+            requests.append((name, update(vid)))
+        elif roll < 0.85:
+            requests.append((name, (Atom("read"), vid)))
+        else:
+            requests.append((name, (Atom("get"), vid)))
+    return {"setup": setup, "requests": requests, "vars": variables}
+
+
+def run_bridge_stream(port: int, stream: dict, host: str = "127.0.0.1",
+                      requests: bool = True) -> dict:
+    """Drive :func:`bridge_stream`'s workload through a live bridge server,
+    one client connection per partition: its setup, then (``requests``)
+    its requests in order. Returns the responses as ETF bytes, in order,
+    with each request's round-trip seconds and the wall seconds of the
+    request phase; the clients are closed."""
+    from .bridge import Atom, BridgeClient, etf
+
+    clients = {}
+    try:
+        for name, term in stream["setup"]:
+            if name not in clients:
+                clients[name] = BridgeClient(host, port, retries=0)
+            for _ in range(250):
+                resp = clients[name].call(term)
+                # a store name stays locked until the server has closed
+                # the previous connection that held it
+                if resp[:2] != (etf.ERROR, Atom("locked")):
+                    break
+                time.sleep(0.02)
+            if resp[0] == etf.ERROR:
+                raise RuntimeError(f"bridge setup {term!r} refused: {resp!r}")
+        out, lat = [], []
+        t0 = time.perf_counter()
+        for name, term in stream["requests"] if requests else ():
+            t = time.perf_counter()
+            resp = clients[name].call(term)
+            lat.append(time.perf_counter() - t)
+            out.append(etf.encode(resp))
+        wall = time.perf_counter() - t0
+    finally:
+        for c in clients.values():
+            c.close()
+    return {"responses": out, "latency_s": lat, "seconds": wall}
+
+
+def _sharding_not_ported(name: str):
+    raise NotImplementedError(
+        f"bench_scenarios.{name} shards the population over devices; "
+        "multi-device sharding is not ported yet (ROADMAP A5)"
+    )
+
+
+def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
+                       rounds: int = 3) -> dict:
+    """JAX's irregular-gossip wire A/B under sharding
+    (``lasp_tpu/bench_scenarios.py:2011``). Raises: sharding is not ported
+    (ROADMAP A5)."""
+    _sharding_not_ported("partitioned_gossip")
+
+
+def mesh_scale(n_replicas: int = 1 << 12, n_shards: int = 8, k: int = 3,
+               write_frac: float = 0.002, cycles: int = 2, n_vars: int = 2,
+               n_elems: int = 64) -> dict:
+    """JAX's partitioned frontier mesh A/B
+    (``lasp_tpu/bench_scenarios.py:2573``). Raises: sharding is not ported
+    (ROADMAP A5)."""
+    _sharding_not_ported("mesh_scale")
+
+
+#: every scenario by name — JAX's registry's keys
+#: (``lasp_tpu/bench_scenarios.py:3084``), the CLI's ``scenario`` verb
+SCENARIOS = {
+    "adcounter_6": adcounter_6,
+    "gset_1k": gset_1k,
+    "orset_100k": orset_100k,
+    "pipeline_1m": pipeline_1m,
+    "adcounter_10m": adcounter_10m,
+    "packed_vs_dense": packed_vs_dense,
+    "bridge_throughput": bridge_throughput,
+    "partitioned_gossip": partitioned_gossip,
+    "mesh_scale": mesh_scale,
+    "frontier_sparse": frontier_sparse,
+    "many_vars": many_vars,
+    "ingest_storm": ingest_storm,
+    "dataflow_chain": dataflow_chain,
+    "chaos_heal": chaos_heal,
+    "quorum_kv": quorum_kv,
+    "serve_load": serve_load,
+    "aae_scrub": aae_scrub,
+    "elastic_rebalance": elastic_rebalance,
+}

@@ -8,12 +8,12 @@ is accepted or refused by both packages.
 
 What the port reads today: ``flight_rounds`` (the flight ring's depth,
 ``telemetry.device``) and ``n_actors`` (the default writer universe of a
-``Store``). ``fanout`` and ``fused_block`` size JAX's CLI simulations and
-scenario topologies, which the port's CLI will read (a later slice); ``etf``
-waits for the bridge and ``mesh_state_axis`` for multi-device sharding;
-``gossip_impl`` keeps JAX's vocabulary (``auto | xla | pallas``) so
-validation agrees, and the port does not read it (its gossip runs the CUDA
-kernels on the card); the ``bench_*`` knobs serve ``bench.py``.
+``Store``). ``fanout`` and ``fused_block`` size the CLI's simulations,
+``etf`` selects the bridge's wire codec (:mod:`.bridge.etf`) and
+``mesh_state_axis`` waits for multi-device sharding; ``gossip_impl`` keeps
+JAX's vocabulary (``auto | xla | pallas``) so validation agrees, and the
+port does not read it (its gossip runs the CUDA kernels on the card); the
+``bench_*`` knobs serve ``bench.py``.
 """
 
 from __future__ import annotations
@@ -127,10 +127,17 @@ def get_config() -> LaspConfig:
 
 
 def set_config(cfg: LaspConfig) -> LaspConfig:
-    """Install ``cfg`` (validated) as the process-wide config. (JAX's also
-    re-selects its ETF wire codec here; the port has no bridge yet.)"""
+    """Install ``cfg`` (validated) as the process-wide config and notify
+    already-materialized dependents: the ETF wire codec re-runs its
+    selection (``cfg.etf``) once it has made one, so ``LaspConfig(etf=
+    "python")`` takes effect after the first frame too."""
     global _CONFIG
     _CONFIG = cfg.validate()
+    import sys
+
+    etf_mod = sys.modules.get("lasp_tpu_torch.bridge.etf")
+    if etf_mod is not None and etf_mod.IMPL is not None:
+        etf_mod.reselect()
     return _CONFIG
 
 

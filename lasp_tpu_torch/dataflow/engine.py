@@ -404,6 +404,8 @@ class Graph:
         states = {v: self.store.state(v) for v in self._var_ids}
         limit = max_rounds if max_rounds is not None else len(self.edges) + 1
         dirty = self.store.dirty_since(self._dirty_cursor) & set(self._var_ids)
+        #: sweeps each edge was evaluated in by this propagate
+        self._runs = [0] * len(self.edges)
         rounds = None
         if mode != "per_edge":
             rounds = self._propagate_fused(
@@ -421,7 +423,25 @@ class Graph:
         else:
             # a watch callback wrote during ingest; stay dirty
             self._clean_mark = None
+        self._emit_deep_provenance()
         return rounds
+
+    def _emit_deep_provenance(self) -> None:
+        """The deep tier of JAX's propagate record
+        (``lasp_tpu/dataflow/engine.py:733-739``): per edge, its sources,
+        destination and the sweeps it ran, the trail the CLI's ``trace
+        --var --deep`` reconstructs values from. (JAX's coarse
+        ``propagate`` event and per-kind counters are not carried.)"""
+        from ..telemetry import events as tel_events
+
+        if not tel_events.deep_enabled():
+            return
+        for i, e in enumerate(self.edges):
+            d = e.describe()
+            tel_events.emit_deep(
+                "edge_recompute", var=d["dst"], kind=d["kind"],
+                srcs=d["srcs"], sweeps=self._runs[i],
+            )
 
     def _propagate_fused(self, states, tables, dirty, limit, strict: bool):
         """The fused body: build (or fetch) the dirty closure's entry and
@@ -475,6 +495,7 @@ class Graph:
                               sweeps, pending, secs)
         for i in idx:
             self._edge_ran[i] = True
+            self._runs[i] = sweeps
         self.last_propagate = {
             "path": "fused", "sweeps": sweeps,
             "host_syncs": -(-sweeps // fused_ops.DATAFLOW_BLOCK),
@@ -542,6 +563,7 @@ class Graph:
             sweeps += 1
             for i in eligible:
                 self._edge_ran[i] = True
+                self._runs[i] += 1
             dirty = {d for d, c in zip(dst_order, changed) if c}
             if not dirty:
                 break

@@ -361,6 +361,9 @@ class ReplicatedRuntime:
         #: block -1 (no quiescent round in it) or 0
         self.round_residuals: list[int] = []
         self.frontier_rows_last = 0
+        #: rows every frontier round so far touched (frontier_sparse's
+        #: crossover autotune reads its deltas)
+        self.frontier_rows_total = 0
         self.frontier_dense_falls_last = 0
         self._elem_masks: dict = {}
         #: "auto" groups same-signature variables into one kernel launch per
@@ -2429,6 +2432,7 @@ class ReplicatedRuntime:
             elapsed = time.perf_counter() - t0
         total = sum(stats["per_var_changed"])
         self.frontier_rows_last = stats["rows_touched"]
+        self.frontier_rows_total += stats["rows_touched"]
         self.frontier_dense_falls_last = stats["dense_falls"]
         self._emit_frontier_telemetry(
             stats["per_var_changed"], total, stats["rows_touched"], skipped,

@@ -48,7 +48,8 @@ def test_scans_cover_every_ported_module():
                  "programs.examples", "programs.riak_index", "mesh.programs",
                  "quorum.coverage", "config", "telemetry.capability",
                  "telemetry.roofline", "telemetry.device",
-                 "telemetry.overhead"):
+                 "telemetry.overhead", "api.session", "bridge.etf",
+                 "bridge.server", "cli"):
         assert f"lasp_tpu_torch.{name}" in mods
         assert f"lasp_tpu_torch/{name.replace('.', '/')}.py" in files
 
@@ -89,21 +90,29 @@ def test_no_forbidden_import_in_source(path):
 
 
 def _entry_points():
+    from lasp_tpu_torch import cli
+    from lasp_tpu_torch.api import Session
     from lasp_tpu_torch.bench_scenarios import (
         aae_scrub,
         adcounter_6,
         adcounter_10m,
+        bridge_throughput,
         chaos_heal,
         dataflow_chain,
         elastic_rebalance,
+        frontier_sparse,
         gset_1k,
         ingest_storm,
+        many_vars,
         orset_100k,
         orset_anti_entropy,
+        packed_vs_dense,
         pipeline_1m,
         quorum_kv,
+        roofline_workload,
         serve_load,
     )
+    from lasp_tpu_torch.bridge import BridgeServer
     from lasp_tpu_torch.bridge_state import from_numpy
     from lasp_tpu_torch.dataflow import Graph
     from lasp_tpu_torch.lattice import GSet, GSetSpec
@@ -155,6 +164,14 @@ def _entry_points():
             ReplicatedRuntime(store, Graph(store), 8, ring(8, 2))
         ),
         "measure_overhead": lambda: measure_overhead(n_replicas=8),
+        "Session": lambda: Session(),
+        "BridgeServer": lambda: BridgeServer(),
+        "cli": lambda: cli.main(["simulate", "--replicas", "8"]),
+        "bridge_throughput": lambda: bridge_throughput(8),
+        "frontier_sparse": lambda: frontier_sparse(16),
+        "many_vars": lambda: many_vars(16),
+        "packed_vs_dense": lambda: packed_vs_dense(16),
+        "roofline_workload": lambda: roofline_workload(16),
     }
 
 
@@ -164,7 +181,8 @@ def _entry_points():
      "pipeline_1m", "ingest_storm", "dataflow_chain", "load_store", "load_runtime",
      "chaos_heal", "quorum_kv", "transition_batched", "aae_scrub",
      "elastic_rebalance", "serve_load", "register", "ring_coverage_execute",
-     "measure_overhead"]
+     "measure_overhead", "Session", "BridgeServer", "cli", "bridge_throughput",
+     "frontier_sparse", "many_vars", "packed_vs_dense", "roofline_workload"]
 ))
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """With no CUDA, ``device=None`` raises instead of carrying on on the
@@ -201,3 +219,28 @@ def test_programs_and_coverage_run_on_the_cpu_when_asked():
     rt.process(("k", 1), "put", "a", replica=5)
     assert rt.execute("keys") == ring_coverage_execute(rt)["keys"] == {"k"}
     assert rt.states[rt.programs["keys"].id][0].device.type == "cpu"
+
+
+def test_package_resolves_submodules_and_attributes_lazily():
+    """``lasp_tpu_torch.<name>`` resolves every module a user reaches
+    (``programs`` and ``config`` included) and ``Session`` / ``LaspConfig``
+    / ``get_config`` as JAX's package does, without an earlier import."""
+    code = (
+        "import lasp_tpu_torch as L\n"
+        "import sys\n"
+        "assert 'lasp_tpu_torch.programs' not in sys.modules\n"
+        "assert L.programs.ExampleKeylistProgram and L.config.LaspConfig\n"
+        "assert L.Session is L.api.Session\n"
+        "assert L.LaspConfig is L.config.LaspConfig\n"
+        "assert L.get_config() is L.config.get_config()\n"
+        "assert L.bridge.BridgeServer and L.cli.main\n"
+        "import lasp_tpu\n"
+        "missing = (sorted(lasp_tpu._SUBMODULES - L._SUBMODULES),\n"
+        "           sorted(set(lasp_tpu._ATTRS) - set(L._ATTRS)))\n"
+        "print(missing)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    # every JAX submodule and attribute has its counterpart
+    assert proc.stdout.strip() == "([], [])"

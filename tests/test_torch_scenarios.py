@@ -186,3 +186,138 @@ def test_serve_load_matches_jax_small():
         rep.pop("overlap_seconds")
     assert _without_seconds(got) == _without_seconds(want)
     assert got["no_write_lost"] and got["threshold_parity"]["parity"]
+
+
+# -- the scenarios of the user-surface slice -----------------------------------
+
+
+def test_scenarios_registry_has_jax_keys():
+    assert list(tb.SCENARIOS) == list(jb.SCENARIOS)
+    for name in ("partitioned_gossip", "mesh_scale"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+            tb.SCENARIOS[name]()
+
+
+def _gset_population(pkg, n, n_vars, n_elems, write_vars, n_writes, seed):
+    """``frontier_sparse``'s population, built by either package."""
+    if pkg == "jax":
+        store = jstore.Store(n_actors=4)
+        make = lambda: jmesh.ReplicatedRuntime(  # noqa: E731
+            store, jdf.Graph(store), n, jmesh.random_regular(n, 3, seed=seed))
+    else:
+        from lasp_tpu_torch.dataflow import Graph
+        from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+        from lasp_tpu_torch.store import Store
+
+        store = Store(n_actors=4, device="cpu")
+        make = lambda: ReplicatedRuntime(  # noqa: E731
+            store, Graph(store), n, random_regular(n, 3, seed=seed), device="cpu")
+    ids = [store.declare(id=f"v{i}", type="lasp_gset", n_elems=n_elems)
+           for i in range(n_vars)]
+    rt = make()
+    rng = np.random.RandomState(seed)
+    for v in ids[:write_vars]:
+        rows = rng.choice(n, size=n_writes, replace=False)
+        rt.update_batch(v, [(int(r), ("add", f"w{int(r) % 8}"), f"client{int(r)}")
+                            for r in rows])
+    return rt, ids
+
+
+def test_frontier_sparse_matches_jax_small():
+    kw = dict(n_replicas=512, n_vars=4, n_elems=32, write_frac=0.02)
+    want = jb.frontier_sparse(**kw)
+    got = tb.frontier_sparse(device="cpu", **kw)
+    for key in ("scenario", "rounds", "dense_rows_touched", "write_density",
+                "write_vars", "n_vars", "engine", "check"):
+        assert got[key] == want[key], key
+    assert got["cuda_rows"]["max_abs_err"] == 0
+    assert got["cuda_rows"]["mode"] == "plain-parity"
+    # the frontier arm round by round, at the default crossover: the same
+    # residuals and rows touched as JAX's (the scenario's own replays
+    # autotune the crossover from host timings)
+    trt, ids = _gset_population("torch", 512, 4, 32, 2, 10, 13)
+    jrt, _ = _gset_population("jax", 512, 4, 32, 2, 10, 13)
+    assert trt.run_to_convergence(mode="frontier") == jrt.run_to_convergence(
+        mode="frontier") == got["rounds"]
+    assert trt.round_residuals == [r["residual"] for r in jrt.trace.rounds]
+    assert trt.frontier_rows_total == jrt.frontier_rows_total
+
+
+def test_many_vars_matches_jax_small():
+    kw = dict(n_replicas=96, n_vars=12, reps=1)
+    want = jb.many_vars(**kw)
+    got = tb.many_vars(device="cpu", **kw)
+    for key in ("scenario", "rounds", "plan", "n_vars", "hot_vars", "engine",
+                "check"):
+        assert got[key] == want[key], key
+    assert got["cuda_rows"]["max_abs_err"] == 0
+    # the residual sequence the scenario asserted across its arms, against
+    # JAX's frontier rounds on the same population
+    jstore_ = jstore.Store(n_actors=4)
+    trt, ids = tb.many_vars_runtime(96, 12, 2, 3, 23, "auto", device="cpu")
+    for v in ids:
+        tv = trt.store.variable(v)
+        caps = {"lasp_gset": {"n_elems": 16}, "riak_dt_gcounter": {"n_actors": 4},
+                "riak_dt_orswot": {"n_elems": 8, "n_actors": 4}}[tv.type_name]
+        jstore_.declare(id=v, type=tv.type_name, **caps)
+    jrt = jmesh.ReplicatedRuntime(jstore_, jdf.Graph(jstore_), 96,
+                                  jmesh.random_regular(96, 3, seed=23), plan="auto")
+    rng = np.random.RandomState(23)
+    kinds = ("lasp_gset", "riak_dt_gcounter", "riak_dt_orswot")
+    for j, v in enumerate(ids):
+        rows = rng.choice(96, 12 if j < 2 else 1, replace=False)
+        kind = kinds[j % 3]
+        if kind == "lasp_gset":
+            ops = [(int(r), ("add", f"e{int(r) % 8}"), f"a{int(r)}") for r in rows]
+        elif kind == "riak_dt_gcounter":
+            ops = [(int(r), ("increment",), ("lane", int(r) % 4)) for r in rows]
+        else:
+            ops = [(int(r), ("add", f"x{int(r) % 8}"), f"w{int(r) % 4}") for r in rows]
+        jrt.update_batch(v, ops)
+    def drive(rt):
+        residuals = [rt.frontier_step()]
+        while residuals[-1]:
+            residuals.append(rt.frontier_step())
+        return residuals
+
+    assert got["residuals"] == drive(jrt) == drive(trt)
+    for v in ids:
+        for a, b in zip(tree_leaves(trt.states[v]),
+                        jax.tree_util.tree_leaves(jrt.states[v])):
+            assert np.array_equal(a.numpy(), np.asarray(b)), v
+
+
+def test_packed_vs_dense_matches_jax_small():
+    want = jb.packed_vs_dense(n_replicas=256, blocks=1, block=4)
+    got = tb.packed_vs_dense(n_replicas=256, blocks=1, block=4, device="cpu")
+    for key in ("scenario", "n_replicas", "rounds_timed", "engine", "check"):
+        assert got[key] == want[key], key
+    assert got["rounds_after"]["dense"] == got["rounds_after"]["packed"]
+
+
+def test_roofline_workload_families_map_to_jax():
+    """The port's ledger families after ``roofline_workload`` are JAX's,
+    ``pallas_*`` as ``cuda_*``, less ``shard_exchange`` (sharding, A5);
+    both probes hold their kernel's plain version bit for bit."""
+    import lasp_tpu.telemetry as jtel
+    import lasp_tpu_torch.telemetry as ttel
+
+    _fresh_ledgers()
+    jb.roofline_workload(32, rounds=1)
+    rt = tb.roofline_workload(32, rounds=1, device="cpu")
+    rename = {"pallas_dense": "cuda_dense", "pallas_rows": "cuda_rows"}
+    want = {rename.get(e["kernel"].split(":")[0], e["kernel"].split(":")[0])
+            for e in jtel.get_ledger().snapshot()} - {"shard_exchange"}
+    got = {e["kernel"].split(":")[0] for e in ttel.get_ledger().snapshot()}
+    assert got == want
+    assert rt.cuda_rows_probe["max_abs_err"] == 0
+    assert rt.cuda_dense_probe["max_abs_err"] == 0
+    assert rt.cuda_rows_probe["bytes_moved"] > 0
+
+
+def test_bridge_throughput_counts_every_op():
+    out = tb.bridge_throughput(n_ops=100, device="cpu")
+    assert out["scenario"] == "bridge_throughput_100"
+    assert out["etf_impl"] in ("native", "python")
+    assert out["codec"]["merge_batch_16x32elem"]["frame_bytes"] > 40_000
+    assert out["loopback_roundtrips_per_s"] > 0
