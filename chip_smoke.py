@@ -180,16 +180,19 @@ Phases, each of which fails the run on any error:
                at JAX's defaults under the native and the Python ETF arm; a
                seeded stream of 20,000 requests over 1,024 variables (16 in
                each of riak_core's 64 partitions, ``ingest_storm``'s five
-               kinds, one request in ten a 16-variable ``merge_batch``) in
+               kinds, one request in ten a 16-variable ``merge_batch``, the
+               rest YCSB workload A's zipfian reads and updates) in
                durable mode, every response equal byte for byte to a CPU
                server's in this process, every variable read back equal after
                a restart on the same ``data_dir``; requests/s, p50 / p99 ms
                and the card's busy share over 2,000 requests;
-22. scenarios — ``frontier_sparse(n_replicas=100_000)``, ``many_vars(
-               n_replicas=100_000, n_vars=128)``, ``packed_vs_dense`` at
-               524,288 replicas (cut from JAX's 1,048,576: the dense arm's
-               map output ran out of memory) and ``roofline_workload()``,
-               each with its
+22. scenarios — run between phases 3 and 4, before the runtimes that
+               the kernels phase replays (about 12 GiB) are resident:
+               ``frontier_sparse(n_replicas=100_000)``, ``many_vars(
+               n_replicas=100_000, n_vars=128)``, ``packed_vs_dense()`` at
+               JAX's 1,048,576 replicas (its dense arm peaks near 68 GiB;
+               the peak reported) and
+               ``roofline_workload()``, each with its
                own check, their K1 / K2 / K3 probes held at max_abs_err 0;
                ``partitioned_gossip`` / ``mesh_scale`` must raise
                ``NotImplementedError`` (sharding is not ported);
@@ -662,7 +665,14 @@ def _plan_twin(n, nbrs, plan):
     """A ``Store(n_actors=16)`` of 48 variables over ``n`` replicas, written
     with ``update_batch`` from ``RandomState(23)``: each variable at 16
     distinct rows, row i by actor ``w{i}``; ``v0`` also takes adds at
-    ``n // 8`` hot rows. Returns ``(runtime, ids, expected coverage)``."""
+    ``n // 8`` hot rows. Returns ``(runtime, ids, expected coverage)``.
+
+    The plan cell keeps this population beside ``bench_scenarios.
+    many_vars_runtime``'s because it checks what that one has not: each
+    variable's coverage value against a known answer (16 writers, OR-SWOT
+    removes), and K2 / K3 at 64-element, 16-actor rows (``many_vars``
+    writes 16- and 8-element rows over 4 actors, one row a variable), the
+    launch shapes this phase has held since it was added."""
     from lasp_tpu_torch.dataflow import Graph
     from lasp_tpu_torch.mesh import ReplicatedRuntime
     from lasp_tpu_torch.store import Store
@@ -2226,7 +2236,8 @@ def phase_bridge(torch, cg) -> dict:
     arm (``LaspConfig(etf="python")``); then
     the seeded stream of 20,000 requests over 1,024 variables (16 in each
     of riak_core's 64 partitions, ``ingest_storm``'s five kinds; one in ten
-    a 16-variable ``merge_batch``) in durable mode, every response equal
+    a 16-variable ``merge_batch``, the rest YCSB workload A's reads and
+    updates) in durable mode, every response equal
     byte for byte to a second server's on the CPU in this process; the
     server restarted on the same ``data_dir`` must read every variable back
     as it answered before (no acked write lost). Requests/s, p50 / p99 ms,
@@ -2234,7 +2245,8 @@ def phase_bridge(torch, cg) -> dict:
     import os
     import shutil
 
-    from lasp_tpu_torch.bench_scenarios import (bridge_stream, bridge_throughput,
+    from lasp_tpu_torch.bench_scenarios import (bridge_clients, bridge_requests,
+                                                bridge_stream, bridge_throughput,
                                                 run_bridge_stream)
     from lasp_tpu_torch.bridge import BridgeServer, etf
 
@@ -2277,13 +2289,21 @@ def phase_bridge(torch, cg) -> dict:
                    for f in os.listdir(dirs["cuda"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    window = {"setup": stream["setup"], "requests": stream["requests"][:2000]}
+    # the busy share over 2,000 requests only: the stores are declared
+    # before the profiler opens
     with BridgeServer() as server:
-        run_bridge_stream(server.port, window, requests=False)
-        busy = _device_busy(torch, lambda: run_bridge_stream(server.port, window))
+        clients = bridge_clients(server.port, stream["setup"])
+        try:
+            busy = _device_busy(torch, lambda: bridge_requests(
+                clients, stream["requests"][:2000]))
+        finally:
+            for c in clients.values():
+                c.close()
     ms = np.asarray(run["latency_s"]) * 1e3
     errors = sum(1 for r in run["responses"]
                  if etf.decode(r)[0] == etf.ERROR)
+    if errors:
+        raise RuntimeError(f"bridge: {errors} of the stream's requests were refused")
     kinds = Counter(str(t[0]) for _p, t in stream["requests"])
     launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
     _log_line("bridge", {
@@ -2299,19 +2319,13 @@ def phase_bridge(torch, cg) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
-#: ``packed_vs_dense``'s population, cut from JAX's 1,048,576: the dense
-#: arm's ``map`` output derives 16 x 512 tokens a replica (16 GB of state at
-#: 1,048,576), and its round's copies ran out of the card's 80 GB there
-_PACKED_VS_DENSE = 1 << 19
-
-
 def phase_scenarios(torch, cg, captured: dict) -> dict:
     """The scenarios this slice ports, each with its own check:
     ``frontier_sparse(n_replicas=100_000)`` (dense and frontier fixed points
     bit-identical, K2 held against its plain version), ``many_vars(
     n_replicas=100_000, n_vars=128)`` (``plan="off"`` and ``"auto"``:
-    residuals and states identical), ``packed_vs_dense`` at 524,288
-    replicas (one value; JAX's 1,048,576 ran out of memory),
+    residuals and states identical), ``packed_vs_dense()`` at JAX's
+    1,048,576 replicas (one value; the peak memory of the two arms),
     ``roofline_workload()`` (its K1 and K2 / K3
     probes held at max_abs_err 0, the ledger's ``cuda_*`` families), and
     ``partitioned_gossip`` / ``mesh_scale`` raising ``NotImplementedError``
@@ -2328,10 +2342,12 @@ def phase_scenarios(torch, cg, captured: dict) -> dict:
         for name, fn in (
                 ("frontier_sparse", lambda: frontier_sparse(n_replicas=100_000)),
                 ("many_vars", lambda: many_vars(n_replicas=100_000, n_vars=128)),
-                ("packed_vs_dense", lambda: packed_vs_dense(_PACKED_VS_DENSE))):
+                ("packed_vs_dense", packed_vs_dense)):
             before = dict(cg.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
             rec, secs = _timed_step(torch, fn)
             rec["phase_s"], rec["launches"] = secs, _launch_delta(cg, before)
+            rec["peak_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
             out[name] = rec
             _log_line("scenarios", {"scenario": name, **rec})
         before = dict(cg.LAUNCHES)
@@ -2373,6 +2389,9 @@ def phase_cli(torch, checkpoint: str, out_dir: str) -> dict:
 
     root = Path(__file__).resolve().parent
     export = os.path.join(out_dir, "roofline.json")
+    # the subprocesses allocate on the same card: hand back what this
+    # process's allocator keeps cached (packed_vs_dense's arms left ~70 GiB)
+    torch.cuda.empty_cache()
     verbs = {
         "status": ["status"],
         "simulate": ["simulate"],
@@ -3125,6 +3144,12 @@ def main() -> int:
              head["convergence"]["productive_rounds_per_block"],
          "seconds_each": head["timing"]["seconds_each"]})
 
+    # 22. scenarios, before the runtimes the kernels phase replays are
+    # resident: packed_vs_dense's dense arm needs about 68 GiB of the card
+    sc = phase_scenarios(torch, cg, captured)
+    launches["scenarios"], shapes["scenarios"] = sc["launches"], sc["shapes"]
+    _log("launches", f"scenarios: {launches['scenarios']}")
+
     # 4. engine -----------------------------------------------------------------
     n = 100_000
     nbrs = random_regular(n, 3, seed=0)
@@ -3248,10 +3273,6 @@ def main() -> int:
     br = phase_bridge(torch, cg)
     launches["bridge"], shapes["bridge"] = br["launches"], br["shapes"]
     _log("launches", f"bridge: {launches['bridge']}")
-    # 22. scenarios ---------------------------------------------------------------
-    sc = phase_scenarios(torch, cg, captured)
-    launches["scenarios"], shapes["scenarios"] = sc["launches"], sc["shapes"]
-    _log("launches", f"scenarios: {launches['scenarios']}")
     # 23. cli (subprocesses: their launches are their own, not counted here) ----
     phase_cli(torch, kept_store, run_dir.name)
     # K2 and K3 replayed under the profiler before the adcounter: in windows

@@ -2278,6 +2278,28 @@ def many_vars(
     }
 
 
+def packed_vs_dense_runtime(n_replicas: int, packed: bool, nbrs=None,
+                            device=None) -> ReplicatedRuntime:
+    """The ``packed_vs_dense`` population (``lasp_tpu/bench_scenarios.py:1905``):
+    an OR-Set ``src`` (16 elements, 8 actors, 4 tokens an actor) with a
+    ``map`` edge into ``out`` (16 elements), on ``random_regular(n_replicas,
+    3, seed=9)`` (or ``nbrs``), one ``add_all`` of 8 elements at row 0."""
+    dev = resolve_device(device)
+    if nbrs is None:
+        nbrs = random_regular(n_replicas, 3, seed=9)
+    store = Store(n_actors=8, device=dev)
+    graph = Graph(store)
+    v = store.declare(
+        id="src", type="lasp_orset", n_elems=16, n_actors=8,
+        tokens_per_actor=4,
+    )
+    graph.map(v, lambda x: x + "!", dst="out", dst_elems=16)
+    rt = ReplicatedRuntime(store, graph, n_replicas, nbrs, packed=packed,
+                           device=dev)
+    rt.update_batch(v, [(0, ("add_all", [f"e{i}" for i in range(8)]), "w")])
+    return rt
+
+
 def packed_vs_dense(n_replicas: int = 1 << 20, blocks: int = 4, block: int = 8,
                     device=None) -> dict:
     """The same engine workload (an OR-Set source, a map edge, random
@@ -2289,27 +2311,11 @@ def packed_vs_dense(n_replicas: int = 1 << 20, blocks: int = 4, block: int = 8,
     so this compares the modes' rounds, not a convergence time."""
     dev = resolve_device(device)
     nbrs = random_regular(n_replicas, 3, seed=9)
-
-    def build(packed: bool) -> ReplicatedRuntime:
-        store = Store(n_actors=8, device=dev)
-        graph = Graph(store)
-        v = store.declare(
-            id="src", type="lasp_orset", n_elems=16, n_actors=8,
-            tokens_per_actor=4,
-        )
-        graph.map(v, lambda x: x + "!", dst="out", dst_elems=16)
-        rt = ReplicatedRuntime(store, graph, n_replicas, nbrs, packed=packed,
-                               device=dev)
-        rt.update_batch(
-            v, [(0, ("add_all", [f"e{i}" for i in range(8)]), "w")]
-        )
-        return rt
-
     per_round: dict = {}
     values: dict = {}
     rounds: dict = {}
     for mode in ("dense", "packed"):
-        rt = build(mode == "packed")
+        rt = packed_vs_dense_runtime(n_replicas, mode == "packed", nbrs, dev)
         rt.fused_steps(block)  # warm outside the clock
 
         def timed_blocks():
@@ -2414,14 +2420,24 @@ def bridge_throughput(n_ops: int = 1500, device=None) -> dict:
 BRIDGE_PARTITIONS = 64
 
 #: the caps each of ``ingest_storm``'s five kinds is declared with over the
-#: wire (the map's two fields as in ``ingest_storm``: ``tags`` and ``hits``)
+#: wire (the map's two fields as in ``ingest_storm``: ``tags`` and ``hits``);
+#: an OR-Set add mints a token, and the zipfian's hottest variable takes up
+#: to 14 adds of one element by one actor in the default stream, so its
+#: pool holds 16 an actor
 _BRIDGE_CAPS = {
     "lasp_gset": {"n_elems": 32},
     "riak_dt_gcounter": {"n_actors": 16},
     "riak_dt_orswot": {"n_elems": 32, "n_actors": 16},
-    "lasp_orset": {"n_elems": 32, "n_actors": 16, "tokens_per_actor": 4},
+    "lasp_orset": {"n_elems": 32, "n_actors": 16, "tokens_per_actor": 16},
     "riak_dt_map": {"n_actors": 16},
 }
+
+
+#: the request mix of the bridge stream outside its ``merge_batch`` frames:
+#: YCSB core workload A (``workloads/workloada``: readproportion=0.5,
+#: updateproportion=0.5, requestdistribution=zipfian) with YCSB's zipfian
+#: constant (``ZipfianGenerator.ZIPFIAN_CONSTANT``)
+YCSB_A = {"read": 0.5, "update": 0.5, "zipfian_constant": 0.99}
 
 
 def bridge_stream(n_requests: int = 20_000, n_partitions: int = BRIDGE_PARTITIONS,
@@ -2429,15 +2445,20 @@ def bridge_stream(n_requests: int = 20_000, n_partitions: int = BRIDGE_PARTITION
                   seed: int = 0) -> dict:
     """A seeded bridge workload: ``vars_per_partition`` variables in each of
     ``n_partitions`` stores, cycling :data:`INGEST_KINDS`, and
-    ``n_requests`` requests over them — every ``merge_every``-th a
+    ``n_requests`` requests over them. Every ``merge_every``-th is a
     ``merge_batch`` of one portable state for each variable of a partition
-    (the anti-entropy RPC), the rest 70% updates (each wrapped in ``{idem,
-    ReqId, _}`` with a seeded id, as the client sends writes), 15% reads and
-    15% gets. OR-Set / OR-SWOT removes name terms the stream added and
-    has not removed. Pure function of the seed: returns ``{"setup":
-    [(partition, term)], "requests": [(partition, term)], "vars":
-    [(partition, var_id)]}`` with ``partition`` a store name (``p<k>``) and
-    terms of this package's ``Atom``."""
+    drawn uniformly (the anti-entropy RPC; the states are seeded draws of
+    each kind, not a peer's). The rest follow :data:`YCSB_A`: half value
+    reads (``read``), half updates, each on a variable drawn from YCSB's
+    zipfian over the 1,024 variables with the ranks scattered by a seeded
+    permutation (as YCSB's scrambled zipfian scatters them by hash). An
+    update changes one field as YCSB's does (``writeallfields=false``): an
+    add of a seeded element to a set, an increment of a counter, one of the
+    map's two fields; it is wrapped in ``{idem, ReqId, _}`` with a seeded
+    id, as the client sends writes. Pure function of the seed: returns
+    ``{"setup": [(partition, term)], "requests": [(partition, term)],
+    "vars": [(partition, var_id)]}`` with ``partition`` a store name
+    (``p<k>``) and terms of this package's ``Atom``."""
     from .bridge.etf import Atom
 
     rng = np.random.RandomState(seed)
@@ -2459,7 +2480,9 @@ def bridge_stream(n_requests: int = 20_000, n_partitions: int = BRIDGE_PARTITION
             setup.append((name, (Atom("declare"), vid, Atom(kind), caps)))
             variables.append((name, vid))
             kinds[vid] = kind
-    live: dict = {}  # OR-Set / OR-SWOT var -> terms added and not removed
+    zipf = 1.0 / np.arange(1, len(variables) + 1) ** YCSB_A["zipfian_constant"]
+    zipf = zipf[rng.permutation(len(variables))]
+    zipf /= zipf.sum()
 
     def update(vid):
         kind, actor = kinds[vid], actors[rng.randint(len(actors))]
@@ -2467,20 +2490,11 @@ def bridge_stream(n_requests: int = 20_000, n_partitions: int = BRIDGE_PARTITION
             op = (Atom("increment"), int(rng.randint(1, 4)))
         elif kind == "riak_dt_map":
             op = ((Atom("update"), b"hits", (Atom("increment"),))
-                  if rng.rand() < 0.5 else
+                  if rng.randint(2) else
                   (Atom("update"), b"tags",
                    (Atom("add"), elems[rng.randint(8)])))
-        elif kind == "lasp_gset":
-            op = (Atom("add"), elems[rng.randint(len(elems))])
         else:
-            bag = live.setdefault(vid, [])
-            if bag and rng.rand() < 0.2:
-                op = (Atom("remove"), bag.pop(rng.randint(len(bag))))
-            else:
-                term = elems[rng.randint(len(elems))]
-                op = (Atom("add"), term)
-                if term not in bag:
-                    bag.append(term)
+            op = (Atom("add"), elems[rng.randint(len(elems))])
         return (Atom("idem"), rng.bytes(16), (Atom("update"), vid, op, actor))
 
     def portable(vid):
@@ -2501,33 +2515,28 @@ def bridge_stream(n_requests: int = 20_000, n_partitions: int = BRIDGE_PARTITION
 
     requests = []
     for n in range(n_requests):
-        name, vid = variables[rng.randint(len(variables))]
         if merge_every and n % merge_every == merge_every - 1:
+            name = f"p{rng.randint(n_partitions)}"
             items = [(v, portable(v)) for pn, v in variables if pn == name]
             requests.append((name, (Atom("merge_batch"), items)))
             continue
-        roll = rng.rand()
-        if roll < 0.7:
-            requests.append((name, update(vid)))
-        elif roll < 0.85:
+        name, vid = variables[rng.choice(len(variables), p=zipf)]
+        if rng.rand() < YCSB_A["read"]:
             requests.append((name, (Atom("read"), vid)))
         else:
-            requests.append((name, (Atom("get"), vid)))
+            requests.append((name, update(vid)))
     return {"setup": setup, "requests": requests, "vars": variables}
 
 
-def run_bridge_stream(port: int, stream: dict, host: str = "127.0.0.1",
-                      requests: bool = True) -> dict:
-    """Drive :func:`bridge_stream`'s workload through a live bridge server,
-    one client connection per partition: its setup, then (``requests``)
-    its requests in order. Returns the responses as ETF bytes, in order,
-    with each request's round-trip seconds and the wall seconds of the
-    request phase; the clients are closed."""
+def bridge_clients(port: int, setup, host: str = "127.0.0.1") -> dict:
+    """One client connection per partition of a :func:`bridge_stream`,
+    with its ``setup`` frames sent: ``{partition: BridgeClient}``. The
+    caller closes them."""
     from .bridge import Atom, BridgeClient, etf
 
     clients = {}
     try:
-        for name, term in stream["setup"]:
+        for name, term in setup:
             if name not in clients:
                 clients[name] = BridgeClient(host, port, retries=0)
             for _ in range(250):
@@ -2539,18 +2548,40 @@ def run_bridge_stream(port: int, stream: dict, host: str = "127.0.0.1",
                 time.sleep(0.02)
             if resp[0] == etf.ERROR:
                 raise RuntimeError(f"bridge setup {term!r} refused: {resp!r}")
-        out, lat = [], []
-        t0 = time.perf_counter()
-        for name, term in stream["requests"] if requests else ():
-            t = time.perf_counter()
-            resp = clients[name].call(term)
-            lat.append(time.perf_counter() - t)
-            out.append(etf.encode(resp))
-        wall = time.perf_counter() - t0
+    except BaseException:
+        for c in clients.values():
+            c.close()
+        raise
+    return clients
+
+
+def bridge_requests(clients: dict, requests) -> dict:
+    """Send ``[(partition, term)]`` in order over :func:`bridge_clients`'
+    connections. Returns the responses as ETF bytes, in order, with each
+    request's round-trip seconds and the wall seconds of them all."""
+    from .bridge import etf
+
+    out, lat = [], []
+    t0 = time.perf_counter()
+    for name, term in requests:
+        t = time.perf_counter()
+        resp = clients[name].call(term)
+        lat.append(time.perf_counter() - t)
+        out.append(etf.encode(resp))
+    return {"responses": out, "latency_s": lat,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_bridge_stream(port: int, stream: dict, host: str = "127.0.0.1") -> dict:
+    """Drive :func:`bridge_stream`'s workload through a live bridge server:
+    :func:`bridge_clients` with its setup, then :func:`bridge_requests`
+    with its requests; the clients are closed."""
+    clients = bridge_clients(port, stream["setup"], host)
+    try:
+        return bridge_requests(clients, stream["requests"])
     finally:
         for c in clients.values():
             c.close()
-    return {"responses": out, "latency_s": lat, "seconds": wall}
 
 
 def _sharding_not_ported(name: str):

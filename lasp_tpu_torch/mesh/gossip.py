@@ -26,6 +26,48 @@ from ..lattice.base import tree_leaves, tree_map
 from ..ops.cuda_gossip import gossip_round_dense
 
 
+#: the most bytes of one leaf that a dense round's gathers, joins and
+#: equality checks touch at once: a larger leaf (a dense population of many
+#: GiB) runs a block of rows at a time, so the round holds one block's
+#: temporaries beside the states rather than copies of the whole leaf
+CHUNK_BYTES = 1 << 28
+
+#: a dense round's replica-local sweep runs over every row at once unless
+#: its variables' rows, viewed dense, pass this many bytes in all; then it
+#: runs in blocks of :data:`CHUNK_BYTES`. Whole, it holds about four dense
+#: copies of them at once (views, contributions, merges, the gate): the
+#: north star's 7.7 GiB sweep fits so on an 80 GB card, ``packed_vs_dense``'s
+#: 17 GiB at 1,048,576 replicas does not
+SWEEP_BYTES = 8 << 30
+
+
+def chunk_rows(x) -> int:
+    """Rows of the replica-axis leaf ``x`` in one block of at most
+    :data:`CHUNK_BYTES`; at least ``x.shape[0]`` when the leaf fits."""
+    row = (x[0].numel() * x.element_size()) if x.shape[0] else 0
+    return max(1, CHUNK_BYTES // max(row, 1))
+
+
+def changed_rows(codec, spec, a, b) -> torch.Tensor:
+    """0-d ``int32``: the replica rows where populations ``a`` and ``b``
+    differ by ``codec.equal`` (a round's residual), counted a block of
+    :func:`chunk_rows` rows at a time."""
+    leaves = tree_leaves(a)
+    n = leaves[0].shape[0]
+    step = min(chunk_rows(x) for x in leaves)
+    if step >= n:
+        return torch.sum(~codec.equal(spec, a, b), dtype=torch.int32)
+    total = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    for s in range(0, n, step):
+        rows = slice(s, s + step)
+        total += torch.sum(
+            ~codec.equal(spec, tree_map(lambda x: x[rows], a),
+                         tree_map(lambda x: x[rows], b)),
+            dtype=torch.int32,
+        )
+    return total
+
+
 def _tree_where(pred, a, b):
     """Leafwise select with ``pred`` broadcast from the left."""
 
@@ -87,11 +129,20 @@ def gossip_round(codec, spec, states, neighbors, edge_mask=None, out=None):
             )
         nb = neighbors.long()
 
-        def leaf(x):
-            acc = x
+        def join_rows(x, rows):
+            acc = x[rows]
             for k in range(nb.shape[1]):
-                acc = op(acc, x[nb[:, k]])
+                acc = op(acc, x[nb[rows, k]])
             return acc
+
+        def leaf(x):
+            step = chunk_rows(x)
+            if step >= x.shape[0]:
+                return join_rows(x, slice(None))
+            out = torch.empty_like(x)
+            for s in range(0, x.shape[0], step):
+                out[s:s + step] = join_rows(x, slice(s, s + step))
+            return out
 
         return tree_map(leaf, states)
     nb = neighbors.long()

@@ -105,9 +105,11 @@ from ..telemetry import registry as tel_registry
 from ..telemetry.convergence import get_monitor, record_membership
 from ..telemetry.roofline import get_ledger
 from ..utils.interning import CapacityError
+from . import gossip as gossip_mod
 from . import ingest as ingest_mod
 from .gossip import (
     _word_planes,
+    changed_rows,
     divergence,
     frontier_reach,
     gossip_round,
@@ -2095,8 +2097,34 @@ class ReplicatedRuntime:
         unpack the needed variables, run the graph's round, land each
         trigger's candidates through merge + the inflation gate per replica,
         repack (``FlatORSet.pack`` canonicalises the tombstones, as the
-        JAX step does)."""
+        JAX step does). Where the needed variables' rows, viewed dense,
+        pass ``gossip.SWEEP_BYTES`` in all, it runs blocks of
+        ``gossip.CHUNK_BYTES`` into new populations (every part of it is
+        replica-local), so it holds one block's dense views and
+        temporaries, not the whole population's."""
         needed = self._needed()
+        row = sum(
+            x.numel() * x.element_size()
+            for v in needed for x in tree_leaves(self.store.variable(v).state)
+        )
+        if row * self.n_replicas <= gossip_mod.SWEEP_BYTES:
+            return self._local_rows(states, tables, needed)
+        step = max(1, gossip_mod.CHUNK_BYTES // row)
+        out = dict(states)
+        for v in needed:
+            out[v] = tree_map(torch.empty_like, states[v])
+        for s in range(0, self.n_replicas, step):
+            part = self._local_rows(
+                {v: tree_map(lambda x: x[s:s + step], states[v]) for v in needed},
+                tables, needed,
+            )
+            for v in needed:
+                for dst, src in zip(tree_leaves(out[v]), tree_leaves(part[v])):
+                    dst[s:s + step] = src
+        return out
+
+    def _local_rows(self, states: dict, tables, needed) -> dict:
+        """:meth:`_local_round` over the rows ``states`` holds."""
         dense = {
             v: self._to_dense_row(v, x) for v, x in states.items() if v in needed
         }
@@ -2127,13 +2155,15 @@ class ReplicatedRuntime:
         prev = dict(self.states)
         swept = (
             self._local_round(prev, tables)
-            if self.graph.edges or self._triggers else prev
+            if self.graph.edges or self._triggers else dict(prev)
         )
         res = []
         for v in self.var_ids:
             codec, spec = self._mesh_meta(v)
-            new = gossip_round(codec, spec, swept[v], self.neighbors, mask)
-            res.append(torch.sum(~codec.equal(spec, prev[v], new), dtype=torch.int32))
+            # the swept state is dropped once gossiped: at most one of them
+            # is live beside the round's inputs and outputs
+            new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
+            res.append(changed_rows(codec, spec, prev[v], new))
             self.states[v] = new
         if not res:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)

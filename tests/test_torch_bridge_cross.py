@@ -1,6 +1,7 @@
 """The port's bridge against the JAX package's on one seeded request stream
 (``bench_scenarios.bridge_stream``: the five kinds of ``ingest_storm``,
-idem-wrapped updates, reads, gets and 16-variable ``merge_batch`` frames):
+YCSB workload A's idem-wrapped updates and value reads, and 16-variable
+``merge_batch`` frames):
 the same frames through JAX's ``_Conn.handle`` and the port's must give
 the same response bytes, in memory and durable; a durable ``data_dir``
 written by either package's server reads back, byte for byte, through the
@@ -78,9 +79,11 @@ def test_seeded_stream_gives_jax_bytes(durable, tmp_path):
         for i, (a, b) in enumerate(zip(got, want)):
             assert a == b, (phase, i, stream[phase][i], tetf.decode(a),
                             jetf.decode(b))
-    # the stream exercises every path: merges, idem writes, errors
+            # every request of the stream is one the server accepts
+            assert tetf.decode(a)[0] != tetf.ERROR, (phase, i, tetf.decode(a))
+    # the stream exercises every path: merges, idem writes, value reads
     kinds = {str(t[0]) for _n, t in stream["requests"]}
-    assert kinds == {"idem", "read", "get", "merge_batch"}
+    assert kinds == {"idem", "read", "merge_batch"}
     assert all(_handle(tc[n], (Atom("get"), v)) == _handle(jc[n], (Atom("get"), v))
                for n, v in stream["vars"])
     _close(jc)

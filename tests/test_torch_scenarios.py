@@ -287,12 +287,73 @@ def test_many_vars_matches_jax_small():
             assert np.array_equal(a.numpy(), np.asarray(b)), v
 
 
-def test_packed_vs_dense_matches_jax_small():
+def _jax_packed_vs_dense_runtime(n, packed):
+    """JAX's ``packed_vs_dense`` population (its nested ``build``,
+    ``lasp_tpu/bench_scenarios.py:1905``), built here as it builds it."""
+    store = jstore.Store(n_actors=8)
+    graph = jdf.Graph(store)
+    v = store.declare(id="src", type="lasp_orset", n_elems=16, n_actors=8,
+                      tokens_per_actor=4)
+    graph.map(v, lambda x: x + "!", dst="out", dst_elems=16)
+    rt = jmesh.ReplicatedRuntime(store, graph, n,
+                                 jmesh.random_regular(n, 3, seed=9),
+                                 packed=packed)
+    rt.update_batch(v, [(0, ("add_all", [f"e{i}" for i in range(8)]), "w")])
+    return rt
+
+
+def _states_equal(trt, jrt):
+    from lasp_tpu_torch.bridge_state import to_numpy
+
+    for v in ("src", "out"):
+        got = to_numpy(trt.states[v])
+        want = jax.tree_util.tree_leaves(jrt.states[v])
+        assert len(got) == len(want), v
+        for a, b in zip(got, want):
+            assert np.array_equal(np.asarray(a), np.asarray(b)), v
+
+
+@pytest.mark.parametrize("mode", ["dense", "packed"])
+def test_packed_vs_dense_matches_jax_small(mode):
+    """Each arm of ``packed_vs_dense`` at 256 replicas against JAX's on the
+    same population: states equal after one fused block of 4, then the
+    rounds to convergence, the states there and the ``out`` value; the
+    scenario's own record carries JAX's constant fields."""
+    jrt = _jax_packed_vs_dense_runtime(256, mode == "packed")
+    trt = tb.packed_vs_dense_runtime(256, mode == "packed", device="cpu")
+    _states_equal(trt, jrt)
+    assert trt.fused_steps(4) == jrt.fused_steps(4)
+    _states_equal(trt, jrt)
+    rounds = trt.run_to_convergence(block=4)
+    assert rounds == jrt.run_to_convergence(block=4)
+    _states_equal(trt, jrt)
+    assert trt.coverage_value("out") == jrt.coverage_value("out")
     want = jb.packed_vs_dense(n_replicas=256, blocks=1, block=4)
     got = tb.packed_vs_dense(n_replicas=256, blocks=1, block=4, device="cpu")
     for key in ("scenario", "n_replicas", "rounds_timed", "engine", "check"):
         assert got[key] == want[key], key
-    assert got["rounds_after"]["dense"] == got["rounds_after"]["packed"]
+
+
+@pytest.mark.parametrize("mode", ["dense", "packed"])
+def test_dense_round_in_row_blocks_matches_jax(mode, monkeypatch):
+    """A dense round over populations larger than ``gossip.SWEEP_BYTES``
+    and ``CHUNK_BYTES`` runs its replica-local sweep, its gathers and joins
+    and its residual a block of rows at a time (``packed_vs_dense`` at
+    1,048,576 replicas): with both cut to 40 rows of the dense ``out``
+    leaves (the sweep in blocks of 18 rows, the dense gossip in blocks of
+    40, the last ones short), each arm still steps through JAX's residuals
+    and states."""
+    import lasp_tpu_torch.mesh.gossip as tgossip
+
+    monkeypatch.setattr(tgossip, "CHUNK_BYTES", 40 * 16 * 512)
+    monkeypatch.setattr(tgossip, "SWEEP_BYTES", 40 * 16 * 512)
+    jrt = _jax_packed_vs_dense_runtime(256, mode == "packed")
+    trt = tb.packed_vs_dense_runtime(256, mode == "packed", device="cpu")
+    for _ in range(6):
+        assert trt.step() == jrt.step()
+        _states_equal(trt, jrt)
+    assert trt.run_to_convergence(block=4) == jrt.run_to_convergence(block=4)
+    _states_equal(trt, jrt)
 
 
 def test_roofline_workload_families_map_to_jax():
