@@ -140,8 +140,8 @@ Phases, each of which fails the run on any error:
                full-resync wire); then ``run_membership_harness`` with a
                join, a leave and a down under rolling-crash and ring-cut,
                with quorum writes (no acked write lost, replay identical)
-               and with direct writes (bit-equal to the static twin), at 256
-               replicas (the staging default topology is a ring);
+               and with direct writes (bit-equal to the static twin), at
+               100,000 replicas on ``random_regular(., 3)``;
 18. serve   — ``bench_scenarios.serve_load`` at 100,000 replicas with JAX's
                scenario parameters (10,000 clients, 40 ticks, 1,200 arrivals
                a tick, a x5 burst, 10,000 seed watches, 100,000 parity
@@ -194,8 +194,6 @@ Phases, each of which fails the run on any error:
                the peak reported) and
                ``roofline_workload()``, each with its
                own check, their K1 / K2 / K3 probes held at max_abs_err 0;
-               ``partitioned_gossip`` / ``mesh_scale`` must raise
-               ``NotImplementedError`` (sharding is not ported);
 23. cli     — ``python -m lasp_tpu_torch.cli`` in subprocesses on the card:
                ``status`` (names the card), ``simulate``, ``scenario
                gset_1k``, ``roofline --export`` (``roofline_frac`` not null)
@@ -263,6 +261,13 @@ def _log(phase: str, msg: str) -> None:
 
 #: the card's name and power limit, as ``nvidia-smi`` gives them (set by main)
 _CARD = None
+#: the script's start, for the seconds each phase's launches line reports
+_T0 = time.perf_counter()
+
+
+def _log_launches(phase: str, counts: dict) -> None:
+    """A phase's kernel launches, and the seconds since the script began."""
+    _log("launches", f"{phase}: {counts} ({time.perf_counter() - _T0:.1f} s into the run)")
 
 
 def _log_line(phase: str, fields: dict) -> None:
@@ -2326,13 +2331,11 @@ def phase_scenarios(torch, cg, captured: dict) -> dict:
     n_replicas=100_000, n_vars=128)`` (``plan="off"`` and ``"auto"``:
     residuals and states identical), ``packed_vs_dense()`` at JAX's
     1,048,576 replicas (one value; the peak memory of the two arms),
-    ``roofline_workload()`` (its K1 and K2 / K3
-    probes held at max_abs_err 0, the ledger's ``cuda_*`` families), and
-    ``partitioned_gossip`` / ``mesh_scale`` raising ``NotImplementedError``
-    (sharding, ROADMAP A5)."""
+    and ``roofline_workload()`` (its K1 and K2 / K3
+    probes held at max_abs_err 0, the ledger's ``cuda_*`` families). The
+    sharded scenarios run in the ``shard`` phase."""
     from lasp_tpu_torch.bench_scenarios import (frontier_sparse, many_vars,
-                                                mesh_scale, packed_vs_dense,
-                                                partitioned_gossip, roofline_workload)
+                                                packed_vs_dense, roofline_workload)
     from lasp_tpu_torch.telemetry import get_ledger
 
     cg.reset_launches()
@@ -2368,12 +2371,6 @@ def phase_scenarios(torch, cg, captured: dict) -> dict:
     for k in ("cuda_rows", "cuda_dense"):
         if rw[k]["max_abs_err"] or rw[k]["mode"] != "cuda" or k not in rw["families"]:
             raise RuntimeError(f"scenarios: roofline_workload's {k}: {rw}")
-    for fn in (partitioned_gossip, mesh_scale):
-        try:
-            fn()
-        except NotImplementedError:
-            continue
-        raise RuntimeError(f"scenarios: {fn.__name__} did not raise")
     launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
     _log_line("scenarios", {"scenario": "roofline_workload", **rw})
     return {"launches": launches, "shapes": shapes}
@@ -2441,6 +2438,159 @@ def phase_cli(torch, checkpoint: str, out_dir: str) -> dict:
 
 
 #: the north star's population (BASELINE config 5: 10 x 2**20 replicas)
+_SHARD = {"n_replicas": 100_000, "n_shards": 8}
+
+
+def _shard_drive(torch, rt, n: int, expected: "dict | None" = None) -> list:
+    """The shard phase's drive of one runtime of ``_membership_runtime``'s
+    variables (unconverged): ``step()`` to the fixed point; 16 fresh writes
+    and ``frontier_step()`` to the fixed point; 16 more and
+    ``run_to_convergence(mode="auto")``; 16 more and ``converge_on_device()``.
+    Returns, per segment, its rounds and a copy of every population at its
+    end; ``rt.round_residuals`` holds the residual of every round. The
+    writes are added to ``expected`` (``_membership_runtime``'s values) when
+    it is given."""
+    rows = np.random.RandomState(29).choice(n, 48, replace=False)
+    out = []
+
+    def segment(label, run):
+        rounds = run()
+        out.append((label, rounds, {v: tuple(x.clone() for x in rt.states[v])
+                                    for v in rt.var_ids}))
+
+    def writes(k):
+        batch = [(int(rows[16 * k + a]), a, f"s{k}.{a}", a + 1) for a in range(16)]
+        rt.update_batch("ads", [(r, ("add", f"ad{(a + 7 * k) % 64}"), f"w{a}")
+                                for r, a, _t, _b in batch])
+        _membership_writes(rt, batch)
+        if expected is not None:
+            expected["ads"] |= {f"ad{(a + 7 * k) % 64}" for a in range(16)}
+            _expect(expected, batch)
+
+    def loop(fn):
+        rounds = 1
+        while fn():
+            rounds += 1
+        return rounds
+
+    segment("step", lambda: loop(rt.step))
+    writes(0)
+    segment("frontier_step", lambda: loop(rt.frontier_step))
+    writes(1)
+    segment("run_to_convergence_auto", lambda: rt.run_to_convergence(mode="auto"))
+    writes(2)
+    segment("converge_on_device", rt.converge_on_device)
+    return out
+
+
+def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
+                pg_replicas: int = 1 << 20, ms_replicas: int = 1 << 20) -> dict:
+    """Sharding on the card, 8 virtual shards of it: (a) ``partitioned_gossip()``
+    at JAX's defaults (1,048,576 replicas of a 16-element G-Set on
+    ``locality_order(scale_free(., 3, seed=1))``, k=3, 3 rounds): both
+    exchange modes and the gather path equal (the scenario's check), the
+    bytes each exchange moved a round against the population plane;
+    (b) ``mesh_scale(n_replicas=1 << 20)`` with JAX's other defaults (k=3,
+    ``write_frac=0.002``, 2 cycles, 2 variables x 64 elements,
+    ``"alltoall"``, ``sync_every=8``): its 5x wire gate asserted, rounds per
+    cycle, sparse against dense cut bytes, ``roofline_frac`` (must not be
+    null); (c) the membership phase's variables (packed OR-Set 64 x 16 x 4,
+    G-Counter, OR-SWOT 64 x 16) at 100,000 replicas on
+    ``locality_order(scale_free(100_000, 3, seed=1))[1]``, sharded with
+    ``partition=True`` in each mode and driven by ``_shard_drive`` against
+    an unsharded twin: rounds, every round's residual and the states at the
+    end of each segment bit-equal. Launches are counted from after the twin
+    (the partitioned paths only); K1, K2 and K3 must each launch."""
+    from lasp_tpu_torch.bench_scenarios import mesh_scale, partitioned_gossip
+    from lasp_tpu_torch.device import resolve_device
+    from lasp_tpu_torch.mesh import locality_order, scale_free
+    from lasp_tpu_torch.mesh import shard_gossip as sg
+    from lasp_tpu_torch.mesh.comm import Mesh
+
+    nbrs = locality_order(scale_free(n, 3, seed=1))[1]
+
+    def build():
+        rt, ids, _homes, expected = _membership_runtime(torch, n, converge=False)
+        rt.resize(n, nbrs)  # the scale-free topology, same population
+        return rt, ids, expected
+
+    t0 = time.perf_counter()
+    twin, ids, expected = build()
+    want = _shard_drive(torch, twin, n, expected)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    twin_res = list(twin.round_residuals)
+    del twin
+    cg.reset_launches()
+    sg.reset_exchange()
+    undo = _capture_rows_shapes(cg, captured, "shard")
+    rec = {}
+    try:
+        # (a)
+        pg, secs = _timed_step(torch, lambda: partitioned_gossip(pg_replicas))
+        rec["partitioned_gossip"] = {"phase_s": secs, **pg}
+        _log_line("shard", {"case": "a", "phase_s": secs, **pg})
+        # (b)
+        ms, secs = _timed_step(torch, lambda: mesh_scale(n_replicas=ms_replicas))
+        frac = ms["impl_roofline"]["shard_exchange"]["roofline_frac"]
+        if frac is None:
+            raise RuntimeError(f"shard: mesh_scale's roofline_frac is null: {ms}")
+        if ms["wire_cut_at_5pct_dirty"] is None or (
+                ms["wire_cut_at_5pct_dirty"] < ms["wire_gate"]):
+            raise RuntimeError(f"shard: mesh_scale's wire gate: {ms}")
+        rec["mesh_scale"] = {"phase_s": secs, **ms}
+        _log_line("shard", {"case": "b", "phase_s": secs, **ms})
+        # (c)
+        mesh = Mesh([resolve_device(None)] * _SHARD["n_shards"], ("replicas",))
+        for mode in ("gather", "alltoall"):
+            t0 = time.perf_counter()
+            rt, _ids, _exp = build()
+            rt.shard(mesh, axis="replicas", partition=True, partition_mode=mode)
+            got = _shard_drive(torch, rt, n)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for (label, r_want, s_want), (_l, r_got, s_got) in zip(want, got):
+                if r_want != r_got:
+                    raise RuntimeError(f"shard {mode}: {label} took {r_got} rounds, "
+                                       f"the unsharded twin {r_want}")
+                for v in ids:
+                    if not all(torch.equal(a, b) for a, b in zip(s_want[v], s_got[v])):
+                        raise RuntimeError(f"shard {mode}: {label}: states of {v} "
+                                           "differ from the unsharded twin")
+            if list(rt.round_residuals) != twin_res:
+                raise RuntimeError(f"shard {mode}: per-round residuals differ")
+            for v in ids:
+                if rt.divergence(v) != 0:
+                    raise RuntimeError(f"shard {mode}: {v} did not converge")
+            pplan = rt._partition["plan"]
+            rec[f"membership_{mode}"] = {
+                "seconds": secs, "rounds": [(lab, r) for lab, r, _s in got],
+                "cut_rows": pplan["stats"]["send_rows"], "m": pplan["m"],
+                "m2": pplan["m2"],
+                "exchange_bytes_total": rt.part_exchange_bytes_total,
+                "dense_plane_bytes_total": rt.part_dense_plane_bytes_total,
+            }
+            _log_line("shard", {"case": "c", "mode": mode, "twin_s": twin_s,
+                                **rec[f"membership_{mode}"]})
+            if mode == "alltoall":
+                for v in ids:
+                    if rt.coverage_value(v) != expected[v]:
+                        raise RuntimeError(f"shard: coverage of {v} is "
+                                           f"{rt.coverage_value(v)!r}, expected "
+                                           f"{expected[v]!r}")
+            del rt, got
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
+    _log_line("shard", {"launches": launches, "exchanged": sg.EXCHANGED,
+                        "expected_coverage_elems": len(expected["ads"])})
+    for name in cg.LAUNCHES:
+        if not launches[name]:
+            raise RuntimeError(f"shard: the partitioned path never launched {name}")
+    return {"launches": launches, "shapes": shapes, "record": rec}
+
+
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
 
 
@@ -2770,6 +2920,19 @@ def _rows_call(cg, rt, cap):
     return call, leaves, plan, row_bytes, nb
 
 
+def _k1_shard_inputs(torch, r, src, d, k, seed=7):
+    """A shard's K1 launch made from a seed: ``[src, d]`` source planes and
+    an ``int32[r, k]`` table into ``[0, src)``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ex = torch.randint(-2**31, 2**31 - 1, (src, d), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    rm = ex & torch.randint(-2**31, 2**31 - 1, (src, d), dtype=torch.int32,
+                            device="cuda", generator=gen)
+    nb = torch.randint(0, src, (r, k), dtype=torch.int32, device="cuda",
+                       generator=gen)
+    return ex, rm, nb
+
+
 def _k1_inputs(torch, r, d, k, seed=7, nbrs=None):
     """Planes made from a seed, and ``nbrs`` (the path's own topology) or
     a random ``k``-regular table."""
@@ -2820,18 +2983,39 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
     neighbour table of a path's population, by row count)."""
     fields = cg.SHAPE_FIELDS
     per_shape = {name: [] for name in cg.LAUNCHES}
-    widest, sweeps, k1_adcounter = {}, {}, []
+    widest, sweeps, k1_adcounter, k1_shard = {}, {}, [], []
     # K1: planes made from a seed at each logged shape, in its slabs, and
     # the slab sweep at each of them
     for key, count in shapes["gossip_round_dense"].items():
-        r, d, k, slab = key
-        ex, rm, nb = _k1_inputs(torch, r, d, k, nbrs=k1_nbrs.get(r))
-        out = (torch.empty_like(ex), torch.empty_like(rm))
+        r, d, k, slab, src = key
+        if src != r:  # a shard's [block | received] source of src rows
+            ex, rm, nb = _k1_shard_inputs(torch, r, src, d, k)
+        else:
+            ex, rm, nb = _k1_inputs(torch, r, d, k, nbrs=k1_nbrs.get(r))
+        out = (ex.new_empty((r, d)), rm.new_empty((r, d)))
         ms = _time_ms(torch, lambda: cg._dense_launch(ex, rm, nb, *out, slab), 10)
         row_bytes = 2 * d * 4
-        bound = (2 * r * row_bytes + r * k * 4) / bw * 1e3  # planes in + out, indices
-        per_shape["gossip_round_dense"].append((key, count, ms, bound, None))
+        # the source rows the round reads (its own rows and the rows its
+        # table names) once, the output planes written once, the indices
+        read = (np.unique(np.concatenate([np.arange(r), nb.cpu().numpy().ravel()])).size
+                if src != r else r)
+        bound = ((read + r) * row_bytes + r * k * 4) / bw * 1e3
         want = cg.gossip_round_dense_plain(ex, rm, nb)
+        if src != r:
+            got = cg.gossip_round_dense(ex, rm, nb)
+            err = _max_abs_err(torch, got, want)
+            del got
+            per_shape["gossip_round_dense"].append((key, count, ms, bound, err))
+            k1_shard.append({
+                "shape": dict(zip(fields["gossip_round_dense"], key)),
+                "launches": count, "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+                "loss_ms": count * (ms - bound), "max_abs_err": err,
+                "plain_ms": _time_ms(
+                    torch, lambda: cg.gossip_round_dense_plain(ex, rm, nb), 3),
+            })
+            del ex, rm, nb, out, want
+            continue
+        per_shape["gossip_round_dense"].append((key, count, ms, bound, None))
         sweeps[f"R={r} D={d} K={k}"] = _k1_sweep(torch, cg, ex, rm, nb, want)
         if r in k1_nbrs:  # the adcounter's shapes, on its own topology
             got = cg.gossip_round_dense(ex, rm, nb)
@@ -2910,7 +3094,7 @@ def phase_kernels(torch, cg, bw, shapes, captured, sources, widest_k2,
                 }
             del call, leaves, stacked, plain
     _SYNTH[:] = [None, None]
-    return per_shape, widest, sweeps, k1_adcounter
+    return per_shape, widest, sweeps, k1_adcounter, k1_shard
 
 
 def _layout_order(cap) -> str:
@@ -3148,7 +3332,7 @@ def main() -> int:
     # resident: packed_vs_dense's dense arm needs about 68 GiB of the card
     sc = phase_scenarios(torch, cg, captured)
     launches["scenarios"], shapes["scenarios"] = sc["launches"], sc["shapes"]
-    _log("launches", f"scenarios: {launches['scenarios']}")
+    _log_launches("scenarios", launches["scenarios"])
 
     # 4. engine -----------------------------------------------------------------
     n = 100_000
@@ -3189,7 +3373,7 @@ def main() -> int:
         "counter": total, "widest_sparse_rows": widest_k2[fields2.index("F")],
     })
     for phase, counts in launches.items():
-        _log("launches", f"{phase}: {counts}")
+        _log_launches(phase, counts)
     if launches["headline"]["gossip_round_dense"] == 0:
         raise RuntimeError("the headline never launched K1")
     if launches["engine"]["gossip_round_dense"] == 0:
@@ -3201,78 +3385,78 @@ def main() -> int:
     # 5. plan ---------------------------------------------------------------------
     plan = phase_plan(torch, cg, n, captured)
     launches["plan"], shapes["plan"] = plan["launches"], plan["shapes"]
-    _log("launches", f"plan: {launches['plan']}")
+    _log_launches("plan", launches["plan"])
     # 6. baseline -----------------------------------------------------------------
     base = phase_baseline(torch, cg)
     launches["baseline"], shapes["baseline"] = base["launches"], base["shapes"]
-    _log("launches", f"baseline: {launches['baseline']}")
+    _log_launches("baseline", launches["baseline"])
     # 7. ingest -------------------------------------------------------------------
     ing = phase_ingest(torch, cg, captured)
     launches["ingest"], shapes["ingest"] = ing["launches"], ing["shapes"]
-    _log("launches", f"ingest: {launches['ingest']}")
+    _log_launches("ingest", launches["ingest"])
     # 8. reads --------------------------------------------------------------------
     rd = phase_reads(torch, cg, n, nbrs)
     launches["reads"], shapes["reads"] = rd["launches"], rd["shapes"]
-    _log("launches", f"reads: {launches['reads']}")
+    _log_launches("reads", launches["reads"])
     # 9. map ----------------------------------------------------------------------
     mp = phase_map(torch, cg)
     launches["map"], shapes["map"] = mp["launches"], mp["shapes"]
-    _log("launches", f"map: {launches['map']}")
+    _log_launches("map", launches["map"])
     # 10. compaction --------------------------------------------------------------
     cp = phase_compaction(torch, cg)
     launches["compaction"], shapes["compaction"] = cp["launches"], cp["shapes"]
-    _log("launches", f"compaction: {launches['compaction']}")
+    _log_launches("compaction", launches["compaction"])
     # 11. dataflow ----------------------------------------------------------------
     df = phase_dataflow(torch, cg)
     launches["dataflow"], shapes["dataflow"] = df["launches"], df["shapes"]
-    _log("launches", f"dataflow: {launches['dataflow']}")
+    _log_launches("dataflow", launches["dataflow"])
     # 12. membership --------------------------------------------------------------
     mb = phase_membership(torch, cg, captured)
     launches["membership"], shapes["membership"] = mb["launches"], mb["shapes"]
-    _log("launches", f"membership: {launches['membership']}")
+    _log_launches("membership", launches["membership"])
     # 13. checkpoint --------------------------------------------------------------
     run_dir = tempfile.TemporaryDirectory()
     kept_store = str(Path(run_dir.name) / "store.lasp")
     ck = phase_checkpoint(torch, cg, mb["rt"], mb["ids"], captured, kept_store)
     launches["checkpoint"], shapes["checkpoint"] = ck["launches"], ck["shapes"]
-    _log("launches", f"checkpoint: {launches['checkpoint']}")
+    _log_launches("checkpoint", launches["checkpoint"])
     sources = {"engine": rt_f, "plan": plan["rt"], "ingest": ing["rt"],
                "membership": mb["rt"]}
     # 14. chaos -------------------------------------------------------------------
     ch = phase_chaos(torch, cg, captured, sources)
     launches["chaos"], shapes["chaos"] = ch["launches"], ch["shapes"]
-    _log("launches", f"chaos: {launches['chaos']}")
+    _log_launches("chaos", launches["chaos"])
     # 15. quorum ------------------------------------------------------------------
     qm = phase_quorum(torch, cg)
     launches["quorum"], shapes["quorum"] = qm["launches"], qm["shapes"]
-    _log("launches", f"quorum: {launches['quorum']}")
+    _log_launches("quorum", launches["quorum"])
     # 16. aae ---------------------------------------------------------------------
     aa = phase_aae(torch, cg, captured)
     launches["aae"], shapes["aae"] = aa["launches"], aa["shapes"]
-    _log("launches", f"aae: {launches['aae']}")
+    _log_launches("aae", launches["aae"])
     # 17. rebalance ---------------------------------------------------------------
     rb = phase_rebalance(torch, cg, captured)
     launches["rebalance"], shapes["rebalance"] = rb["launches"], rb["shapes"]
-    _log("launches", f"rebalance: {launches['rebalance']}")
+    _log_launches("rebalance", launches["rebalance"])
     del rb
     # 18. serve -------------------------------------------------------------------
     sv = phase_serve(torch, cg, captured)
     launches["serve"], shapes["serve"] = sv["launches"], sv["shapes"]
-    _log("launches", f"serve: {launches['serve']}")
+    _log_launches("serve", launches["serve"])
     del sv
     # 19. programs ----------------------------------------------------------------
     pg = phase_programs(torch, cg, captured, peak_gbps)
     launches["programs"], shapes["programs"] = pg["launches"], pg["shapes"]
-    _log("launches", f"programs: {launches['programs']}")
+    _log_launches("programs", launches["programs"])
     del pg
     # 20. session -----------------------------------------------------------------
     se = phase_session(torch, cg, captured)
     launches["session"], shapes["session"] = se["launches"], se["shapes"]
-    _log("launches", f"session: {launches['session']}")
+    _log_launches("session", launches["session"])
     # 21. bridge ------------------------------------------------------------------
     br = phase_bridge(torch, cg)
     launches["bridge"], shapes["bridge"] = br["launches"], br["shapes"]
-    _log("launches", f"bridge: {launches['bridge']}")
+    _log_launches("bridge", launches["bridge"])
     # 23. cli (subprocesses: their launches are their own, not counted here) ----
     phase_cli(torch, kept_store, run_dir.name)
     # K2 and K3 replayed under the profiler before the adcounter: in windows
@@ -3287,10 +3471,16 @@ def main() -> int:
     _one_kernel_per_call(torch, cg, rows_shapes, captured, sources, profiled)
     _log("kernels", "one device kernel per K2 / K3 wrapper call (torch.profiler)")
 
+    # 27. shard -------------------------------------------------------------------
+    sh = phase_shard(torch, cg, captured)
+    launches["shard"], shapes["shard"] = sh["launches"], sh["shapes"]
+    _log_launches("shard", launches["shard"])
+    del sh
+
     # 24. adcounter ---------------------------------------------------------------
     ad = phase_adcounter(torch, cg)
     launches["adcounter"], shapes["adcounter"] = ad["launches"], ad["shapes"]
-    _log("launches", f"adcounter: {launches['adcounter']}")
+    _log_launches("adcounter", launches["adcounter"])
 
     # 25. kernels at the main path's shapes ---------------------------------------
     bw = peak_gbps * 1e9
@@ -3303,7 +3493,7 @@ def main() -> int:
     if not head_keys or any(key[3] >= key[1] for key in head_keys):
         raise RuntimeError(f"the headline's K1 launches did not take column slabs: "
                            f"{head_keys}")
-    per_shape, widest, sweeps, k1_adcounter = phase_kernels(
+    per_shape, widest, sweeps, k1_adcounter, k1_shard = phase_kernels(
         torch, cg, bw, main_shapes, captured, sources, widest_k2,
         {_ADCOUNTER_REPLICAS: ad.pop("neighbors")})
     if len(k1_adcounter) != len(shapes["adcounter"]["gossip_round_dense"]):
@@ -3345,6 +3535,10 @@ def main() -> int:
             "n_shapes": len(per_shape[name]),
         })
     kernels[0]["adcounter_shapes"] = k1_adcounter
+    # the partitioned path's K1 shapes: a shard's [block | received] source
+    kernels[0]["shard_shapes"] = k1_shard
+    if not k1_shard:
+        raise RuntimeError("K1 was not held at a shard shape")
     for k in kernels[1:]:
         # the masked launches (the chaos soaks'), one mask byte an edge read
         f = cg.SHAPE_FIELDS[k["name"]]
@@ -3353,6 +3547,14 @@ def main() -> int:
                                "bound_ms": b, "max_abs_err": err}
                               for key, c, ms, b, err in rows]
         k["masked_loss_ms"] = sum(c * (ms - b) for _key, c, ms, b, _e in rows)
+        # the partitioned path's shapes: a shard's block or [block | halo]
+        shard_keys = shapes["shard"][k["name"]]
+        k["shard_shapes"] = [{"shape": dict(zip(f, key)), "launches": shard_keys[key],
+                              "ms": ms, "bound_ms": b, "max_abs_err": err}
+                             for key, _c, ms, b, err in per_shape[k["name"]]
+                             if key in shard_keys]
+        if not k["shard_shapes"]:
+            raise RuntimeError(f"{k['name']} was not held at a shard shape")
         # every shape of the main path, each held against its plain version
         errs = [err for _key, _c, _ms, _b, err in per_shape[k["name"]]]
         k["held_shapes"] = len(errs)
@@ -3361,7 +3563,7 @@ def main() -> int:
                         f"the plain version, max_abs_err {max(errs)}")
     kernels[1]["loss_split_ms"] = _k2_loss_split(cg, per_shape["gossip_round_rows"])
     if any(k["max_abs_err"] for k in kernels) or any(
-            s["max_abs_err"] for s in k1_adcounter) or any(
+            s["max_abs_err"] for s in k1_adcounter + k1_shard) or any(
             k["max_abs_err_all_shapes"] for k in kernels[1:]):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     run_dir.cleanup()

@@ -11,8 +11,11 @@ per-edge against fused propagate A/B; ``chaos_heal``, recovery from a
 composite nemesis against a fault-free twin; and ``quorum_kv``, quorum
 puts and gets under every chaos preset; ``serve_load``, the open-loop
 serving front-end under the composite nemesis; ``aae_scrub``, silent
-corruption against the anti-entropy scrubber; and ``elastic_rebalance``,
-staged membership grow and leave against the legacy resize."""
+corruption against the anti-entropy scrubber; ``elastic_rebalance``,
+staged membership grow and leave against the legacy resize; and the
+sharded pair, ``partitioned_gossip`` (the boundary exchange's wire against
+the population plane) and ``mesh_scale`` (the partitioned frontier path
+and the hierarchical converge)."""
 
 from __future__ import annotations
 
@@ -2584,28 +2587,312 @@ def run_bridge_stream(port: int, stream: dict, host: str = "127.0.0.1") -> dict:
             c.close()
 
 
-def _sharding_not_ported(name: str):
-    raise NotImplementedError(
-        f"bench_scenarios.{name} shards the population over devices; "
-        "multi-device sharding is not ported yet (ROADMAP A5)"
-    )
-
-
 def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
-                       rounds: int = 3) -> dict:
-    """JAX's irregular-gossip wire A/B under sharding
-    (``lasp_tpu/bench_scenarios.py:2011``). Raises: sharding is not ported
-    (ROADMAP A5)."""
-    _sharding_not_ported("partitioned_gossip")
+                       rounds: int = 3, device=None) -> dict:
+    """Wire-cost A/B for irregular gossip under sharding (JAX's
+    ``lasp_tpu/bench_scenarios.py:2011``): the gather path (every shard
+    reads the whole population plane) against the locality-aware boundary
+    exchange (``topology.locality_order`` + ``shard_gossip``) in both
+    modes, on one scale-free topology over ``n_shards`` shard slots of the
+    device. JAX reads the bytes of each compiled round's collectives from
+    its HLO; here each exchange counts the bytes it moves
+    (``shard_gossip.EXCHANGED``), on the same per-shard convention: the
+    union buffer every shard reads (gather), the slices one destination
+    receives (alltoall), against the population plane. Times ``rounds``
+    rounds of each after one untimed round and checks the three agree."""
+    from .lattice import GSet, GSetSpec
+    from .mesh import shard_gossip as sg
+    from .mesh.comm import Mesh
+    from .mesh.gossip import gossip_round
+
+    dev = resolve_device(device)
+    n_dev = n_shards
+    n_replicas -= n_replicas % n_dev
+    if n_replicas < 8 * n_dev:
+        raise ValueError(
+            f"partitioned_gossip needs >= {8 * n_dev} replicas on "
+            f"{n_dev} shards (got {n_replicas} after rounding)"
+        )
+    _perm, nn = locality_order(scale_free(n_replicas, k, seed=1))
+    plan = sg.partitioned_gossip_plan(nn, n_dev)
+    spec = GSetSpec(n_elems=16)
+    rng = np.random.RandomState(0)
+    states = replicate(GSet.new(spec, device=dev), n_replicas)._replace(
+        mask=torch.as_tensor(rng.rand(n_replicas, spec.n_elems) < 0.01,
+                             device=dev)
+    )
+    row_bytes = sg._row_nbytes(states)
+    mesh = Mesh([dev] * n_dev, ("replicas",))
+    nbrs = torch.as_tensor(nn, dtype=torch.int32, device=dev)
+    out_d = gossip_round(GSet, spec, states, nbrs)  # untimed first round
+
+    def dense_rounds():
+        nonlocal out_d
+        for _ in range(rounds):
+            out_d = gossip_round(GSet, spec, out_d, nbrs)
+
+    _, dense_s = _timed(dev, dense_rounds)
+    mode_out, part_s_of = {}, {}
+    for mode in ("gather", "alltoall"):
+        send_idx, idx = sg.partition_tables(plan, mesh, mode=mode)
+        part_round = sg.partitioned_gossip_round_fn(GSet, spec, mesh, plan,
+                                                    mode=mode)
+        kind = "all_to_all" if mode == "alltoall" else "all_gather"
+        before = dict(sg.EXCHANGED[kind])
+        out_p = part_round(states, send_idx, idx)  # untimed first round
+        moved = sg.EXCHANGED[kind]["bytes"] - before["bytes"]
+
+        def part_rounds():
+            nonlocal out_p
+            for _ in range(rounds):
+                out_p = part_round(out_p, send_idx, idx)
+
+        _, part_s = _timed(dev, part_rounds)
+        part_s_of[mode] = part_s
+        if not torch.equal(out_p.mask, out_d.mask):
+            raise AssertionError(f"{mode} diverged from the gather path")
+        mode_out[mode] = {
+            # per shard: the union buffer every shard reads; each
+            # destination's own slices of the per-destination buffer
+            "bytes": moved if mode == "gather" else moved // n_dev,
+            "buffer_bytes": moved,
+            "seconds_per_round": round(part_s / rounds, 4),
+        }
+    st = plan["stats"]
+    d_bytes = n_replicas * row_bytes
+    g_bytes = mode_out["gather"]["bytes"]
+    a_bytes = mode_out["alltoall"]["bytes"]
+    return {
+        "scenario": f"partitioned_gossip_{n_replicas}",
+        "n_replicas": n_replicas,
+        "n_shards": n_dev,
+        "cut": {k_: st[k_] for k_ in (
+            "cross_edges", "send_rows", "max_send", "m2",
+            "exchange_rows_per_round", "alltoall_rows_per_round",
+            "allgather_rows_per_round",
+        )},
+        "dense_allgather_bytes_per_round": d_bytes,
+        "exchange_allgather_bytes_per_round": g_bytes,
+        "alltoall_bytes_per_round": a_bytes,
+        "alltoall_buffer_bytes_per_round": mode_out["alltoall"]["buffer_bytes"],
+        "wire_reduction": round(d_bytes / g_bytes, 2) if g_bytes else None,
+        "wire_reduction_alltoall": (
+            round(d_bytes / a_bytes, 2) if a_bytes else None
+        ),
+        "dense_seconds_per_round": round(dense_s / rounds, 4),
+        "exchange_seconds_per_round": mode_out["gather"]["seconds_per_round"],
+        "alltoall_seconds_per_round": mode_out["alltoall"]["seconds_per_round"],
+        # the same three times unrounded (host clock, device synchronized)
+        "per_round_s": {"dense": dense_s / rounds, "gather": part_s_of["gather"] / rounds,
+                        "alltoall": part_s_of["alltoall"] / rounds},
+        "check": "fixed rounds of all three paths produce identical states",
+    }
 
 
 def mesh_scale(n_replicas: int = 1 << 12, n_shards: int = 8, k: int = 3,
                write_frac: float = 0.002, cycles: int = 2, n_vars: int = 2,
-               n_elems: int = 64) -> dict:
-    """JAX's partitioned frontier mesh A/B
-    (``lasp_tpu/bench_scenarios.py:2573``). Raises: sharding is not ported
-    (ROADMAP A5)."""
-    _sharding_not_ported("mesh_scale")
+               n_elems: int = 64, seed: int = 23, mode: str = "alltoall",
+               sync_every: int = 8, wire_gate: "float | None" = None,
+               device=None) -> dict:
+    """The partitioned frontier path, measured (JAX's
+    ``lasp_tpu/bench_scenarios.py:2573``): ``n_shards`` shards run the
+    row-sparse frontier scheduler natively — each round's exchange moves
+    only the dirty cut rows — and the hierarchical converge finds
+    quiescence. Repeated small write waves (``write_frac`` of the
+    replicas) each run to quiescence under ``frontier_step``, recording
+    per round the dirty-cut fraction, the payload bytes moved and the
+    dense cut plane's equivalent; then one more wave converges on the
+    device (at up to 16,384 replicas against the host loop on a copy,
+    asserted equal).
+
+    Gate: at every measured sparse round with a dirty-cut fraction of at
+    most 5%, the exchange moves at least ``wire_gate`` times fewer bytes
+    than the dense cut plane (default 5x at >= 1,048,576 replicas, 2x
+    below, where the pad bucket floor dominates)."""
+    from .mesh.comm import Mesh
+    from .mesh.shard_gossip import shard_cut_bytes
+    from .telemetry.capability import device_capability
+    from .telemetry.roofline import state_row_bytes
+
+    dev = resolve_device(device)
+    n_dev = n_shards
+    n_replicas -= n_replicas % n_dev
+    if wire_gate is None:
+        wire_gate = 5.0 if n_replicas >= (1 << 20) else 2.0
+    _, nn = locality_order(scale_free(n_replicas, k, seed=seed))
+    store = Store(n_actors=8, device=dev)
+    ids = [
+        store.declare(id=f"v{i}", type="lasp_gset", n_elems=n_elems)
+        for i in range(n_vars)
+    ]
+    rt = ReplicatedRuntime(store, Graph(store), n_replicas, nn, device=dev)
+    mesh = Mesh([dev] * n_dev, ("replicas",))
+    rt.shard(mesh, axis="replicas", partition=True, partition_mode=mode)
+    pplan = rt._partition["plan"]
+    cut = int(pplan["stats"]["send_rows"])
+    rng = np.random.RandomState(seed)
+    n_writes = max(2, int(write_frac * n_replicas))
+
+    def write_wave(cycle: int) -> None:
+        for i, v in enumerate(ids):
+            rows = rng.choice(n_replicas, size=n_writes, replace=False)
+            rt.update_batch(
+                v,
+                [(int(r), ("add", f"c{cycle}e{(int(r) + i) % 8}"),
+                  f"w{int(r)}") for r in rows],
+            )
+
+    def dirty_cut_frac() -> float:
+        union = np.zeros(n_replicas, dtype=bool)
+        for v in ids:
+            union |= rt._frontier[v]
+        return float(union[pplan["cut_rows"]].sum()) / max(cut, 1)
+
+    # cycle 0 warms every bucket the schedule needs (untimed)
+    write_wave(0)
+    while rt.frontier_step():
+        pass
+
+    rounds_per_cycle: list = []
+    per_round: list = []
+    sparse_s = 0.0
+    led0 = get_ledger().totals()["bytes"]
+    for cycle in range(1, cycles + 1):
+        write_wave(cycle)
+        rounds = 0
+        while True:
+            frac = dirty_cut_frac()
+            xb0 = rt.part_exchange_bytes_total
+            db0 = rt.part_dense_plane_bytes_total
+            fresh = any(v not in rt._part_halo for v in ids)
+            res, secs = _timed(dev, rt.frontier_step)
+            sparse_s += secs
+            rounds += 1
+            per_round.append({
+                "cycle": cycle,
+                "dirty_cut_frac": round(frac, 5),
+                "payload_bytes": rt.part_exchange_bytes_total - xb0,
+                "dense_plane_bytes": rt.part_dense_plane_bytes_total - db0,
+                "halo_resync": bool(fresh),
+                "dense_arm": bool(rt.frontier_dense_falls_last),
+            })
+            if res == 0:
+                break
+        rounds_per_cycle.append(rounds)
+    led_bytes = get_ledger().totals()["bytes"] - led0
+
+    # the wire gate at <= 5% dirty, sparse rounds only: a halo resync and
+    # the dense crossover arm ship the full plane by design
+    gated = [
+        r for r in per_round
+        if r["dirty_cut_frac"] <= 0.05 and not r["halo_resync"]
+        and not r["dense_arm"]
+        and r["payload_bytes"] and r["dense_plane_bytes"]
+    ]
+    worst_cut = min(
+        (r["dense_plane_bytes"] / r["payload_bytes"] for r in gated),
+        default=None,
+    )
+    if n_dev >= 2 and cut > 0:
+        assert gated, "no measured round at <= 5% dirty-cut fraction"
+        assert worst_cut >= wire_gate, (
+            f"sparse exchange moved only {worst_cut:.2f}x fewer bytes "
+            f"than the dense cut plane at <= 5% dirty (gate "
+            f"{wire_gate}x)"
+        )
+    else:
+        worst_cut = None
+        wire_gate = None
+
+    # the hierarchical converge: at CI shapes held against the host loop
+    # on the same states (a copy, restored between the two)
+    write_wave(cycles + 1)
+    host_rounds = None
+    if n_replicas <= (1 << 14):
+        snap = (
+            {v: tree_map(torch.clone, rt.states[v]) for v in ids},
+            {v: rt._frontier[v].copy() for v in ids},
+        )
+        hier_rounds, hier_s = _timed(
+            dev, lambda: rt.converge_on_device(sync_every=sync_every)
+        )
+        for v, st in snap[0].items():
+            rt.states[v] = st
+        rt._frontier = dict(snap[1])
+        rt._part_halo.clear()
+        host_rounds = 0
+        while True:
+            host_rounds += 1
+            if rt.step() == 0:
+                break
+        assert hier_rounds == host_rounds, (hier_rounds, host_rounds)
+    else:
+        hier_rounds, hier_s = _timed(
+            dev, lambda: rt.converge_on_device(sync_every=sync_every)
+        )
+
+    row_bytes = sum(state_row_bytes(rt.states[v], n_replicas) for v in ids)
+    ledger_rows = [
+        r for r in get_ledger().snapshot() if r["family"] == "shard_exchange"
+    ]
+    cap = device_capability()
+    sparse_total = sum(r["payload_bytes"] for r in per_round)
+    dense_total = sum(r["dense_plane_bytes"] for r in per_round)
+    return {
+        "scenario": f"mesh_scale_{n_replicas}",
+        "n_replicas": n_replicas,
+        "n_shards": n_dev,
+        "n_vars": n_vars,
+        "partition_mode": mode,
+        "write_density": round(n_writes / n_replicas, 5),
+        "cut_rows": cut,
+        "per_shard": shard_cut_bytes(nn, n_dev, row_bytes),
+        "rounds_to_quiescence": rounds_per_cycle,
+        "cut_rows_sparse_bytes": int(sparse_total),
+        "cut_rows_dense_bytes": int(dense_total),
+        "wire_cut_total": (
+            round(dense_total / sparse_total, 2) if sparse_total else None
+        ),
+        "wire_cut_at_5pct_dirty": (
+            round(worst_cut, 2) if worst_cut else None
+        ),
+        "wire_gate": wire_gate,
+        "per_round": per_round[-24:],
+        "interior_overlap_frac": round(
+            rt.part_interior_rows_total
+            / max(rt.part_interior_rows_total + rt.part_boundary_rows_total, 1),
+            4,
+        ),
+        "hier_converge": {
+            "rounds": int(hier_rounds),
+            "seconds": round(hier_s, 4),
+            "sync_every": sync_every,
+            "host_loop_rounds": host_rounds,
+        },
+        "sparse_round_seconds_total": round(sparse_s, 4),
+        "ledger_bytes_moved": int(led_bytes),
+        "impl_roofline": {
+            "shard_exchange": {
+                "achieved_GBps": (
+                    ledger_rows[0]["achieved_GBps"] if ledger_rows else None
+                ),
+                "roofline_frac": (
+                    ledger_rows[0]["roofline_frac"] if ledger_rows else None
+                ),
+            },
+        },
+        "capability": {
+            "platform": cap.get("platform"),
+            "device_kind": cap.get("device_kind"),
+            "peak_GBps": cap.get("peak_GBps"),
+        },
+        "engine": "ReplicatedRuntime(frontier_step, partitioned)",
+        "check": (
+            "sparse-vs-dense wire gate at <=5% dirty; hierarchical "
+            "converge round count equals the host-driven loop at CI "
+            "shapes"
+        ),
+    }
 
 
 #: every scenario by name — JAX's registry's keys

@@ -10,8 +10,8 @@ What the port reads today: ``flight_rounds`` (the flight ring's depth,
 ``telemetry.device``) and ``n_actors`` (the default writer universe of a
 ``Store``). ``fanout`` and ``fused_block`` size the CLI's simulations,
 ``etf`` selects the bridge's wire codec (:mod:`.bridge.etf`) and
-``mesh_state_axis`` waits for multi-device sharding; ``gossip_impl`` keeps
-JAX's vocabulary (``auto | xla | pallas``) so validation agrees, and the
+``mesh_state_axis`` sizes the state axis of ``mesh.comm.build_mesh``;
+``gossip_impl`` keeps JAX's vocabulary (``auto | xla | pallas``) so validation agrees, and the
 port does not read it (its gossip runs the CUDA kernels on the card); the
 ``bench_*`` knobs serve ``bench.py``.
 """

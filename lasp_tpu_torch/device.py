@@ -20,3 +20,17 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one (``"cuda"`` is the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.index == b.index:
+        return True
+    if a.type != "cuda":
+        return False
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (
+        current if b.index is None else b.index)

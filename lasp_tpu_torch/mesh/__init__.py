@@ -1,7 +1,7 @@
 """Mesh layer: replication, gossip / anti-entropy, the dispatch plan and
-reads over a leading replica axis, grouped ingest and the parked reads
-and the mesh programs (port of ``lasp_tpu.mesh``; sharding is a later
-slice)."""
+reads over a leading replica axis, grouped ingest and the parked reads,
+the mesh programs, and sharding over the shard slots of one device
+(``comm``, ``shard_gossip``; port of ``lasp_tpu.mesh``)."""
 
 from .gossip import (
     converged,

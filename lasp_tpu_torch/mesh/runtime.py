@@ -74,8 +74,20 @@ metric registry, the ConvergenceMonitor, the causal event log and the
 kernel cost ledger (``_emit_step_telemetry``, ``_emit_frontier_telemetry``,
 ``_ledger_record_var`` / ``_ledger_record_store``), and the fused windows
 (``begin_fused_steps``, ``converge_on_device``) carry a flight ring on the
-device, drained after their sync (``_drain_flight``). Sharding is a later
-slice (``shard`` raises ``NotImplementedError``).
+device, drained after their sync (``_drain_flight``).
+
+Sharding (``shard``): the replica axis splits over S shard slots of one
+device (``mesh.comm.build_mesh``). Without ``partition`` the population
+stays one tensor and every path runs as before (the gather path). With
+``partition=True`` the step's gossip, the frontier scheduler and
+``converge_on_device`` run the boundary exchange of
+``mesh.shard_gossip``: dense partitioned rounds per variable (K1 for
+packed OR-Set planes, once a shard), sparse frontier rounds that ship only
+the dirty cut rows into per-variable halos (K2 / K3 on each shard's
+``[block | halo]`` buffer), and the hierarchical converge (per-shard
+residual partials summed on the device, one host read every
+``sync_every`` rounds). Each shard's block is a view of the one population
+tensor, so reads, checkpoints and ``divergence`` are unchanged.
 """
 
 from __future__ import annotations
@@ -159,12 +171,6 @@ class _CapacityWalk:
             self.free -= len(need)
         self.seen.update(need)
         return None
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"ReplicatedRuntime.{what} is not ported to lasp_tpu_torch yet"
-    )
 
 
 def _leaves(tree) -> list:
@@ -401,6 +407,21 @@ class ReplicatedRuntime:
         #: bytes one pull round moves (``_traffic_estimate``), refreshed by
         #: every stepping entry
         self._round_traffic = 0
+        #: the boundary-exchange sharding of ``shard(partition=True)``:
+        #: ``{"mesh", "axis", "mode", "plan", "send_idx", "idx"}`` or None
+        self._partition = None
+        #: shard count of the last ``shard`` (the per-shard frontier gauges)
+        self._frontier_shards = None
+        #: per-var boundary halos of the sparse exchange
+        #: (``shard_gossip.make_halo``); absent = the next sparse round
+        #: ships the full cut
+        self._part_halo: dict = {}
+        #: the sparse exchange's wire accounting (``_record_shard_exchange``)
+        self.part_exchange_rows_last = 0
+        self.part_exchange_bytes_total = 0
+        self.part_dense_plane_bytes_total = 0
+        self.part_interior_rows_total = 0
+        self.part_boundary_rows_total = 0
         self._sync_graph()
 
     def _sync_graph(self) -> None:
@@ -442,6 +463,9 @@ class ReplicatedRuntime:
             self._aae_tree_epoch += 1
         elif reason != "restore":
             self._aae_state_epoch += 1
+        # boundary halos are exact only while frontier knowledge is: the
+        # next sparse round after any of these events resyncs the full cut
+        self._part_halo.clear()
         if self._plan is None:
             return
         self._plan = None
@@ -601,9 +625,114 @@ class ReplicatedRuntime:
         """Registered programs by name (a copy)."""
         return dict(self._programs)
 
-    # -- not ported yet --------------------------------------------------------
-    def shard(self, *args, **kwargs):
-        _not_ported("shard")
+    # -- sharding -------------------------------------------------------------
+    def shard(self, mesh, axis=None, partition: bool = False,
+              partition_mode: str = "alltoall") -> None:
+        """Split every variable's replica axis over a mesh axis (a name or
+        a tuple of names) of ``mesh`` (``comm.Mesh``, slots of one device).
+        With ``axis=None`` the layout adapts as in JAX: on the canonical
+        ``build_mesh`` axes the population splits over ``("slices",
+        "replicas")``, falling back to ``"replicas"`` when the joint extent
+        does not divide it, and raising when neither does.
+
+        ``partition=True`` (irregular topologies): the step's gossip, the
+        frontier scheduler and ``converge_on_device`` run the boundary
+        exchange (``shard_gossip``) — every cross-shard read moves through
+        the plan's exchange, whose size scales with the topology's cut
+        (renumber with ``topology.locality_order`` before building the
+        runtime). ``partition_mode``: ``"alltoall"`` (default —
+        per-destination slices) or ``"gather"`` (one union buffer every
+        shard reads). Not for shift-structured topologies, and refuses a
+        per-step ``edge_mask``. Re-sharding without ``partition`` returns
+        to the gather path. The plan is validated and built before
+        anything moves: a refused shard leaves the runtime as it was. The
+        mesh's slots must name the runtime's device: sharding moves no
+        population between devices."""
+        from ..device import same_device
+        from .comm import population_sharding
+        from .shard_gossip import axis_extent, partition_tables
+
+        if not same_device(mesh.device, self.device):
+            raise ValueError(
+                f"the mesh's slots name {mesh.device} but the runtime lives "
+                f"on {self.device}: build the mesh over the runtime's device"
+            )
+        joint_divides = (
+            {"slices", "replicas"} <= set(mesh.axis_names)
+            and self.n_replicas
+            % (mesh.shape["slices"] * mesh.shape["replicas"]) == 0
+        )
+        part_axis = axis  # what the partition plan shards over
+        if axis is None and joint_divides:
+            # the canonical build_mesh layout: comm owns its definition
+            part_axis = population_sharding(mesh).spec[0]
+        else:
+            if axis is None:
+                axis = part_axis = "replicas"
+                if self.n_replicas % mesh.shape[axis] != 0:
+                    raise ValueError(
+                        f"cannot shard {self.n_replicas} replicas over this "
+                        f"mesh: neither the joint (slices, replicas) extent "
+                        f"nor the replicas extent ({mesh.shape[axis]}) "
+                        f"divides the population — resize the population "
+                        f"or pass an explicit axis"
+                    )
+            names = (axis,) if isinstance(axis, str) else tuple(axis)
+            unknown = [a for a in names if a not in mesh.axis_names]
+            if unknown:
+                raise ValueError(
+                    f"resource axis {unknown} not found in mesh axes "
+                    f"{mesh.axis_names}"
+                )
+            if self.n_replicas % axis_extent(mesh, axis):
+                raise ValueError(
+                    f"{self.n_replicas} replicas do not divide over the "
+                    f"{axis_extent(mesh, axis)} shards of axis {axis!r}"
+                )
+        if partition and partition_mode not in ("gather", "alltoall"):
+            raise ValueError(
+                f"unknown partition_mode {partition_mode!r} "
+                "(expected 'gather' or 'alltoall')"
+            )
+        plan = self._plan_partition(mesh, part_axis) if partition else None
+        if plan is not None:
+            send_idx, idx = partition_tables(plan, mesh, mode=partition_mode)
+            self._partition = {
+                "mesh": mesh,
+                "axis": part_axis,
+                "mode": partition_mode,
+                "plan": plan,
+                "send_idx": send_idx,
+                "idx": idx,
+            }
+        else:
+            self._partition = None
+        # sharding moves no values: frontiers stay valid
+        self._frontier_shards = axis_extent(mesh, part_axis)
+        self._invalidate_plan("shard")
+
+    def _plan_partition(self, mesh, axis) -> dict:
+        """Validate and build the boundary-exchange plan (pure: nothing
+        of the runtime is touched, so a refusal leaves it intact)."""
+        from .shard_gossip import axis_extent, partitioned_gossip_plan
+        from .topology import shift_offsets
+
+        if shift_offsets(self._host_neighbors, self.n_replicas) is not None:
+            raise ValueError(
+                "partition=True targets IRREGULAR topologies; a "
+                "shift-structured table exchanges boundary slabs "
+                "(shard_gossip.ring_gossip_round_fn), not a plan"
+            )
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        unknown = [a for a in names if a not in mesh.axis_names]
+        if unknown:
+            raise ValueError(
+                f"partition axis {unknown} not in mesh axes "
+                f"{mesh.axis_names}"
+            )
+        return partitioned_gossip_plan(
+            self._host_neighbors, axis_extent(mesh, axis)
+        )
 
     # -- the actor guard (debug_actors) ----------------------------------------
     #: the types whose ops mint per-actor lane events: the OR-SWOT (vclock
@@ -1932,7 +2061,8 @@ class ReplicatedRuntime:
         )
 
     def _drain_flight(self, family: str, ring, rounds: int,
-                      quiescent: "bool | None", elapsed: float) -> "int | None":
+                      quiescent: "bool | None", elapsed: float,
+                      var_ids: "tuple | None" = None) -> "int | None":
         """Drain one fused window's flight ring into the host telemetry
         plane, after the sync the caller already made: per retained round
         ``ConvergenceMonitor.observe_round`` (the curve points the unfused
@@ -1940,10 +2070,11 @@ class ReplicatedRuntime:
         overwritten prefix only advances the monitor's clock; the window
         lands in ``telemetry.device``'s log. Returns the exact
         changed-state total (the ledger's joins), or None when telemetry
-        is off or the ring lost rounds."""
+        is off or the ring lost rounds. ``var_ids``: the ring's column order
+        when it is not ``var_ids``' (the partitioned converge's groups)."""
         if rounds <= 0 or self._instruments() is None:
             return None
-        ids = self.var_ids
+        ids = var_ids if var_ids is not None else self.var_ids
         records, overwritten = tel_flight.decode_ring(ring, rounds)
         mon = get_monitor()
         if overwritten:
@@ -2022,6 +2153,21 @@ class ReplicatedRuntime:
             tel["plan_vars_per_dispatch"].set(
                 round((len(self.var_ids) - skipped) / dispatches, 3)
             )
+        if self._frontier_shards and self.var_ids:
+            from .shard_gossip import shard_frontier_counts
+
+            union = np.zeros(self.n_replicas, bool)
+            for v in self.var_ids:
+                union |= self._frontier[v]
+            for s, n in enumerate(
+                shard_frontier_counts(union, self._frontier_shards)
+            ):
+                gauge(
+                    "gossip_frontier_shard_rows",
+                    help="dirty rows per contiguous shard block "
+                         "(union over vars)",
+                    shard=s,
+                ).set(int(n))
         tel["round_seconds"].observe(elapsed)
         mon = get_monitor()
         mon.observe_round(self.var_ids, per_var_changed, elapsed, self.n_replicas)
@@ -2151,6 +2297,14 @@ class ReplicatedRuntime:
         residual vector — rows whose state changed from before the local
         round to after the gossip, by ``codec.equal`` — as an int32 device
         tensor, without a host sync."""
+        part = self._partition
+        if part is not None and edge_mask is not None:
+            # the boundary exchange bakes its row plan; masked edges need
+            # the gather path (shard with partition=False)
+            raise ValueError(
+                "partitioned sharded gossip does not support edge_mask "
+                "failure injection"
+            )
         _host, mask = self._masks(edge_mask)
         prev = dict(self.states)
         swept = (
@@ -2162,12 +2316,28 @@ class ReplicatedRuntime:
             codec, spec = self._mesh_meta(v)
             # the swept state is dropped once gossiped: at most one of them
             # is live beside the round's inputs and outputs
-            new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
+            if part is not None:
+                new = self._part_round_fn(codec, spec)(
+                    swept.pop(v), part["send_idx"], part["idx"]
+                )
+            else:
+                new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
             res.append(changed_rows(codec, spec, prev[v], new))
             self.states[v] = new
         if not res:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
         return torch.stack(res)
+
+    def _part_round_fn(self, codec, spec):
+        """The partitioned round of one codec on the current plan
+        (``shard_gossip.partitioned_gossip_round_fn``)."""
+        from .shard_gossip import partitioned_gossip_round_fn
+
+        part = self._partition
+        return partitioned_gossip_round_fn(
+            codec, spec, part["mesh"], part["plan"], axis=part["axis"],
+            mode=part["mode"],
+        )
 
     def step(self, edge_mask=None) -> int:
         """One bulk-synchronous round: local dataflow sweep and triggers,
@@ -2265,13 +2435,27 @@ class ReplicatedRuntime:
         ``-rounds_executed``. Up to 7 no-op rounds may run past the fixed
         point inside the last block; the flight ring (``_drain_flight``,
         family ``converge``) records only the rounds JAX's loop runs, the
-        quiescent one included. ``sync_every`` is checked as in JAX; the
-        partitioned arm that reads it stays with ``shard``, which is not
-        ported."""
+        quiescent one included.
+
+        On a partitioned runtime (``shard(partition=True)``) with no
+        dataflow edges or triggers and no edge mask, the loop runs sharded
+        with JAX's hierarchical quiescence (``_converge_partitioned``): the
+        per-shard residual partials are summed on the device and the host
+        reads them once every ``sync_every`` rounds; the count is as
+        exact, and up to ``sync_every - 1`` no-op rounds may run past the
+        fixed point. ``sync_every=0`` takes the blocks above."""
         if max_rounds < 1:
             raise ValueError("max_rounds must be >= 1")
         if sync_every < 0:
             raise ValueError("sync_every must be >= 0")
+        if (
+            sync_every > 0
+            and self._partition is not None
+            and edge_mask is None
+            and not self.graph.edges
+            and not self._triggers
+        ):
+            return self._converge_partitioned(max_rounds, strict, sync_every)
         tables = self._ensure_step()
         self._frontier_sync_mask(edge_mask)
         rounds = 0
@@ -2306,6 +2490,66 @@ class ReplicatedRuntime:
         if signed:
             self._ledger_record_store("converge", elapsed, abs(signed),
                                       joins=joins)
+        if signed > 0:
+            self._record_quiescence(signed)
+        if signed < 0 and strict:
+            raise RuntimeError(f"no convergence within {-signed} rounds")
+        return signed
+
+    def _converge_partitioned(self, max_rounds: int, strict: bool,
+                              window: int) -> int:
+        """The sharded ``converge_on_device``: the boundary-exchange round
+        per dispatch group, per-shard residual partials, one sum over the
+        shards and one host read per ``window`` rounds
+        (``shard_gossip.partitioned_converge_fn``). Exact round counts,
+        the final quiescent round included."""
+        from .shard_gossip import partitioned_converge_fn
+
+        if self._n_edges != len(self.graph.edges):
+            self._sync_graph()
+        self._frontier_sync_mask(None)
+        if not self._round_traffic:
+            self._round_traffic = self._traffic_estimate()
+        groups = self._part_groups(self._ensure_plan())
+        part = self._partition
+        fn = partitioned_converge_fn(
+            tuple((g.codec, g.spec, len(g.var_ids)) for g in groups),
+            part["mesh"], part["plan"], axis=part["axis"], mode=part["mode"],
+            window=window,
+            flight_rounds=(tel_flight.flight_rounds()
+                           if tel_registry.enabled() else 0),
+        )
+        member_states = tuple(
+            tuple(self.states[v] for v in g.var_ids) for g in groups
+        )
+        with span("gossip.converge", annotate=True):
+            t0 = time.perf_counter()
+            # the rounds build new populations: a failure leaves the
+            # runtime's states as they were
+            out = fn(member_states, part["send_idx"], part["idx"], max_rounds)
+            elapsed = time.perf_counter() - t0
+        outs, signed = out[0], out[1]
+        for g, members in zip(groups, outs):
+            for v, st in zip(g.var_ids, members):
+                self.states[v] = st
+        # opaque: frontiers degrade or clear, the halos drop
+        self._frontier_after_opaque(signed > 0)
+        self.round_residuals.append(0 if signed > 0 else -1)
+        self._record_rounds(abs(signed))
+        joins = None
+        if len(out) > 2:
+            # the summed GLOBAL per-member rows, in the groups' order
+            joins = self._drain_flight(
+                "converge", out[2], abs(signed), signed > 0, elapsed,
+                var_ids=tuple(v for g in groups for v in g.var_ids),
+            )
+        if signed:
+            self._ledger_record_store("converge", elapsed, abs(signed),
+                                      joins=joins)
+            rb = sum(self._row_bytes(v) for v in self.var_ids)
+            plane = self._part_dense_plane_rows()
+            self.part_dense_plane_bytes_total += abs(signed) * plane * rb
+            self.part_exchange_bytes_total += abs(signed) * plane * rb
         if signed > 0:
             self._record_quiescence(signed)
         if signed < 0 and strict:
@@ -2420,6 +2664,8 @@ class ReplicatedRuntime:
         for v in self.var_ids:
             self._frontier_fill(v, not quiescent)
             self._aae_mark(v, None)
+        # the block changed cut rows the sparse exchange never shipped
+        self._part_halo.clear()
 
     def frontier_size(self, var_id: str) -> int:
         self._population(var_id)
@@ -2455,7 +2701,15 @@ class ReplicatedRuntime:
         skipped = sum(not self._frontier_mask_of(v).any() for v in self.var_ids)
         with span("gossip.frontier_round", annotate=True):
             t0 = time.perf_counter()
-            if plan is None:
+            if self._partition is not None:
+                if edge_mask is not None:
+                    raise ValueError(
+                        "partitioned sharded gossip does not support "
+                        "edge_mask failure injection"
+                    )
+                with span("gossip.shard_frontier_round", annotate=True):
+                    stats = self._frontier_round_partitioned(plan)
+            elif plan is None:
                 stats = self._frontier_round_pervar(edge_mask)
             else:
                 stats = self._frontier_round_planned(plan, edge_mask)
@@ -2609,6 +2863,268 @@ class ReplicatedRuntime:
         for ms, j in zip(leaves, joined):
             cuda_gossip.scatter_rows(ms, row_idx, j)
         return changed
+
+    # -- sharded frontier: sparse boundary exchange on the partitioned mesh ---
+    def _part_groups(self, plan):
+        """The partitioned scheduler's dispatch groups: the plan's groups,
+        or one singleton group a variable with planning off (one code path:
+        the sparse exchange is grouped, singletons ride as G=1)."""
+        if plan is not None:
+            return plan.groups
+        from .plan import PlanGroup
+
+        groups = []
+        for v in self.var_ids:
+            codec, spec = self._mesh_meta(v)
+            groups.append(PlanGroup(var_ids=(v,), codec=codec, spec=spec))
+        return tuple(groups)
+
+    def _frontier_round_partitioned(self, plan) -> dict:
+        """ONE frontier round on the partitioned mesh: per group, every
+        active member's dirty cut rows ride one bucket-padded sparse
+        exchange into the halos, then each shard joins its reachable rows
+        (interior from its block, boundary from ``[block | halo]``); a
+        member past the crossover takes the dense partitioned round.
+        Equal to the dense partitioned round by the frontier-reach and halo
+        invariants."""
+        changed_of: dict = {}
+        rows_touched = dense_falls = dispatches = exchange_rows = 0
+        for group in self._part_groups(plan):
+            active = []
+            for v in group.var_ids:
+                f = self._frontier_mask_of(v)
+                if not f.any():
+                    changed_of[v] = 0
+                    continue
+                rows = self._frontier_reach_rows(f, None)
+                if rows.size == 0:
+                    # dirty rows with no out-edges deliver nothing, and none
+                    # of them is a cut row (a cut row is referenced), so
+                    # retiring them leaves the halo exact
+                    self._frontier[v] = np.zeros(self.n_replicas, bool)
+                    changed_of[v] = 0
+                    continue
+                active.append((v, rows))
+            if not active:
+                continue
+            thresh = self.frontier_crossover * self.n_replicas
+            dense_subset = [(v, r) for v, r in active if r.size > thresh]
+            sparse_subset = [(v, r) for v, r in active if r.size <= thresh]
+            if dense_subset:
+                changed = self._part_dense_round(group, dense_subset)
+                dense_falls += len(dense_subset)
+                dispatches += 1
+                rows_touched += self.n_replicas * len(dense_subset)
+                for i, (v, _rows) in enumerate(dense_subset):
+                    mask = np.array(changed[i])
+                    self._frontier[v] = mask
+                    changed_of[v] = int(mask.sum())
+                    if changed_of[v]:
+                        self._aae_mark(v, np.flatnonzero(mask))
+                    # the dense arm retired dirty rows it never shipped into
+                    # the halo: this member resyncs the full cut next
+                    self._part_halo.pop(v, None)
+            if sparse_subset:
+                sp_changed, touched, xrows = self._part_sparse_round(
+                    group, sparse_subset
+                )
+                dispatches += 1
+                rows_touched += touched
+                exchange_rows += xrows
+                changed_of.update(sp_changed)
+        return {
+            "per_var_changed": [changed_of.get(v, 0) for v in self.var_ids],
+            "rows_touched": rows_touched,
+            "dense_falls": dense_falls,
+            "dispatches": dispatches,
+            "exchange_rows": exchange_rows,
+        }
+
+    def _part_dense_round(self, group, active) -> np.ndarray:
+        """Dense crossover arm on the partitioned mesh: the full
+        boundary-exchange round of the group's active members, each where
+        it lies, and their per-row change masks (host ``bool[G, R]``)."""
+        from .shard_gossip import _grouped_exchange_local
+
+        part = self._partition
+        var_ids = tuple(v for v, _r in active)
+        codec, spec = group.codec, group.spec
+        local = _grouped_exchange_local(codec, spec, part["plan"], part["mode"])
+        members = [self.states[v] for v in var_ids]
+        t0 = time.perf_counter()
+        outs = local(members, part["send_idx"], part["idx"])
+        changed = torch.stack([
+            ~codec.equal(spec, old, new) for old, new in zip(members, outs)
+        ]).cpu().numpy()  # the dispatch's sync
+        elapsed = time.perf_counter() - t0
+        for v, new in zip(var_ids, outs):
+            self.states[v] = new
+        plane = self._part_dense_plane_rows()
+        self._record_shard_exchange(
+            var_ids[0], elapsed, len(active), payload_rows=plane,
+            dense_rows=plane, join_rows=self.n_replicas * len(active),
+        )
+        return changed
+
+    def _part_dense_plane_rows(self) -> int:
+        """The dense cut plane's rows one member's exchange moves a round
+        under the runtime's wire mode (the ``cut_rows_dense_bytes`` half of
+        the accounting)."""
+        pplan = self._partition["plan"]
+        s = pplan["n_shards"]
+        if self._partition["mode"] == "alltoall":
+            return s * s * pplan["m2"]
+        return s * pplan["m"]
+
+    def _record_shard_exchange(self, var_id: str, seconds: float,
+                               g_active: int, payload_rows: int,
+                               dense_rows: int, join_rows: int) -> None:
+        """Wire and ledger accounting of one partitioned frontier dispatch:
+        the rows the exchange moved (``payload_rows``, pad slots included)
+        against the dense cut plane's for the same round, the
+        ``gossip_shard_exchange_rows`` gauge and the ``shard_exchange``
+        ledger row."""
+        rb = self._row_bytes(var_id)
+        payload_bytes = payload_rows * rb * g_active
+        self.part_exchange_rows_last = payload_rows * g_active
+        self.part_exchange_bytes_total += payload_bytes
+        self.part_dense_plane_bytes_total += dense_rows * rb * g_active
+        if not tel_registry.enabled():
+            return
+        gauge(
+            "gossip_shard_exchange_rows",
+            help="cut rows the last sparse boundary exchange moved "
+                 "(bucket-padded payload, all members)",
+        ).set(payload_rows * g_active)
+        codec, _spec = self._mesh_meta(var_id)
+        k = self._ledger_fanout()
+        get_ledger().record(
+            "shard_exchange",
+            codec.__name__,
+            n_replicas=self.n_replicas,
+            fanout=k,
+            seconds=seconds,
+            row_bytes=rb,
+            rows=payload_rows,
+            g_active=g_active,
+            bytes_moved=2 * payload_bytes + (k + 2) * join_rows * rb,
+            joins=join_rows * k,
+        )
+
+    def _part_sparse_round(self, group, active):
+        """One group's sparse boundary-exchange frontier round over its
+        active members. Returns ``(changed_of, rows_touched,
+        exchange_rows)``."""
+        from .shard_gossip import (
+            _pow2_bucket,
+            make_halo,
+            partitioned_frontier_round_fn,
+            sparse_exchange_tables,
+        )
+
+        part = self._partition
+        mode = part["mode"]
+        pplan = part["plan"]
+        s_shards, block = pplan["n_shards"], pplan["block"]
+        bmask = pplan["boundary_mask"]
+        var_ids = tuple(v for v, _r in active)
+        n_g = len(active)
+        # a member without a halo resyncs its FULL cut this round (zeros
+        # are safe only because every readable position is written first)
+        fresh = False
+        for v in var_ids:
+            if v not in self._part_halo:
+                self._part_halo[v] = make_halo(self.states[v], pplan, mode)
+                fresh = True
+        if fresh:
+            dirty = None
+        else:
+            dirty = np.zeros(self.n_replicas, dtype=bool)
+            for v in var_ids:
+                dirty |= self._frontier[v]
+        tabs = sparse_exchange_tables(pplan, mode, dirty)
+        # per-member reach rows, split INTERIOR / BOUNDARY, bucketed per
+        # shard
+        per_member: list = []
+        max_i = max_b = 0
+        for _v, rows in active:
+            owner = rows // block
+            is_b = bmask[rows]
+            by_shard = []
+            for s in range(s_shards):
+                sel = owner == s
+                ri, rb_ = rows[sel & ~is_b], rows[sel & is_b]
+                by_shard.append((ri, rb_))
+                max_i = max(max_i, ri.size)
+                max_b = max(max_b, rb_.size)
+            per_member.append(by_shard)
+        f_i = _pow2_bucket(max_i, 4, block)
+        f_b = _pow2_bucket(max_b, 4, block)
+        rows_i = np.zeros((s_shards, n_g, f_i), dtype=np.int32)
+        valid_i = np.zeros((s_shards, n_g, f_i), dtype=bool)
+        rows_b = np.zeros((s_shards, n_g, f_b), dtype=np.int32)
+        valid_b = np.zeros((s_shards, n_g, f_b), dtype=bool)
+        for g, by_shard in enumerate(per_member):
+            for s, (ri, rb_) in enumerate(by_shard):
+                rows_i[s, g, : ri.size] = ri - s * block
+                valid_i[s, g, : ri.size] = True
+                rows_b[s, g, : rb_.size] = rb_ - s * block
+                valid_b[s, g, : rb_.size] = True
+        fn = partitioned_frontier_round_fn(
+            group.codec, group.spec, part["mesh"], pplan, axis=part["axis"],
+            mode=mode, n_g=n_g,
+        )
+        t0 = time.perf_counter()
+        outs, halos, ch_i, ch_b = fn(
+            tuple(self.states[v] for v in var_ids),
+            tuple(self._part_halo[v] for v in var_ids),
+            tabs["pay_slot"], tabs["pay_pos"], rows_i, valid_i, rows_b,
+            valid_b, part["idx"],
+        )
+        ch_i = ch_i.cpu().numpy()  # [S, G, Fi], the dispatch's sync
+        ch_b = ch_b.cpu().numpy()  # [S, G, Fb]
+        elapsed = time.perf_counter() - t0
+        for i, v in enumerate(var_ids):
+            self.states[v] = outs[i]
+            self._part_halo[v] = halos[i]
+        changed_of: dict = {}
+        touched = interior_rows = 0
+        for g, (v, rows) in enumerate(active):
+            mask = np.zeros(self.n_replicas, dtype=bool)
+            for s, (ri, rb_) in enumerate(per_member[g]):
+                mask[ri[ch_i[s, g, : ri.size]]] = True
+                mask[rb_[ch_b[s, g, : rb_.size]]] = True
+                interior_rows += int(ri.size)
+            self._frontier[v] = mask
+            changed_of[v] = int(mask.sum())
+            if changed_of[v]:
+                self._aae_mark(v, np.flatnonzero(mask))
+            touched += int(rows.size)
+        self.part_interior_rows_total += interior_rows
+        self.part_boundary_rows_total += touched - interior_rows
+        self._record_shard_exchange(
+            var_ids[0], elapsed, n_g, payload_rows=tabs["payload_rows"],
+            dense_rows=tabs["dense_rows"], join_rows=touched,
+        )
+        if tel_registry.enabled():
+            # forensics: each sparse exchange dispatch is one flight window
+            tel_flight.record_window(tel_flight.FlightWindow(
+                family="shard_exchange",
+                columns=var_ids,
+                rounds=1,
+                overwritten=0,
+                records=[[changed_of[v] for v in var_ids]],
+                seconds=elapsed,
+                quiescent=None,
+                first_round=get_monitor().round,
+                meta={
+                    "cut_rows": tabs["payload_rows"] * n_g,
+                    "payload_rows": tabs["payload_rows"],
+                    "dense_rows": tabs["dense_rows"],
+                    "join_rows": touched,
+                },
+            ))
+        return changed_of, touched, tabs["payload_rows"] * n_g
 
     def _frontier_mask_of(self, var_id: str) -> np.ndarray:
         f = self._frontier.get(var_id)
@@ -3059,14 +3575,16 @@ class ReplicatedRuntime:
                         actor_targets.get(site) if actor_targets is not None else None
                     )
                     self._actor_sites[key] = int(target) if target is not None else -1
+        # a boundary-exchange plan is topology-specific: drop it (shard
+        # again after the membership change), and the per-shard frontier
+        # gauges' stale extents with it
+        self._partition = None
+        self._frontier_shards = None
         self.membership_epoch += 1
         # the replica extent is part of every grouping signature
         self._invalidate_plan("resize")
 
     # -- compaction -------------------------------------------------------------
-    # The JAX runtime also drops the variable's boundary halo after a
-    # reindex; the port has no partitioned mesh, so there is no halo.
-
     def _compaction_gates(self, verb: str, var_id: str, why_converged: str,
                           why_triggers: str) -> None:
         """Divergence 0 (a dropped tombstone could otherwise come back from
@@ -3111,6 +3629,9 @@ class ReplicatedRuntime:
         var.elems = fresh
         # projection tables follow the element order
         self.graph.refresh()
+        # the reindex rewrote every row without frontier knowledge: a halo
+        # still holds old-order rows the next boundary join would read
+        self._part_halo.pop(var_id, None)
         return reclaimed
 
     def compact_map_field(self, var_id: str, key) -> int:
@@ -3142,6 +3663,7 @@ class ReplicatedRuntime:
             self.store.reindex_orset_state(leaf_of(states, idxs), order),
         )
         shim.elems = fresh
+        self._part_halo.pop(var_id, None)  # old-order rows, as above
         return reclaimed
 
     @contextlib.contextmanager

@@ -59,7 +59,7 @@ LAUNCHES = {
 
 #: the fields of each kernel's launch-shape key in :data:`SHAPES`
 SHAPE_FIELDS = {
-    "gossip_round_dense": ("R", "D", "K", "slab_words"),
+    "gossip_round_dense": ("R", "D", "K", "slab_words", "S"),
     "gossip_round_rows": ("G", "F", "R", "width", "leaves", "K", "dtype",
                           "op", "masked", "vec_bytes", "team_lanes"),
     "gossip_round_rows_vclock": ("G", "F", "R", "A", "E", "K", "masked",
@@ -120,9 +120,12 @@ def address_alignment(*tensors) -> int:
 
 def gossip_round_dense_plain(exists, removed, neighbors):
     """Plain PyTorch K1: ``out[r] = plane[r] | OR_k plane[neighbors[r, k]]``
-    for both ``int32[R, D]`` word planes."""
+    for both ``int32[S, D]`` word planes and ``neighbors: int32[R, K]``,
+    ``R <= S``: the first R rows are the rows of the round, the rest only
+    sources (a shard's ``[block | received]`` buffer)."""
     nb = neighbors.long()
-    acc_e, acc_r = exists, removed
+    r = nb.shape[0]
+    acc_e, acc_r = exists[:r], removed[:r]
     for k in range(nb.shape[1]):
         acc_e = acc_e | exists[nb[:, k]]
         acc_r = acc_r | removed[nb[:, k]]
@@ -185,9 +188,10 @@ def _dense_fn():
 
 def _dense_launch(exists, removed, neighbors, out_e, out_r, slab_words: int) -> None:
     """One K1 launch in column slabs of ``slab_words`` words (checked CUDA
-    tensors)."""
-    r, d = exists.shape
-    k = neighbors.shape[1]
+    tensors): ``R = neighbors.shape[0]`` rows written from ``S =
+    exists.shape[0]`` source rows."""
+    src, d = exists.shape
+    r, k = neighbors.shape
     dev = exists.device
     with torch.cuda.device(dev):
         rc = _dense_fn()(
@@ -195,13 +199,16 @@ def _dense_launch(exists, removed, neighbors, out_e, out_r, slab_words: int) -> 
             out_e.data_ptr(), out_r.data_ptr(), r, d, k, slab_words,
             _stream_ptr(dev),
         )
-    _check_launch("gossip_round_dense", rc, (r, d, k, slab_words))
+    _check_launch("gossip_round_dense", rc, (r, d, k, slab_words, src))
 
 
 def gossip_round_dense(exists, removed, neighbors, out=None):
-    """K1. ``exists`` / ``removed``: ``int32[R, D]`` words (read as uint32);
-    ``neighbors``: ``int32[R, K]`` with every entry in ``[0, R)`` (callers
-    validate the table once, on the host). Returns the joined planes.
+    """K1. ``exists`` / ``removed``: ``int32[S, D]`` words (read as uint32);
+    ``neighbors``: ``int32[R, K]``, ``R <= S``, with every entry in ``[0,
+    S)`` (callers validate the table once, on the host). Row ``r < R`` of
+    the result joins source row ``r`` with its K neighbour rows; source rows
+    past R are read only as neighbours (a shard's ``[block | received]``
+    buffer, ``S = B + H``, ``R = B``). Returns the joined ``[R, D]`` planes.
 
     ``out`` (CUDA only): a pair of ``int32[R, D]`` buffers to write into —
     the fused loops pass the buffers of the round before last, so two
@@ -218,27 +225,33 @@ def gossip_round_dense(exists, removed, neighbors, out=None):
         )
     if exists.dtype != torch.int32 or removed.dtype != torch.int32:
         raise ValueError(f"{name}: planes must be int32 words")
-    r, d = exists.shape
-    if neighbors.dtype != torch.int32 or neighbors.dim() != 2 or neighbors.shape[0] != r:
-        raise ValueError(f"{name}: neighbors must be int32[{r}, K]")
-    k = neighbors.shape[1]
+    src, d = exists.shape
+    if neighbors.dtype != torch.int32 or neighbors.dim() != 2 or not (
+        neighbors.shape[0] <= src
+    ):
+        raise ValueError(f"{name}: neighbors must be int32[R, K] with R <= {src}")
+    r, k = neighbors.shape
     if k > MAX_FANOUT:
         raise ValueError(f"{name}: fanout {k} exceeds {MAX_FANOUT}")
     if out is None:
-        out_e, out_r = torch.empty_like(exists), torch.empty_like(removed)
+        out_e = exists.new_empty((r, d))
+        out_r = removed.new_empty((r, d))
     else:
         out_e, out_r = out
         _require_cuda(name, out_e, out_r)
-        if out_e.shape != exists.shape or out_r.shape != exists.shape or (
+        if out_e.shape != (r, d) or out_r.shape != (r, d) or (
             out_e.dtype != torch.int32 or out_r.dtype != torch.int32
         ):
-            raise ValueError(f"{name}: out buffers must match the planes")
+            raise ValueError(f"{name}: out buffers must be int32[{r}, {d}]")
         inputs = {exists.data_ptr(), removed.data_ptr()}
         if out_e.data_ptr() in inputs or out_r.data_ptr() in inputs:
             raise ValueError(f"{name}: out buffers alias the input planes")
     vec = dense_vector_words(d, exists, removed, out_e, out_r)
+    # the slab's span is taken over the S source rows, not the R rows
+    # written: the K gathers of a slab reach any source row, so that span
+    # is what ``DENSE_SLAB_BYTES`` caps
     _dense_launch(exists, removed, neighbors, out_e, out_r,
-                  dense_slab_words(r, d, vec))
+                  dense_slab_words(src, d, vec))
     return out_e, out_r
 
 
@@ -463,7 +476,12 @@ def _pointer_table(members):
 def _rows_launch_args(name, member_leaves, neighbors, rows, edge_mask):
     """Checks shared by the K2 and K3 wrappers: one CUDA device, contiguous
     members of one dtype and row shape per leaf, ``rows [G, F]`` and an
-    ``int32[R, K]`` table, a ``bool[R, K]`` mask. The kernels read int64 or
+    ``int32[N, K]`` table with ``N <= R`` member rows, a ``bool[N, K]``
+    mask. A table shorter than the members serves a shard's ``[block |
+    halo]`` buffer: the rows of the round are block rows (``< N``), the halo
+    rows only neighbours, so they need no table rows (padding them with
+    self-edges would cost ``H x K`` table entries a launch for rows no slot
+    names). The kernels read int64 or
     int32 rows and the bytes of the mask as they are; only rows of another
     dtype are converted (a kernel of its own). Returns ``(device, rows int64
     or int32, mask uint8 view or None, G, R, F, K)``."""
@@ -489,8 +507,10 @@ def _rows_launch_args(name, member_leaves, neighbors, rows, edge_mask):
     if g == 0 or first.dim() < 1 or rows.dim() != 2 or rows.shape[0] != g:
         raise ValueError(f"{name}: G members [R, ...] need rows [G, F]")
     r = first.shape[0]
-    if neighbors.dtype != torch.int32 or neighbors.dim() != 2 or neighbors.shape[0] != r:
-        raise ValueError(f"{name}: neighbors must be int32[{r}, K]")
+    if neighbors.dtype != torch.int32 or neighbors.dim() != 2 or not (
+        neighbors.shape[0] <= r
+    ):
+        raise ValueError(f"{name}: neighbors must be int32[N, K] with N <= {r}")
     return dev, rows, mask, g, r, rows.shape[1], neighbors.shape[1]
 
 

@@ -32,8 +32,8 @@ Hot-path contract: :meth:`observe_round` is dict updates plus cached
 gauge writes, no device work. The feeds are the runtime's per-step
 emission and flight drains, the chaos soaks (:meth:`observe_chaos`) and
 the quorum reports (:meth:`observe_quorum`); :meth:`probe` reads the
-populations on demand. The partitioned-mesh half of :meth:`probe` waits
-for the sharded mesh, which is not ported.
+populations on demand, and on a partitioned runtime the boundary
+exchange's cut and wire ledger.
 """
 
 from __future__ import annotations
@@ -388,7 +388,8 @@ class ConvergenceMonitor:
         from ..mesh.gossip import diverged_rows
 
         if n_shards is None:
-            n_shards = 1  # the port's runtime is never partitioned
+            part = getattr(runtime, "_partition", None)
+            n_shards = part["plan"]["n_shards"] if part else 1
         n = runtime.n_replicas
         lag = np.zeros((n,), dtype=np.int64)
         per_var: dict = {}
@@ -420,6 +421,35 @@ class ConvergenceMonitor:
             "mean_replica_lag": round(float(lag.mean()), 4) if n else 0.0,
             "shard_lag": shard_lag,
         }
+        part = getattr(runtime, "_partition", None)
+        masks = getattr(runtime, "_frontier", None)
+        if part is not None and masks:
+            # dirty ∩ cut: how many exchange rows carry new state (a full
+            # cut with an empty intersection ships pure no-ops)
+            from ..mesh.shard_gossip import frontier_cut_rows
+
+            union = np.zeros((n,), dtype=bool)
+            for m in masks.values():
+                if m.shape[0] == n:
+                    union |= m
+            probe["frontier_cut_rows"] = frontier_cut_rows(union, part["plan"])
+            probe["cut_rows"] = int(part["plan"]["stats"]["send_rows"])
+            # the sparse exchange's cumulative wire ledger and the interior
+            # / boundary split of its joins
+            moved = getattr(runtime, "part_exchange_bytes_total", 0)
+            plane = getattr(runtime, "part_dense_plane_bytes_total", 0)
+            ir = getattr(runtime, "part_interior_rows_total", 0)
+            br = getattr(runtime, "part_boundary_rows_total", 0)
+            probe["shard_exchange"] = {
+                "payload_bytes_total": int(moved),
+                "dense_plane_bytes_total": int(plane),
+                "wire_cut": round(plane / moved, 2) if moved else None,
+                "interior_rows_total": int(ir),
+                "boundary_rows_total": int(br),
+                "interior_overlap_frac": (
+                    round(ir / (ir + br), 4) if (ir + br) else None
+                ),
+            }
         if _registry.enabled():
             reg = _registry.get_registry()
             for v, behind in per_var.items():

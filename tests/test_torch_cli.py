@@ -162,10 +162,16 @@ def test_cli_scenario_matches_jax(capsys):
         assert got[key] == want[key], key
 
 
-def test_cli_scenario_sharded_raises():
-    for name in ("mesh_scale", "partitioned_gossip"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            _main(["scenario", name])
+def test_cli_scenario_sharded_raises(capsys):
+    """The sharded scenarios run through the CLI on the CPU's shard slots;
+    a population too small for the shards raises JAX's error."""
+    with pytest.raises(ValueError, match="needs >= 64 replicas"):
+        _main(["scenario", "partitioned_gossip", "--replicas", "32"])
+    got, want = _both(["scenario", "partitioned_gossip", "--replicas", "128"],
+                      capsys)
+    for key in ("scenario", "n_shards", "cut", "dense_allgather_bytes_per_round",
+                "exchange_allgather_bytes_per_round", "alltoall_bytes_per_round"):
+        assert got[key] == want[key], key
 
 
 @pytest.mark.parametrize("verb,argv,keys", [

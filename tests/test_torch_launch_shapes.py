@@ -306,7 +306,7 @@ def test_vclock_wrapper_refuses_tensors_off_the_cpu_and_cuda():
 
 def test_launch_log_counts_each_shape_and_resets():
     cg.reset_launches()
-    key = (4, 8, 2, 8)
+    key = (4, 8, 2, 8, 4)
     cg._check_launch("gossip_round_dense", 0, key)
     cg._check_launch("gossip_round_dense", 0, key)
     assert cg.LAUNCHES["gossip_round_dense"] == 2

@@ -242,16 +242,19 @@ def test_orswot_batch_failure_matches_jax(plan):
 
 
 def test_runtime_refuses_what_is_not_ported():
-    """What is still not ported raises: sharding. Resizing, mesh programs
-    and the fused propagate are ported and run."""
+    """What is still not ported raises: a mesh over two devices (ROADMAP
+    A5b). Sharding over one device's slots, resizing, mesh programs and the
+    fused propagate are ported and run."""
+    from lasp_tpu_torch.mesh.comm import Mesh
     from lasp_tpu_torch.programs import ExampleKeylistProgram
 
     store = tstore.Store(device="cpu")
     store.declare(id="s", type="lasp_gset", n_elems=4)
     rt = tmesh.ReplicatedRuntime(store, tdf.Graph(store), 8, ring(8, 2),
                                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        rt.shard()
+    with pytest.raises(NotImplementedError, match="A5b"):
+        rt.shard(Mesh([torch.device("cpu"), torch.device("meta")], ("replicas",)))
+    rt.shard(Mesh([torch.device("cpu")] * 2, ("replicas",)))
     rt.register("keys", ExampleKeylistProgram, n_elems=4)
     rt.process(("k", 1), "put", "a", replica=3)
     assert rt.execute("keys") == {"k"}
