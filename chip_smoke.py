@@ -156,7 +156,7 @@ Phases, each of which fails the run on any error:
                with auto views, the 16 views it registers (index specs over
                2 names x 8 values) and an ``ExampleKeylistProgram``, JAX's
                program sizes (two ``bool[64, 64]`` planes a row, ~13.9 GB
-               for the 17 index views); 1,024 seeded events over 48 keys
+               for the 17 index views); 512 seeded events over 48 keys
                (80% put, 10% delete, 10% handoff) through ``process`` at
                ``crc32(key) % n``, filled views compacting through
                ``CapacityError``; convergence under the normal scheduler
@@ -178,7 +178,7 @@ Phases, each of which fails the run on any error:
                in one cycle) and ``register`` / ``process`` / ``execute``;
 21. bridge  — a loopback ``BridgeServer`` on the card: ``bridge_throughput()``
                at JAX's defaults under the native and the Python ETF arm; a
-               seeded stream of 20,000 requests over 1,024 variables (16 in
+               seeded stream of 5,000 requests over 1,024 variables (16 in
                each of riak_core's 64 partitions, ``ingest_storm``'s five
                kinds, one request in ten a 16-variable ``merge_batch``, the
                rest YCSB workload A's zipfian reads and updates) in
@@ -233,7 +233,21 @@ Phases, each of which fails the run on any error:
                ring: the timed run's windows 9 rounds, the profiled twin's
                window equal round for round to a third build's unfused
                ``step`` residuals, states bit-equal; ``measure_overhead``'s
-               arms against JAX's 5% budget (reported, never failing).
+               arms against JAX's 5% budget (reported, never failing);
+27. shard   — run after the cli phase, before the adcounter: 8 virtual
+               shards of the card, (a) ``partitioned_gossip()``, (b)
+               ``mesh_scale(1 << 20)``, (c) the membership variables at
+               100,000 replicas through ``_shard_drive`` in both exchange
+               modes against an unsharded twin (``phase_shard``);
+28. distributed — the shard phase's work on two processes sharing the
+               card: the script spawns two copies of itself
+               (``--distributed-worker``) joined by
+               ``comm.init_distributed`` (gloo, host staging), 4 of the 8
+               shards each; (a)-(c) held against the shard phase's runs
+               (each shard's hash, rounds, every residual, coverage), K1, K2
+               and K3 launched on each rank and each rank's widest launch
+               held against its plain version; within 120 s
+               (``phase_distributed``).
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -2223,7 +2237,7 @@ def phase_session(torch, cg, captured: dict, n: int = _SESSION_REPLICAS) -> dict
 
 
 #: the bridge phase's request stream (``bench_scenarios.bridge_stream``)
-_BRIDGE = {"n_requests": 20_000, "n_partitions": 64, "vars_per_partition": 16,
+_BRIDGE = {"n_requests": 5_000, "n_partitions": 64, "vars_per_partition": 16,
            "merge_every": 10, "seed": 0}
 
 
@@ -2239,7 +2253,7 @@ def phase_bridge(torch, cg) -> dict:
     """A loopback ``BridgeServer`` on the card: ``bridge_throughput()`` at
     JAX's defaults with the native arm serving, then again with the Python
     arm (``LaspConfig(etf="python")``); then
-    the seeded stream of 20,000 requests over 1,024 variables (16 in each
+    the seeded stream of 5,000 requests over 1,024 variables (16 in each
     of riak_core's 64 partitions, ``ingest_storm``'s five kinds; one in ten
     a 16-variable ``merge_batch``, the rest YCSB workload A's reads and
     updates) in durable mode, every response equal
@@ -2501,7 +2515,7 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
     an unsharded twin: rounds, every round's residual and the states at the
     end of each segment bit-equal. Launches are counted from after the twin
     (the partitioned paths only); K1, K2 and K3 must each launch."""
-    from lasp_tpu_torch.bench_scenarios import mesh_scale, partitioned_gossip
+    from lasp_tpu_torch.bench_scenarios import _block_hashes, mesh_scale, partitioned_gossip
     from lasp_tpu_torch.device import resolve_device
     from lasp_tpu_torch.mesh import locality_order, scale_free
     from lasp_tpu_torch.mesh import shard_gossip as sg
@@ -2521,6 +2535,15 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
     twin_s = time.perf_counter() - t0
     twin_res = list(twin.round_residuals)
     del twin
+    # the distributed phase's reference: per segment, each shard's hash
+    block = n // _SHARD["n_shards"]
+    reference = {"drive": {
+        "rounds": [r for _l, r, _s in want], "residuals": twin_res,
+        "hashes": [{v: _block_hashes(st, 0, _SHARD["n_shards"], block)
+                    for v, st in states.items()} for _l, _r, states in want],
+        "expected": {k: sorted(v) if isinstance(v, set) else v
+                     for k, v in expected.items()},
+    }}
     cg.reset_launches()
     sg.reset_exchange()
     undo = _capture_rows_shapes(cg, captured, "shard")
@@ -2529,7 +2552,9 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
         # (a)
         pg, secs = _timed_step(torch, lambda: partitioned_gossip(pg_replicas))
         rec["partitioned_gossip"] = {"phase_s": secs, **pg}
-        _log_line("shard", {"case": "a", "phase_s": secs, **pg})
+        reference["partitioned_gossip"] = pg
+        _log_line("shard", {"case": "a", "phase_s": secs,
+                            **{k: v for k, v in pg.items() if k != "block_hashes"}})
         # (b)
         ms, secs = _timed_step(torch, lambda: mesh_scale(n_replicas=ms_replicas))
         frac = ms["impl_roofline"]["shard_exchange"]["roofline_frac"]
@@ -2539,7 +2564,9 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
                 ms["wire_cut_at_5pct_dirty"] < ms["wire_gate"]):
             raise RuntimeError(f"shard: mesh_scale's wire gate: {ms}")
         rec["mesh_scale"] = {"phase_s": secs, **ms}
-        _log_line("shard", {"case": "b", "phase_s": secs, **ms})
+        reference["mesh_scale"] = ms
+        _log_line("shard", {"case": "b", "phase_s": secs,
+                            **{k: v for k, v in ms.items() if k != "block_hashes"}})
         # (c)
         mesh = Mesh([resolve_device(None)] * _SHARD["n_shards"], ("replicas",))
         for mode in ("gather", "alltoall"):
@@ -2588,7 +2615,298 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
     for name in cg.LAUNCHES:
         if not launches[name]:
             raise RuntimeError(f"shard: the partitioned path never launched {name}")
-    return {"launches": launches, "shapes": shapes, "record": rec}
+    return {"launches": launches, "shapes": shapes, "record": rec,
+            "reference": reference}
+
+
+#: the distributed phase: two ranks on the one card, 4 shard slots each, at
+#: the shard phase's sizes
+_DIST = {"world": 2, "pg_replicas": 1 << 20, "ms_replicas": 1 << 20,
+         "timeout_s": 300, "limit_s": 120}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_distributed(torch, reference: dict) -> dict:
+    """The shard phase's work across processes: this script spawns
+    ``_DIST["world"]`` copies of itself (``--distributed-worker``) with
+    ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` /
+    ``LOCAL_RANK`` set, one card shared, so ``comm.init_distributed``
+    joins them over gloo with host staging. Each worker
+    (:func:`distributed_worker`) holds 4 of the 8 shards and runs (a)
+    ``partitioned_gossip()`` at 1,048,576 replicas, (b) ``mesh_scale(1 <<
+    20)``, (c) the membership variables at 100,000 replicas through
+    ``_shard_drive`` in both modes, then holds its widest K1, K2 and K3
+    launch against their plain versions. Here the workers' results are
+    held against the shard phase's one-process runs (``reference``):
+    (a) each shard's hash, (b) the rounds per cycle, the wire gate and a
+    roofline share, (c) every segment's rounds, every round's residual,
+    each shard's hash of every population at each segment's end and the
+    coverage values. A worker that fails or overruns fails the phase, with
+    the tail of its stderr."""
+    import os
+
+    out_dir = tempfile.mkdtemp(prefix="lasp-dist-")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(_DIST["world"]), LOCAL_WORLD_SIZE=str(_DIST["world"]))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--distributed-worker", out_dir],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(_DIST["world"])]
+    outs, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            left = _DIST["timeout_s"] - (time.perf_counter() - t0)
+            try:
+                out, err = p.communicate(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                failed.append(f"rank {r} ran past {_DIST['timeout_s']} s")
+            if p.returncode:
+                failed.append(f"rank {r} exited {p.returncode}")
+            outs.append((out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    for r, (out, err) in enumerate(outs):
+        for line in out.splitlines()[-4:]:
+            _log("distributed", f"rank {r}: {line}")
+        if failed:
+            _log("distributed", f"rank {r} stderr tail:\n{err[-3000:]}")
+    if failed:
+        raise RuntimeError(f"distributed: {'; '.join(failed)}")
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(_DIST["world"])]
+    drive = reference["drive"]
+    for res in ranks:
+        r = res["rank"]
+        if res["backend"]["backend"] != "gloo" or res["world"] != _DIST["world"]:
+            raise RuntimeError(f"distributed: rank {r} joined {res['backend']}")
+        if not res["device"].startswith("cuda"):
+            raise RuntimeError(f"distributed: rank {r} computed on {res['device']}")
+        want = {str(k): h for k, h in
+                reference["partitioned_gossip"]["block_hashes"].items()}
+        got = res["partitioned_gossip"]["block_hashes"]
+        if len(got) != 8 // _DIST["world"] or any(want[k] != h for k, h in got.items()):
+            raise RuntimeError(f"distributed (a): rank {r}'s shards differ from the "
+                               "one-process run")
+        ms = res["mesh_scale"]
+        if ms["rounds_to_quiescence"] != reference["mesh_scale"]["rounds_to_quiescence"]:
+            raise RuntimeError(f"distributed (b): rank {r} took {ms['rounds_to_quiescence']} "
+                               "rounds a cycle, one process "
+                               f"{reference['mesh_scale']['rounds_to_quiescence']}")
+        if ms["wire_cut_at_5pct_dirty"] is None or (
+                ms["wire_cut_at_5pct_dirty"] < ms["wire_gate"]):
+            raise RuntimeError(f"distributed (b): rank {r}'s wire gate failed")
+        if ms["impl_roofline"]["shard_exchange"]["roofline_frac"] is None:
+            raise RuntimeError(f"distributed (b): rank {r}'s roofline_frac is null")
+        for mode, got in res["membership"].items():
+            if got["rounds"] != drive["rounds"]:
+                raise RuntimeError(f"distributed (c) {mode}: rank {r} took {got['rounds']} "
+                                   f"rounds, the unsharded twin {drive['rounds']}")
+            if got["residuals"] != drive["residuals"]:
+                raise RuntimeError(f"distributed (c) {mode}: rank {r}'s residuals differ "
+                                   "from the unsharded twin's")
+            for seg, (mine, theirs) in enumerate(zip(got["hashes"], drive["hashes"])):
+                for v, hashes in mine.items():
+                    if any(theirs[v][int(k)] != h for k, h in hashes.items()):
+                        raise RuntimeError(f"distributed (c) {mode}: segment {seg}: rank "
+                                           f"{r}'s shards of {v} differ from the twin's")
+            if got["coverage"] != drive["expected"]:
+                raise RuntimeError(f"distributed (c) {mode}: coverage {got['coverage']}, "
+                                   f"expected {drive['expected']}")
+        for name, n in res["launches"].items():
+            if n < 1:
+                raise RuntimeError(f"distributed: rank {r} never launched {name}")
+        for name, chk in res["kernel_checks"].items():
+            if chk["max_abs_err"] != 0:
+                raise RuntimeError(f"distributed: rank {r}'s {name} disagrees with "
+                                   f"its plain version: {chk}")
+        if set(res["kernel_checks"]) != set(res["launches"]):
+            raise RuntimeError(f"distributed: rank {r} held {sorted(res['kernel_checks'])}")
+    line = {"seconds": secs, "world": _DIST["world"], "backend": ranks[0]["backend"],
+            "ranks": [{
+                "rank": res["rank"], "device": res["device"],
+                "launches": res["launches"], "kernel_checks": res["kernel_checks"],
+                "seconds": res["seconds"],
+                "partitioned_gossip": {k: res["partitioned_gossip"][k] for k in (
+                    "per_round_s", "process_bytes_per_round",
+                    "exchange_allgather_bytes_per_round", "alltoall_bytes_per_round",
+                    "dense_allgather_bytes_per_round")},
+                "mesh_scale": {k: res["mesh_scale"][k] for k in (
+                    "rounds_to_quiescence", "wire_cut_at_5pct_dirty", "wire_gate",
+                    "hier_converge", "process_bytes_total", "cut_rows_sparse_bytes",
+                    "sparse_round_seconds_total", "impl_roofline")},
+                "membership": {m: {k: v for k, v in got.items()
+                                   if k not in ("hashes", "residuals", "coverage")}
+                               for m, got in res["membership"].items()},
+            } for res in ranks]}
+    _log_line("distributed", line)
+    if secs > _DIST["limit_s"]:
+        raise RuntimeError(f"distributed: the phase took {secs:.1f} s, over "
+                           f"{_DIST['limit_s']} s")
+    return line
+
+
+def _widest_calls(torch, cg) -> tuple:
+    """Wrap K1's, K2's and K3's wrappers so that each keeps a copy of the
+    inputs of its widest call (source rows x words, or slots x row
+    words). Returns ``(kept, undo)``."""
+    kept: dict = {}
+    inner = {name: getattr(cg, name) for name in cg.LAUNCHES}
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (list, tuple)):
+            return [copy(y) for y in x]
+        return x
+
+    def keep(name, size, args):
+        if size > kept.get(name, (0, None))[0]:
+            kept[name] = (size, copy(args))
+
+    def dense(exists, removed, neighbors, out=None):
+        keep("gossip_round_dense", exists.numel(), (exists, removed, neighbors))
+        return inner["gossip_round_dense"](exists, removed, neighbors, out=out)
+
+    def rows(op, leaves, neighbors, rows_, edge_mask=None):
+        members = [cg._members(leaf) for leaf in leaves]
+        width = sum(ms[0][0].numel() for ms in members)
+        keep("gossip_round_rows", rows_.numel() * width,
+             (op, members, neighbors, rows_, edge_mask))
+        return inner["gossip_round_rows"](op, leaves, neighbors, rows_, edge_mask)
+
+    def vclock(clock, dots, neighbors, rows_, edge_mask=None):
+        width = cg._members(dots)[0][0].numel()
+        keep("gossip_round_rows_vclock", rows_.numel() * width,
+             (cg._members(clock), cg._members(dots), neighbors, rows_, edge_mask))
+        return inner["gossip_round_rows_vclock"](clock, dots, neighbors, rows_, edge_mask)
+
+    cg.gossip_round_dense, cg.gossip_round_rows = dense, rows
+    cg.gossip_round_rows_vclock = vclock
+
+    def undo():
+        for name, fn in inner.items():
+            setattr(cg, name, fn)
+
+    return kept, undo
+
+
+def _check_widest(torch, cg, kept: dict) -> dict:
+    """Each kept widest call through the kernel and its plain version on
+    the card: ``{name: {"shape", "max_abs_err"}}``."""
+    out = {}
+    for name, (_size, args) in kept.items():
+        if name == "gossip_round_dense":
+            ex, rm, nb = args
+            got = cg.gossip_round_dense(ex, rm, nb)
+            want = cg.gossip_round_dense_plain(ex, rm, nb)
+            shape = {"S": ex.shape[0], "D": ex.shape[1], "R": nb.shape[0], "K": nb.shape[1]}
+        elif name == "gossip_round_rows":
+            op, members, nb, rows, mask = args
+            joined, ch = cg.gossip_round_rows(op, members, nb, rows, mask)
+            joined_w, ch_w = cg.gossip_round_rows_plain(op, members, nb, rows, mask)
+            got, want = [*joined, ch], [*joined_w, ch_w]
+            shape = {"G": rows.shape[0], "F": rows.shape[1], "R": members[0][0].shape[0],
+                     "row": list(members[0][0].shape[1:]), "leaves": len(members),
+                     "op": op}
+        else:
+            clock, dots, nb, rows, mask = args
+            (jc, jd), ch = cg.gossip_round_rows_vclock(clock, dots, nb, rows, mask)
+            (wc, wd), ch_w = cg.gossip_round_rows_vclock_plain(clock, dots, nb, rows, mask)
+            got, want = [jc, jd, ch], [wc, wd, ch_w]
+            shape = {"G": rows.shape[0], "F": rows.shape[1], "R": dots[0].shape[0],
+                     "E": dots[0].shape[1], "A": dots[0].shape[2]}
+        torch.cuda.synchronize()
+        out[name] = {"shape": shape, "max_abs_err": _max_abs_err(torch, got, want)}
+    return out
+
+
+def distributed_worker(out_dir: str) -> int:
+    """One rank of the distributed phase (``python3 chip_smoke.py
+    --distributed-worker DIR``, spawned by :func:`phase_distributed` with
+    the process group's variables set); writes ``DIR/rank<r>.json``."""
+    import torch
+
+    from lasp_tpu_torch.bench_scenarios import _block_hashes, mesh_scale, partitioned_gossip
+    from lasp_tpu_torch.device import resolve_device
+    from lasp_tpu_torch.mesh import comm, locality_order, scale_free
+    from lasp_tpu_torch.mesh import shard_gossip as sg
+    from lasp_tpu_torch.ops import cuda_gossip as cg
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("distributed worker: no card")
+    if not comm.init_distributed():
+        raise RuntimeError("distributed worker: no process group in the environment")
+    rank, dev = comm.process_index(), resolve_device(None)
+    res = {"rank": rank, "world": comm.process_count(), "backend": comm.backend(),
+           "device": str(dev), "seconds": {}}
+    kept, undo = _widest_calls(torch, cg)
+    cg.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res["partitioned_gossip"] = partitioned_gossip(_DIST["pg_replicas"])
+        res["seconds"]["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["mesh_scale"] = mesh_scale(n_replicas=_DIST["ms_replicas"])
+        res["seconds"]["b"] = time.perf_counter() - t0
+        n, shards = _SHARD["n_replicas"], _SHARD["n_shards"]
+        nbrs = locality_order(scale_free(n, 3, seed=1))[1]
+        mesh = comm.build_mesh(
+            devices=comm.global_slots(shards // comm.process_count(), device=dev),
+            slice_of=lambda slot: slot.process_index)
+        res["membership"] = {}
+        for mode in ("gather", "alltoall"):
+            t0 = time.perf_counter()
+            rt, _ids, _homes, expected = _membership_runtime(torch, n, converge=False)
+            rt.resize(n, nbrs)  # the scale-free topology, same population
+            rt.shard(mesh, partition=True, partition_mode=mode)
+            sg.reset_exchange()
+            got = _shard_drive(torch, rt, n, expected)
+            torch.cuda.synchronize()
+            d = rt._dist
+            rounds = [r for _l, r, _s in got]
+            total = sum(rounds)
+            res["membership"][mode] = {
+                "seconds": time.perf_counter() - t0, "rounds": rounds,
+                "residuals": list(rt.round_residuals),
+                "hashes": [{v: _block_hashes(st, d["first"], d["count"], n // shards)
+                            for v, st in states.items()} for _l, _r, states in got],
+                "coverage": {v: sorted(x) if isinstance(x, (set, frozenset)) else x
+                             for v, x in ((v, rt.coverage_value(v)) for v in rt.var_ids)},
+                "divergence": {v: rt.divergence(v) for v in rt.var_ids},
+                "rows_held": [d["lo"], d["hi"]],
+                "exchanged_bytes_per_round": {
+                    k: e["bytes"] / total for k, e in sg.EXCHANGED.items()},
+                "carried_bytes_per_round": {
+                    k: e["bytes"] / total for k, e in comm.CARRIED.items()},
+                "stage_s_per_round": {k: v / total for k, v in comm.STAGE_S.items()},
+                "process_bytes_total": rt.part_process_bytes_total,
+            }
+            if any(res["membership"][mode]["divergence"].values()):
+                raise RuntimeError(f"distributed worker {rank}: {mode} did not converge")
+            del rt, got
+        res["launches"] = dict(cg.LAUNCHES)  # the main path's, before the checks
+    finally:
+        undo()
+    res["kernel_checks"] = _check_widest(torch, cg, kept)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    print(json.dumps({"rank": rank, "launches": res["launches"],
+                      "seconds": res["seconds"]}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 _ADCOUNTER_REPLICAS = 10 * (1 << 20)
@@ -2643,7 +2961,7 @@ def phase_adcounter(torch, cg) -> dict:
 
 #: the programs phase (a Riak 2i index over the chaos phases' population):
 #: ``bench_scenarios.riak_index_2i``'s event stream and program sizes
-_PROGRAMS = {"n_events": 1024, "n_keys": 48, "index_names": 2, "index_values": 8,
+_PROGRAMS = {"n_events": 512, "n_keys": 48, "index_names": 2, "index_values": 8,
              "n_shards": 4, "seed": 29}
 
 
@@ -2653,7 +2971,7 @@ def phase_programs(torch, cg, captured: dict, peak_gbps: float,
     ``random_regular(n, 3)``: a total ``RiakIndexProgram`` with auto views,
     the 16 views it registers from specs over 2 index names x 8 values and
     an ``ExampleKeylistProgram`` (JAX's defaults: 64 elements, 64 tokens,
-    one actor: two ``bool[64, 64]`` planes a row), 1,024 seeded events over
+    one actor: two ``bool[64, 64]`` planes a row), 512 seeded events over
     48 keys through ``process`` at ``crc32(key) % n`` (filled views compact
     through ``CapacityError`` -> ``compact_orset`` -> ``run_to_convergence``),
     the runtime's normal scheduler to convergence (K2 launches there), then
@@ -3475,6 +3793,8 @@ def main() -> int:
     sh = phase_shard(torch, cg, captured)
     launches["shard"], shapes["shard"] = sh["launches"], sh["shapes"]
     _log_launches("shard", launches["shard"])
+    # 28. distributed: the shard phase's work on two processes ------------------
+    dist_line = phase_distributed(torch, sh["reference"])
     del sh
 
     # 24. adcounter ---------------------------------------------------------------
@@ -3534,6 +3854,12 @@ def main() -> int:
             "loss_ms": sum(c * (ms - b) for _key, c, ms, b, _e in per_shape[name]),
             "n_shapes": len(per_shape[name]),
         })
+    for k in kernels:
+        # each rank's launches in the distributed phase (its own processes)
+        k["launches_distributed_by_rank"] = [
+            r["launches"][k["name"]] for r in dist_line["ranks"]]
+        k["distributed_max_abs_err"] = max(
+            r["kernel_checks"][k["name"]]["max_abs_err"] for r in dist_line["ranks"])
     kernels[0]["adcounter_shapes"] = k1_adcounter
     # the partitioned path's K1 shapes: a shard's [block | received] source
     kernels[0]["shard_shapes"] = k1_shard
@@ -3576,4 +3902,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        sys.exit(distributed_worker(sys.argv[2]))
     sys.exit(main())

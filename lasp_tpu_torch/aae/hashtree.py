@@ -196,6 +196,7 @@ class HashForest:
 
     def __init__(self, runtime, seg_size: int = 8,
                  subset_crossover: float = 0.25):
+        getattr(runtime, "rt", runtime)._refuse_across("HashForest", 8)
         self.rt = runtime
         self.seg = int(seg_size)
         if self.seg < 1:

@@ -79,6 +79,7 @@ class AAEScrubber:
     def __init__(self, runtime, *, seg_size: int = 8,
                  scrub_every: int = 1, quorum: int = 3,
                  auto_attach: bool = True):
+        getattr(runtime, "rt", runtime)._refuse_across("AAE repair", 8)
         from ..chaos.engine import ChaosRuntime
 
         if isinstance(runtime, ChaosRuntime):

@@ -266,6 +266,7 @@ class Session:
         kwargs reach the preset builder (drop rates, crash counts, …);
         ``checkpoint`` backs ``Restore(source="checkpoint")`` rows. The
         soak outcome lands in :meth:`health` under ``chaos``."""
+        getattr(runtime, "rt", runtime)._refuse_across("Session.nemesis", 12)
         from ..chaos import ChaosRuntime, nemesis as build_nemesis
 
         _count_verb("nemesis")
@@ -295,6 +296,7 @@ class Session:
         extra kwargs reach :class:`QuorumRuntime` (``timeout``,
         ``retries``, ``engine``, ``mode``). The coordination report
         lands in :meth:`health` under ``quorum``."""
+        getattr(runtime, "rt", runtime)._refuse_across("Session.quorum", 12)
         from ..quorum import QuorumRuntime
 
         _count_verb("quorum")
@@ -321,6 +323,7 @@ class Session:
         Extra kwargs reach :class:`AAEScrubber` (``seg_size``,
         ``scrub_every``, ``quorum``, ``auto_attach``). The AAE report
         lands in :meth:`health` under ``aae``."""
+        getattr(runtime, "rt", runtime)._refuse_across("Session.aae", 12)
         from ..aae import AAEScrubber
 
         _count_verb("aae")
@@ -345,6 +348,7 @@ class Session:
         ``gossip_block``, ``coalesce_max``, ``clock``,
         ``write_backup``). The serving report lands in :meth:`health`
         under ``serve``."""
+        getattr(runtime, "rt", runtime)._refuse_across("Session.serve", 12)
         from ..serve import ServeFrontend
 
         _count_verb("serve")

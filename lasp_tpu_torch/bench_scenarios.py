@@ -180,6 +180,41 @@ def _timed(device: torch.device, fn):
     return out, time.perf_counter() - t0
 
 
+def _shard_mesh(dev: torch.device, n_shards: int):
+    """The sharded scenarios' flat mesh of ``n_shards`` slots: of the
+    device, or, when a process group is joined, every process's
+    ``n_shards / P`` slots of its own device (as JAX's run over
+    ``jax.devices()``). Returns ``(mesh, first, count)``: the mesh and this
+    process's run of shards."""
+    from .mesh import comm
+
+    world = comm.process_count()
+    if world == 1:
+        return comm.Mesh([dev] * n_shards, ("replicas",)), 0, n_shards
+    if n_shards % world:
+        raise ValueError(f"{n_shards} shards do not split over {world} processes")
+    mesh = comm.Mesh(comm.global_slots(n_shards // world, device=dev), ("replicas",))
+    first, count = comm.local_shards(mesh, "replicas")
+    return mesh, first, count
+
+
+def _block_hashes(states, first: int, count: int, block: int) -> dict:
+    """``{shard: sha256 hex}`` of each of this process's shards' rows of a
+    population (every leaf's bytes, in leaf order): a process group's run
+    and the one-process run hash the same blocks the same."""
+    import hashlib
+
+    from .lattice.base import tree_leaves
+
+    out = {}
+    for sl in range(count):
+        h = hashlib.sha256()
+        for x in tree_leaves(states):
+            h.update(x[sl * block:(sl + 1) * block].cpu().contiguous().numpy().tobytes())
+        out[first + sl] = h.hexdigest()
+    return out
+
+
 def _engine_convergence_driver(rt):
     """Warm one round outside the clock (``converge_on_device`` with a
     one-round budget), then the timed remainder in one
@@ -2599,11 +2634,17 @@ def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
     (``shard_gossip.EXCHANGED``), on the same per-shard convention: the
     union buffer every shard reads (gather), the slices one destination
     receives (alltoall), against the population plane. Times ``rounds``
-    rounds of each after one untimed round and checks the three agree."""
+    rounds of each after one untimed round and checks the three agree.
+
+    When a process group is joined the shards are every process's slots
+    (``n_shards`` in all): each process holds its shards' rows, the gather
+    path all-gathers the population, and ``process_bytes_per_round`` says
+    what the group carried a round of each mode. ``block_hashes`` hashes
+    each of this process's shards' final rows."""
     from .lattice import GSet, GSetSpec
+    from .mesh import comm
     from .mesh import shard_gossip as sg
-    from .mesh.comm import Mesh
-    from .mesh.gossip import gossip_round
+    from .mesh.gossip import gossip_round, gossip_round_from
 
     dev = resolve_device(device)
     n_dev = n_shards
@@ -2617,19 +2658,33 @@ def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
     plan = sg.partitioned_gossip_plan(nn, n_dev)
     spec = GSetSpec(n_elems=16)
     rng = np.random.RandomState(0)
-    states = replicate(GSet.new(spec, device=dev), n_replicas)._replace(
-        mask=torch.as_tensor(rng.rand(n_replicas, spec.n_elems) < 0.01,
-                             device=dev)
+    mask = rng.rand(n_replicas, spec.n_elems) < 0.01
+    mesh, first, n_loc = _shard_mesh(dev, n_dev)
+    block = n_replicas // n_dev
+    lo, hi = first * block, (first + n_loc) * block
+    states = replicate(GSet.new(spec, device=dev), hi - lo)._replace(
+        mask=torch.as_tensor(mask[lo:hi], device=dev)
     )
     row_bytes = sg._row_nbytes(states)
-    mesh = Mesh([dev] * n_dev, ("replicas",))
     nbrs = torch.as_tensor(nn, dtype=torch.int32, device=dev)
-    out_d = gossip_round(GSet, spec, states, nbrs)  # untimed first round
+    if mesh.cross_process:
+        # the gather path: every process's rows, then its own joined
+
+        def dense_round(x):
+            whole = comm.all_gather(x.mask.unsqueeze(0), mesh).reshape(n_replicas, -1)
+            return gossip_round_from(GSet, spec, x, x._replace(mask=whole),
+                                     nbrs[lo:hi])
+    else:
+
+        def dense_round(x):
+            return gossip_round(GSet, spec, x, nbrs)
+
+    out_d = dense_round(states)  # untimed first round
 
     def dense_rounds():
         nonlocal out_d
         for _ in range(rounds):
-            out_d = gossip_round(GSet, spec, out_d, nbrs)
+            out_d = dense_round(out_d)
 
     _, dense_s = _timed(dev, dense_rounds)
     mode_out, part_s_of = {}, {}
@@ -2639,8 +2694,10 @@ def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
                                                     mode=mode)
         kind = "all_to_all" if mode == "alltoall" else "all_gather"
         before = dict(sg.EXCHANGED[kind])
+        carried = comm.carried_bytes()
         out_p = part_round(states, send_idx, idx)  # untimed first round
         moved = sg.EXCHANGED[kind]["bytes"] - before["bytes"]
+        carried = comm.carried_bytes() - carried
 
         def part_rounds():
             nonlocal out_p
@@ -2652,6 +2709,7 @@ def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
         if not torch.equal(out_p.mask, out_d.mask):
             raise AssertionError(f"{mode} diverged from the gather path")
         mode_out[mode] = {
+            "process_bytes": carried,
             # per shard: the union buffer every shard reads; each
             # destination's own slices of the per-destination buffer
             "bytes": moved if mode == "gather" else moved // n_dev,
@@ -2685,6 +2743,9 @@ def partitioned_gossip(n_replicas: int = 1 << 20, n_shards: int = 8, k: int = 3,
         # the same three times unrounded (host clock, device synchronized)
         "per_round_s": {"dense": dense_s / rounds, "gather": part_s_of["gather"] / rounds,
                         "alltoall": part_s_of["alltoall"] / rounds},
+        "process_bytes_per_round": {m: o["process_bytes"] for m, o in mode_out.items()},
+        "processes": comm.process_count(),
+        "block_hashes": _block_hashes(out_d, first, n_loc, block),
         "check": "fixed rounds of all three paths produce identical states",
     }
 
@@ -2708,8 +2769,13 @@ def mesh_scale(n_replicas: int = 1 << 12, n_shards: int = 8, k: int = 3,
     Gate: at every measured sparse round with a dirty-cut fraction of at
     most 5%, the exchange moves at least ``wire_gate`` times fewer bytes
     than the dense cut plane (default 5x at >= 1,048,576 replicas, 2x
-    below, where the pad bucket floor dominates)."""
-    from .mesh.comm import Mesh
+    below, where the pad bucket floor dominates).
+
+    When a process group is joined the shards are every process's slots
+    (``n_shards`` in all), as :func:`partitioned_gossip`'s; each process
+    returns the same numbers, ``block_hashes`` of its own shards' rows
+    of every variable."""
+    from .mesh import comm
     from .mesh.shard_gossip import shard_cut_bytes
     from .telemetry.capability import device_capability
     from .telemetry.roofline import state_row_bytes
@@ -2726,7 +2792,7 @@ def mesh_scale(n_replicas: int = 1 << 12, n_shards: int = 8, k: int = 3,
         for i in range(n_vars)
     ]
     rt = ReplicatedRuntime(store, Graph(store), n_replicas, nn, device=dev)
-    mesh = Mesh([dev] * n_dev, ("replicas",))
+    mesh, first, n_loc = _shard_mesh(dev, n_dev)
     rt.shard(mesh, axis="replicas", partition=True, partition_mode=mode)
     pplan = rt._partition["plan"]
     cut = int(pplan["stats"]["send_rows"])
@@ -2831,7 +2897,7 @@ def mesh_scale(n_replicas: int = 1 << 12, n_shards: int = 8, k: int = 3,
             dev, lambda: rt.converge_on_device(sync_every=sync_every)
         )
 
-    row_bytes = sum(state_row_bytes(rt.states[v], n_replicas) for v in ids)
+    row_bytes = sum(state_row_bytes(rt.states[v], rt._block_rows()) for v in ids)
     ledger_rows = [
         r for r in get_ledger().snapshot() if r["family"] == "shard_exchange"
     ]
@@ -2887,6 +2953,12 @@ def mesh_scale(n_replicas: int = 1 << 12, n_shards: int = 8, k: int = 3,
             "peak_GBps": cap.get("peak_GBps"),
         },
         "engine": "ReplicatedRuntime(frontier_step, partitioned)",
+        "processes": comm.process_count(),
+        "process_bytes_total": rt.part_process_bytes_total,
+        "block_hashes": {
+            v: _block_hashes(rt.states[v], first, n_loc, n_replicas // n_dev)
+            for v in ids
+        },
         "check": (
             "sparse-vs-dense wire gate at <=5% dirty; hierarchical "
             "converge round count equals the host-driven loop at CI "

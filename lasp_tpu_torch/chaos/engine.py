@@ -64,6 +64,7 @@ class ChaosRuntime:
     """One population + one fault timeline; see the module doc."""
 
     def __init__(self, runtime, schedule, checkpoint: "str | None" = None):
+        runtime._refuse_across("ChaosRuntime", 7)
         if runtime.n_replicas != schedule.n_replicas:
             raise ValueError(
                 f"schedule is for {schedule.n_replicas} replicas, runtime "

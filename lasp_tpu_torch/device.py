@@ -1,11 +1,15 @@
 """Device resolution shared by every entry point of the port.
 
-``device=None`` means CUDA. Without a CUDA device that is an error: the
-port never carries on on the CPU unless the caller asked for it with
-``device="cpu"`` (the tests do).
+``device=None`` means CUDA: on a rank of a process group launched with
+``LOCAL_RANK`` set, the card ``cuda:(LOCAL_RANK % device_count)``, else the
+current card. Without a CUDA device that is an error: the port never
+carries on on the CPU unless the caller asked for it with ``device="cpu"``
+(the tests do), on a rank or not.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -18,7 +22,10 @@ def resolve_device(device=None) -> torch.device:
                 "lasp_tpu_torch runs on CUDA by default and no CUDA device "
                 "is available; pass device='cpu' to run on the CPU"
             )
-        return torch.device("cuda")
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            return torch.device("cuda")
+        return torch.device("cuda", int(local) % torch.cuda.device_count())
     return torch.device(device)
 
 

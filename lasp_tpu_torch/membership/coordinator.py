@@ -54,6 +54,7 @@ class MembershipCoordinator:
 
     def __init__(self, runtime, *, per_cycle: int = 8, hints=None,
                  serve=None, crash_patience: int = 4):
+        getattr(runtime, "rt", runtime)._refuse_across("the membership coordinator", 5)
         from ..chaos.engine import ChaosRuntime
         from ..chaos.schedule import ChaosSchedule
 

@@ -155,6 +155,45 @@ def gossip_round(codec, spec, states, neighbors, edge_mask=None, out=None):
     return acc
 
 
+def gossip_round_from(codec, spec, states, sources, neighbors, edge_mask=None):
+    """:func:`gossip_round` for rows whose neighbours lie in another
+    population: ``new[r] = join(states[r], sources[n])`` for each ``n`` in
+    ``neighbors[r, :]`` (``int32[F, K]`` into ``sources``; ``states`` holds
+    the F rows of the round). The gather path across processes: ``sources``
+    is the all-gathered population, ``states`` this process's rows of it.
+    Packed OR-Set planes run K1 over the ``[states | sources]`` rows."""
+    op = _leafwise_op(codec)
+    nb = neighbors.long()
+    if op is not None and edge_mask is None:
+        if _word_planes(codec, states):
+            f = states.exists.shape[0]
+            e2, r2 = gossip_round_dense(
+                torch.cat([states.exists.reshape(f, -1),
+                           sources.exists.reshape(sources.exists.shape[0], -1)]),
+                torch.cat([states.removed.reshape(f, -1),
+                           sources.removed.reshape(sources.removed.shape[0], -1)]),
+                (neighbors + f).contiguous(),
+            )
+            return type(states)(
+                e2.view(states.exists.shape), r2.view(states.removed.shape)
+            )
+
+        def leaf(x, src):
+            acc = x
+            for k in range(nb.shape[1]):
+                acc = op(acc, src[nb[:, k]])
+            return acc
+
+        return tree_map(leaf, states, sources)
+    acc = states
+    for k in range(nb.shape[1]):
+        nbr = tree_map(lambda x: x[nb[:, k]], sources)
+        if edge_mask is not None:
+            nbr = _tree_where(edge_mask[:, k], nbr, states)
+        acc = codec.merge(spec, acc, nbr)
+    return acc
+
+
 def gossip_round_shift(codec, spec, states, offsets, edge_mask=None):
     """:func:`gossip_round` for a shift-structured topology (every
     neighbour column ``k`` the constant offset ``offsets[k]``,

@@ -86,8 +86,24 @@ packed OR-Set planes, once a shard), sparse frontier rounds that ship only
 the dirty cut rows into per-variable halos (K2 / K3 on each shard's
 ``[block | halo]`` buffer), and the hierarchical converge (per-shard
 residual partials summed on the device, one host read every
-``sync_every`` rounds). Each shard's block is a view of the one population
-tensor, so reads, checkpoints and ``divergence`` are unchanged.
+``sync_every`` rounds). On a one-process mesh each shard's block is a view
+of the one population tensor, so reads, checkpoints and ``divergence`` are
+unchanged.
+
+Across processes (``shard`` onto a process group's mesh, ``comm.
+init_distributed``): every process runs the same host program (SPMD), and
+the host bookkeeping — the store, the graph, the interners, the dispatch
+and partition plans, the frontiers, ``round_residuals`` — stays the same
+on every process, while each process keeps only its run of shards' rows
+``[lo, hi)`` of every population. The gather path all-gathers a
+population and joins its rows; the partitioned paths exchange through
+``comm``'s collectives; every residual is an ``all_reduce`` of the
+processes' partials; reads join the shards' partials
+(``shard_gossip.sharded_join_all``) or pull rows from their owners
+(``_pull_rows``); a write pulls the rows it touches to every process,
+runs the one-process write path on them and lands them by owner
+(``_owner_window``). The verbs outside this slice refuse
+(``_refuse_across``, ROADMAP A5c).
 """
 
 from __future__ import annotations
@@ -117,6 +133,7 @@ from ..telemetry import registry as tel_registry
 from ..telemetry.convergence import get_monitor, record_membership
 from ..telemetry.roofline import get_ledger
 from ..utils.interning import CapacityError
+from . import comm
 from . import gossip as gossip_mod
 from . import ingest as ingest_mod
 from .gossip import (
@@ -125,6 +142,7 @@ from .gossip import (
     divergence,
     frontier_reach,
     gossip_round,
+    gossip_round_from,
     gossip_round_rows,
     join_all,
     quorum_read,
@@ -137,6 +155,53 @@ _PACKABLE = ("lasp_orset", "lasp_orset_gbtree")
 
 #: rounds a fused block of ``converge_on_device`` runs between host syncs
 _CONVERGE_BLOCK = 8
+
+#: what a runtime sharded across processes does not carry yet, by its
+#: ROADMAP A5c item
+_ACROSS_TODO = {
+    1: "an opaque function of the global population cannot run on one "
+       "process's block",
+    2: "the gather path's frontier scheduler",
+    3: "the row primitives and parked reads",
+    4: "compaction",
+    5: "membership changes",
+    6: "the quorum and coverage engines",
+    7: "chaos",
+    8: "AAE",
+    9: "Lasp's programs",
+    10: "checkpoints",
+    11: "serve",
+    12: "Session, the CRDT map's writes and the actor guard",
+}
+
+
+class _RowWindow:
+    """The replica rows one write across processes touches, as positions
+    of a small population of ``len(rows)`` rows (``_owner_window``). JAX's
+    row rules carry over: a negative row wraps once, a row still outside
+    ``[0, R)`` maps outside the window on the same side, and the window
+    holds rows 0 and R-1 whenever such a row is given, so a clamped gather
+    reads the same row it would on the whole population."""
+
+    def __init__(self, rows, n: int):
+        r = np.asarray(rows, dtype=np.int64).ravel()
+        w = np.where(r < 0, r + n, r)
+        keep = set(w[(w >= 0) & (w < n)].tolist())
+        if (w < 0).any():
+            keep.add(0)
+        if (w >= n).any():
+            keep.add(n - 1)
+        #: the window's replica rows, sorted
+        self.rows = np.asarray(sorted(keep), dtype=np.int64)
+        self.n = n
+
+    def compact(self, rows) -> np.ndarray:
+        """Window positions of replica rows (int64, the shape of ``rows``)."""
+        r = np.asarray(rows, dtype=np.int64)
+        w = np.where(r < 0, r + self.n, r)
+        t = self.rows.size
+        pos = np.searchsorted(self.rows, np.clip(w, 0, self.n - 1))
+        return np.where(w < 0, -t - 1, np.where(w >= self.n, t + w - self.n, pos))
 
 
 class _CapacityWalk:
@@ -323,7 +388,8 @@ class FusedBlockHandle:
 
 class ReplicatedRuntime:
     """Simulates ``n_replicas`` copies of a store under a gossip topology,
-    bulk-synchronously, on one device."""
+    bulk-synchronously, on one device (or, once ``shard`` onto a process
+    group's mesh, on every process of it, each holding its rows)."""
 
     _FRONTIER_MIN_BUCKET = 16
 
@@ -416,6 +482,13 @@ class ReplicatedRuntime:
         #: (``shard_gossip.make_halo``); absent = the next sparse round
         #: ships the full cut
         self._part_halo: dict = {}
+        #: ``shard`` onto a process group's mesh: ``{"mesh", "axis",
+        #: "first", "count", "lo", "hi"}`` — this process's run of shards and
+        #: the replica rows ``[lo, hi)`` its populations hold — or None
+        self._dist = None
+        #: bytes the process group carried for the partitioned rounds
+        #: (``comm.CARRIED``, this process's sends)
+        self.part_process_bytes_total = 0
         #: the sparse exchange's wire accounting (``_record_shard_exchange``)
         self.part_exchange_rows_last = 0
         self.part_exchange_bytes_total = 0
@@ -441,12 +514,27 @@ class ReplicatedRuntime:
             if self.packed and var.type_name in _PACKABLE:
                 self._packed_specs[v] = FlatORSetSpec(dense=var.spec)
                 state = FlatORSet.pack(self._packed_specs[v], state)
-            self.states[v] = replicate(state, self.n_replicas)
+            self.states[v] = replicate(state, self._block_rows())
         for v in self.states:
             self._frontier.setdefault(v, np.zeros(self.n_replicas, dtype=bool))
         self.var_ids = tuple(self.states)
         # a late-declared variable changes the census and maybe a signature
         self._invalidate_plan("var_set")
+
+    def _block_rows(self) -> int:
+        """Rows this process holds of every population: all of them, or
+        across processes its run of shards' rows."""
+        d = self._dist
+        return self.n_replicas if d is None else d["hi"] - d["lo"]
+
+    def _refuse_across(self, verb: str, item: int) -> None:
+        """Raise ``NotImplementedError`` for a verb a runtime sharded
+        across processes does not carry yet (ROADMAP A5c, by item)."""
+        if self._dist is not None:
+            raise NotImplementedError(
+                f"{verb} on a runtime sharded across processes is not ported "
+                f"yet (ROADMAP A5c.{item}: {_ACROSS_TODO[item]})"
+            )
 
     # -- dispatch plan ---------------------------------------------------------
     def _invalidate_plan(self, reason: str) -> None:
@@ -571,6 +659,7 @@ class ReplicatedRuntime:
         replicates over every row on its device (register on every
         partition). Idempotent, like the vnode's dets check
         (``src/lasp_vnode.erl:283-291``)."""
+        self._refuse_across("register", 9)
         if name in self._programs:
             return name
         program = program_cls(*args, **kwargs)
@@ -586,6 +675,7 @@ class ReplicatedRuntime:
         write spreads to the population by gossip. Deliver all events for
         one logical key to the same row: remove-then-add programs (the 2i
         index) read their own earlier writes from the local row."""
+        self._refuse_across("process", 9)
         if not 0 <= replica < self.n_replicas:
             raise IndexError(
                 f"replica {replica} out of range for {self.n_replicas}"
@@ -608,6 +698,7 @@ class ReplicatedRuntime:
         accumulator (``src/lasp_execute_coverage_fsm.erl:57-94``). A replica
         list is the preflist-quorum variant (``src/lasp_execute_fsm.erl:
         135-148``): the join of just those rows."""
+        self._refuse_across("execute", 9)
         program = self._programs[name]
         session = self._session()
         # save/restore: a program's process callback may call execute
@@ -647,9 +738,18 @@ class ReplicatedRuntime:
         to the gather path. The plan is validated and built before
         anything moves: a refused shard leaves the runtime as it was. The
         mesh's slots must name the runtime's device: sharding moves no
-        population between devices."""
+        population between devices.
+
+        A process group's mesh (``comm.build_mesh`` after
+        ``comm.init_distributed``) shards across processes: every process
+        calls ``shard`` with the same arguments, the population must split
+        over the axes that separate the processes (the canonical joint
+        axis, or ``"replicas"`` of a flat mesh), and each process keeps its
+        run of shards' rows of every population and frees the rest. Such a
+        runtime stays on its process group: it re-shards only onto the
+        same rows."""
         from ..device import same_device
-        from .comm import population_sharding
+        from .comm import local_shards, population_sharding
         from .shard_gossip import axis_extent, partition_tables
 
         if not same_device(mesh.device, self.device):
@@ -694,6 +794,24 @@ class ReplicatedRuntime:
                 f"unknown partition_mode {partition_mode!r} "
                 "(expected 'gather' or 'alltoall')"
             )
+        layout = None
+        if mesh.cross_process:
+            if self.debug_actors:
+                self._refuse_across_layout("debug_actors")
+            if self._aae_dirty is not None or self._programs:
+                self._refuse_across_layout("an AAE forest or programs")
+            first, count = local_shards(mesh, part_axis)
+            block = self.n_replicas // axis_extent(mesh, part_axis)
+            layout = {"mesh": mesh, "axis": part_axis, "first": first,
+                      "count": count, "lo": first * block,
+                      "hi": (first + count) * block}
+        if self._dist is not None and (
+                layout is None
+                or (layout["lo"], layout["hi"]) != (self._dist["lo"], self._dist["hi"])):
+            raise NotImplementedError(
+                "a runtime sharded across processes re-shards only onto its "
+                "process's rows of the same process group (ROADMAP A5c)"
+            )
         plan = self._plan_partition(mesh, part_axis) if partition else None
         if plan is not None:
             send_idx, idx = partition_tables(plan, mesh, mode=partition_mode)
@@ -707,9 +825,23 @@ class ReplicatedRuntime:
             }
         else:
             self._partition = None
+        if layout is not None and self._dist is None:
+            # each process keeps its rows; the rest of every population is
+            # freed
+            lo, hi = layout["lo"], layout["hi"]
+            for v in self.states:
+                self.states[v] = tree_map(lambda x: x[lo:hi].clone(), self.states[v])
+        self._dist = layout
         # sharding moves no values: frontiers stay valid
         self._frontier_shards = axis_extent(mesh, part_axis)
         self._invalidate_plan("shard")
+
+    @staticmethod
+    def _refuse_across_layout(what: str) -> None:
+        raise NotImplementedError(
+            f"a runtime with {what} cannot shard across processes "
+            "(ROADMAP A5c)"
+        )
 
     def _plan_partition(self, mesh, axis) -> dict:
         """Validate and build the boundary-exchange plan (pure: nothing
@@ -820,6 +952,11 @@ class ReplicatedRuntime:
         ``bind``, ``src/lasp_core.erl:283-312``); gossip carries it on.
         Under ``debug_actors`` a lane-minting op from a second replica of
         one actor raises :class:`ActorCollisionError`."""
+        if self._dist is not None:
+            win = _RowWindow([replica], self.n_replicas)
+            with self._owner_window((var_id,), win):
+                self.update_at(int(win.compact(replica)), var_id, op, actor)
+            return
         var = self.store.variable(var_id)
         if var.type_name == "riak_dt_map":
             # sync a late-declared map's population before any spec growth
@@ -870,6 +1007,7 @@ class ReplicatedRuntime:
         opaque ``fn`` may touch any row, so the variable's whole frontier
         goes dirty (pass rows to :meth:`mark_dirty` afterwards to tighten
         it)."""
+        self._refuse_across("apply_batch", 1)
         self.states[var_id] = fn(self.states[var_id])
         self.mark_dirty(var_id)
 
@@ -981,8 +1119,20 @@ class ReplicatedRuntime:
         first failing variable's error raises after every variable's
         bookkeeping landed; ``isolate_errors=True`` returns them in the
         report. Returns ``{"errors", "ops", "dispatches", "groups",
-        "grouped_vars", "pad_slots", "table_slots", "fallback_vars"}``."""
+        "grouped_vars", "pad_slots", "table_slots", "fallback_vars"}``.
+
+        Across processes every process passes the same cycle; the rows it
+        touches are pulled to every process and land by owner
+        (:meth:`_owner_window`)."""
         items = ops_by_var.items() if hasattr(ops_by_var, "items") else ops_by_var
+        if self._dist is not None:
+            items = [(v, self._normalize_ops(ops)) for v, ops in items]
+            win = _RowWindow([r for _v, ops in items for r, _op, _a in ops],
+                             self.n_replicas)
+            moved = [(v, [(int(c), op, a) for c, (_r, op, a) in zip(
+                win.compact([r for r, _op, _a in ops]), ops)]) for v, ops in items]
+            with self._owner_window(tuple(dict.fromkeys(v for v, _o in items)), win):
+                return self.ingest_cycle(moved, isolate_errors)
         pendings: list = []
         errors: dict = {}
         seen: set = set()
@@ -1408,6 +1558,65 @@ class ReplicatedRuntime:
             np.asarray(rows, dtype=np.int64), self.n_replicas
         )
 
+    def _pull_rows(self, states, rows):
+        """Replica rows ``rows`` (in ``[0, R)``) of a population as a
+        population of their own, the same on every process: every host
+        read of device rows across processes goes through here. Each owner
+        reads its rows and one ``all_gather`` a leaf gives every process the
+        owners' copies (the processes hold equal runs of rows, in order)."""
+        idx = np.asarray(rows, dtype=np.int64)
+        d = self._dist
+        lo, hi = d["lo"], d["hi"]
+        local = self._index(np.where((idx >= lo) & (idx < hi), idx - lo, 0))
+        owner = self._index(idx // (hi - lo))
+        slot = self._index(np.arange(idx.size))
+
+        def one(x):
+            every = comm.all_gather(x.index_select(0, local).unsqueeze(0), d["mesh"])
+            return every[owner, slot]
+
+        return tree_map(one, states)
+
+    @contextlib.contextmanager
+    def _owner_window(self, var_ids, win: _RowWindow):
+        """A write across processes: the rows of ``win`` of each variable
+        are pulled to every process (:meth:`_pull_rows`) and, inside the
+        block, stand in for the runtime's populations, with ``n_replicas``
+        the window's size, so the one-process write paths run unchanged on
+        every process; the frontier marks they make are kept. On the way
+        out — a failing write included, whose applied prefix persists —
+        each process lands the window's rows it owns into its blocks and
+        the marks into the frontiers. The callers pass rows as window
+        positions (``win.compact``)."""
+        for v in var_ids:
+            self._population(v)  # a late-declared variable, replicated
+            if self.store.variable(v).type_name == "riak_dt_map":
+                self._refuse_across("writes to a riak_dt_map", 12)
+        d, n, plan = self._dist, self.n_replicas, self._plan
+        blocks = {v: self.states[v] for v in var_ids}
+        fronts = {v: self._frontier_mask_of(v).copy() for v in var_ids}
+        t = win.rows.size
+        for v in var_ids:
+            self.states[v] = self._pull_rows(blocks[v], win.rows)
+            self._frontier[v] = np.zeros(t, dtype=bool)
+        self._dist, self.n_replicas = None, t
+        try:
+            yield
+        finally:
+            self._dist, self.n_replicas, self._plan = d, n, plan
+            lo, hi = d["lo"], d["hi"]
+            own = (win.rows >= lo) & (win.rows < hi)
+            at = self._index(win.rows[own] - lo)
+            pos = self._index(np.flatnonzero(own))
+            for v in var_ids:
+                for b, x in zip(tree_leaves(blocks[v]), tree_leaves(self.states[v])):
+                    b.index_copy_(0, at, x.index_select(0, pos))
+                self.states[v] = blocks[v]
+                marks = self._frontier.get(v)
+                if marks is not None and marks.shape[0] == t:
+                    fronts[v][win.rows[marks]] = True
+                self._frontier[v] = fronts[v]
+
     # The batch bodies of the leafwise types write only into the ``states``
     # they are given: a variable's population, or (from ``_map_batch``) a
     # map field's embedded population.
@@ -1802,6 +2011,12 @@ class ReplicatedRuntime:
         the rest landed. In packed mode duplicate triples are dropped on the
         host first: the add-scatter that stands in for a scatter-OR would
         carry a duplicate into an unrelated bit."""
+        if self._dist is not None:
+            win = _RowWindow(rows, self.n_replicas)
+            with self._owner_window((var_id,), win):
+                self.seed_tokens(var_id, win.compact(np.asarray(rows).ravel()),
+                                 elems, tokens)
+            return
         states = self._population(var_id)
         rows_np = np.asarray(rows, dtype=np.int64).ravel()
         elems_np = np.asarray(elems, dtype=np.int64).ravel()
@@ -1840,6 +2055,11 @@ class ReplicatedRuntime:
         rest of the call landed. Under ``debug_actors`` a lane written from
         two rows raises :class:`ActorCollisionError` with nothing
         applied."""
+        if self._dist is not None:
+            win = _RowWindow(rows, self.n_replicas)
+            with self._owner_window((var_id,), win):
+                self.seed_increments(var_id, win.compact(rows), lanes, by)
+            return
         states = self._population(var_id)
         staged = None
         if self.debug_actors:
@@ -2224,7 +2444,7 @@ class ReplicatedRuntime:
         if rb is None:
             leaves = tree_leaves(self.states[var_id])
             total = sum(x.numel() * x.element_size() for x in leaves)
-            rb = self._row_bytes_cache[var_id] = total // max(self.n_replicas, 1)
+            rb = self._row_bytes_cache[var_id] = total // max(leaves[0].shape[0], 1)
         return rb
 
     def _needed(self) -> frozenset:
@@ -2253,13 +2473,14 @@ class ReplicatedRuntime:
             x.numel() * x.element_size()
             for v in needed for x in tree_leaves(self.store.variable(v).state)
         )
-        if row * self.n_replicas <= gossip_mod.SWEEP_BYTES:
+        n_rows = self._block_rows()
+        if row * n_rows <= gossip_mod.SWEEP_BYTES:
             return self._local_rows(states, tables, needed)
         step = max(1, gossip_mod.CHUNK_BYTES // row)
         out = dict(states)
         for v in needed:
             out[v] = tree_map(torch.empty_like, states[v])
-        for s in range(0, self.n_replicas, step):
+        for s in range(0, n_rows, step):
             part = self._local_rows(
                 {v: tree_map(lambda x: x[s:s + step], states[v]) for v in needed},
                 tables, needed,
@@ -2296,7 +2517,8 @@ class ReplicatedRuntime:
         then one gossip round over every variable. Returns the per-var
         residual vector — rows whose state changed from before the local
         round to after the gossip, by ``codec.equal`` — as an int32 device
-        tensor, without a host sync."""
+        tensor, without a host sync (across processes, the sum of every
+        process's rows: one ``all_reduce`` a round)."""
         part = self._partition
         if part is not None and edge_mask is not None:
             # the boundary exchange bakes its row plan; masked edges need
@@ -2320,13 +2542,33 @@ class ReplicatedRuntime:
                 new = self._part_round_fn(codec, spec)(
                     swept.pop(v), part["send_idx"], part["idx"]
                 )
+            elif self._dist is not None:
+                new = self._gather_round(codec, spec, swept.pop(v), mask)
             else:
                 new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
             res.append(changed_rows(codec, spec, prev[v], new))
             self.states[v] = new
         if not res:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
-        return torch.stack(res)
+        if self._dist is None:
+            return torch.stack(res)
+        return comm.all_reduce(torch.stack(res), self._dist["mesh"])
+
+    def _gather_round(self, codec, spec, block, mask):
+        """The gather path across processes: one ``all_gather`` of the
+        population (every process's rows), then this process's rows joined
+        with their K neighbours' rows of it (K1 for packed OR-Set planes)."""
+        d = self._dist
+        lo, hi = d["lo"], d["hi"]
+        whole = tree_map(
+            lambda x: comm.all_gather(x.unsqueeze(0), d["mesh"]).reshape(
+                (-1,) + tuple(x.shape[1:])),
+            block,
+        )
+        return gossip_round_from(
+            codec, spec, block, whole, self.neighbors[lo:hi],
+            None if mask is None else mask[lo:hi],
+        )
 
     def _part_round_fn(self, codec, spec):
         """The partitioned round of one codec on the current plan
@@ -2347,9 +2589,12 @@ class ReplicatedRuntime:
         self._frontier_sync_mask(edge_mask)
         with span("gossip.round", annotate=True):
             t0 = time.perf_counter()
+            c0 = comm.carried_bytes()
             # the host read of the residual vector closes the timing window
             res_vec = self._dense_round(edge_mask, tables).cpu()
             elapsed = time.perf_counter() - t0
+        if self._partition is not None:
+            self.part_process_bytes_total += comm.carried_bytes() - c0
         residual = int(res_vec.sum())
         self._frontier_after_dense(res_vec.numpy())
         self._emit_step_telemetry(res_vec, residual, elapsed)
@@ -2524,10 +2769,12 @@ class ReplicatedRuntime:
         )
         with span("gossip.converge", annotate=True):
             t0 = time.perf_counter()
+            c0 = comm.carried_bytes()
             # the rounds build new populations: a failure leaves the
             # runtime's states as they were
             out = fn(member_states, part["send_idx"], part["idx"], max_rounds)
             elapsed = time.perf_counter() - t0
+        self.part_process_bytes_total += comm.carried_bytes() - c0
         outs, signed = out[0], out[1]
         for g, members in zip(groups, outs):
             for v, st in zip(g.var_ids, members):
@@ -2679,6 +2926,9 @@ class ReplicatedRuntime:
                 "dataflow edges / triggers sweep every replica row locally "
                 "(a row can change from its own state)"
             )
+        if self._dist is not None and self._partition is None:
+            return ("the gather path across processes runs dense rounds "
+                    f"(ROADMAP A5c.2: {_ACROSS_TODO[2]})")
         return None
 
     def frontier_step(self, edge_mask=None) -> int:
@@ -2949,13 +3199,20 @@ class ReplicatedRuntime:
         part = self._partition
         var_ids = tuple(v for v, _r in active)
         codec, spec = group.codec, group.spec
-        local = _grouped_exchange_local(codec, spec, part["plan"], part["mode"])
+        local = _grouped_exchange_local(codec, spec, part["plan"], part["mode"],
+                                        part["mesh"], part["axis"])
         members = [self.states[v] for v in var_ids]
         t0 = time.perf_counter()
+        c0 = comm.carried_bytes()
         outs = local(members, part["send_idx"], part["idx"])
         changed = torch.stack([
             ~codec.equal(spec, old, new) for old, new in zip(members, outs)
-        ]).cpu().numpy()  # the dispatch's sync
+        ])
+        if self._dist is not None:
+            # every process's rows, so every host frontier stays the same
+            every = comm.all_gather(changed.unsqueeze(0), part["mesh"])
+            changed = every.transpose(0, 1).reshape(len(var_ids), -1)
+        changed = changed.cpu().numpy()  # the dispatch's sync
         elapsed = time.perf_counter() - t0
         for v, new in zip(var_ids, outs):
             self.states[v] = new
@@ -2963,6 +3220,7 @@ class ReplicatedRuntime:
         self._record_shard_exchange(
             var_ids[0], elapsed, len(active), payload_rows=plane,
             dense_rows=plane, join_rows=self.n_replicas * len(active),
+            process_bytes=comm.carried_bytes() - c0,
         )
         return changed
 
@@ -2978,12 +3236,15 @@ class ReplicatedRuntime:
 
     def _record_shard_exchange(self, var_id: str, seconds: float,
                                g_active: int, payload_rows: int,
-                               dense_rows: int, join_rows: int) -> None:
+                               dense_rows: int, join_rows: int,
+                               process_bytes: int = 0) -> None:
         """Wire and ledger accounting of one partitioned frontier dispatch:
         the rows the exchange moved (``payload_rows``, pad slots included)
-        against the dense cut plane's for the same round, the
-        ``gossip_shard_exchange_rows`` gauge and the ``shard_exchange``
-        ledger row."""
+        against the dense cut plane's for the same round, the bytes the
+        process group carried for it (``process_bytes``, this process's
+        sends; 0 on one process), the ``gossip_shard_exchange_rows`` gauge
+        and the ``shard_exchange`` ledger row."""
+        self.part_process_bytes_total += int(process_bytes)
         rb = self._row_bytes(var_id)
         payload_bytes = payload_rows * rb * g_active
         self.part_exchange_rows_last = payload_rows * g_active
@@ -3034,7 +3295,8 @@ class ReplicatedRuntime:
         fresh = False
         for v in var_ids:
             if v not in self._part_halo:
-                self._part_halo[v] = make_halo(self.states[v], pplan, mode)
+                self._part_halo[v] = make_halo(self.states[v], pplan, mode,
+                                               part["mesh"], part["axis"])
                 fresh = True
         if fresh:
             dirty = None
@@ -3075,6 +3337,7 @@ class ReplicatedRuntime:
             mode=mode, n_g=n_g,
         )
         t0 = time.perf_counter()
+        c0 = comm.carried_bytes()
         outs, halos, ch_i, ch_b = fn(
             tuple(self.states[v] for v in var_ids),
             tuple(self._part_halo[v] for v in var_ids),
@@ -3084,6 +3347,7 @@ class ReplicatedRuntime:
         ch_i = ch_i.cpu().numpy()  # [S, G, Fi], the dispatch's sync
         ch_b = ch_b.cpu().numpy()  # [S, G, Fb]
         elapsed = time.perf_counter() - t0
+        process_bytes = comm.carried_bytes() - c0
         for i, v in enumerate(var_ids):
             self.states[v] = outs[i]
             self._part_halo[v] = halos[i]
@@ -3105,6 +3369,7 @@ class ReplicatedRuntime:
         self._record_shard_exchange(
             var_ids[0], elapsed, n_g, payload_rows=tabs["payload_rows"],
             dense_rows=tabs["dense_rows"], join_rows=touched,
+            process_bytes=process_bytes,
         )
         if tel_registry.enabled():
             # forensics: each sparse exchange dispatch is one flight window
@@ -3247,18 +3512,41 @@ class ReplicatedRuntime:
                 self._invalidate_plan("map_growth")
         return self.states[var_id]
 
+    def _join_all(self, var_id: str):
+        """The global join of a variable's population: across processes,
+        each shard's partial, all-gathered and folded in shard order
+        (``shard_gossip.sharded_join_all``), the same on every process."""
+        pop = self._population(var_id)
+        codec, spec = self._mesh_meta(var_id)
+        d = self._dist
+        if d is None:
+            return join_all(codec, spec, pop)
+        from .shard_gossip import sharded_join_all
+
+        return sharded_join_all(codec, spec, pop, d["mesh"], axis=d["axis"])
+
     def coverage_value(self, var_id: str):
         """Global join + decode — the coverage query
         (``src/lasp_execute_coverage_fsm.erl:78-94``)."""
-        pop = self._population(var_id)
+        top = self._join_all(var_id)
         var = self.store.variable(var_id)
-        codec, spec = self._mesh_meta(var_id)
-        top = join_all(codec, spec, pop)
         return self.store._decode_value(var, self._to_dense_row(var_id, top))
+
+    def _row_of(self, var_id: str, replica: int):
+        """One replica's row of a variable (``x[replica]``'s rule: a
+        negative row counts from the end), pulled from its owner across
+        processes."""
+        pop = self._population(var_id)
+        if self._dist is None:
+            return tree_map(lambda x: x[replica], pop)
+        r = int(replica)
+        if not -self.n_replicas <= r < self.n_replicas:
+            raise IndexError(f"replica {r} out of range for {self.n_replicas}")
+        return tree_map(lambda x: x[0], self._pull_rows(pop, [r % self.n_replicas]))
 
     def replica_value(self, var_id: str, replica: int):
         var = self.store.variable(var_id)
-        row = tree_map(lambda x: x[replica], self._population(var_id))
+        row = self._row_of(var_id, replica)
         return self.store._decode_value(var, self._to_dense_row(var_id, row))
 
     def quorum_value(self, var_id: str, replicas):
@@ -3274,13 +3562,20 @@ class ReplicatedRuntime:
         pop = self._population(var_id)
         var = self.store.variable(var_id)
         codec, spec = self._mesh_meta(var_id)
+        if self._dist is not None:
+            pop, replicas = self._pull_rows(pop, replicas), np.arange(replicas.size)
         top = quorum_read(codec, spec, pop, replicas)
         return self.store._decode_value(var, self._to_dense_row(var_id, top))
 
     def divergence(self, var_id: str) -> int:
         pop = self._population(var_id)
         codec, spec = self._mesh_meta(var_id)
-        return int(divergence(codec, spec, pop))
+        d = self._dist
+        if d is None:
+            return int(divergence(codec, spec, pop))
+        top = self._join_all(var_id)
+        mine = torch.sum(~codec.equal(spec, pop, top), dtype=torch.int64)
+        return int(comm.all_reduce(mine.reshape(1), d["mesh"])[0])
 
     # -- row primitives -----------------------------------------------------------
     def _row_leaf(self, x, live: torch.Tensor) -> torch.Tensor:
@@ -3303,6 +3598,7 @@ class ReplicatedRuntime:
         read-repair broadcast). Only the rows the join changes are marked
         frontier-dirty. Returns the number of rows changed; re-applying is
         a no-op (idempotent join)."""
+        self._refuse_across("join_rows", 3)
         rows = np.asarray(rows, dtype=np.int64)
         if rows.size == 0:
             return 0
@@ -3367,6 +3663,7 @@ class ReplicatedRuntime:
         checked against the live rows. Every frontier degrades to all-dirty
         afterwards: the row must be caught up even from quiescent peers. AAE
         dirtiness stays row-scoped (only this row's state changed)."""
+        self._refuse_across("reseed_row", 3)
         if not 0 <= replica < self.n_replicas:
             raise IndexError(f"replica {replica} out of range for {self.n_replicas}")
         for v in self.var_ids:
@@ -3447,6 +3744,7 @@ class ReplicatedRuntime:
         crash: departing state is lost unless it already gossiped. The
         topology is re-supplied (``new_neighbors: int[new_n, K]``, checked
         by :meth:`_validate_topology`) and the membership epoch advances."""
+        self._refuse_across("resize", 5)
         new_neighbors = self._validate_topology(new_n, new_neighbors)
         old_n = self.n_replicas
         actor_targets = None
@@ -3488,6 +3786,7 @@ class ReplicatedRuntime:
         (``membership.plan.changed_delivery_rows``) scopes the frontier
         degrade to the rows whose delivery changed; None keeps the blanket
         all-dirty."""
+        self._refuse_across("membership_grow", 5)
         new_neighbors = self._validate_topology(new_n, new_neighbors)
         old_n = self.n_replicas
         if new_n <= old_n:
@@ -3515,6 +3814,7 @@ class ReplicatedRuntime:
         received its handoff (missing entries retire to ``-1``);
         ``dirty_rows`` scopes the frontier degrade; None keeps the
         blanket."""
+        self._refuse_across("membership_drop_tail", 5)
         new_neighbors = self._validate_topology(new_n, new_neighbors)
         old_n = self.n_replicas
         if new_n >= old_n:
@@ -3609,6 +3909,7 @@ class ReplicatedRuntime:
         divergence 0: every row is then identical, so one reindex of every
         row keeps them equivalent. A packed population is unpacked, reindexed
         and packed again. Returns slots reclaimed."""
+        self._refuse_across("compact_orset", 4)
         self._compaction_gates(
             "compact_orset", var_id,
             " (a dropped tombstone could be resurrected by a divergent peer)",
@@ -3640,6 +3941,7 @@ class ReplicatedRuntime:
         (``key`` a field key or a path into nested submaps), under the
         :meth:`compact_orset` gates. Maps are never packed, so the planes
         reindex where they lie. Returns slots reclaimed."""
+        self._refuse_across("compact_map_field", 4)
         self._compaction_gates(
             "compact_map_field", var_id, "",
             "(closures bake element orders)",
@@ -3679,6 +3981,7 @@ class ReplicatedRuntime:
         order; a trigger whose builder fails is dropped, loudly. Triggers
         registered inside the body are kept. The port compiles no step, so
         there is no step cache to drop."""
+        self._refuse_across("compaction_window", 4)
         for _fn, _touch, b in self._triggers:
             if b is None:
                 raise RuntimeError(
@@ -3729,9 +4032,7 @@ class ReplicatedRuntime:
         state when the threshold is met, else None."""
         var = self.store.variable(var_id)
         thr = self._device_threshold(self.store._resolve_threshold(var, threshold))
-        row = self._to_dense_row(
-            var_id, tree_map(lambda x: x[replica], self._population(var_id))
-        )
+        row = self._to_dense_row(var_id, self._row_of(var_id, replica))
         if bool(var.codec.threshold_met(var.spec, row, thr)):
             return row
         return None
@@ -3769,6 +4070,7 @@ class ReplicatedRuntime:
 
         Once the population quiesces with the threshold unmet it can never
         be met, so the wait raises ``TimeoutError`` at once."""
+        self._refuse_across("read_until", 3)
         if on_device is None:
             var = self.store.variable(var_id)
             threshold = self.store._resolve_threshold(var, threshold)
@@ -3821,6 +4123,7 @@ class ReplicatedRuntime:
         (list order breaks a same-round tie). Raises ``TimeoutError`` at
         once when the population quiesces with every threshold unmet.
         ``on_device`` as in :meth:`read_until`."""
+        self._refuse_across("read_any_until", 3)
         reads = list(reads)  # probed every round: an iterator would drain
         if not reads:
             raise ValueError("read_any_until needs at least one read")

@@ -18,11 +18,20 @@ JAX package's collectives become:
 - ``psum`` (the hierarchical converge): a sum of the per-shard residual
   partials on the device.
 
-In this slice every shard slot names one device (``comm.Mesh``): each block
-is a view ``[s·B, (s+1)·B)`` of one population tensor, so ``rt.states[v]``
-stays one tensor. A shard's local round reads its ``[block | received]``
-buffer through the plan's combined index (``idx`` / ``idx2``: ``[0, B)``
-the block, ``[B, B + H)`` the received rows): packed OR-Set planes through
+Every exchange goes through ``comm``'s collective layer. On a one-process
+mesh every shard slot names one device: each block is a view ``[s·B,
+(s+1)·B)`` of one population tensor and the collectives return their
+input, so the exchange is the copy between blocks. On a process group's
+mesh a process holds only its run of L shards (``comm.local_shards``): its
+populations are ``[L·B, ...]``, the union buffer is an ``all_gather`` of
+every process's send rows, the per-destination slices an ``all_to_all``,
+the ring slabs a ``ppermute`` between neighbouring processes and the
+residual partials an ``all_reduce``; the frontier round's changed flags are
+all-gathered so every process's host frontier stays the same.
+
+A shard's local round reads its ``[block | received]`` buffer through the
+plan's combined index (``idx`` / ``idx2``: ``[0, B)`` the block, ``[B, B
++ H)`` the received rows): packed OR-Set planes through
 the CUDA kernel K1 (a source of ``B + H`` rows, ``B`` rows written),
 row-sparse frontier joins through K2 (leafwise codecs) and K3 (OR-SWOT) on
 the same buffer; their plain versions on the CPU.
@@ -39,12 +48,15 @@ import torch
 
 from ..lattice.base import tree_leaves, tree_map
 from ..ops import cuda_gossip
-from .comm import Mesh
+from . import comm
+from .comm import Mesh, local_shards
 from .gossip import _leafwise_op, _word_planes, join_all
 
 #: rows and bytes every exchange kind moved since :func:`reset_exchange`;
 #: ``rows`` counts state rows (all leaves of a row once), ``bytes`` the
-#: bytes of every leaf, pad slots included (they are real buffer slots)
+#: bytes of every leaf, pad slots included (they are real buffer slots).
+#: These are JAX's per-shard counts of the whole mesh, the same on every
+#: process; what the process group carried is ``comm.CARRIED``
 EXCHANGED = {
     kind: {"calls": 0, "rows": 0, "bytes": 0}
     for kind in ("ppermute", "all_gather", "all_to_all", "psum")
@@ -54,6 +66,7 @@ EXCHANGED = {
 def reset_exchange() -> None:
     for ent in EXCHANGED.values():
         ent.update(calls=0, rows=0, bytes=0)
+    comm.reset_carried()
 
 
 def _row_nbytes(state) -> int:
@@ -82,14 +95,17 @@ def ring_offsets(k: int) -> list[int]:
     return offsets
 
 
-def _shift_pull(states, off: int, n_dev: int):
-    """Every shard's block of a global pull-shift, ``result[r] = x[(r+off)
-    % R]`` for a block-sharded leading axis: the local rows plus the
-    ``|off|``-row boundary slab copied from the adjacent shard's block
-    (shard ``i`` receives the head of ``i+1`` for ``off > 0``, the tail of
-    ``i-1`` for ``off < 0``)."""
+def _shift_pull(states, off: int, mesh: Mesh, axis="replicas"):
+    """This process's blocks of a global pull-shift, ``result[r] =
+    x[(r+off) % R]`` for a block-sharded leading axis: the local rows plus
+    the ``|off|``-row boundary slab from the adjacent shard's block (shard
+    ``i`` receives the head of ``i+1`` for ``off > 0``, the tail of ``i-1``
+    for ``off < 0``); the slab of the shard past this process's run comes
+    from the neighbouring process (``comm.ppermute``)."""
+    n_dev = axis_extent(mesh, axis)
+    _first, n_loc = local_shards(mesh, axis)
     r = tree_leaves(states)[0].shape[0]
-    block = r // n_dev
+    block = r // n_loc
     if block < abs(off):
         raise ValueError(
             f"ring offset {off} exceeds per-shard block of {block} "
@@ -98,12 +114,14 @@ def _shift_pull(states, off: int, n_dev: int):
     m = abs(off)
 
     def one(x):
-        blocks = x.reshape((n_dev, block) + tuple(x.shape[1:]))
+        blocks = x.reshape((n_loc, block) + tuple(x.shape[1:]))
         if off > 0:
-            recv = torch.roll(blocks[:, :m], -1, 0)  # [S, off]: i <- i+1
+            heads = blocks[:, :m]  # [L, off]: i <- i+1
+            recv = torch.cat([heads[1:], comm.ppermute(heads[:1], mesh, 1)])
             out = torch.cat([blocks[:, m:], recv], dim=1)
         else:
-            recv = torch.roll(blocks[:, -m:], 1, 0)  # [S, m]: i <- i-1
+            tails = blocks[:, -m:]  # [L, m]: i <- i-1
+            recv = torch.cat([comm.ppermute(tails[-1:], mesh, -1), tails[:-1]])
             out = torch.cat([recv, blocks[:, :-m]], dim=1)
         return out.reshape(x.shape)
 
@@ -118,21 +136,24 @@ def ring_gossip_round_fn(codec, spec, mesh: Mesh, k: int = 2,
     slabs, equal to ``gossip_round(codec, spec, states, ring(R, k))`` for
     block-sharded states; a shard's block must hold at least the largest
     slab (``ceil(k / 2)`` rows)."""
-    n_dev = mesh.shape[axis]
     offsets = ring_offsets(k)
 
     def round_fn(states):
         acc = states
         for off in offsets:
-            acc = codec.merge(spec, acc, _shift_pull(states, off, n_dev))
+            acc = codec.merge(spec, acc, _shift_pull(states, off, mesh, axis))
         return acc
 
     return round_fn
 
 
-def _changed_any(codec, spec, a, b) -> torch.Tensor:
-    """0-d bool: some row of ``b`` differs from ``a`` by ``codec.equal``."""
-    return ~torch.all(codec.equal(spec, a, b))
+def _changed_any(codec, spec, a, b, mesh: Mesh) -> torch.Tensor:
+    """0-d bool: some row of ``b`` differs from ``a`` by ``codec.equal``,
+    on any process."""
+    changed = ~torch.all(codec.equal(spec, a, b))
+    if not mesh.cross_process:
+        return changed
+    return comm.all_reduce(changed.to(torch.int32).reshape(1), mesh, "max")[0] > 0
 
 
 def ring_gossip_rounds(codec, spec, states, mesh: Mesh, n_rounds: int,
@@ -143,24 +164,26 @@ def ring_gossip_rounds(codec, spec, states, mesh: Mesh, n_rounds: int,
     out = states
     for _ in range(n_rounds):
         out = round_fn(out)
-    return out, _changed_any(codec, spec, states, out)
+    return out, _changed_any(codec, spec, states, out, mesh)
 
 
 def sharded_join_all(codec, spec, states, mesh: Mesh, axis: str = "replicas"):
-    """Coverage / quorum merge of a block-sharded population: each shard
-    folds its block to one state, ONE gather moves the S partials (one row
-    a shard, not the population) and a fold joins them. Equal to
-    :func:`.gossip.join_all`."""
+    """Coverage / quorum merge of a block-sharded population (this
+    process's blocks): each shard folds its block to one state, ONE gather
+    moves the S partials (one row a shard, not the population) and a fold
+    joins them in shard order, so every process gets the same bits. Equal
+    to :func:`.gossip.join_all`."""
     n_dev = axis_extent(mesh, axis)
+    _first, n_loc = local_shards(mesh, axis)
     r = tree_leaves(states)[0].shape[0]
-    if r % n_dev:
-        raise ValueError(f"{r} replicas do not divide over {n_dev} shards")
-    b = r // n_dev
+    if r % n_loc:
+        raise ValueError(f"{r} replicas do not divide over {n_loc} shards")
+    b = r // n_loc
     tops = [
         join_all(codec, spec, tree_map(lambda x, s=s: x[s * b:(s + 1) * b], states))
-        for s in range(n_dev)
+        for s in range(n_loc)
     ]
-    gathered = tree_map(lambda *xs: torch.stack(xs), *tops)
+    gathered = tree_map(lambda *xs: comm.all_gather(torch.stack(xs), mesh), *tops)
     _moved("all_gather", n_dev, _row_nbytes(gathered))
     return join_all(codec, spec, gathered)
 
@@ -319,83 +342,109 @@ def _owner_rows(table: torch.Tensor, block: int) -> torch.Tensor:
     return (table.long() + base).reshape(-1)
 
 
-def _exchange(state, send_tbl: torch.Tensor, plan: dict, alltoall: bool):
-    """The dense exchange of one population: per leaf, the rows every
-    shard receives — gather mode ``[H, ...]`` (the union buffer, the same
-    for every shard, H = S*M), alltoall mode ``[S, H2, ...]`` (shard
-    ``d``'s slices from every owner, H2 = S*M2)."""
+def _to_destinations(buf, n_loc: int, mesh: Mesh):
+    """The per-destination exchange of one leaf: ``buf`` ``[L_owner,
+    S_dest, M2, ...]`` (this process's owners' slices for every
+    destination) -> ``[L_dest, S_owner * M2, ...]`` (what each local
+    destination receives from every owner, owner-major). The slices travel
+    process-major through ``comm.all_to_all``."""
+    tail = tuple(buf.shape[3:])
+    s, m2 = buf.shape[1], buf.shape[2]
+    n_proc = s // n_loc
+    wire = buf.reshape((n_loc, n_proc, n_loc, m2) + tail).transpose(0, 1)
+    got = comm.all_to_all(wire.reshape((-1,) + tail), mesh)
+    got = got.reshape((s, n_loc, m2) + tail)  # [S_owner, L_dest, M2]
+    return got.transpose(0, 1).reshape((n_loc, s * m2) + tail)
+
+
+def _exchange(state, send_tbl: torch.Tensor, plan: dict, alltoall: bool,
+              mesh: Mesh, first: int, n_loc: int):
+    """The dense exchange of one population (this process's ``[L·B, ...]``
+    blocks): per leaf, the rows every local shard receives — gather mode
+    ``[H, ...]`` (the union buffer, the same for every shard, H = S*M),
+    alltoall mode ``[L, H2, ...]`` (each local destination's slices from
+    every owner, H2 = S*M2)."""
     S, B = plan["n_shards"], plan["block"]
-    rows = _owner_rows(send_tbl, B)
+    comm.pack_begin()
+    rows = _owner_rows(send_tbl[first:first + n_loc], B)
     if alltoall:
         m2 = send_tbl.shape[2]
-
-        def one(x):
-            buf = x.index_select(0, rows).reshape((S, S, m2) + tuple(x.shape[1:]))
-            # destination d reads buf[:, d]: [S_owner, M2] rows
-            return buf.transpose(0, 1).reshape((S, S * m2) + tuple(x.shape[1:]))
-
-        recv = tree_map(one, state)
+        recv = tree_map(
+            lambda x: _to_destinations(
+                x.index_select(0, rows).reshape((n_loc, S, m2) + tuple(x.shape[1:])),
+                n_loc, mesh),
+            state,
+        )
         _moved("all_to_all", S * S * m2, _row_nbytes(state))
         return recv
-    recv = tree_map(lambda x: x.index_select(0, rows), state)
-    _moved("all_gather", rows.numel(), _row_nbytes(state))
+    m = send_tbl.shape[1]
+    recv = tree_map(
+        lambda x: comm.all_gather(
+            x.index_select(0, rows).reshape((n_loc, m) + tuple(x.shape[1:])), mesh
+        ).reshape((S * m,) + tuple(x.shape[1:])),
+        state,
+    )
+    _moved("all_gather", S * m, _row_nbytes(state))
     return recv
 
 
-def _full(x, recv, S: int, alltoall: bool):
-    """``[S, B + H, ...]``: every shard's ``[block | received]`` buffer."""
-    blocks = x.reshape((S, x.shape[0] // S) + tuple(x.shape[1:]))
+def _full(x, recv, n_loc: int, alltoall: bool):
+    """``[L, B + H, ...]``: every local shard's ``[block | received]``
+    buffer."""
+    blocks = x.reshape((n_loc, x.shape[0] // n_loc) + tuple(x.shape[1:]))
     if not alltoall:
-        recv = recv.unsqueeze(0).expand((S,) + tuple(recv.shape))
+        recv = recv.unsqueeze(0).expand((n_loc,) + tuple(recv.shape))
     return torch.cat([blocks, recv], dim=1)
 
 
-def _exchange_round(codec, spec, plan: dict, mode: str):
+def _exchange_round(codec, spec, plan: dict, mode: str, mesh: Mesh, axis):
     """The round body every partitioned entry shares: ``one(state,
-    send_tbl, idx) -> state`` for one ``[R, ...]`` population. The
-    exchange moves the plan's rows, then each shard joins its block's rows
-    with their K neighbours from its ``[block | received]`` buffer in k
-    order through the combined index ``idx`` (``int32[R, K]``, shard s's
-    rows ``[s·B, (s+1)·B)``). Packed OR-Set planes run K1 once a shard."""
+    send_tbl, idx) -> state`` for one population (this process's ``[L·B,
+    ...]`` blocks). The exchange moves the plan's rows, then each local
+    shard joins its block's rows with their K neighbours from its ``[block
+    | received]`` buffer in k order through the combined index ``idx``
+    (``int32[R, K]``, shard s's rows ``[s·B, (s+1)·B)``). Packed OR-Set
+    planes run K1 once a shard."""
     alltoall = alltoall_mode(mode)
-    S, B = plan["n_shards"], plan["block"]
+    B = plan["block"]
+    first, n_loc = local_shards(mesh, axis)
     op = _leafwise_op(codec)
 
     def one(state, send_tbl, idx):
-        recv = _exchange(state, send_tbl, plan, alltoall)
-        full = tree_map(lambda x, g: _full(x, g, S, alltoall), state, recv)
+        recv = _exchange(state, send_tbl, plan, alltoall, mesh, first, n_loc)
+        full = tree_map(lambda x, g: _full(x, g, n_loc, alltoall), state, recv)
         if op is not None and _word_planes(codec, state):
-            r = state.exists.shape[0]
-            out_e = torch.empty_like(state.exists).reshape(S, B, -1)
-            out_r = torch.empty_like(state.removed).reshape(S, B, -1)
-            fe = full.exists.reshape(S, full.exists.shape[1], -1)
-            fr = full.removed.reshape(S, full.removed.shape[1], -1)
+            out_e = torch.empty_like(state.exists).reshape(n_loc, B, -1)
+            out_r = torch.empty_like(state.removed).reshape(n_loc, B, -1)
+            fe = full.exists.reshape(n_loc, full.exists.shape[1], -1)
+            fr = full.removed.reshape(n_loc, full.removed.shape[1], -1)
             cuda = fe.device.type == "cuda"
-            for s in range(S):
+            for sl in range(n_loc):
+                s = first + sl
                 nb = idx[s * B:(s + 1) * B]
                 e2, r2 = cuda_gossip.gossip_round_dense(
-                    fe[s], fr[s], nb, out=(out_e[s], out_r[s]) if cuda else None
+                    fe[sl], fr[sl], nb, out=(out_e[sl], out_r[sl]) if cuda else None
                 )
                 if not cuda:
-                    out_e[s], out_r[s] = e2, r2
+                    out_e[sl], out_r[sl] = e2, r2
             return type(state)(out_e.reshape(state.exists.shape),
                                out_r.reshape(state.removed.shape))
-        sidx = torch.arange(S, device=idx.device)[:, None]
-        nb = idx.long().reshape(S, B, -1)
+        sidx = torch.arange(n_loc, device=idx.device)[:, None]
+        nb = idx[first * B:(first + n_loc) * B].long().reshape(n_loc, B, -1)
         if op is not None:
 
             def leaf(f):
                 acc = f[:, :B]
                 for k in range(nb.shape[2]):
                     acc = op(acc, f[sidx, nb[:, :, k]])
-                return acc.reshape((S * B,) + tuple(f.shape[2:]))
+                return acc.reshape((n_loc * B,) + tuple(f.shape[2:]))
 
             return tree_map(leaf, full)
         acc = state
         for k in range(nb.shape[2]):
             nbr = tree_map(
                 lambda f, _k=k: f[sidx, nb[:, :, _k]].reshape(
-                    (S * B,) + tuple(f.shape[2:])), full
+                    (n_loc * B,) + tuple(f.shape[2:])), full
             )
             acc = codec.merge(spec, acc, nbr)
         return acc
@@ -407,23 +456,25 @@ def partitioned_gossip_round_fn(codec, spec, mesh: Mesh, plan: dict,
                                 axis="replicas", mode: str = "gather"):
     """``(states, send_tbl, idx_tbl) -> states``: ONE gossip round of an
     irregular topology through the boundary exchange of ``plan``, equal
-    to ``gossip_round(codec, spec, states, neighbors)``. ``mode="gather"``
+    to ``gossip_round(codec, spec, states, neighbors)`` (on a process
+    group's mesh, to its rows of this process's blocks). ``mode="gather"``
     moves the union buffer (tables ``send_idx`` / ``idx``),
     ``"alltoall"`` the per-destination slices (``send2_idx`` / ``idx2``);
     :func:`partition_tables` makes them."""
     _check_plan(plan, mesh, axis)
-    one = _exchange_round(codec, spec, plan, mode)
+    one = _exchange_round(codec, spec, plan, mode, mesh, axis)
     return one
 
 
-def _grouped_exchange_local(codec, spec, plan: dict, mode: str):
+def _grouped_exchange_local(codec, spec, plan: dict, mode: str, mesh: Mesh,
+                            axis="replicas"):
     """The body of ONE grouped boundary-exchange round: ``local(members,
     send_tbl, idx) -> members`` over a dispatch-plan group's member
     populations, each where it lies (no ``[G, R, ...]`` stack). Shared by
     :func:`partitioned_gossip_round_grouped` and
     :func:`partitioned_converge_fn`, as in JAX: a round-rule change cannot
     diverge the two."""
-    one = _exchange_round(codec, spec, plan, mode)
+    one = _exchange_round(codec, spec, plan, mode, mesh, axis)
 
     def local(members, send_tbl, idx):
         return [one(m, send_tbl, idx) for m in members]
@@ -438,7 +489,7 @@ def partitioned_gossip_round_grouped(codec, spec, mesh: Mesh, plan: dict,
     bit-identical to the ungrouped round."""
     _check_plan(plan, mesh, axis)
     alltoall_mode(mode)
-    local = _grouped_exchange_local(codec, spec, plan, mode)
+    local = _grouped_exchange_local(codec, spec, plan, mode, mesh, axis)
 
     def run(states, send_tbl, idx):
         g = tree_leaves(states)[0].shape[0]
@@ -553,17 +604,20 @@ def sparse_exchange_tables(plan: dict, mode: str, dirty=None,
     }
 
 
-def make_halo(states, plan: dict, mode: str):
-    """A zero boundary halo for one ``[R, ...]`` population: gather mode
-    one union buffer ``[H, ...]`` (H = S*m) that every shard reads,
-    alltoall mode each shard's own receive buffer ``[S, H2, ...]`` (H2 =
-    S*m2). Zeros are safe: the runtime ships the full cut on a fresh
-    halo's first round, so every position a join reads is written first."""
+def make_halo(states, plan: dict, mode: str, mesh: "Mesh | None" = None,
+              axis="replicas"):
+    """A zero boundary halo for one population: gather mode one union
+    buffer ``[H, ...]`` (H = S*m) that every shard reads, alltoall mode
+    each local shard's own receive buffer ``[L, H2, ...]`` (H2 = S*m2; L =
+    S without a ``mesh`` or on a one-process mesh). Zeros are safe: the
+    runtime ships the full cut on a fresh halo's first round, so every
+    position a join reads is written first."""
     S = plan["n_shards"]
     if alltoall_mode(mode):
         h2 = S * plan["m2"]
+        n_loc = local_shards(mesh, axis)[1] if mesh is not None else S
         return tree_map(
-            lambda x: torch.zeros((S, h2) + tuple(x.shape[1:]), dtype=x.dtype,
+            lambda x: torch.zeros((n_loc, h2) + tuple(x.shape[1:]), dtype=x.dtype,
                                   device=x.device),
             states,
         )
@@ -620,7 +674,8 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
     bool[S, G, Fi], changed_b: bool[S, G, Fb])``
 
     ``rows_*`` / ``valid_*`` are each shard's members' frontier-reachable
-    rows (block-local ids, bucket-padded, valid slots first), split
+    rows (block-local ids, bucket-padded, valid slots first; every shard's,
+    the host plan being the same on every process), split
     INTERIOR (every neighbour in the block) and BOUNDARY (some neighbour
     in the halo). The dirty cut rows are exchanged first and scattered
     into the halos; then each shard joins its interior rows from its
@@ -631,10 +686,13 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
     the dense partitioned round by the frontier-reach and halo
     invariants. The payload tables and rows come from the host (numpy),
     which also knows the valid slots, so no scatter target is filtered on
-    the device."""
+    the device. On a process group's mesh the states and halos are this
+    process's, it joins its own shards' rows, and the changed flags come
+    back all-gathered, every shard's on every process."""
     _check_plan(plan, mesh, axis)
     alltoall = alltoall_mode(mode)
     S, B = plan["n_shards"], plan["block"]
+    first, n_loc = local_shards(mesh, axis)
     k_cols = (plan["idx2"] if alltoall else plan["idx"]).shape[1]
     plain_join = _member_rows_join(codec, spec, k_cols)
 
@@ -647,28 +705,42 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
         dev = idx_tbl.device
         slot = _host(pay_slot)
         pos = _host(pay_pos)
-        # 1) the dirty cut rows onto the wire: one payload buffer per
-        #    member leaf, pad slots included
-        src_rows = _owner_rows(torch.as_tensor(slot, device=dev), B)
+        # 1) the dirty cut rows of this process's owners onto the wire:
+        #    one payload buffer per member leaf, pad slots included
+        comm.pack_begin()
+        src_rows = _owner_rows(torch.as_tensor(slot[first:first + n_loc],
+                                               device=dev), B)
         if alltoall:
             d2 = slot.shape[2]
-            # destination d's slice from owner o, slot j sits at buffer
-            # row (o*S + d)*D2 + j and lands at d's halo position pos[d, o, j]
-            d_i, o_i, j_i = np.nonzero(pos < S * plan["m2"])
-            buf_at = (o_i * S + d_i) * d2 + j_i
-            halo_at = d_i * (S * plan["m2"]) + pos[d_i, o_i, j_i]
+            # local destination dl's slice from owner o, slot j arrives at
+            # received row (dl*S + o)*D2 + j and lands at its halo position
+            # pos[d, o, j]
+            d_i, o_i, j_i = np.nonzero(pos[first:first + n_loc] < S * plan["m2"])
+            buf_at = (d_i * S + o_i) * d2 + j_i
+            halo_at = d_i * (S * plan["m2"]) + pos[d_i + first, o_i, j_i]
             n_rows, kind = S * S * d2, "all_to_all"
+
+            def wire(x):
+                tail = tuple(x.shape[1:])
+                return _to_destinations(
+                    x.reshape((n_loc, S, d2) + tail), n_loc, mesh
+                ).reshape((-1,) + tail)
         else:
             s_i, j_i = np.nonzero(pos < S * plan["m"])
             buf_at = s_i * slot.shape[1] + j_i
             halo_at = pos[s_i, j_i]
             n_rows, kind = slot.size, "all_gather"
+
+            def wire(x):
+                tail = tuple(x.shape[1:])
+                return comm.all_gather(
+                    x.reshape((n_loc, -1) + tail), mesh).reshape((-1,) + tail)
         buf_at = torch.as_tensor(buf_at, dtype=torch.int64, device=dev)
         halo_at = torch.as_tensor(halo_at, dtype=torch.int64, device=dev)
         # 2) halo scatter: every cut position now holds its row's current
         #    value
         for m, h in zip(members, halos):
-            payload = tree_map(lambda x: x.index_select(0, src_rows), m)
+            payload = tree_map(lambda x: wire(x.index_select(0, src_rows)), m)
             _moved(kind, n_rows, _row_nbytes(m))
 
             def land(hx, px):
@@ -679,18 +751,22 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
         # 3) the joins of every shard, reading pre-round state
         ri_h, vi_h = _host(rows_i), _host(valid_i).astype(bool)
         rb_h, vb_h = _host(rows_b), _host(valid_b).astype(bool)
-        ch_i = torch.zeros(ri_h.shape, dtype=torch.bool, device=dev)
-        ch_b = torch.zeros(rb_h.shape, dtype=torch.bool, device=dev)
+        f_i = ri_h.shape[2]
+        # this process's shards' flags, interior and boundary side by side
+        flags = torch.zeros((n_loc, n_g, f_i + rb_h.shape[2]), dtype=torch.bool,
+                            device=dev)
+        ch_i, ch_b = flags[:, :, :f_i], flags[:, :, f_i:]
         writes: list = [[] for _ in range(n_g)]  # per member: (rows, joined)
         kplan = cuda_gossip.rows_plan_of(codec, spec, members[0])
-        for s in range(S):
+        for sl in range(n_loc):
+            s = first + sl
             nb = idx_tbl[s * B:(s + 1) * B]
-            blocks = [tree_map(lambda x: x[s * B:(s + 1) * B], m) for m in members]
+            blocks = [tree_map(lambda x: x[sl * B:(sl + 1) * B], m) for m in members]
             for rows_h, valid_h, changed, src_of in (
                 (ri_h, vi_h, ch_i, lambda g: blocks[g]),
                 (rb_h, vb_h, ch_b, lambda g: tree_map(
                     lambda b, h: torch.cat(
-                        [b, h[s] if alltoall else h], dim=0),
+                        [b, h[sl] if alltoall else h], dim=0),
                     blocks[g], halos[g])),
             ):
                 n_valid = valid_h[s].sum(axis=1)
@@ -715,12 +791,12 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
                         plain_join(srcs[g], blocks[g], rows[g], nbl[rows[g]])
                         for g in range(n_g)
                     ]
-                changed[s] = torch.stack([c for _j, c in per_member]) & torch.as_tensor(
+                changed[sl] = torch.stack([c for _j, c in per_member]) & torch.as_tensor(
                     valid_h[s], device=dev)
                 for g, (joined_g, _c) in enumerate(per_member):
                     n = int(n_valid[g])
                     if n:
-                        writes[g].append((rows_h[s, g, :n] + s * B,
+                        writes[g].append((rows_h[s, g, :n] + sl * B,
                                           [x[:n] for x in tree_leaves(joined_g)]))
         # 4) epilogue: the joined valid rows written back in place (valid
         #    rows are unique and interior / boundary disjoint)
@@ -731,7 +807,8 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
                                   dtype=torch.int64, device=dev)
             for li, x in enumerate(tree_leaves(m)):
                 x.index_copy_(0, tgt, torch.cat([v[li] for _r, v in ws]))
-        return tuple(members), tuple(halos), ch_i, ch_b
+        flags = comm.all_gather(flags, mesh)  # [S, G, Fi + Fb]
+        return tuple(members), tuple(halos), flags[:, :, :f_i], flags[:, :, f_i:]
 
     return run
 
@@ -760,10 +837,11 @@ def partitioned_converge_fn(groups, mesh: Mesh, plan: dict,
         raise ValueError("window must be >= 1")
     _check_plan(plan, mesh, axis)
     locals_ = [
-        _grouped_exchange_local(codec, spec, plan, mode)
+        _grouped_exchange_local(codec, spec, plan, mode, mesh, axis)
         for codec, spec, _n in groups
     ]
     S, B = plan["n_shards"], plan["block"]
+    _first, n_loc = local_shards(mesh, axis)
     flight_k = int(flight_rounds)
     n_members = sum(n for _c, _s, n in groups)
 
@@ -778,7 +856,7 @@ def partitioned_converge_fn(groups, mesh: Mesh, plan: dict,
         rounds, done_at = 0, -1
         while done_at < 0 and rounds < mr:
             t = min(window, mr - rounds)
-            partials = torch.ones((window, S, n_members), dtype=torch.int32,
+            partials = torch.ones((window, n_loc, n_members), dtype=torch.int32,
                                   device=dev)
             for i in range(t):
                 per = []
@@ -787,11 +865,12 @@ def partitioned_converge_fn(groups, mesh: Mesh, plan: dict,
                     new = loc(old, send_tbl, idx_tbl)
                     for o, nw in zip(old, new):
                         ch = ~codec.equal(spec, o, nw)
-                        per.append(ch.reshape(S, B).sum(1, dtype=torch.int32))
+                        per.append(ch.reshape(n_loc, B).sum(1, dtype=torch.int32))
                     new_sts.append(new)
                 sts = new_sts
                 partials[i] = torch.stack(per, dim=1)
-            totals = partials.sum(1, dtype=torch.int32)  # the psum
+            # the psum: this process's shards, then one all_reduce a window
+            totals = comm.all_reduce(partials.sum(1, dtype=torch.int32), mesh)
             _moved("psum", S * window, n_members * 4)
             per_round = totals.sum(1).cpu().numpy()  # the window's host read
             zero = np.flatnonzero(per_round[:t] == 0)
@@ -909,13 +988,15 @@ def partitioned_gossip_rounds(codec, spec, states, mesh: Mesh, plan: dict,
     out = states
     for _ in range(n_rounds):
         out = round_fn(out, send_idx, idx)
-    return out, _changed_any(codec, spec, states, out)
+    return out, _changed_any(codec, spec, states, out, mesh)
 
 
 def ring_gossip_shardmap_dryrun(mesh: Mesh, n_replicas: int) -> None:
     """Run-and-check proof that the ring path and the sharded join work on
     the mesh's shard slots: one ring round and one coverage join of a
-    seeded packed OR-Set, each against the unsharded reference."""
+    seeded packed OR-Set, each against the unsharded reference (on a
+    process group's mesh, this process's blocks against their rows of
+    it)."""
     from ..lattice.base import replicate
     from ..ops import PackedORSet, PackedORSetSpec
     from .gossip import gossip_round
@@ -931,14 +1012,17 @@ def ring_gossip_shardmap_dryrun(mesh: Mesh, n_replicas: int) -> None:
             dtype=torch.int32, device=flat.device,
         )
     )
-    out, _changed = ring_gossip_rounds(PackedORSet, spec, states, flat, 1, k=2,
+    first, n_loc = local_shards(flat, axis)
+    b = n_replicas // flat.size
+    mine = tree_map(lambda x: x[first * b:(first + n_loc) * b], states)
+    out, _changed = ring_gossip_rounds(PackedORSet, spec, mine, flat, 1, k=2,
                                        axis=axis)
     nbrs = torch.as_tensor(ring(n_replicas, 2), dtype=torch.int32,
                            device=flat.device)
     ref = gossip_round(PackedORSet, spec, states, nbrs)
-    assert all(torch.equal(a, b) for a, b in zip(out, ref)), (
-        "ppermute ring != dense ring")
-    top = sharded_join_all(PackedORSet, spec, states, flat, axis=axis)
+    assert all(torch.equal(a, x[first * b:(first + n_loc) * b])
+               for a, x in zip(out, ref)), "ppermute ring != dense ring"
+    top = sharded_join_all(PackedORSet, spec, mine, flat, axis=axis)
     ref_top = join_all(PackedORSet, spec, states)
     assert all(torch.equal(a, b) for a, b in zip(top, ref_top)), (
         "sharded join != dense join")

@@ -128,6 +128,7 @@ class QuorumRuntime:
                  engine: str = "batched",
                  hints: "HintLog | str | None" = None,
                  mode: str = "dense"):
+        getattr(runtime, "rt", runtime)._refuse_across("the quorum engine", 6)
         from ..chaos.engine import ChaosRuntime
         from ..chaos.schedule import ChaosSchedule
 

@@ -79,6 +79,7 @@ class ServeFrontend:
                  clock=None, chaos_mode: str = "dense",
                  write_backup: bool = True,
                  aae=None, scrub_every: int = 16):
+        getattr(runtime, "rt", runtime)._refuse_across("ServeFrontend", 11)
         from ..chaos import ChaosRuntime
 
         if isinstance(runtime, ChaosRuntime):

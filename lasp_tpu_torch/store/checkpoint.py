@@ -288,6 +288,7 @@ def load_store(path: str, device=None) -> Store:
 def save_runtime(runtime, path: str) -> None:
     """Snapshot a ReplicatedRuntime: per-variable ``[R, ...]`` states plus
     the topology."""
+    runtime._refuse_across("save_runtime", 10)
     with HostStore(path) as hs:
         manifest = {
             "kind": "runtime",
