@@ -178,7 +178,7 @@ Phases, each of which fails the run on any error:
                in one cycle) and ``register`` / ``process`` / ``execute``;
 21. bridge  — a loopback ``BridgeServer`` on the card: ``bridge_throughput()``
                at JAX's defaults under the native and the Python ETF arm; a
-               seeded stream of 5,000 requests over 1,024 variables (16 in
+               seeded stream of 2,000 requests over 1,024 variables (16 in
                each of riak_core's 64 partitions, ``ingest_storm``'s five
                kinds, one request in ten a 16-variable ``merge_batch``, the
                rest YCSB workload A's zipfian reads and updates) in
@@ -247,7 +247,14 @@ Phases, each of which fails the run on any error:
                (each shard's hash, rounds, every residual, coverage), K1, K2
                and K3 launched on each rank and each rank's widest launch
                held against its plain version; within 120 s
-               (``phase_distributed``).
+               (``phase_distributed``); then (d) the serving path at
+               100,000 replicas on the gather path (``shard(mesh)``): the
+               row verbs, parked reads and compaction on a packed runtime,
+               ``chaos_heal``'s drive with a packed OR-Set, ``quorum_kv``'s
+               drive under every preset and ``serve_load``'s drive (ticks
+               cut), each held against a one-process run (states, rounds,
+               fingerprints), K1 launched on each rank and its widest
+               launch held against its plain version; within 150 s.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -2237,7 +2244,7 @@ def phase_session(torch, cg, captured: dict, n: int = _SESSION_REPLICAS) -> dict
 
 
 #: the bridge phase's request stream (``bench_scenarios.bridge_stream``)
-_BRIDGE = {"n_requests": 5_000, "n_partitions": 64, "vars_per_partition": 16,
+_BRIDGE = {"n_requests": 2_000, "n_partitions": 64, "vars_per_partition": 16,
            "merge_every": 10, "seed": 0}
 
 
@@ -2253,7 +2260,7 @@ def phase_bridge(torch, cg) -> dict:
     """A loopback ``BridgeServer`` on the card: ``bridge_throughput()`` at
     JAX's defaults with the native arm serving, then again with the Python
     arm (``LaspConfig(etf="python")``); then
-    the seeded stream of 5,000 requests over 1,024 variables (16 in each
+    the seeded stream of 2,000 requests over 1,024 variables (16 in each
     of riak_core's 64 partitions, ``ingest_storm``'s five kinds; one in ten
     a 16-variable ``merge_batch``, the rest YCSB workload A's reads and
     updates) in durable mode, every response equal
@@ -2622,7 +2629,12 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
 #: the distributed phase: two ranks on the one card, 4 shard slots each, at
 #: the shard phase's sizes
 _DIST = {"world": 2, "pg_replicas": 1 << 20, "ms_replicas": 1 << 20,
-         "timeout_s": 300, "limit_s": 120}
+         "timeout_s": 480, "limit_s": 120}
+
+#: its segment (d), the serving path across the ranks: the chaos, quorum and
+#: serve phases' population; ``serve_load``'s ticks cut from 40 (depth) so
+#: that (d) stays inside ``limit_s``
+_SERVING = {"n_replicas": _CHAOS_REPLICAS, "serve_ticks": 4, "limit_s": 150}
 
 
 def _free_port() -> int:
@@ -2633,7 +2645,279 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_distributed(torch, reference: dict) -> dict:
+def _serving_rows_runtime(n: int):
+    """Segment (d)'s packed runtime: an OR-Set of 256 elements (8 actors x
+    4 tokens), a G-Counter of 64 actors and a flag G-Set on
+    ``random_regular(n, 3, seed=2)``."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    store = Store(n_actors=64)
+    store.declare(id="ads", type="lasp_orset", n_elems=256, n_actors=8, tokens_per_actor=4)
+    store.declare(id="views", type="riak_dt_gcounter", n_actors=64)
+    store.declare(id="flag", type="lasp_gset", n_elems=2)
+    return ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=2),
+                             packed=True)
+
+
+def _serving_rows(torch, rt, hashes) -> dict:
+    """Segment (d)'s row verbs, parked reads and compaction on ``rt``
+    (:func:`_serving_rows_runtime`, sharded across processes or not):
+    ``apply_batch`` seeds 56 G-Counter lanes at their writers' rows,
+    ``update_batch`` adds all 256 elements, ``join_rows`` broadcast and per
+    row, ``reseed_row`` to bottom and from a supplied row, ``read_until`` at
+    the reseeded row, ``read_any_until``, removes then ``compact_orset``,
+    then removes under a ``compaction_window`` with a builder-backed
+    trigger. Returns every count, rounds, coverage, and ``hashes(rt)``."""
+    from lasp_tpu_torch.lattice import Threshold
+
+    homes = [int(r) for r in np.random.RandomState(31).choice(rt.n_replicas, 64,
+                                                               replace=False)]
+    lanes = rt.intern_actors("views", [f"w{a}" for a in range(56)])
+    at = torch.as_tensor(homes[:56], device=rt.device)
+    by = torch.as_tensor(lanes, dtype=torch.int64, device=rt.device)
+
+    def seed(s):
+        counts = s.counts.clone()
+        counts[at, by] += (by + 1).to(counts.dtype)
+        return s._replace(counts=counts)
+
+    out = {"rounds": {}}
+    rt.apply_batch("views", seed)
+    total = int(sum(int(x) + 1 for x in lanes))
+    rt.update_batch("ads", [(homes[a], ("add_all", [f"e{32 * a + k}" for k in range(32)]),
+                             f"w{a}") for a in range(8)])
+    out["joined"] = [
+        rt.join_rows("ads", homes[56:59], rt._row_of("ads", homes[0])),
+        rt.join_rows("views", homes[59:61], [rt._row_of("views", homes[1]),
+                                             rt._row_of("views", homes[2])])]
+    out["rounds"]["seeded"] = rt.run_to_convergence()
+    saved = rt._row_of("views", homes[3])
+    rt.reseed_row(homes[4])
+    rt.reseed_row(homes[5], {"views": saved})
+    row = rt.read_until(homes[4], "views", Threshold(total))
+    out["read_until"] = int(row.counts.sum())
+    rt.update_batch("views", [(homes[6], ("increment", 7), "w6")])
+    var, row = rt.read_any_until(homes[61], [("views", Threshold(total + 1000)),
+                                             ("views", Threshold(total + 7))])
+    out["read_any_until"] = [var, int(row.counts.sum())]
+    rt.update_batch("ads", [(homes[a], ("remove_all", [f"e{32 * a + k}" for k in
+                                                        range(0, 32, 2)]), f"w{a}")
+                            for a in range(8)])
+    out["rounds"]["removed"] = rt.run_to_convergence()
+    out["reclaimed"] = rt.compact_orset("ads")
+
+    def make_trigger():
+        (s_idx,) = rt.intern_terms("ads", ["sentinel"])
+        (f_idx,) = rt.intern_terms("flag", ["raised"])
+        onehot = torch.arange(2, device=rt.device) == int(f_idx)
+
+        def trig(dense):
+            st, fl = dense["ads"], dense["flag"]
+            live = (st.exists[int(s_idx)] & ~st.removed[int(s_idx)]).any()
+            return {"flag": fl._replace(mask=fl.mask | (onehot & live))}
+        return trig
+
+    rt.register_trigger(builder=make_trigger, touches=["ads", "flag"])
+    rt.update_batch("ads", [(homes[a], ("remove_all", [f"e{32 * a + k}" for k in
+                                                        range(1, 32, 4)]), f"w{a}")
+                            for a in range(8)])
+    with rt.compaction_window(block=1) as w:
+        out["window_reclaimed"] = w.compact_orset("ads")
+    rt.update_batch("ads", [(homes[0], ("add", "sentinel"), "w0")])
+    out["rounds"]["window"] = rt.run_to_convergence()
+    out["coverage"] = {"ads": len(rt.coverage_value("ads")),
+                       "views": rt.coverage_value("views"),
+                       "flag": sorted(rt.coverage_value("flag"))}
+    out["divergence"] = {v: rt.divergence(v) for v in rt.var_ids}
+    out["hashes"] = hashes(rt)
+    return out
+
+
+def _serving_chaos_runtime(n: int):
+    """``chaos_heal``'s population at ``n`` replicas (its G-Set and writes,
+    seed 17) with a packed OR-Set beside it, so that the fault-free
+    windows run K1."""
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    store = Store(n_actors=8)
+    store.declare(id="soak", type="lasp_gset", n_elems=128)
+    store.declare(id="ads", type="lasp_orset", n_elems=32, n_actors=8, tokens_per_actor=4)
+    rt = ReplicatedRuntime(store, Graph(store), n, random_regular(n, 3, seed=17),
+                           packed=True)
+    rows = np.random.RandomState(17).choice(n, size=max(4, n // 64), replace=False)
+    rt.update_batch("soak", [(int(r), ("add", f"w{int(r) % 32}"), f"c{int(r)}")
+                             for r in rows])
+    rt.update_batch("ads", [(int(r), ("add", f"a{k % 32}"), f"w{k % 8}")
+                            for k, r in enumerate(rows[:256])])
+    return rt
+
+
+def _serving_chaos(rt) -> dict:
+    """``chaos_heal``'s soak on ``rt``: its composite nemesis (seed 17, 10
+    fault rounds), fused windows of 8, a degraded read and its read-repair
+    each faulty round. Returns the report's counts and the fingerprint of
+    the healed states."""
+    from lasp_tpu_torch.bench_scenarios import chaos_heal_schedule
+    from lasp_tpu_torch.chaos import ChaosRuntime
+    from lasp_tpu_torch.chaos.invariants import fingerprint, snapshot_states
+
+    ch = ChaosRuntime(rt, chaos_heal_schedule(rt._host_neighbors, 17, 10))
+    rep = ch.soak(mode="dense", block=8, reads_per_round=1, read_var="soak")
+    return {**{k: rep[k] for k in ("rounds", "rounds_to_heal", "healed", "crashes",
+                                   "restores", "degraded_reads", "repaired_rows")},
+            "fused_windows": ch.fused_windows,
+            "fingerprint": fingerprint(snapshot_states(rt))}
+
+
+def _serving_load(rt) -> dict:
+    """``serve_load``'s drive (10,000 clients, 1,200 arrivals a tick, a x5
+    burst, 10,000 seed watches, 100,000 parity thresholds, the composite
+    nemesis, seed 7) on ``rt`` (``serve.harness.load_runtime``), its ticks
+    cut to ``_SERVING["serve_ticks"]``: the report and the fingerprint of
+    the final states."""
+    from lasp_tpu_torch.chaos.invariants import fingerprint, snapshot_states
+    from lasp_tpu_torch.serve.harness import run_load
+
+    ticks = _SERVING["serve_ticks"]
+    rep = run_load(n_replicas=rt.n_replicas, n_clients=10_000, ticks=ticks,
+                   arrivals_per_tick=1200, chaos=True, burst_at=max(2, ticks // 2),
+                   burst_ticks=max(2, ticks // 8), burst_factor=5, seed_watches=10_000,
+                   parity_thresholds=100_000, seed=7, runtime=rt)
+    rep.pop("overlap_seconds")
+    rep.pop("trace")
+    return {"report": rep, "fingerprint": fingerprint(snapshot_states(rt))}
+
+
+def _serving_twins(torch, n: int) -> dict:
+    """Segment (d)'s one-process runs on this process's card: the rows
+    drive (every shard's hash), the chaos drive (its healed states must
+    equal its fault-free fixed point's) and the serve drive."""
+    from lasp_tpu_torch.bench_scenarios import _block_hashes
+    from lasp_tpu_torch.chaos.invariants import fingerprint, snapshot_states
+    from lasp_tpu_torch.serve.harness import load_runtime
+
+    shards = _SHARD["n_shards"]
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    out["rows"] = _serving_rows(torch, _serving_rows_runtime(n), lambda rt: {
+        v: _block_hashes(rt.states[v], 0, shards, n // shards) for v in rt.var_ids})
+    out["seconds"]["rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    free = _serving_chaos_runtime(n)
+    free.run_to_convergence()
+    free_print = fingerprint(snapshot_states(free))
+    del free
+    out["chaos"] = _serving_chaos(_serving_chaos_runtime(n))
+    if out["chaos"]["fingerprint"] != free_print or not out["chaos"]["healed"]:
+        raise RuntimeError("distributed (d): the one-process chaos drive did not heal "
+                           "to its fault-free fixed point")
+    out["seconds"]["chaos"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"] = _serving_load(load_runtime(n, n_clients=10_000, seed=7))
+    out["seconds"]["serve"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return out
+
+
+def _serving_worker(torch, cg, mesh, n: int) -> dict:
+    """Segment (d) on one rank: each drive on a runtime sharded across the
+    ranks on the gather path, its K1 launches counted and its widest K1
+    launch held against ``gossip_round_dense_plain``."""
+    from lasp_tpu_torch.bench_scenarios import (
+        _block_hashes, quorum_kv_preset, quorum_kv_runtime, random_regular)
+    from lasp_tpu_torch.chaos import PRESETS
+    from lasp_tpu_torch.serve.harness import load_runtime
+
+    def shard(rt):
+        rt.shard(mesh)
+        if rt._dist is None or rt._partition is not None:
+            raise RuntimeError("distributed (d): the runtime is not on the gather path")
+        return rt
+
+    def hashes(rt):
+        d = rt._dist
+        return {v: _block_hashes(rt.states[v], d["first"], d["count"],
+                                 n // _SHARD["n_shards"]) for v in rt.var_ids}
+
+    import lasp_tpu_torch.mesh.gossip as gossip_mod
+
+    out = {"seconds": {}}
+    kept, undo = _widest_calls(torch, cg)
+    # the gather path calls K1 by the name mesh.gossip imported
+    inner = gossip_mod.gossip_round_dense
+    gossip_mod.gossip_round_dense = cg.gossip_round_dense
+    cg.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out["rows"] = _serving_rows(torch, shard(_serving_rows_runtime(n)), hashes)
+        out["seconds"]["rows"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["chaos"] = _serving_chaos(shard(_serving_chaos_runtime(n)))
+        out["seconds"]["chaos"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nbrs = random_regular(n, 3, seed=23)
+        out["quorum"] = {}
+        for preset in PRESETS:
+            rec = quorum_kv_preset(shard(quorum_kv_runtime(nbrs)), preset,
+                                   client_rounds=8, puts_per_round=24, gets_per_round=24)
+            out["quorum"][preset] = {k: rec[k] for k in (
+                "rounds", "requests", "completed", "failed", "no_write_lost",
+                "acked_writes", "state_fingerprint", "trace_sha256")}
+        out["seconds"]["quorum"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serve"] = _serving_load(shard(load_runtime(n, n_clients=10_000, seed=7)))
+        out["seconds"]["serve"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["launches"] = dict(cg.LAUNCHES)  # the drives', before the check
+    finally:
+        gossip_mod.gossip_round_dense = inner
+        undo()
+    out["kernel_checks"] = _check_widest(torch, cg, kept)
+    return out
+
+
+def _check_serving(r: int, got: dict, twins: dict, quorum: dict) -> None:
+    """Hold rank ``r``'s segment (d) against the one-process runs; raise on
+    any difference."""
+    rows, want = got["rows"], twins["rows"]
+    for key in ("rounds", "joined", "read_until", "read_any_until", "reclaimed",
+                "window_reclaimed", "coverage", "divergence"):
+        if rows[key] != want[key]:
+            raise RuntimeError(f"distributed (d) rows: rank {r}'s {key} {rows[key]}, "
+                               f"one process {want[key]}")
+    for v, hashes in rows["hashes"].items():
+        if any(want["hashes"][v][k] != h for k, h in hashes.items()):
+            raise RuntimeError(f"distributed (d) rows: rank {r}'s shards of {v} differ "
+                               "from the one-process run's")
+    if got["chaos"] != twins["chaos"]:
+        raise RuntimeError(f"distributed (d) chaos: rank {r} {got['chaos']}, one "
+                           f"process {twins['chaos']}")
+    for preset, rec in got["quorum"].items():
+        one = quorum[preset]
+        if not rec["no_write_lost"] or any(rec[k] != one[k] for k in (
+                "state_fingerprint", "trace_sha256", "rounds", "requests", "completed",
+                "failed", "acked_writes")):
+            raise RuntimeError(f"distributed (d) quorum {preset}: rank {r} {rec}, the "
+                               f"quorum phase {one}")
+    if set(got["quorum"]) != set(quorum):
+        raise RuntimeError(f"distributed (d) quorum: rank {r} ran {sorted(got['quorum'])}")
+    serve, one = got["serve"], twins["serve"]
+    bad = [k for k in serve["report"]["shed"] if k.split(":")[-1] not in _SHED_REASONS]
+    if (serve != one or bad or not serve["report"]["no_write_lost"]
+            or not serve["report"]["threshold_parity"]["parity"]):
+        raise RuntimeError(f"distributed (d) serve: rank {r} {serve}, one process {one}")
+    if got["launches"]["gossip_round_dense"] < 1:
+        raise RuntimeError(f"distributed (d): rank {r} never launched K1")
+    chk = got["kernel_checks"].get("gossip_round_dense")
+    if chk is None or chk["max_abs_err"] != 0:
+        raise RuntimeError(f"distributed (d): rank {r}'s widest K1 launch: {chk}")
+
+
+def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
     """The shard phase's work across processes: this script spawns
     ``_DIST["world"]`` copies of itself (``--distributed-worker``) with
     ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` /
@@ -2648,8 +2932,13 @@ def phase_distributed(torch, reference: dict) -> dict:
     (a) each shard's hash, (b) the rounds per cycle, the wire gate and a
     roofline share, (c) every segment's rounds, every round's residual,
     each shard's hash of every population at each segment's end and the
-    coverage values. A worker that fails or overruns fails the phase, with
-    the tail of its stderr."""
+    coverage values. Then each worker runs segment (d), the serving path
+    on the gather path (:func:`_serving_worker`), while this process runs
+    its one-process twins (:func:`_serving_twins`); each rank's (d) is held
+    against them and against the quorum phase's records (``quorum``, by
+    preset) by :func:`_check_serving`, and must end within
+    ``_SERVING["limit_s"]``. A worker that fails or overruns fails the
+    phase, with the tail of its stderr."""
     import os
 
     out_dir = tempfile.mkdtemp(prefix="lasp-dist-")
@@ -2662,6 +2951,11 @@ def phase_distributed(torch, reference: dict) -> dict:
         stderr=subprocess.PIPE, text=True) for r in range(_DIST["world"])]
     outs, failed = [], []
     try:
+        t_twins = time.perf_counter()
+        twins = _serving_twins(torch, _SERVING["n_replicas"])
+        twins["seconds"]["all"] = time.perf_counter() - t_twins
+        # as the workers' files hold them (tuples as lists, keys as text)
+        twins = json.loads(json.dumps(twins, default=str))
         for r, p in enumerate(procs):
             left = _DIST["timeout_s"] - (time.perf_counter() - t0)
             try:
@@ -2735,6 +3029,7 @@ def phase_distributed(torch, reference: dict) -> dict:
                                    f"its plain version: {chk}")
         if set(res["kernel_checks"]) != set(res["launches"]):
             raise RuntimeError(f"distributed: rank {r} held {sorted(res['kernel_checks'])}")
+        _check_serving(r, res["serving"], twins, quorum)
     line = {"seconds": secs, "world": _DIST["world"], "backend": ranks[0]["backend"],
             "ranks": [{
                 "rank": res["rank"], "device": res["device"],
@@ -2751,11 +3046,37 @@ def phase_distributed(torch, reference: dict) -> dict:
                 "membership": {m: {k: v for k, v in got.items()
                                    if k not in ("hashes", "residuals", "coverage")}
                                for m, got in res["membership"].items()},
-            } for res in ranks]}
+                "serving": {
+                    "seconds": res["serving"]["seconds"],
+                    "launches": res["serving"]["launches"],
+                    "kernel_checks": res["serving"]["kernel_checks"],
+                    "rows": {k: res["serving"]["rows"][k] for k in (
+                        "rounds", "joined", "read_until", "read_any_until", "reclaimed",
+                        "window_reclaimed", "coverage")},
+                    "chaos": res["serving"]["chaos"],
+                    "quorum_rounds": {p: q["rounds"]
+                                      for p, q in res["serving"]["quorum"].items()},
+                    "serve": {k: res["serving"]["serve"]["report"][k] for k in (
+                        "completed", "shed", "watch_fires", "gossip_rounds", "cycles",
+                        "acked_writes", "threshold_parity", "chaos")},
+                    "stage_s": res["serving"]["stage_s"],
+                    "carried_bytes": res["serving"]["carried_bytes"],
+                },
+            } for res in ranks],
+            "serving_twins_s": twins["seconds"]}
     _log_line("distributed", line)
-    if secs > _DIST["limit_s"]:
+    if secs > _DIST["limit_s"] + _SERVING["limit_s"]:
         raise RuntimeError(f"distributed: the phase took {secs:.1f} s, over "
-                           f"{_DIST['limit_s']} s")
+                           f"{_DIST['limit_s'] + _SERVING['limit_s']} s")
+    for res in ranks:  # (a)-(c)'s own bound: the phase less this rank's (d)
+        abc = secs - res["seconds"]["d"]
+        if abc > _DIST["limit_s"]:
+            raise RuntimeError(f"distributed (a)-(c): rank {res['rank']} took {abc:.1f} s, "
+                               f"over {_DIST['limit_s']} s")
+    d = max(res["seconds"]["d"] for res in ranks)
+    if d > _SERVING["limit_s"]:
+        raise RuntimeError(f"distributed (d): took {d:.1f} s, over "
+                           f"{_SERVING['limit_s']} s")
     return line
 
 
@@ -2902,9 +3223,20 @@ def distributed_worker(out_dir: str) -> int:
     finally:
         undo()
     res["kernel_checks"] = _check_widest(torch, cg, kept)
+    # (d) the serving path, on the gather path of the same mesh
+    t0 = time.perf_counter()
+    carried0 = {k: dict(e) for k, e in comm.CARRIED.items()}
+    stage0 = dict(comm.STAGE_S)
+    res["serving"] = _serving_worker(torch, cg, mesh, _SERVING["n_replicas"])
+    res["serving"]["carried_bytes"] = {
+        k: e["bytes"] - carried0.get(k, {}).get("bytes", 0) for k, e in comm.CARRIED.items()}
+    res["serving"]["stage_s"] = {k: v - stage0.get(k, 0.0) for k, v in comm.STAGE_S.items()}
+    res["seconds"]["d"] = time.perf_counter() - t0
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res, default=str))
     print(json.dumps({"rank": rank, "launches": res["launches"],
-                      "seconds": res["seconds"]}), flush=True)
+                      "serving_launches": res["serving"]["launches"],
+                      "seconds": res["seconds"],
+                      "serving_seconds": res["serving"]["seconds"]}), flush=True)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -2961,7 +3293,7 @@ def phase_adcounter(torch, cg) -> dict:
 
 #: the programs phase (a Riak 2i index over the chaos phases' population):
 #: ``bench_scenarios.riak_index_2i``'s event stream and program sizes
-_PROGRAMS = {"n_events": 512, "n_keys": 48, "index_names": 2, "index_values": 8,
+_PROGRAMS = {"n_events": 256, "n_keys": 48, "index_names": 2, "index_values": 8,
              "n_shards": 4, "seed": 29}
 
 
@@ -3794,7 +4126,7 @@ def main() -> int:
     launches["shard"], shapes["shard"] = sh["launches"], sh["shapes"]
     _log_launches("shard", launches["shard"])
     # 28. distributed: the shard phase's work on two processes ------------------
-    dist_line = phase_distributed(torch, sh["reference"])
+    dist_line = phase_distributed(torch, sh["reference"], qm["presets"])
     del sh
 
     # 24. adcounter ---------------------------------------------------------------
@@ -3858,6 +4190,9 @@ def main() -> int:
         # each rank's launches in the distributed phase (its own processes)
         k["launches_distributed_by_rank"] = [
             r["launches"][k["name"]] for r in dist_line["ranks"]]
+        # and in its segment (d), the serving path
+        k["launches_distributed_serving_by_rank"] = [
+            r["serving"]["launches"][k["name"]] for r in dist_line["ranks"]]
         k["distributed_max_abs_err"] = max(
             r["kernel_checks"][k["name"]]["max_abs_err"] for r in dist_line["ranks"])
     kernels[0]["adcounter_shapes"] = k1_adcounter

@@ -933,6 +933,24 @@ def dataflow_chain(n_chains: int = 9, depth: int = 8, reps: int = 3,
     }
 
 
+def chaos_heal_schedule(nbrs, seed: int = 17, fault_rounds: int = 10):
+    """:func:`chaos_heal`'s composite nemesis on the topology ``nbrs``: a
+    ring-cut partition of ``fault_rounds`` rounds from round 2, overlapping
+    a rolling crash / restore of two seeded victims."""
+    from .chaos import ChaosSchedule, Crash, Partition, Restore
+
+    n_replicas = int(nbrs.shape[0])
+    rng = np.random.RandomState(seed + 1)
+    victims = rng.choice(n_replicas, size=2, replace=False)
+    down = max(2, fault_rounds // 2)
+    events = [Partition(2, 2 + fault_rounds, 2)]
+    for i, r in enumerate(victims):
+        at = 3 + i * 2
+        events.append(Crash(at, int(r)))
+        events.append(Restore(at + down, int(r)))
+    return ChaosSchedule(n_replicas, nbrs, events, seed=seed)
+
+
 def chaos_heal(
     n_replicas: int = 512,
     fanout: int = 3,
@@ -949,7 +967,7 @@ def chaos_heal(
     heal after the last fault clears, the repair traffic and the soak's
     seconds beside the fault-free twin's. The healed states must be
     bit-identical to the fault-free twin's fixed point."""
-    from .chaos import ChaosRuntime, ChaosSchedule, Crash, Partition, Restore
+    from .chaos import ChaosRuntime
     from .chaos.invariants import snapshot_states, states_equal
 
     dev = resolve_device(device)
@@ -974,16 +992,7 @@ def chaos_heal(
     free_states = snapshot_states(rt_free)
     del rt_free
 
-    rng = np.random.RandomState(seed + 1)
-    victims = rng.choice(n_replicas, size=2, replace=False)
-    down = max(2, fault_rounds // 2)
-    events = [Partition(2, 2 + fault_rounds, 2)]
-    for i, r in enumerate(victims):
-        at = 3 + i * 2
-        events.append(Crash(at, int(r)))
-        events.append(Restore(at + down, int(r)))
-    schedule = ChaosSchedule(n_replicas, nbrs, events, seed=seed)
-
+    schedule = chaos_heal_schedule(nbrs, seed, fault_rounds)
     rt, v = build()
     chaos = ChaosRuntime(rt, schedule)
     report, secs = _timed(
@@ -1023,6 +1032,107 @@ def chaos_heal(
     }
 
 
+def quorum_kv_runtime(nbrs, device=None):
+    """:func:`quorum_kv`'s population on the topology ``nbrs``: one
+    256-element G-Set ``kv``, 64 actors."""
+    store = Store(n_actors=64, device=device)
+    store.declare(id="kv", type="lasp_gset", n_elems=256)
+    return ReplicatedRuntime(store, Graph(store), int(nbrs.shape[0]), nbrs,
+                             device=device)
+
+
+def quorum_kv_preset(
+    rt,
+    preset: str,
+    seed: int = 23,
+    client_rounds: int = 8,
+    puts_per_round: int = 4,
+    gets_per_round: int = 4,
+    engine: str = "batched",
+) -> dict:
+    """One preset of :func:`quorum_kv` on a runtime :func:`quorum_kv_runtime`
+    built (also one sharded across processes, where every process runs this
+    same drive): the preset's record."""
+    import hashlib
+
+    from .chaos import ChaosRuntime, nemesis
+    from .chaos.invariants import check_no_write_lost, fingerprint, snapshot_states
+    from .quorum import QuorumRuntime
+
+    kv, n_replicas = "kv", rt.n_replicas
+    sched = nemesis(preset, n_replicas, rt._host_neighbors, seed=seed, rounds=10)
+    ch = ChaosRuntime(rt, sched)
+    qr = QuorumRuntime(ch, timeout=4, retries=4, engine=engine)
+    #: get rid -> terms acked BEFORE it was submitted
+    target_at_submit: dict = {}
+    rng = np.random.RandomState(seed)
+    put_i = 0
+
+    def tick(n_puts, n_gets):
+        nonlocal put_i
+        live = np.flatnonzero(~ch.crashed)
+        for _ in range(n_puts):
+            coord = int(live[rng.randint(live.size)])
+            qr.submit_put(kv, ("add", f"k{put_i}"), f"c{put_i}",
+                          coordinator=coord)
+            put_i += 1
+        acked_now = frozenset(qr.acked_terms.get(kv, ()))
+        for _ in range(n_gets):
+            coord = int(live[rng.randint(live.size)])
+            rid = qr.submit_get(kv, coordinator=coord, degraded=True)
+            target_at_submit[rid] = acked_now
+        qr.step()
+
+    def run():
+        for _ in range(client_rounds):
+            tick(puts_per_round, gets_per_round)
+        while qr.inflight or ch.round <= sched.horizon:
+            if ch.round >= 512:
+                raise RuntimeError(
+                    f"quorum_kv[{preset}]: {qr.inflight} request(s) "
+                    "unresolved after 512 rounds"
+                )
+            tick(0, 0)
+        return rt.run_to_convergence(max_rounds=512)
+
+    converge_rounds, secs = _timed(rt.device, run)
+    check_no_write_lost(rt, qr.acked_terms)
+    staleness = []
+    for rid, target in target_at_submit.items():
+        res = qr.result(rid, raise_on_error=False)
+        if res["status"] == "done" and res["value"] is not None:
+            staleness.append(len(target - res["value"]))
+    rep = qr.report()
+    if rep["inflight"] or rep["completed"] + rep["failed"] != rep["requests"]:
+        raise RuntimeError(f"quorum_kv[{preset}]: requests left unresolved: {rep}")
+    return {
+        "rounds": ch.round,
+        "seconds": secs,
+        "requests": rep["requests"],
+        "completed": rep["completed"],
+        "failed": rep["failed"],
+        "retries": rep["retries"],
+        "get_p50_rounds": rep["get_p50_rounds"],
+        "get_p99_rounds": rep["get_p99_rounds"],
+        "put_p50_rounds": rep["put_p50_rounds"],
+        "put_p99_rounds": rep["put_p99_rounds"],
+        "staleness_mean": (
+            round(float(np.mean(staleness)), 3) if staleness else None
+        ),
+        "staleness_max": int(np.max(staleness)) if staleness else None,
+        "repair_wire_bytes": rep["wire_bytes"],
+        "pushed_rows": rep["pushed_rows"],
+        "repaired_rows": rep["repaired_rows"],
+        "hint_replays": rep["hint_replays"],
+        "no_write_lost": True,
+        "acked_writes": sum(len(ts) for ts in qr.acked_terms.values()),
+        "converge_rounds": converge_rounds,
+        "fsm_seconds": qr.fsm_seconds,
+        "state_fingerprint": fingerprint(snapshot_states(rt)),
+        "trace_sha256": hashlib.sha256(repr(qr.trace).encode()).hexdigest(),
+    }
+
+
 def quorum_kv(
     n_replicas: int = 64,
     fanout: int = 3,
@@ -1046,91 +1156,20 @@ def quorum_kv(
     engines can be held against each other). The no-acknowledged-write-lost
     invariant is ASSERTED per preset and every request resolves.
     ``presets`` (default every preset) and ``engine`` (``"batched"`` or
-    ``"sequential"``) select the runs."""
-    import hashlib
-
-    from .chaos import PRESETS, ChaosRuntime, nemesis
-    from .chaos.invariants import check_no_write_lost, fingerprint, snapshot_states
-    from .quorum import QuorumRuntime
+    ``"sequential"``) select the runs; each preset runs
+    :func:`quorum_kv_preset` on a fresh :func:`quorum_kv_runtime`."""
+    from .chaos import PRESETS
 
     dev = resolve_device(device)
     nbrs = random_regular(n_replicas, fanout, seed=seed)
-    out: dict = {}
-    for preset in (PRESETS if presets is None else presets):
-        store = Store(n_actors=64, device=dev)
-        kv = store.declare(id="kv", type="lasp_gset", n_elems=256)
-        rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs, device=dev)
-        sched = nemesis(preset, n_replicas, nbrs, seed=seed, rounds=10)
-        ch = ChaosRuntime(rt, sched)
-        qr = QuorumRuntime(ch, timeout=4, retries=4, engine=engine)
-        #: get rid -> terms acked BEFORE it was submitted
-        target_at_submit: dict = {}
-        rng = np.random.RandomState(seed)
-        put_i = 0
-
-        def tick(n_puts, n_gets):
-            nonlocal put_i
-            live = np.flatnonzero(~ch.crashed)
-            for _ in range(n_puts):
-                coord = int(live[rng.randint(live.size)])
-                qr.submit_put(kv, ("add", f"k{put_i}"), f"c{put_i}",
-                              coordinator=coord)
-                put_i += 1
-            acked_now = frozenset(qr.acked_terms.get(kv, ()))
-            for _ in range(n_gets):
-                coord = int(live[rng.randint(live.size)])
-                rid = qr.submit_get(kv, coordinator=coord, degraded=True)
-                target_at_submit[rid] = acked_now
-            qr.step()
-
-        def run():
-            for _ in range(client_rounds):
-                tick(puts_per_round, gets_per_round)
-            while qr.inflight or ch.round <= sched.horizon:
-                if ch.round >= 512:
-                    raise RuntimeError(
-                        f"quorum_kv[{preset}]: {qr.inflight} request(s) "
-                        "unresolved after 512 rounds"
-                    )
-                tick(0, 0)
-            return rt.run_to_convergence(max_rounds=512)
-
-        converge_rounds, secs = _timed(dev, run)
-        check_no_write_lost(rt, qr.acked_terms)
-        staleness = []
-        for rid, target in target_at_submit.items():
-            res = qr.result(rid, raise_on_error=False)
-            if res["status"] == "done" and res["value"] is not None:
-                staleness.append(len(target - res["value"]))
-        rep = qr.report()
-        if rep["inflight"] or rep["completed"] + rep["failed"] != rep["requests"]:
-            raise RuntimeError(f"quorum_kv[{preset}]: requests left unresolved: {rep}")
-        out[preset] = {
-            "rounds": ch.round,
-            "seconds": secs,
-            "requests": rep["requests"],
-            "completed": rep["completed"],
-            "failed": rep["failed"],
-            "retries": rep["retries"],
-            "get_p50_rounds": rep["get_p50_rounds"],
-            "get_p99_rounds": rep["get_p99_rounds"],
-            "put_p50_rounds": rep["put_p50_rounds"],
-            "put_p99_rounds": rep["put_p99_rounds"],
-            "staleness_mean": (
-                round(float(np.mean(staleness)), 3) if staleness else None
-            ),
-            "staleness_max": int(np.max(staleness)) if staleness else None,
-            "repair_wire_bytes": rep["wire_bytes"],
-            "pushed_rows": rep["pushed_rows"],
-            "repaired_rows": rep["repaired_rows"],
-            "hint_replays": rep["hint_replays"],
-            "no_write_lost": True,
-            "acked_writes": sum(len(ts) for ts in qr.acked_terms.values()),
-            "converge_rounds": converge_rounds,
-            "fsm_seconds": qr.fsm_seconds,
-            "state_fingerprint": fingerprint(snapshot_states(rt)),
-            "trace_sha256": hashlib.sha256(repr(qr.trace).encode()).hexdigest(),
-        }
+    out = {
+        preset: quorum_kv_preset(
+            quorum_kv_runtime(nbrs, dev), preset, seed=seed,
+            client_rounds=client_rounds, puts_per_round=puts_per_round,
+            gets_per_round=gets_per_round, engine=engine,
+        )
+        for preset in (PRESETS if presets is None else presets)
+    }
     return {
         "scenario": f"quorum_kv_{n_replicas}",
         "n_replicas": n_replicas,

@@ -32,6 +32,13 @@ round with that round's slice, reading the ``int32[T, V]`` residuals in
 one host sync; those rows are the window's flight record
 (``chaos_window``), drained into the telemetry plane with its ledger
 row.
+
+On a runtime sharded across processes (the gather path) every process
+runs the same timeline: each round's full mask reaches the runtime, whose
+gather round takes this process's rows of it; crashed rows freeze and
+corruptions land at the process that holds them; degraded reads and their
+repairs read rows from their owners and write through the runtime's owner
+window. Frontier rounds refuse there: the reference's fail there too.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import torch
 
 from ..bridge_state import to_numpy
 from ..lattice.base import tree_leaves, tree_map, tree_unflatten
-from ..mesh.gossip import quorum_read, rows_traffic_bytes
+from ..mesh.gossip import join_all, rows_traffic_bytes
 from ..ops.fused import window_masks
 from ..telemetry import counter, events as tel_events, gauge, span
 from ..telemetry.convergence import get_monitor
@@ -64,7 +71,6 @@ class ChaosRuntime:
     """One population + one fault timeline; see the module doc."""
 
     def __init__(self, runtime, schedule, checkpoint: "str | None" = None):
-        runtime._refuse_across("ChaosRuntime", 7)
         if runtime.n_replicas != schedule.n_replicas:
             raise ValueError(
                 f"schedule is for {schedule.n_replicas} replicas, runtime "
@@ -306,13 +312,13 @@ class ChaosRuntime:
         carried nothing this kind can corrupt. The row is mutated on the
         host in the JAX package's dtypes (packed words as ``uint32``, so a
         rollback halves the same lane JAX halves) and written back out of
-        place: the population's leaves are replaced, never written."""
+        place: the population's leaves are replaced, never written. Across
+        processes every process reads the row from its owner and the owner
+        writes it."""
         rt = self.rt
         pop = rt._population(var)
         leaves = tree_leaves(pop)
-        host = [np.array(x) for x in tree_leaves(
-            to_numpy(tree_map(lambda x: x[row], pop))
-        )]
+        host = [np.array(x) for x in tree_leaves(to_numpy(rt._row_of(var, row)))]
         changed = False
         if kind == "bitflip":
             for off in range(len(host)):
@@ -358,9 +364,12 @@ class ChaosRuntime:
         if not changed:
             return False
 
+        keep, local = rt._held_rows([row])
+
         def put(leaf, h):
             out = leaf.clone()
-            out[row] = rt._row_leaf(h, leaf)
+            if keep[0]:
+                out[int(local[0])] = rt._row_leaf(h, leaf)
             return out
 
         # direct state write ON PURPOSE: no dirty marks — the corruption
@@ -410,6 +419,11 @@ class ChaosRuntime:
         rows across it. Returns the step's residual (the engine
         contract). Deterministic in ``(seed, schedule, state)``."""
         rnd = self.round
+        if mode == "frontier" and self.rt._dist is not None:
+            # refused before the round's actions run: nothing moves
+            reason = self.rt._frontier_unsupported()
+            if reason is not None:
+                raise RuntimeError(f"frontier chaos rounds unavailable: {reason}")
         self.sync_membership()
         self._apply_actions(rnd)
         if self.aae is not None:
@@ -418,9 +432,9 @@ class ChaosRuntime:
         self._account_duplicates(rnd, alive=mask)
         frozen = None
         if self._needs_freeze():
-            crash_rows = torch.as_tensor(
-                np.flatnonzero(self.crashed), device=self.rt.device
-            )
+            # each process freezes the crashed rows it holds
+            _keep, local = self.rt._held_rows(np.flatnonzero(self.crashed))
+            crash_rows = torch.as_tensor(local, device=self.rt.device)
             frozen = {
                 v: tree_map(lambda x: x[crash_rows], self.rt.states[v])
                 for v in self.rt.var_ids
@@ -436,12 +450,9 @@ class ChaosRuntime:
             # a down replica executes nothing: local sweeps that moved
             # its row are rolled back, out of place (the step's inputs
             # may share storage with these leaves)
-            idx = torch.as_tensor(
-                np.flatnonzero(self.crashed), device=self.rt.device
-            )
             for v in self.rt.var_ids:
                 self.rt.states[v] = tree_map(
-                    lambda x, fr: x.index_copy(0, idx, fr),
+                    lambda x, fr: x.index_copy(0, crash_rows, fr),
                     self.rt.states[v], frozen[v],
                 )
         self._emit_round_gauges(mask)
@@ -666,7 +677,7 @@ class ChaosRuntime:
         if repair:
             pop = self.rt._population(var_id)
             codec, spec = self.rt._mesh_meta(var_id)
-            top = quorum_read(codec, spec, pop, picks)
+            top = join_all(codec, spec, self.rt._rows_of(var_id, picks))
             repaired = self.rt.join_rows(var_id, picks, top)
             if repaired:
                 bytes_ = rows_traffic_bytes(pop, repaired)

@@ -37,8 +37,10 @@ class InvariantViolation(AssertionError):
 
 def snapshot_states(rt) -> dict:
     """Host copies of every variable's population state (numpy leaves in
-    the JAX package's dtypes; never views of live CPU tensors)."""
-    return {v: tree_map(np.array, to_numpy(rt.states[v])) for v in rt.var_ids}
+    the JAX package's dtypes; never views of live CPU tensors): the whole
+    population on every process of a runtime sharded across them."""
+    return {v: tree_map(np.array, to_numpy(rt._whole_population(v)))
+            for v in rt.var_ids}
 
 
 def states_equal(a: dict, b: dict) -> bool:
@@ -67,10 +69,9 @@ def fingerprint(states: dict) -> str:
     return h.hexdigest()
 
 
-def _live(rt, v: str, snap):
-    """A host snapshot of ``v`` back as a population on the runtime's
-    device, in its dtypes."""
-    pop = rt.states[v]
+def _live(rt, pop, snap):
+    """A host snapshot back as a population on the runtime's device, in the
+    dtypes of ``pop``."""
     return tree_unflatten(pop, [
         rt._row_leaf(h, x) for h, x in zip(tree_leaves(snap), tree_leaves(pop))
     ])
@@ -86,8 +87,8 @@ def check_inflation(rt, prev: dict, exempt_rows=()) -> None:
         exempt[np.asarray(list(exempt_rows), dtype=np.int64)] = True
     for v in rt.var_ids:
         codec, spec = rt._mesh_meta(v)
-        new = rt.states[v]
-        old = _live(rt, v, prev[v])
+        new = rt._whole_population(v)
+        old = _live(rt, new, prev[v])
         ok = codec.equal(spec, codec.merge(spec, old, new), new).cpu().numpy()
         bad = np.flatnonzero(~ok & ~exempt)
         if bad.size:

@@ -102,8 +102,13 @@ processes' partials; reads join the shards' partials
 (``shard_gossip.sharded_join_all``) or pull rows from their owners
 (``_pull_rows``); a write pulls the rows it touches to every process,
 runs the one-process write path on them and lands them by owner
-(``_owner_window``). The verbs outside this slice refuse
-(``_refuse_across``, ROADMAP A5c).
+(``_owner_window``); ``apply_batch`` runs its function on the
+all-gathered population and keeps the process's rows. Membership, Lasp's
+programs and the map writes refuse until they are ported, and the gather
+path's frontier scheduler, AAE and checkpoints refuse for parity with the
+reference, which fails on them across processes (``_refuse_across``,
+ROADMAP A5c, C9); the frontier scheduler's refusal is wider than the
+reference's failure, which comes only at its dense arm.
 """
 
 from __future__ import annotations
@@ -157,22 +162,42 @@ _PACKABLE = ("lasp_orset", "lasp_orset_gbtree")
 _CONVERGE_BLOCK = 8
 
 #: what a runtime sharded across processes does not carry yet, by its
-#: ROADMAP A5c item
+#: ROADMAP A5c item (queued in this order: 5, 9, 12)
 _ACROSS_TODO = {
-    1: "an opaque function of the global population cannot run on one "
-       "process's block",
-    2: "the gather path's frontier scheduler",
-    3: "the row primitives and parked reads",
-    4: "compaction",
     5: "membership changes",
-    6: "the quorum and coverage engines",
-    7: "chaos",
-    8: "AAE",
     9: "Lasp's programs",
-    10: "checkpoints",
-    11: "serve",
     12: "Session, the CRDT map's writes and the actor guard",
 }
+
+#: what it does not carry because the reference cannot either, by its
+#: ROADMAP A5c item (closed as a deliberate parity, ROADMAP C9): each reads
+#: a population that spans processes on the host, which JAX refuses with
+#: :data:`_REFERENCE_FAILURE`. Item 2's refusal is wider than the
+#: reference's failure: JAX fails only at the dense arm, and its sparse arm
+#: (a reach under the crossover) runs across processes
+_ACROSS_PARITY = {
+    2: "the gather path's frontier scheduler, refused whole, though JAX "
+       "fails only at its dense arm (a reach past the crossover reads the "
+       "population's changed rows on the host); its sparse arm runs across "
+       "processes in JAX and is queued here after A5c.12",
+    8: "AAE (JAX's HashForest hashes the population on the host)",
+    10: "checkpoints (JAX's save_runtime reads the population on the host)",
+}
+
+_REFERENCE_FAILURE = (
+    "RuntimeError: Fetching value for `jax.Array` that spans non-addressable "
+    "(non process local) devices is not possible"
+)
+
+
+def _across_reason(item: int) -> str:
+    """Why a verb of ROADMAP A5c item ``item`` refuses across processes:
+    queued, or refused for parity with the reference's own failure."""
+    if item in _ACROSS_PARITY:
+        return (f"refused for parity: the reference fails there across "
+                f"processes ({_REFERENCE_FAILURE}); ROADMAP A5c.{item}, C9: "
+                f"{_ACROSS_PARITY[item]}")
+    return f"not ported yet (ROADMAP A5c.{item}: {_ACROSS_TODO[item]})"
 
 
 class _RowWindow:
@@ -529,12 +554,53 @@ class ReplicatedRuntime:
 
     def _refuse_across(self, verb: str, item: int) -> None:
         """Raise ``NotImplementedError`` for a verb a runtime sharded
-        across processes does not carry yet (ROADMAP A5c, by item)."""
+        across processes does not carry (ROADMAP A5c, by item: queued, or
+        refused for parity with the reference)."""
         if self._dist is not None:
             raise NotImplementedError(
-                f"{verb} on a runtime sharded across processes is not ported "
-                f"yet (ROADMAP A5c.{item}: {_ACROSS_TODO[item]})"
+                f"{verb} on a runtime sharded across processes is "
+                f"{_across_reason(item)}"
             )
+
+    def _held_rows(self, rows) -> tuple:
+        """``(keep, local)``: which of the replica rows ``rows`` (in ``[0,
+        R)``) this process holds, and their indices in its blocks — every
+        row, as given, on one process."""
+        rows = np.asarray(rows, dtype=np.int64)
+        d = self._dist
+        if d is None:
+            return np.ones(rows.shape, dtype=bool), rows
+        keep = (rows >= d["lo"]) & (rows < d["hi"])
+        return keep, rows[keep] - d["lo"]
+
+    def _rows_of(self, var_id: str, rows):
+        """Replica rows ``rows`` (in ``[0, R)``) of a variable's population,
+        in the mesh's wire format, as a population of their own: pulled from
+        their owners across processes (:meth:`_pull_rows`), the same on every
+        process."""
+        pop = self._population(var_id)
+        if self._dist is not None:
+            return self._pull_rows(pop, rows)
+        idx = self._index(rows)
+        return tree_map(lambda x: x[idx], pop)
+
+    def _whole_population(self, var_id: str):
+        """A variable's whole population on every process: all-gathered
+        across processes (:meth:`_gather_whole`), the population itself on
+        one."""
+        pop = self._population(var_id)
+        return pop if self._dist is None else self._gather_whole(pop)
+
+    def _gather_whole(self, block):
+        """Every process's rows of a population, in order, on every
+        process: one ``all_gather`` a leaf (the processes hold equal runs of
+        rows)."""
+        mesh = self._dist["mesh"]
+        return tree_map(
+            lambda x: comm.all_gather(x.unsqueeze(0), mesh).reshape(
+                (-1,) + tuple(x.shape[1:])),
+            block,
+        )
 
     # -- dispatch plan ---------------------------------------------------------
     def _invalidate_plan(self, reason: str) -> None:
@@ -797,9 +863,11 @@ class ReplicatedRuntime:
         layout = None
         if mesh.cross_process:
             if self.debug_actors:
-                self._refuse_across_layout("debug_actors")
-            if self._aae_dirty is not None or self._programs:
-                self._refuse_across_layout("an AAE forest or programs")
+                self._refuse_across_layout("debug_actors", 12)
+            if self._aae_dirty is not None:
+                self._refuse_across_layout("an AAE forest", 8)
+            if self._programs:
+                self._refuse_across_layout("programs", 9)
             first, count = local_shards(mesh, part_axis)
             block = self.n_replicas // axis_extent(mesh, part_axis)
             layout = {"mesh": mesh, "axis": part_axis, "first": first,
@@ -837,10 +905,10 @@ class ReplicatedRuntime:
         self._invalidate_plan("shard")
 
     @staticmethod
-    def _refuse_across_layout(what: str) -> None:
+    def _refuse_across_layout(what: str, item: int) -> None:
         raise NotImplementedError(
-            f"a runtime with {what} cannot shard across processes "
-            "(ROADMAP A5c)"
+            f"a runtime with {what} cannot shard across processes: "
+            f"{_across_reason(item)}"
         )
 
     def _plan_partition(self, mesh, axis) -> dict:
@@ -1006,9 +1074,31 @@ class ReplicatedRuntime:
         """Device-side batched update: ``fn(states[R, ...]) -> states``. The
         opaque ``fn`` may touch any row, so the variable's whole frontier
         goes dirty (pass rows to :meth:`mark_dirty` afterwards to tighten
-        it)."""
-        self._refuse_across("apply_batch", 1)
-        self.states[var_id] = fn(self.states[var_id])
+        it).
+
+        Across processes ``fn`` sees every row, as JAX's does: every
+        process all-gathers the population, runs ``fn`` on it and keeps its
+        own rows, so a process holds the whole population and ``fn``'s
+        output at once. An opaque function is not row-separable, so a
+        population past ``mesh.gossip.SWEEP_BYTES`` is refused, never
+        split."""
+        d = self._dist
+        if d is None:
+            self.states[var_id] = fn(self.states[var_id])
+        else:
+            block = self.states[var_id]
+            whole = sum(x[0].numel() * x.element_size() for x in tree_leaves(block))
+            whole *= self.n_replicas
+            if whole > gossip_mod.SWEEP_BYTES:
+                raise ValueError(
+                    f"apply_batch({var_id!r}) across processes gathers the "
+                    f"whole population ({whole} B) on every process, past "
+                    f"mesh.gossip.SWEEP_BYTES ({gossip_mod.SWEEP_BYTES} B); "
+                    "write the rows with update_batch or seed_* instead"
+                )
+            lo, hi = d["lo"], d["hi"]
+            out = fn(self._gather_whole(block))
+            self.states[var_id] = tree_map(lambda x: x[lo:hi].clone(), out)
         self.mark_dirty(var_id)
 
     @staticmethod
@@ -2558,13 +2648,8 @@ class ReplicatedRuntime:
         """The gather path across processes: one ``all_gather`` of the
         population (every process's rows), then this process's rows joined
         with their K neighbours' rows of it (K1 for packed OR-Set planes)."""
-        d = self._dist
-        lo, hi = d["lo"], d["hi"]
-        whole = tree_map(
-            lambda x: comm.all_gather(x.unsqueeze(0), d["mesh"]).reshape(
-                (-1,) + tuple(x.shape[1:])),
-            block,
-        )
+        lo, hi = self._dist["lo"], self._dist["hi"]
+        whole = self._gather_whole(block)
         return gossip_round_from(
             codec, spec, block, whole, self.neighbors[lo:hi],
             None if mask is None else mask[lo:hi],
@@ -2927,8 +3012,8 @@ class ReplicatedRuntime:
                 "(a row can change from its own state)"
             )
         if self._dist is not None and self._partition is None:
-            return ("the gather path across processes runs dense rounds "
-                    f"(ROADMAP A5c.2: {_ACROSS_TODO[2]})")
+            return ("the gather path across processes runs dense rounds, "
+                    + _across_reason(2))
         return None
 
     def frontier_step(self, edge_mask=None) -> int:
@@ -3597,8 +3682,9 @@ class ReplicatedRuntime:
         per row) or a single row state joined into every named row (the
         read-repair broadcast). Only the rows the join changes are marked
         frontier-dirty. Returns the number of rows changed; re-applying is
-        a no-op (idempotent join)."""
-        self._refuse_across("join_rows", 3)
+        a no-op (idempotent join). Across processes the named rows are
+        joined on a window pulled to every process and land by owner
+        (:meth:`_owner_window`)."""
         rows = np.asarray(rows, dtype=np.int64)
         if rows.size == 0:
             return 0
@@ -3613,6 +3699,10 @@ class ReplicatedRuntime:
                 "contributions with codec.merge first (the scatter would "
                 "race otherwise)"
             )
+        if self._dist is not None:
+            win = _RowWindow(rows, self.n_replicas)
+            with self._owner_window((var_id,), win):
+                return self.join_rows(var_id, win.compact(rows), contribs)
         pop = self._population(var_id)  # before _mesh_meta (late declare)
         codec, spec = self._mesh_meta(var_id)
         n = int(rows.size)
@@ -3662,10 +3752,23 @@ class ReplicatedRuntime:
         and gossip rebuilds the rest from its peers. Leaf shapes are
         checked against the live rows. Every frontier degrades to all-dirty
         afterwards: the row must be caught up even from quiescent peers. AAE
-        dirtiness stays row-scoped (only this row's state changed)."""
-        self._refuse_across("reseed_row", 3)
+        dirtiness stays row-scoped (only this row's state changed). Across
+        processes the row is written on a one-row window and lands at its
+        owner (:meth:`_owner_window`)."""
         if not 0 <= replica < self.n_replicas:
             raise IndexError(f"replica {replica} out of range for {self.n_replicas}")
+        if self._dist is not None:
+            with self._owner_window(self.var_ids, _RowWindow([replica], self.n_replicas)):
+                self._reseed(0, rows)
+        else:
+            self._reseed(replica, rows)
+        for v in self.var_ids:
+            self._frontier_fill(v, True)
+        self._aae_mark(None, [replica])
+        self._invalidate_plan("restore")
+
+    def _reseed(self, replica: int, rows: "dict | None") -> None:
+        """:meth:`reseed_row`'s row writes, every variable's."""
         for v in self.var_ids:
             codec, spec = self._mesh_meta(v)
             st = self.states[v]
@@ -3686,10 +3789,6 @@ class ReplicatedRuntime:
                 row = codec.new(spec, device=self.device)
             for x, r in zip(tree_leaves(st), tree_leaves(row)):
                 x[replica] = self._row_leaf(r, x)
-        for v in self.var_ids:
-            self._frontier_fill(v, True)
-        self._aae_mark(None, [replica])
-        self._invalidate_plan("restore")
 
     # -- elastic membership --------------------------------------------------------
     @staticmethod
@@ -3908,8 +4007,10 @@ class ReplicatedRuntime:
         ``waste_pct`` stat cues, ``src/lasp_orset.erl:178-191``). Requires
         divergence 0: every row is then identical, so one reindex of every
         row keeps them equivalent. A packed population is unpacked, reindexed
-        and packed again. Returns slots reclaimed."""
-        self._refuse_across("compact_orset", 4)
+        and packed again. Returns slots reclaimed. Across processes the
+        divergence gate sums every process's rows and the liveness plan
+        reads row 0 from its owner, so every process reindexes its rows
+        alike."""
         self._compaction_gates(
             "compact_orset", var_id,
             " (a dropped tombstone could be resurrected by a divergent peer)",
@@ -3919,7 +4020,7 @@ class ReplicatedRuntime:
         var = self.store.variable(var_id)
         dense = self._to_dense_row(var_id, self.states[var_id])
         # the converged population is the authority
-        row0 = tree_map(lambda x: x[0], dense)
+        row0 = self._to_dense_row(var_id, self._row_of(var_id, 0))
         order, fresh = self.store.compact_plan(var_id, state=row0)
         reclaimed = len(var.elems) - len(fresh)
         if not reclaimed:
@@ -3940,15 +4041,15 @@ class ReplicatedRuntime:
         OR-Set field's fully tombstoned element slots in every replica row
         (``key`` a field key or a path into nested submaps), under the
         :meth:`compact_orset` gates. Maps are never packed, so the planes
-        reindex where they lie. Returns slots reclaimed."""
-        self._refuse_across("compact_map_field", 4)
+        reindex where they lie. Returns slots reclaimed. Across processes
+        as :meth:`compact_orset`."""
         self._compaction_gates(
             "compact_map_field", var_id, "",
             "(closures bake element orders)",
         )
         var = self.store.variable(var_id)
         states = self._population(var_id)
-        row0 = tree_map(lambda x: x[0], states)
+        row0 = self._row_of(var_id, 0)
         idxs, shim, order, fresh = self.store.compact_map_plan(
             var_id, key, state=row0
         )
@@ -3980,8 +4081,8 @@ class ReplicatedRuntime:
         builders run again so the closures re-intern against the compacted
         order; a trigger whose builder fails is dropped, loudly. Triggers
         registered inside the body are kept. The port compiles no step, so
-        there is no step cache to drop."""
-        self._refuse_across("compaction_window", 4)
+        there is no step cache to drop. Across processes the convergence
+        runs the gather path's dense rounds."""
         for _fn, _touch, b in self._triggers:
             if b is None:
                 raise RuntimeError(
@@ -4069,8 +4170,11 @@ class ReplicatedRuntime:
           threshold is monotonic, so later rounds never unmeet it).
 
         Once the population quiesces with the threshold unmet it can never
-        be met, so the wait raises ``TimeoutError`` at once."""
-        self._refuse_across("read_until", 3)
+        be met, so the wait raises ``TimeoutError`` at once.
+
+        Across processes every threshold check reads the replica's row
+        from its owner (:meth:`_pull_rows`), so every process takes the
+        same branch after the same rounds."""
         if on_device is None:
             var = self.store.variable(var_id)
             threshold = self.store._resolve_threshold(var, threshold)
@@ -4123,7 +4227,6 @@ class ReplicatedRuntime:
         (list order breaks a same-round tie). Raises ``TimeoutError`` at
         once when the population quiesces with every threshold unmet.
         ``on_device`` as in :meth:`read_until`."""
-        self._refuse_across("read_any_until", 3)
         reads = list(reads)  # probed every round: an iterator would drain
         if not reads:
             raise ValueError("read_any_until needs at least one read")
@@ -4159,9 +4262,7 @@ class ReplicatedRuntime:
         round was quiescent (``quiescent``: a 0-d bool), else ``n + 1``."""
         flags = [
             codec.threshold_met(
-                spec,
-                self._to_dense_row(v, tree_map(lambda x: x[replica], self.states[v])),
-                thr,
+                spec, self._to_dense_row(v, self._row_of(v, replica)), thr,
             ).reshape(1)
             for v, codec, spec, thr in metas
         ]

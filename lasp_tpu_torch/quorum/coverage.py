@@ -107,8 +107,12 @@ def coverage_sweep(rt, var_ids=None, n_shards: int = 4) -> dict:
     """Coverage values for ``var_ids`` (default: every variable):
     ``{var_id: decoded value}``, computed as grouped partition-sweep
     map-merges — one sweep per plan group, not per variable. Each result
-    is bit-identical to ``rt.coverage_value(var_id)``."""
+    is bit-identical to ``rt.coverage_value(var_id)``, which serves a
+    runtime sharded across processes: there each process holds only its
+    rows, and ``coverage_value`` folds every process's partial."""
     ids = list(rt.var_ids if var_ids is None else var_ids)
+    if rt._dist is not None:
+        return {v: rt.coverage_value(v) for v in ids}
     for v in ids:
         rt._population(v)  # sync late declares before grouping
     n_shards = max(1, min(int(n_shards), rt.n_replicas))

@@ -19,7 +19,7 @@ round):
    this round's reachability (``fsm.components`` over the chaos mask):
    replies accumulate, quorums fire, timeouts flag;
 5. fired requests resolve host-side in request order — get values are
-   masked partial joins over the acked rows (``gossip.quorum_read``),
+   masked partial joins over the acked rows (``gossip.join_all``),
    READ-REPAIR and put replication collect as join contributions; a
    timeout with retries left RE-PICKS the coordinator (next live
    replica, fresh preflist, reset acks), without retries it FAILS with
@@ -45,16 +45,20 @@ against: results, repair writes, ack sequences, final population states.
 Each transition step lands in the kernel cost ledger as a
 ``quorum_step`` record; :attr:`QuorumRuntime.fsm_seconds` totals the host
 time of the transition steps.
+
+On a runtime sharded across processes every process runs the same
+protocol: the coordinators' reads pull the acked rows from their owners,
+and the replication, read-repair and hint replays are ``join_rows`` landed
+by owner, so request ids, latencies and the trace are the same on every
+process.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-import torch
-
 from ..lattice.base import tree_map
-from ..mesh.gossip import quorum_read, rows_traffic_bytes
+from ..mesh.gossip import join_all, rows_traffic_bytes
 from ..membership.errors import StaleEpochError
 from ..telemetry import counter, events as tel_events, gauge, histogram, span
 from ..telemetry.convergence import get_monitor
@@ -128,7 +132,6 @@ class QuorumRuntime:
                  engine: str = "batched",
                  hints: "HintLog | str | None" = None,
                  mode: str = "dense"):
-        getattr(runtime, "rt", runtime)._refuse_across("the quorum engine", 6)
         from ..chaos.engine import ChaosRuntime
         from ..chaos.schedule import ChaosSchedule
 
@@ -412,12 +415,9 @@ class QuorumRuntime:
                         mint_exc = exc
                 if not applied:
                     continue
-                pop = self.rt._population(var)
-                rows = torch.as_tensor(
-                    [int(self._coord[rid]) for rid in rids[:applied]],
-                    dtype=torch.int64, device=self.rt.device,
+                got = self.rt._rows_of(
+                    var, [int(self._coord[rid]) for rid in rids[:applied]]
                 )
-                got = tree_map(lambda x: x[rows], pop)
                 for i, rid in enumerate(rids[:applied]):
                     req = self._reqs[rid]
                     req.put_row = tree_map(lambda x, _i=i: x[_i], got)
@@ -794,13 +794,11 @@ class QuorumRuntime:
 
     def _get_value(self, req, ack_rows) -> tuple:
         """(decoded value, wire top) of a get over its acked rows — a
-        masked partial join via ``gossip.quorum_read`` (phase A: reads
-        the pre-resolution population)."""
-        pop = self.rt._population(req.var)
+        masked partial join of the acked rows, pulled from their owners
+        across processes (phase A: reads the pre-resolution population)."""
         var = self.rt.store.variable(req.var)
         codec, spec = self.rt._mesh_meta(req.var)
-        rows = np.asarray(ack_rows, dtype=np.int64)
-        top = quorum_read(codec, spec, pop, rows)
+        top = join_all(codec, spec, self.rt._rows_of(req.var, ack_rows))
         decoded = self.rt.store._decode_value(
             var, self.rt._to_dense_row(req.var, top)
         )

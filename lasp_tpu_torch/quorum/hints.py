@@ -211,7 +211,7 @@ class HintLog:
             )
             dominated = True
             for p in picks:
-                cur = tree_map(lambda x: x[int(p)], pop)
+                cur = runtime._row_of(var_id, int(p))
                 merged = codec.merge(spec, cur, dev_row)
                 if not bool(codec.equal(spec, merged, cur)):
                     dominated = False

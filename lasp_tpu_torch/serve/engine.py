@@ -41,6 +41,16 @@ One serving cycle:
 Acked writes feed the ``acked_terms`` witness set, so any scenario can
 assert the PR-9 no-acked-write-lost invariant
 (``chaos.invariants.check_no_write_lost``) after a run.
+
+On a runtime sharded across processes every process runs the same cycles
+(SPMD): writes land through the runtime's owner window, reads and watch
+verdicts read the whole population gathered from its owners, the caller
+passes a ``clock`` that every process reads alike (a wall clock differs
+between processes, and agreeing each reading would cost a collective a
+request), and the admission ladder's measured cycle seconds are agreed
+once a cycle (the largest reading), so every process's host queues stay
+equal. ``ServeLoop`` refuses there: its cycles run at each thread's own
+pace.
 """
 
 from __future__ import annotations
@@ -49,8 +59,10 @@ import threading
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from ..lattice.base import tree_map
+from ..mesh import comm
 from ..telemetry import counter, events as tel_events, gauge, histogram, span
 from ..telemetry.convergence import get_monitor
 from ..utils.metrics import Timer
@@ -60,6 +72,14 @@ from .subscriptions import SubscriptionTable
 
 #: bound on per-kind latency samples retained for the percentile report
 _LATENCY_RING = 1 << 16
+
+
+def _agreed(x: float, rt) -> float:
+    """The largest of every process's ``x`` (one ``all_reduce`` on the
+    runtime's device): a value every process of a runtime sharded across
+    them judges alike."""
+    x = torch.tensor([x], dtype=torch.float64, device=rt.device)
+    return float(comm.all_reduce(x, rt._dist["mesh"], "max")[0])
 
 
 def _percentile(samples: list, q: float) -> "float | None":
@@ -79,7 +99,6 @@ class ServeFrontend:
                  clock=None, chaos_mode: str = "dense",
                  write_backup: bool = True,
                  aae=None, scrub_every: int = 16):
-        getattr(runtime, "rt", runtime)._refuse_across("ServeFrontend", 11)
         from ..chaos import ChaosRuntime
 
         if isinstance(runtime, ChaosRuntime):
@@ -123,6 +142,13 @@ class ServeFrontend:
         #: rows at once needs the quorum layer's hint log)
         self.write_backup = bool(write_backup)
         if clock is None:
+            if self.rt._dist is not None:
+                raise ValueError(
+                    "ServeFrontend on a runtime sharded across processes needs "
+                    "a clock that every process reads alike (clock=...): each "
+                    "process's wall clock reads its own instants, and the "
+                    "deadlines and sheds judged by it would part their queues"
+                )
             import time
 
             clock = time.monotonic
@@ -281,11 +307,12 @@ class ServeFrontend:
                              "degradation ladder was above normal)",
                         outcome=outcome,
                     ).inc()
-        level = self.admission.observe_cycle(
-            ct.elapsed if self.admission_cycle_seconds is None
-            else self.admission_cycle_seconds,
-            drained,
-        )
+        elapsed = self.admission_cycle_seconds
+        if elapsed is None:
+            elapsed = ct.elapsed
+            if self.rt._dist is not None:
+                elapsed = _agreed(elapsed, self.rt)
+        level = self.admission.observe_cycle(elapsed, drained)
         self.cycles += 1
         histogram(
             "serve_cycle_seconds",
@@ -494,9 +521,9 @@ class ServeFrontend:
                 self.unreplicated_acks += 1
         if not pairs:
             return
-        pop = self.rt._population(var_id)
         dsts = np.fromiter(pairs.keys(), dtype=np.int64)
-        contribs = [tree_map(lambda x, s=s: x[s], pop) for s in pairs.values()]
+        srcs = self.rt._rows_of(var_id, list(pairs.values()))
+        contribs = [tree_map(lambda x, i=i: x[i], srcs) for i in range(dsts.size)]
         changed = self.rt.join_rows(var_id, dsts, contribs)
         if changed:
             counter(
@@ -562,7 +589,7 @@ class ServeFrontend:
         return parked
 
     def _pop_dense(self, var_id: str):
-        return self.rt._to_dense_row(var_id, self.rt._population(var_id))
+        return self.rt._to_dense_row(var_id, self.rt._whole_population(var_id))
 
     def _meta(self, var_id: str):
         var = self.store.variable(var_id)
@@ -771,6 +798,12 @@ class ServeLoop:
     def start(self) -> "ServeLoop":
         if self._thread is not None:
             raise RuntimeError("serve loop already started")
+        if self.frontend.rt._dist is not None:
+            raise RuntimeError(
+                "ServeLoop runs cycles at its thread's own pace, which no two "
+                "processes share: on a runtime sharded across processes call "
+                "ServeFrontend.cycle() from the host program on every process"
+            )
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
         return self

@@ -1,6 +1,7 @@
 """Open-loop load harness: simulated client fleets against the serving
 front-end (port of ``lasp_tpu.serve.harness``; ``run_load`` also takes the
-``device`` its store and runtime are built on).
+``device`` its store and runtime are built on, or a ``runtime`` that
+:func:`load_runtime` built, such as one sharded across processes).
 
 OPEN-LOOP means arrivals are independent of completions — the canonical
 way to expose overload behavior (a closed loop self-throttles and hides
@@ -121,7 +122,7 @@ def threshold_parity(rt, var_id: str, n: int, *, seed: int = 0) -> dict:
     rng = np.random.RandomState(seed)
 
     def pop_of(v):
-        return rt._to_dense_row(v, rt._population(v))
+        return rt._to_dense_row(v, rt._whole_population(v))
 
     def meta_of(v):
         return var.codec, var.spec
@@ -154,6 +155,26 @@ def threshold_parity(rt, var_id: str, n: int, *, seed: int = 0) -> dict:
     return {"n_thresholds": n, "fired": len(vec), "parity": True}
 
 
+def load_runtime(n_replicas: int = 64, fanout: int = 3, n_vars: int = 6,
+                 n_clients: int = 10_000, key_space: int = 192, seed: int = 7,
+                 device=None):
+    """:func:`run_load`'s population for the same arguments: ``n_vars``
+    G-Sets ``kv<i>`` of ``key_space`` elements and a 1,024-lane G-Counter
+    ``ctr`` on ``random_regular(n_replicas, fanout, seed)``."""
+    from ..dataflow import Graph
+    from ..mesh import ReplicatedRuntime
+    from ..mesh.topology import random_regular
+    from ..store import Store
+
+    nbrs = random_regular(n_replicas, fanout, seed=seed)
+    store = Store(n_actors=max(64, n_clients.bit_length() * 8), device=device)
+    for i in range(n_vars):
+        store.declare(id=f"kv{i}", type="lasp_gset", n_elems=key_space)
+    store.declare(id="ctr", type="riak_dt_gcounter", n_actors=1024)
+    return ReplicatedRuntime(store, Graph(store), n_replicas, nbrs,
+                             device=device)
+
+
 def run_load(
     n_replicas: int = 64,
     fanout: int = 3,
@@ -177,28 +198,23 @@ def run_load(
     seed_watches: int = 0,
     record_trace: bool = False,
     device=None,
+    runtime=None,
 ) -> dict:
     """One full open-loop run; see the module doc. Returns the load
-    report (the ``serve_load`` artifact body)."""
+    report (the ``serve_load`` artifact body). ``runtime``: the population
+    :func:`load_runtime` builds for the same arguments, built by the caller
+    (one sharded across processes, whose every process runs this same
+    drive); None builds it here on ``device``."""
     from ..chaos import ChaosRuntime
     from ..chaos.invariants import check_no_write_lost
-    from ..dataflow import Graph
     from ..lattice import Threshold
-    from ..mesh import ReplicatedRuntime
-    from ..mesh.topology import random_regular
-    from ..store import Store
 
     rng = np.random.RandomState(seed)
-    nbrs = random_regular(n_replicas, fanout, seed=seed)
-    store = Store(n_actors=max(64, n_clients.bit_length() * 8), device=device)
-    gset_vars = [
-        store.declare(id=f"kv{i}", type="lasp_gset", n_elems=key_space)
-        for i in range(n_vars)
-    ]
-    ctr = store.declare(id="ctr", type="riak_dt_gcounter",
-                        n_actors=1024)
-    rt = ReplicatedRuntime(store, Graph(store), n_replicas, nbrs,
-                           device=device)
+    rt = runtime if runtime is not None else load_runtime(
+        n_replicas, fanout, n_vars, n_clients, key_space, seed, device)
+    nbrs = rt._host_neighbors
+    gset_vars = [f"kv{i}" for i in range(n_vars)]
+    ctr = "ctr"
     target = rt
     schedule = None
     if chaos:

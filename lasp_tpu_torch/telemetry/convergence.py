@@ -395,8 +395,9 @@ class ConvergenceMonitor:
         per_var: dict = {}
         for v in runtime.var_ids:
             codec, spec = runtime._mesh_meta(v)
+            # the whole population: across processes, every process's rows
             behind = (
-                diverged_rows(codec, spec, runtime._population(v))
+                diverged_rows(codec, spec, runtime._whole_population(v))
                 .cpu().numpy().astype(np.int64)
             )
             lag += behind
