@@ -156,7 +156,7 @@ Phases, each of which fails the run on any error:
                with auto views, the 16 views it registers (index specs over
                2 names x 8 values) and an ``ExampleKeylistProgram``, JAX's
                program sizes (two ``bool[64, 64]`` planes a row, ~13.9 GB
-               for the 17 index views); 512 seeded events over 48 keys
+               for the 17 index views); 128 seeded events over 48 keys
                (80% put, 10% delete, 10% handoff) through ``process`` at
                ``crc32(key) % n``, filled views compacting through
                ``CapacityError``; convergence under the normal scheduler
@@ -178,14 +178,14 @@ Phases, each of which fails the run on any error:
                in one cycle) and ``register`` / ``process`` / ``execute``;
 21. bridge  — a loopback ``BridgeServer`` on the card: ``bridge_throughput()``
                at JAX's defaults under the native and the Python ETF arm; a
-               seeded stream of 2,000 requests over 1,024 variables (16 in
+               seeded stream of 500 requests over 1,024 variables (16 in
                each of riak_core's 64 partitions, ``ingest_storm``'s five
                kinds, one request in ten a 16-variable ``merge_batch``, the
                rest YCSB workload A's zipfian reads and updates) in
                durable mode, every response equal byte for byte to a CPU
                server's in this process, every variable read back equal after
                a restart on the same ``data_dir``; requests/s, p50 / p99 ms
-               and the card's busy share over 2,000 requests;
+               and the card's busy share over those requests;
 22. scenarios — run between phases 3 and 4, before the runtimes that
                the kernels phase replays (about 12 GiB) are resident:
                ``frontier_sparse(n_replicas=100_000)``, ``many_vars(
@@ -254,7 +254,21 @@ Phases, each of which fails the run on any error:
                drive under every preset and ``serve_load``'s drive (ticks
                cut), each held against a one-process run (states, rounds,
                fingerprints), K1 launched on each rank and its widest
-               launch held against its plain version; within 150 s.
+               launch held against its plain version; within 150 s; then
+               (e) membership, Lasp's programs, ``Session``, the map and
+               the actor guard on the gather path: ``resize`` to 150,000,
+               a graceful leave to 100,000, a ``MembershipCoordinator``'s
+               staged grow to 150,000 in cycles of 12,500, a crash leave
+               to 96,000 and the staged commits at the membership phase's
+               population; ``riak_index_2i`` at 4,096 replicas and 96
+               events, sharded once its programs registered; a
+               ``Session`` at 100,000 replicas through ``nemesis``,
+               ``quorum`` and ``serve`` (``aae`` refused for parity), a
+               map write admitting fields and the guard's collision naming
+               replica rows; each held against a one-process run (shard
+               hashes, rounds, values, messages), K1 launched on each rank
+               and its widest launch held against its plain version;
+               within 150 s.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -2244,7 +2258,7 @@ def phase_session(torch, cg, captured: dict, n: int = _SESSION_REPLICAS) -> dict
 
 
 #: the bridge phase's request stream (``bench_scenarios.bridge_stream``)
-_BRIDGE = {"n_requests": 2_000, "n_partitions": 64, "vars_per_partition": 16,
+_BRIDGE = {"n_requests": 500, "n_partitions": 64, "vars_per_partition": 16,
            "merge_every": 10, "seed": 0}
 
 
@@ -2260,14 +2274,14 @@ def phase_bridge(torch, cg) -> dict:
     """A loopback ``BridgeServer`` on the card: ``bridge_throughput()`` at
     JAX's defaults with the native arm serving, then again with the Python
     arm (``LaspConfig(etf="python")``); then
-    the seeded stream of 2,000 requests over 1,024 variables (16 in each
+    the seeded stream of 500 requests over 1,024 variables (16 in each
     of riak_core's 64 partitions, ``ingest_storm``'s five kinds; one in ten
     a 16-variable ``merge_batch``, the rest YCSB workload A's reads and
     updates) in durable mode, every response equal
     byte for byte to a second server's on the CPU in this process; the
     server restarted on the same ``data_dir`` must read every variable back
     as it answered before (no acked write lost). Requests/s, p50 / p99 ms,
-    and the card's busy share over 2,000 requests of an in-memory server."""
+    and the card's busy share over those requests of an in-memory server."""
     import os
     import shutil
 
@@ -2315,13 +2329,13 @@ def phase_bridge(torch, cg) -> dict:
                    for f in os.listdir(dirs["cuda"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # the busy share over 2,000 requests only: the stores are declared
+    # the busy share over the requests only: the stores are declared
     # before the profiler opens
     with BridgeServer() as server:
         clients = bridge_clients(server.port, stream["setup"])
         try:
             busy = _device_busy(torch, lambda: bridge_requests(
-                clients, stream["requests"][:2000]))
+                clients, stream["requests"]))
         finally:
             for c in clients.values():
                 c.close()
@@ -2629,7 +2643,7 @@ def phase_shard(torch, cg, captured: dict, n: int = _SHARD["n_replicas"],
 #: the distributed phase: two ranks on the one card, 4 shard slots each, at
 #: the shard phase's sizes
 _DIST = {"world": 2, "pg_replicas": 1 << 20, "ms_replicas": 1 << 20,
-         "timeout_s": 480, "limit_s": 120}
+         "timeout_s": 600, "limit_s": 120}
 
 #: its segment (d), the serving path across the ranks: the chaos, quorum and
 #: serve phases' population; ``serve_load``'s ticks cut from 40 (depth) so
@@ -2917,6 +2931,269 @@ def _check_serving(r: int, got: dict, twins: dict, quorum: dict) -> None:
         raise RuntimeError(f"distributed (d): rank {r}'s widest K1 launch: {chk}")
 
 
+#: its segment (e), membership, Lasp's programs, ``Session``, the map and the
+#: actor guard across the ranks on the gather path: the membership and
+#: session phases' populations at 100,000 replicas, the coordinator's staged
+#: cycles of 12,500 (the rebalance phase's), and the 2i programs at 4,096
+#: replicas with 96 events (cuts of scale and depth: a 2i gather round
+#: carries ~139 KB a row, ~7 GB a rank at 100,000 replicas; the programs
+#: phase runs 128 events, and this stream's first compaction comes at 80)
+_MEMBERSHIP_E = {"n_replicas": _MEMBERSHIP_REPLICAS, "per_cycle": 12_500,
+                 "programs_replicas": 4_096, "programs_events": 96, "limit_s": 150}
+
+
+def _e_hashes(rt) -> dict:
+    """Each shard's hash of every population (:func:`_block_hashes`): a
+    rank's own shards, or all 8 of a one-process runtime."""
+    from lasp_tpu_torch.bench_scenarios import _block_hashes
+
+    d, shards = rt._dist, _SHARD["n_shards"]
+    if d is None:
+        return {v: _block_hashes(rt.states[v], 0, shards, -(-rt.n_replicas // shards))
+                for v in rt.var_ids}
+    return {v: _block_hashes(rt.states[v], d["first"], d["count"], d["block"])
+            for v in rt.var_ids}
+
+
+def _membership_e(torch, shard) -> dict:
+    """Segment (e)'s membership part on the membership phase's population
+    (``_membership_runtime`` at 100,000 replicas, converged, then
+    ``shard``): (3) ``resize`` to 150,000; (4) writes at rows >= 100,000,
+    then a graceful ``resize`` to 100,000; a ``MembershipCoordinator``
+    grows 100,000 -> 150,000 in staged cycles of 12,500
+    (``run_to_settled``, dense); (5) tail writes, then a crash leave to
+    96,000; (6) ``membership_grow`` to 100,000 with
+    ``changed_delivery_rows``, then ``membership_drop_tail`` to 96,000. Each
+    step converges dense; ``coverage_value`` must equal the plain-Python
+    expectation and ``divergence`` be 0. Returns the rounds, the shard
+    hashes after each step, the coordinator's report and the seconds."""
+    from lasp_tpu_torch.membership import MembershipCoordinator, changed_delivery_rows
+    from lasp_tpu_torch.mesh import random_regular
+
+    n = _MEMBERSHIP_E["n_replicas"]
+    big, small = n * 3 // 2, n * 24 // 25  # 150,000 and 96,000
+    rt, ids, _homes, expected = _membership_runtime(torch, n)
+    rt = shard(rt)
+    out = {"rounds": {}, "hashes": {}, "seconds": {}, "epochs": {}}
+
+    def converge(step: str) -> None:
+        out["rounds"][step], out["seconds"][step] = _timed_step(
+            torch, lambda: rt.run_to_convergence(mode="dense"))
+        want = {"ads": frozenset(expected["ads"]), "views": expected["views"],
+                "tags": frozenset(expected["tags"])}
+        for v in ids:
+            got = rt.coverage_value(v)
+            if got != want[v] or rt.divergence(v):
+                raise RuntimeError(f"distributed (e) membership: after {step} {v} is "
+                                   f"{got!r} (divergence {rt.divergence(v)}), expected "
+                                   f"{want[v]!r}")
+        out["hashes"][step] = _e_hashes(rt)
+        out["epochs"][step] = [rt.n_replicas, rt.membership_epoch]
+
+    rt.resize(big, random_regular(big, 3, seed=1))
+    converge("grow")
+    high = [(n + (big - n) * a // 16 + 7, a, f"h{a}", 3) for a in range(16)]
+    _membership_writes(rt, high)
+    rt.update_batch("ads", [(row, ("add", f"ad{48 + a}"), f"w{a}") for row, a, _t, _b in high])
+    _expect(expected, high)
+    expected["ads"] |= {f"ad{48 + a}" for a in range(16)}
+    rt.resize(n, random_regular(n, 3, seed=2))
+    converge("graceful_leave")
+    mc = MembershipCoordinator(rt, per_cycle=_MEMBERSHIP_E["per_cycle"])
+    mc.stage_join(big, random_regular(big, 3, seed=6))
+    mc.commit()
+    rep, out["seconds"]["coordinator"] = _timed_step(
+        torch, lambda: mc.run_to_settled(mode="dense"))
+    out["coordinator"] = {k: rep[k] for k in ("epoch", "n_replicas", "commits", "transferred",
+                                              "transfer_bytes", "max_cycle_batch",
+                                              "settle_rounds")}
+    out["coordinator"]["rounds"] = mc.ch.round
+    converge("coordinator")
+    tail = [(small + a, a, f"lost{a}", 100 + a) for a in range(8)]
+    _membership_writes(rt, tail)  # never gossiped: not expected
+    nb_small = random_regular(small, 3, seed=3)
+    rt.resize(small, nb_small, graceful=False)
+    converge("crash_leave")
+    grown = random_regular(n, 3, seed=4)
+    rt.membership_grow(n, grown, dirty_rows=changed_delivery_rows(nb_small, grown, small, n))
+    converge("membership_grow")
+    shrunk = random_regular(small, 3, seed=5)
+    rt.membership_drop_tail(small, shrunk,
+                            dirty_rows=changed_delivery_rows(grown, shrunk, n, small))
+    converge("membership_drop_tail")
+    out["row_bytes"] = sum(rt._row_bytes(v) for v in ids)
+    return out
+
+
+def _programs_e(torch, shard) -> dict:
+    """Segment (e)'s programs part: ``riak_index_2i`` at 4,096 replicas and
+    96 events, the runtime sharded by ``shard`` once its programs are
+    registered; the scenario raises unless its ring-coverage execute, each
+    program's ``execute``, the quorum execute and ``riak_index_reference``
+    agree. Returns its counts and the shard hashes of its populations."""
+    from lasp_tpu_torch.bench_scenarios import riak_index_2i
+
+    rep = riak_index_2i(n_replicas=_MEMBERSHIP_E["programs_replicas"],
+                        n_events=_MEMBERSHIP_E["programs_events"], keep_runtime=True,
+                        shard=shard)
+    rt = rep.pop("runtime")
+    if rep["compactions"] < 1:
+        raise RuntimeError(f"distributed (e) programs: no compaction in {rep}")
+    out = {k: rep[k] for k in ("compactions", "converge_rounds", "values", "programs",
+                               "views", "events")}
+    out["hashes"] = _e_hashes(rt)
+    out["row_bytes"] = sum(rt._row_bytes(v) for v in rt.var_ids)
+    out["seconds"] = {k: rep[k] for k in ("process_s", "converge_s", "sweep_s")}
+    return out
+
+
+def _session_e(torch, shard) -> dict:
+    """Segment (e)'s session part at 100,000 replicas: a ``Session``'s
+    variables (``_session_declare``) through ``replicate(n,
+    topology="random", fanout=3, seed=0, packed=True)``, then ``shard``; the
+    16 writers converged; ``nemesis("ring-cut")``'s dense soak; a
+    ``quorum`` put and get; ``serve`` on a tick clock; across the ranks
+    ``aae`` must refuse for parity (ROADMAP A5c.8); a ``riak_dt_map``
+    declared late and written twice, admitting two fields, converged; on a
+    ``debug_actors`` runtime a second write site of one actor must raise,
+    naming the replica rows. Returns every count, value, message and the
+    shard hashes."""
+    from lasp_tpu_torch import Session
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ActorCollisionError, ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.store import Store
+
+    n = _MEMBERSHIP_E["n_replicas"]
+    out = {"seconds": {}}
+    s = Session(n_actors=16)
+    _session_declare(s, s)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the locality note
+        rt = shard(s.replicate(n, topology="random", fanout=3, seed=0, packed=True))
+    for v, vops in _session_ops(n).items():
+        rt.update_batch(v, vops)
+    out["rounds"], out["seconds"]["converge"] = _timed_step(torch, rt.run_to_convergence)
+    chaos = s.nemesis(rt, "ring-cut", seed=0)
+    soak, out["seconds"]["nemesis_soak"] = _timed_step(torch, chaos.soak)
+    if not soak["healed"]:
+        raise RuntimeError(f"distributed (e) session: the soak did not heal: {soak}")
+    out["soak"] = {k: soak[k] for k in ("rounds", "rounds_to_heal", "healed")}
+    kv = s.quorum(chaos)
+    put = kv.submit_put("ads", ("add", "ad63"), "w0")
+    get = kv.submit_get("ads")
+    for _ in range(64):
+        kv.step()
+        if "pending" not in (kv.result(put)["status"], kv.result(get)["status"]):
+            break
+    out["quorum"] = [kv.result(put)["status"], kv.result(get)["status"]]
+    if out["quorum"][0] not in ("done", "acked") or out["quorum"][1] != "done":
+        raise RuntimeError(f"distributed (e) session: the quorum requests: {out['quorum']}")
+    ticks = iter(range(1 << 20))
+    fe = s.serve(rt, clock=lambda: float(next(ticks)))
+    ticket = fe.submit_write("views", ("increment",), "w1")
+    fe.cycle()
+    out["serve"] = ticket.status
+    if ticket.status != "done":
+        raise RuntimeError(f"distributed (e) session: the served write ended {ticket.status}")
+    if rt._dist is not None:
+        try:
+            s.aae(rt)
+            raise RuntimeError("distributed (e) session: Session.aae ran across the ranks")
+        except NotImplementedError as exc:
+            if "A5c.8" not in str(exc) or "parity" not in str(exc):
+                raise RuntimeError(f"distributed (e) session: aae refused with {exc}") from exc
+    s.declare(type="riak_dt_map", id="m")
+    rt.update_at(3, "m", ("update", ("k", "riak_dt_gcounter"), ("increment", 2)), "a")
+    rt.update_at(n // 2 + 3, "m", ("update", ("s", "lasp_gset"), ("add", "x")), "b")
+    out["map_rounds"], out["seconds"]["map_converge"] = _timed_step(torch, rt.run_to_convergence)
+    out["values"] = {v: rt.coverage_value(v) for v in ("ads", "views", "tags", "seen", "m")}
+    if out["values"]["m"] != {("k", "riak_dt_gcounter"): 2, ("s", "lasp_gset"): {"x"}}:
+        raise RuntimeError(f"distributed (e) session: the map reads {out['values']['m']}")
+    out["hashes"] = _e_hashes(rt)
+    out["values"] = {v: sorted(x) if isinstance(x, (set, frozenset)) else x
+                     for v, x in out["values"].items() if v != "m"}
+    store = Store(n_actors=4)
+    store.declare(id="c", type="riak_dt_gcounter")
+    guarded = shard(ReplicatedRuntime(store, Graph(store), n,
+                                      random_regular(n, 3, seed=0), debug_actors=True))
+    guarded.update_at(3, "c", ("increment", 1), "zz")
+    try:
+        guarded.update_at(n // 2 + 3, "c", ("increment", 1), "zz")
+        raise RuntimeError("distributed (e) session: the actor guard let a second site write")
+    except ActorCollisionError as exc:
+        out["guard"] = str(exc)
+    if f"at replica 3; writing from replica {n // 2 + 3}" not in out["guard"]:
+        raise RuntimeError(f"distributed (e) session: the guard said {out['guard']!r}")
+    return out
+
+
+def _membership_parts(torch, shard) -> dict:
+    """Segment (e)'s three parts with ``shard`` applied to each runtime
+    (a rank's) or not (the parent's one-process twins)."""
+    out = {"seconds": {}}
+    for name, part in (("membership", _membership_e), ("programs", _programs_e),
+                       ("session", _session_e)):
+        t0 = time.perf_counter()
+        out[name] = part(torch, shard)
+        out["seconds"][name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return out
+
+
+def _membership_worker(torch, cg, mesh) -> dict:
+    """Segment (e) on one rank: each part on runtimes sharded across the
+    ranks on the gather path, its K1 launches counted and its widest K1
+    launch held against ``gossip_round_dense_plain``."""
+    import lasp_tpu_torch.mesh.gossip as gossip_mod
+
+    def shard(rt):
+        rt.shard(mesh)
+        if rt._dist is None or rt._partition is not None:
+            raise RuntimeError("distributed (e): the runtime is not on the gather path")
+        return rt
+
+    kept, undo = _widest_calls(torch, cg)
+    # the gather path calls K1 by the name mesh.gossip imported
+    inner = gossip_mod.gossip_round_dense
+    gossip_mod.gossip_round_dense = cg.gossip_round_dense
+    cg.reset_launches()
+    try:
+        out = _membership_parts(torch, shard)
+        out["launches"] = dict(cg.LAUNCHES)  # the drives', before the check
+    finally:
+        gossip_mod.gossip_round_dense = inner
+        undo()
+    out["kernel_checks"] = _check_widest(torch, cg, kept)
+    return out
+
+
+def _check_membership_e(r: int, got: dict, twins: dict) -> None:
+    """Hold rank ``r``'s segment (e) against the one-process twins; raise
+    on any difference."""
+    for part, keys in (("membership", ("rounds", "epochs", "coordinator", "row_bytes")),
+                       ("programs", ("compactions", "converge_rounds", "values",
+                                     "programs", "views", "row_bytes")),
+                       ("session", ("rounds", "soak", "quorum", "serve", "map_rounds",
+                                    "values", "guard"))):
+        mine, want = got[part], twins[part]
+        for key in keys:
+            if mine[key] != want[key]:
+                raise RuntimeError(f"distributed (e) {part}: rank {r}'s {key} {mine[key]}, "
+                                   f"one process {want[key]}")
+        hashes = mine["hashes"]
+        for step, by_var in (hashes.items() if part == "membership" else [(None, hashes)]):
+            theirs = want["hashes"][step] if step is not None else want["hashes"]
+            for v, hs in by_var.items():
+                if not hs or any(theirs[v][k] != h for k, h in hs.items()):
+                    raise RuntimeError(f"distributed (e) {part} {step or ''}: rank {r}'s "
+                                       f"shards of {v} differ from the one-process run's")
+    if got["launches"]["gossip_round_dense"] < 1:
+        raise RuntimeError(f"distributed (e): rank {r} never launched K1")
+    chk = got["kernel_checks"].get("gossip_round_dense")
+    if chk is None or chk["max_abs_err"] != 0:
+        raise RuntimeError(f"distributed (e): rank {r}'s widest K1 launch: {chk}")
+
+
 def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
     """The shard phase's work across processes: this script spawns
     ``_DIST["world"]`` copies of itself (``--distributed-worker``) with
@@ -2937,7 +3214,11 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
     its one-process twins (:func:`_serving_twins`); each rank's (d) is held
     against them and against the quorum phase's records (``quorum``, by
     preset) by :func:`_check_serving`, and must end within
-    ``_SERVING["limit_s"]``. A worker that fails or overruns fails the
+    ``_SERVING["limit_s"]``. Then segment (e), membership, Lasp's programs,
+    ``Session``, the map and the actor guard on the gather path
+    (:func:`_membership_worker`), is held against this process's
+    one-process twins by :func:`_check_membership_e` and must end within
+    ``_MEMBERSHIP_E["limit_s"]``. A worker that fails or overruns fails the
     phase, with the tail of its stderr."""
     import os
 
@@ -2954,8 +3235,12 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
         t_twins = time.perf_counter()
         twins = _serving_twins(torch, _SERVING["n_replicas"])
         twins["seconds"]["all"] = time.perf_counter() - t_twins
+        t_twins = time.perf_counter()
+        etwins = _membership_parts(torch, lambda rt: rt)
+        etwins["seconds"]["all"] = time.perf_counter() - t_twins
         # as the workers' files hold them (tuples as lists, keys as text)
         twins = json.loads(json.dumps(twins, default=str))
+        etwins = json.loads(json.dumps(etwins, default=str))
         for r, p in enumerate(procs):
             left = _DIST["timeout_s"] - (time.perf_counter() - t0)
             try:
@@ -3030,6 +3315,7 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
         if set(res["kernel_checks"]) != set(res["launches"]):
             raise RuntimeError(f"distributed: rank {r} held {sorted(res['kernel_checks'])}")
         _check_serving(r, res["serving"], twins, quorum)
+        _check_membership_e(r, res["membership_e"], etwins)
     line = {"seconds": secs, "world": _DIST["world"], "backend": ranks[0]["backend"],
             "ranks": [{
                 "rank": res["rank"], "device": res["device"],
@@ -3062,21 +3348,31 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
                     "stage_s": res["serving"]["stage_s"],
                     "carried_bytes": res["serving"]["carried_bytes"],
                 },
+                "membership_e": {
+                    **{k: res["membership_e"][k] for k in (
+                        "seconds", "launches", "kernel_checks", "stage_s", "carried_bytes")},
+                    "membership": {k: res["membership_e"]["membership"][k] for k in (
+                        "rounds", "epochs", "coordinator", "seconds", "row_bytes")},
+                    "programs": {k: v for k, v in res["membership_e"]["programs"].items()
+                                 if k != "hashes"},
+                    "session": {k: v for k, v in res["membership_e"]["session"].items()
+                                if k != "hashes"},
+                },
             } for res in ranks],
-            "serving_twins_s": twins["seconds"]}
+            "serving_twins_s": twins["seconds"], "membership_e_twins_s": etwins["seconds"]}
     _log_line("distributed", line)
-    if secs > _DIST["limit_s"] + _SERVING["limit_s"]:
-        raise RuntimeError(f"distributed: the phase took {secs:.1f} s, over "
-                           f"{_DIST['limit_s'] + _SERVING['limit_s']} s")
-    for res in ranks:  # (a)-(c)'s own bound: the phase less this rank's (d)
-        abc = secs - res["seconds"]["d"]
+    limit = _DIST["limit_s"] + _SERVING["limit_s"] + _MEMBERSHIP_E["limit_s"]
+    if secs > limit:
+        raise RuntimeError(f"distributed: the phase took {secs:.1f} s, over {limit} s")
+    for res in ranks:  # (a)-(c)'s own bound: the phase less this rank's (d), (e)
+        abc = secs - res["seconds"]["d"] - res["seconds"]["e"]
         if abc > _DIST["limit_s"]:
             raise RuntimeError(f"distributed (a)-(c): rank {res['rank']} took {abc:.1f} s, "
                                f"over {_DIST['limit_s']} s")
-    d = max(res["seconds"]["d"] for res in ranks)
-    if d > _SERVING["limit_s"]:
-        raise RuntimeError(f"distributed (d): took {d:.1f} s, over "
-                           f"{_SERVING['limit_s']} s")
+    for seg, lim in (("d", _SERVING["limit_s"]), ("e", _MEMBERSHIP_E["limit_s"])):
+        took = max(res["seconds"][seg] for res in ranks)
+        if took > lim:
+            raise RuntimeError(f"distributed ({seg}): took {took:.1f} s, over {lim} s")
     return line
 
 
@@ -3223,20 +3519,32 @@ def distributed_worker(out_dir: str) -> int:
     finally:
         undo()
     res["kernel_checks"] = _check_widest(torch, cg, kept)
+    def segment(fn):
+        """``fn()``'s record with the bytes this rank carried and the
+        seconds of each stage of the collectives while it ran."""
+        carried0 = {k: dict(e) for k, e in comm.CARRIED.items()}
+        stage0 = dict(comm.STAGE_S)
+        out = fn()
+        out["carried_bytes"] = {k: e["bytes"] - carried0.get(k, {}).get("bytes", 0)
+                                for k, e in comm.CARRIED.items()}
+        out["stage_s"] = {k: v - stage0.get(k, 0.0) for k, v in comm.STAGE_S.items()}
+        return out
+
     # (d) the serving path, on the gather path of the same mesh
     t0 = time.perf_counter()
-    carried0 = {k: dict(e) for k, e in comm.CARRIED.items()}
-    stage0 = dict(comm.STAGE_S)
-    res["serving"] = _serving_worker(torch, cg, mesh, _SERVING["n_replicas"])
-    res["serving"]["carried_bytes"] = {
-        k: e["bytes"] - carried0.get(k, {}).get("bytes", 0) for k, e in comm.CARRIED.items()}
-    res["serving"]["stage_s"] = {k: v - stage0.get(k, 0.0) for k, v in comm.STAGE_S.items()}
+    res["serving"] = segment(lambda: _serving_worker(torch, cg, mesh, _SERVING["n_replicas"]))
     res["seconds"]["d"] = time.perf_counter() - t0
+    # (e) membership, programs, Session, the map and the actor guard, there too
+    t0 = time.perf_counter()
+    res["membership_e"] = segment(lambda: _membership_worker(torch, cg, mesh))
+    res["seconds"]["e"] = time.perf_counter() - t0
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res, default=str))
     print(json.dumps({"rank": rank, "launches": res["launches"],
                       "serving_launches": res["serving"]["launches"],
+                      "membership_e_launches": res["membership_e"]["launches"],
                       "seconds": res["seconds"],
-                      "serving_seconds": res["serving"]["seconds"]}), flush=True)
+                      "serving_seconds": res["serving"]["seconds"],
+                      "membership_e_seconds": res["membership_e"]["seconds"]}), flush=True)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -3293,7 +3601,7 @@ def phase_adcounter(torch, cg) -> dict:
 
 #: the programs phase (a Riak 2i index over the chaos phases' population):
 #: ``bench_scenarios.riak_index_2i``'s event stream and program sizes
-_PROGRAMS = {"n_events": 256, "n_keys": 48, "index_names": 2, "index_values": 8,
+_PROGRAMS = {"n_events": 128, "n_keys": 48, "index_names": 2, "index_values": 8,
              "n_shards": 4, "seed": 29}
 
 
@@ -3303,7 +3611,7 @@ def phase_programs(torch, cg, captured: dict, peak_gbps: float,
     ``random_regular(n, 3)``: a total ``RiakIndexProgram`` with auto views,
     the 16 views it registers from specs over 2 index names x 8 values and
     an ``ExampleKeylistProgram`` (JAX's defaults: 64 elements, 64 tokens,
-    one actor: two ``bool[64, 64]`` planes a row), 512 seeded events over
+    one actor: two ``bool[64, 64]`` planes a row), 128 seeded events over
     48 keys through ``process`` at ``crc32(key) % n`` (filled views compact
     through ``CapacityError`` -> ``compact_orset`` -> ``run_to_convergence``),
     the runtime's normal scheduler to convergence (K2 launches there), then
@@ -3762,7 +4070,15 @@ _WARM_CALLS = 4
 _MARKERS = 3
 
 
-def _device_kernels(torch, warm, calls) -> "dict | None":
+#: host seconds that open and close each window of ``_device_kernels``: the
+#: profiler keeps no device record that falls outside its capture window,
+#: and the card's records were stamped up to 20.6 ms before the host range
+#: that enqueued them (PERF.md §6); the warm calls stand between the opening
+#: pad and the markers
+_PAD_S = 0.02
+
+
+def _device_kernels(torch, warm, calls, diag=None) -> "dict | None":
     """Run each of ``warm`` and then each of ``calls`` once under
     ``torch.profiler``: the device activities (kernels, copies, fills) that
     ``calls`` put on the card, by name and count — those that start after
@@ -3772,28 +4088,49 @@ def _device_kernels(torch, warm, calls) -> "dict | None":
     runs the profiler drops the records of a few device activities of a
     window (PERF.md), so ``warm`` launches each kernel of the count first,
     outside it, and a lost marker record leaves the others to mark the
-    start. None when every marker's record is missing (the window cannot
-    be read)."""
-    from torch.profiler import ProfilerActivity, profile
+    start; the window opens and closes with ``_PAD_S`` of host sleep. None
+    when every marker's record is missing (the window cannot be read).
+    ``diag``, a dict, receives what the window recorded: its device
+    records and their commonest names, its markers, its host records and
+    the CUDA runtime calls among them, the first marker's start less the
+    start of the host range that enqueued the markers (``marker_lag_us``),
+    and the first and last device record against the host's span (µs)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     marker = torch.zeros((1,), dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(_PAD_S)
         torch.cuda._sleep(1000)
         for call in warm:
             call()
         torch.cuda.synchronize()
-        for _ in range(_MARKERS):  # the count starts after these kernels
-            marker.fill_(7.0)
+        with record_function("lasp_markers"):
+            for _ in range(_MARKERS):  # the count starts after these kernels
+                marker.fill_(7.0)
         for call in calls:
             call()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    device = [e for e in prof.events()
+        time.sleep(_PAD_S)
+    events = prof.events()
+    device = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     is_marker = [("FillFunctor<double>" in e.key) for e in device]
     marks = [e.time_range.start for e, m in zip(device, is_marker) if m]
+    if diag is not None:
+        host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        enq = [e.time_range.start for e in host if e.key == "lasp_markers"]
+        diag.update(
+            device_records=len(device), markers=len(marks), host_records=len(host),
+            runtime_records=sum(e.key.startswith("cuda") for e in host),
+            device_names=Counter(e.key[:40] for e in device).most_common(4),
+            marker_lag_us=(min(marks) - enq[0]) if marks and enq else None,
+            device_us=([min(e.time_range.start for e in device),
+                        max(e.time_range.end for e in device)] if device else None),
+            host_us=([min(e.time_range.start for e in host),
+                      max(e.time_range.end for e in host)] if host else None))
     if not marks:
         return None
     start = max(marks)
@@ -3803,7 +4140,7 @@ def _device_kernels(torch, warm, calls) -> "dict | None":
 
 
 #: profiled replays of the K2 / K3 shapes before the one-kernel check gives up
-_PROFILE_WINDOWS = 5
+_PROFILE_WINDOWS = 12
 
 
 #: wrapper calls replayed in one profiled window of the one-kernel check
@@ -3842,17 +4179,25 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
     first = {name: next((k for k in shapes[name] if captured[(name, k)]["source"]),
                         next(iter(shapes[name]))) for name in names}
     warm = {name: call_of(name, first[name]) for name in names}
+    lags, unread = [], []
     for name, other in zip(names, reversed(names)):
-        seen = []
+        seen, counts = [], []
         for _layout, keys in chunks[name]:
             chunk = [call_of(name, key) for key in keys]
+            diags = []
             for attempt in range(_PROFILE_WINDOWS):
+                diags.append({})
                 kernels = _device_kernels(
-                    torch, [warm[other]] * _WARM_CALLS + chunk, chunk)
+                    torch, [warm[other]] * _WARM_CALLS + chunk, chunk, diags[-1])
+                if diags[-1]["marker_lag_us"] is not None:
+                    lags.append(diags[-1]["marker_lag_us"])
                 if kernels is None:
                     got = -1
+                    diags[-1]["got"] = got
+                    unread.append(diags[-1])
                     continue
                 got = sum(kernels.values())
+                diags[-1]["got"] = got
                 if got > len(chunk) or any(f"{name}_kernel" not in n for n in kernels):
                     raise RuntimeError(f"{name}: {len(chunk)} wrapper calls put "
                                        f"these on the card: {kernels}")
@@ -3863,11 +4208,22 @@ def _one_kernel_per_call(torch, cg, shapes, captured, sources, widest) -> None:
                 raise RuntimeError(
                     f"{name}: {len(chunk)} wrapper calls at shapes "
                     f"{keys} showed only {got} kernels "
-                    f"in each of {_PROFILE_WINDOWS} profiled windows: {kernels}")
+                    f"in each of {_PROFILE_WINDOWS} profiled windows: {kernels}; "
+                    f"what each window recorded: {diags}")
+            counts.append([d["got"] for d in diags])
             del chunk
         widest[name]["device_kernels_per_call"] = 1.0
         # [kernels seen, windows opened] a chunk
         widest[name]["profiled_windows_kernels"] = seen
+        # the kernels each window of a chunk showed (-1: no marker record)
+        widest[name]["profiled_windows_counts"] = counts
+    # the windows without a marker record (what each recorded, the first
+    # 8), and the span of the markers' lag behind the host range that
+    # enqueued them (µs), over both kernels
+    for name in names:
+        widest[name]["profiled_windows_unread"] = len(unread)
+        widest[name]["profiled_unread_records"] = unread[:8]
+        widest[name]["profiled_marker_lag_us"] = [min(lags), max(lags)] if lags else None
     _SYNTH[:] = [None, None]
 
 
@@ -4195,6 +4551,12 @@ def main() -> int:
             r["serving"]["launches"][k["name"]] for r in dist_line["ranks"]]
         k["distributed_max_abs_err"] = max(
             r["kernel_checks"][k["name"]]["max_abs_err"] for r in dist_line["ranks"])
+        # and in its segment (e), membership, programs and Session
+        k["launches_distributed_membership_by_rank"] = [
+            r["membership_e"]["launches"][k["name"]] for r in dist_line["ranks"]]
+    kernels[0]["distributed_membership_max_abs_err"] = max(
+        r["membership_e"]["kernel_checks"]["gossip_round_dense"]["max_abs_err"]
+        for r in dist_line["ranks"])
     kernels[0]["adcounter_shapes"] = k1_adcounter
     # the partitioned path's K1 shapes: a shard's [block | received] source
     kernels[0]["shard_shapes"] = k1_shard

@@ -266,7 +266,6 @@ class Session:
         kwargs reach the preset builder (drop rates, crash counts, …);
         ``checkpoint`` backs ``Restore(source="checkpoint")`` rows. The
         soak outcome lands in :meth:`health` under ``chaos``."""
-        getattr(runtime, "rt", runtime)._refuse_across("Session.nemesis", 12)
         from ..chaos import ChaosRuntime, nemesis as build_nemesis
 
         _count_verb("nemesis")
@@ -296,7 +295,6 @@ class Session:
         extra kwargs reach :class:`QuorumRuntime` (``timeout``,
         ``retries``, ``engine``, ``mode``). The coordination report
         lands in :meth:`health` under ``quorum``."""
-        getattr(runtime, "rt", runtime)._refuse_across("Session.quorum", 12)
         from ..quorum import QuorumRuntime
 
         _count_verb("quorum")
@@ -322,8 +320,10 @@ class Session:
         hand it to ``ServeFrontend(aae=...)`` for background scrubs).
         Extra kwargs reach :class:`AAEScrubber` (``seg_size``,
         ``scrub_every``, ``quorum``, ``auto_attach``). The AAE report
-        lands in :meth:`health` under ``aae``."""
-        getattr(runtime, "rt", runtime)._refuse_across("Session.aae", 12)
+        lands in :meth:`health` under ``aae``. On a runtime sharded across
+        processes it refuses for parity: JAX's forest hashes the population
+        on the host, which fails there (ROADMAP A5c.8, C9)."""
+        getattr(runtime, "rt", runtime)._refuse_across("Session.aae", 8)
         from ..aae import AAEScrubber
 
         _count_verb("aae")
@@ -347,8 +347,8 @@ class Session:
         Extra kwargs reach :class:`ServeFrontend` (``admission``,
         ``gossip_block``, ``coalesce_max``, ``clock``,
         ``write_backup``). The serving report lands in :meth:`health`
-        under ``serve``."""
-        getattr(runtime, "rt", runtime)._refuse_across("Session.serve", 12)
+        under ``serve``. On a runtime sharded across processes pass a
+        ``clock`` that every process reads alike."""
         from ..serve import ServeFrontend
 
         _count_verb("serve")

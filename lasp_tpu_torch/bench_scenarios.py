@@ -1708,7 +1708,8 @@ def riak_index_reference(events, keylist: str = "keylist") -> dict:
 
 def riak_index_2i(n_replicas: int = 64, n_events: int = 1024, n_keys: int = 48,
                   index_names: int = 2, index_values: int = 8, n_shards: int = 4,
-                  seed: int = 29, device=None, keep_runtime: bool = False) -> dict:
+                  seed: int = 29, device=None, keep_runtime: bool = False,
+                  shard=None) -> dict:
     """Lasp's programs end to end: a total ``RiakIndexProgram`` with auto
     views (one 2i view per observed ``(name, value)`` spec) and an
     ``ExampleKeylistProgram`` registered over ``n_replicas`` replicas on
@@ -1721,7 +1722,9 @@ def riak_index_2i(n_replicas: int = 64, n_events: int = 1024, n_keys: int = 48,
     ``ring_coverage_execute`` over ``n_shards`` shards answers every
     program. It must equal per-program ``execute``, a quorum execute over
     three rows and :func:`riak_index_reference`. With ``keep_runtime`` the
-    runtime rides in the report under ``"runtime"``."""
+    runtime rides in the report under ``"runtime"``. ``shard``: a function
+    applied to the runtime once its programs are registered (``lambda rt:
+    rt.shard(mesh)`` shards it across a process group)."""
     import zlib
 
     from .programs import ExampleKeylistProgram, RiakIndexProgram
@@ -1734,6 +1737,8 @@ def riak_index_2i(n_replicas: int = 64, n_events: int = 1024, n_keys: int = 48,
                            random_regular(n_replicas, 3, seed=seed), device=dev)
     rt.register(BASE_NAME, RiakIndexProgram)
     rt.register("keylist", ExampleKeylistProgram)
+    if shard is not None:
+        shard(rt)
     compactions = [0]
     inner = rt.compact_orset
 

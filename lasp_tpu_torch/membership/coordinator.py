@@ -50,11 +50,13 @@ class MembershipCoordinator:
     (wrapped in a fault-free timeline, the ``QuorumRuntime`` rule).
     ``hints`` is an optional ``quorum.HintLog`` backing the lost-src
     fallback; ``serve`` an optional ``ServeFrontend`` whose watches
-    re-home at finalize."""
+    re-home at finalize. On a runtime sharded across processes every
+    process drives the same coordinator: the staging plan, the transfer
+    schedule and the parked pairs are host state, alike on every process,
+    and the transfers read and land rows by owner."""
 
     def __init__(self, runtime, *, per_cycle: int = 8, hints=None,
                  serve=None, crash_patience: int = 4):
-        getattr(runtime, "rt", runtime)._refuse_across("the membership coordinator", 5)
         from ..chaos.engine import ChaosRuntime
         from ..chaos.schedule import ChaosSchedule
 

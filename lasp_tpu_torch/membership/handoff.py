@@ -25,6 +25,7 @@ device work included.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -48,7 +49,10 @@ def grouped_transfer(rt, pairs) -> int:
     plan group by plan group. ``pairs``: ``[(src, dst), ...]`` with UNIQUE
     targets (the engine's cycle selection defers duplicate targets). Every
     target row takes its merge; the rows that changed mark frontier- and
-    AAE-dirty. Returns the rows changed across variables."""
+    AAE-dirty. Returns the rows changed across variables. Across processes
+    a variable's source and target rows are pulled to every process, the
+    same merge runs there (so every process marks the same rows) and the
+    targets land by owner (``rt._owner_window``)."""
     if not pairs:
         return 0
     srcs = np.asarray([p[0] for p in pairs], dtype=np.int64)
@@ -63,6 +67,13 @@ def grouped_transfer(rt, pairs) -> int:
         sig = signature_of(rt, v)
         by_sig.setdefault(sig if sig is not None else ("__singleton__", v),
                           []).append(v)
+    n_replicas = rt.n_replicas
+    win = None
+    if rt._dist is not None:
+        from ..mesh.runtime import _RowWindow
+
+        win = _RowWindow(np.concatenate([srcs, dsts]), n_replicas)
+        srcs, dsts = win.compact(srcs), win.compact(dsts)
     src_idx = torch.as_tensor(srcs, device=rt.device)
     dst_idx = torch.as_tensor(dsts, device=rt.device)
     total_changed = 0
@@ -70,25 +81,16 @@ def grouped_transfer(rt, pairs) -> int:
         for members in by_sig.values():
             t0 = time.perf_counter()
             for v in members:
-                pop = rt._population(v)
-                codec, spec = rt._mesh_meta(v)
-                src_rows = tree_map(lambda x: x[src_idx], pop)
-                dst_rows = tree_map(lambda x: x[dst_idx], pop)
-                merged = codec.merge(spec, dst_rows, src_rows)
-                changed = (~codec.equal(spec, dst_rows, merged)).cpu().numpy()
-                for x, m in zip(tree_leaves(pop), tree_leaves(merged)):
-                    x.index_copy_(0, dst_idx, m.to(x.dtype))
-                ch_rows = dsts[changed]
-                if ch_rows.size:
-                    rt._mark_dirty_rows(v, ch_rows)
-                    total_changed += int(ch_rows.size)
+                with (rt._owner_window((v,), win) if win is not None
+                      else contextlib.nullcontext()):
+                    total_changed += _transfer(rt, v, srcs, dsts, src_idx, dst_idx)
             # the members' changed flags came to the host: the group's
             # seconds close there
             codec, _spec = rt._mesh_meta(members[0])
             get_ledger().record(
                 "handoff_transfer",
                 getattr(codec, "name", type(codec).__name__),
-                n_replicas=rt.n_replicas,
+                n_replicas=n_replicas,
                 fanout=1,
                 seconds=time.perf_counter() - t0,
                 row_bytes=rt._row_bytes(members[0]),
@@ -96,6 +98,24 @@ def grouped_transfer(rt, pairs) -> int:
                 g_active=len(members),
             )
     return total_changed
+
+
+def _transfer(rt, v: str, srcs, dsts, src_idx, dst_idx) -> int:
+    """:func:`grouped_transfer`'s join of one variable's source rows into
+    its target rows (replica rows, or window positions across processes).
+    Returns the rows changed."""
+    pop = rt._population(v)
+    codec, spec = rt._mesh_meta(v)
+    src_rows = tree_map(lambda x: x[src_idx], pop)
+    dst_rows = tree_map(lambda x: x[dst_idx], pop)
+    merged = codec.merge(spec, dst_rows, src_rows)
+    changed = (~codec.equal(spec, dst_rows, merged)).cpu().numpy()
+    for x, m in zip(tree_leaves(pop), tree_leaves(merged)):
+        x.index_copy_(0, dst_idx, m.to(x.dtype))
+    ch_rows = dsts[changed]
+    if ch_rows.size:
+        rt._mark_dirty_rows(v, ch_rows)
+    return int(ch_rows.size)
 
 
 class HandoffEngine:

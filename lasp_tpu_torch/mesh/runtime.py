@@ -102,10 +102,17 @@ processes' partials; reads join the shards' partials
 (``shard_gossip.sharded_join_all``) or pull rows from their owners
 (``_pull_rows``); a write pulls the rows it touches to every process,
 runs the one-process write path on them and lands them by owner
-(``_owner_window``); ``apply_batch`` runs its function on the
-all-gathered population and keeps the process's rows. Membership, Lasp's
-programs and the map writes refuse until they are ported, and the gather
-path's frontier scheduler, AAE and checkpoints refuse for parity with the
+(``_owner_window``: a map's admitted fields grow every process's block,
+and the actor guard names the global rows); ``apply_batch`` runs its
+function on the all-gathered population and keeps the process's rows.
+Lasp's programs run their callbacks on every process through those reads
+and writes. A membership change folds a graceful leave's tail on rows
+pulled to every process, lands the targets by owner, then moves the rows
+whose owner changed to the new layout (``comm.all_to_all``); a population
+that does not divide over the S shards gives shard ``i`` the rows ``[i·b,
+min((i+1)·b, R))``, ``b = ceil(R / S)`` (``_layout``), where JAX lays it
+out replicated or tiled: the states are the same. The gather path's
+frontier scheduler, AAE and checkpoints refuse for parity with the
 reference, which fails on them across processes (``_refuse_across``,
 ROADMAP A5c, C9); the frontier scheduler's refusal is wider than the
 reference's failure, which comes only at its dense arm.
@@ -161,15 +168,8 @@ _PACKABLE = ("lasp_orset", "lasp_orset_gbtree")
 #: rounds a fused block of ``converge_on_device`` runs between host syncs
 _CONVERGE_BLOCK = 8
 
-#: what a runtime sharded across processes does not carry yet, by its
-#: ROADMAP A5c item (queued in this order: 5, 9, 12)
-_ACROSS_TODO = {
-    5: "membership changes",
-    9: "Lasp's programs",
-    12: "Session, the CRDT map's writes and the actor guard",
-}
-
-#: what it does not carry because the reference cannot either, by its
+#: what a runtime sharded across processes does not carry because the
+#: reference cannot either, by its
 #: ROADMAP A5c item (closed as a deliberate parity, ROADMAP C9): each reads
 #: a population that spans processes on the host, which JAX refuses with
 #: :data:`_REFERENCE_FAILURE`. Item 2's refusal is wider than the
@@ -192,12 +192,10 @@ _REFERENCE_FAILURE = (
 
 def _across_reason(item: int) -> str:
     """Why a verb of ROADMAP A5c item ``item`` refuses across processes:
-    queued, or refused for parity with the reference's own failure."""
-    if item in _ACROSS_PARITY:
-        return (f"refused for parity: the reference fails there across "
-                f"processes ({_REFERENCE_FAILURE}); ROADMAP A5c.{item}, C9: "
-                f"{_ACROSS_PARITY[item]}")
-    return f"not ported yet (ROADMAP A5c.{item}: {_ACROSS_TODO[item]})"
+    for parity with the reference's own failure."""
+    return (f"refused for parity: the reference fails there across "
+            f"processes ({_REFERENCE_FAILURE}); ROADMAP A5c.{item}, C9: "
+            f"{_ACROSS_PARITY[item]}")
 
 
 class _RowWindow:
@@ -508,9 +506,13 @@ class ReplicatedRuntime:
         #: ships the full cut
         self._part_halo: dict = {}
         #: ``shard`` onto a process group's mesh: ``{"mesh", "axis",
-        #: "first", "count", "lo", "hi"}`` — this process's run of shards and
-        #: the replica rows ``[lo, hi)`` its populations hold — or None
+        #: "first", "count", "block", "lo", "hi"}`` — this process's run of
+        #: shards, a shard's rows and the replica rows ``[lo, hi)`` its
+        #: populations hold (:meth:`_layout`) — or None
         self._dist = None
+        #: the rows of the write across processes in progress
+        #: (:meth:`_owner_window`), whose positions stand in for replica rows
+        self._window = None
         #: bytes the process group carried for the partitioned rounds
         #: (``comm.CARRIED``, this process's sends)
         self.part_process_bytes_total = 0
@@ -593,14 +595,62 @@ class ReplicatedRuntime:
 
     def _gather_whole(self, block):
         """Every process's rows of a population, in order, on every
-        process: one ``all_gather`` a leaf (the processes hold equal runs of
-        rows)."""
-        mesh = self._dist["mesh"]
-        return tree_map(
-            lambda x: comm.all_gather(x.unsqueeze(0), mesh).reshape(
-                (-1,) + tuple(x.shape[1:])),
-            block,
-        )
+        process: one ``all_gather`` a leaf. A process's run of rows starts
+        at ``rank · stride`` (:meth:`_layout`); a shorter last run is padded
+        to the stride for the gather and the padding trimmed after."""
+        d = self._dist
+        stride = d["count"] * d["block"]
+        n = self.n_replicas
+
+        def one(x):
+            if x.shape[0] < stride:
+                x = torch.cat([x, x.new_zeros((stride - x.shape[0],) + tuple(x.shape[1:]))])
+            every = comm.all_gather(x.unsqueeze(0), d["mesh"])
+            return every.reshape((-1,) + tuple(x.shape[1:]))[:n]
+
+        return tree_map(one, block)
+
+    @staticmethod
+    def _layout(mesh, axis, n: int) -> dict:
+        """The rows this process holds of an ``n``-row population split
+        over ``axis`` of a process group's mesh: shard ``i`` holds ``[i·b,
+        min((i+1)·b, n))`` with ``b = ceil(n / S)``, so a population that
+        does not divide over the S shards ends in a shorter run (JAX lays
+        one out replicated or tiled instead; the states are the same), and
+        process ``p`` holds its run of ``count`` shards from ``p · count``."""
+        from .comm import local_shards
+        from .shard_gossip import axis_extent
+
+        first, count = local_shards(mesh, axis)
+        b = -(-n // axis_extent(mesh, axis))
+        return {"mesh": mesh, "axis": axis, "first": first, "count": count,
+                "block": b, "lo": min(first * b, n), "hi": min((first + count) * b, n)}
+
+    def _relayout(self, new_n: int) -> None:
+        """Move every population to the ``new_n``-row :meth:`_layout` of
+        the same mesh axis: each process sends each other the rows of its
+        block that the other holds now (one ``all_to_all`` a leaf, with
+        splits) — rows past the old population start at the lattice
+        bottom, rows past ``new_n`` drop — so no process gathers the whole
+        population."""
+        old = self._dist
+        new = self._layout(old["mesh"], old["axis"], new_n)
+        keep = min(self.n_replicas, new_n)
+        stride = new["count"] * new["block"]  # a process's run of new rows
+        lo, hi = old["lo"], old["hi"]
+        splits = [max(0, min(hi, (q + 1) * stride, keep) - max(lo, q * stride))
+                  for q in range(comm.process_count())]
+        sent = sum(splits)
+        fresh = new["hi"] - max(new["lo"], keep) if new["hi"] > keep else 0
+        for v in self.var_ids:
+            codec, spec = self._mesh_meta(v)
+            got = tree_map(lambda x: comm.all_to_all(x[:sent], old["mesh"], splits),
+                           self.states[v])
+            if fresh > 0:
+                got = tree_map(lambda a, b: torch.cat([a, b], dim=0), got,
+                               replicate(codec.new(spec, device=self.device), fresh))
+            self.states[v] = got
+        self._dist = new
 
     # -- dispatch plan ---------------------------------------------------------
     def _invalidate_plan(self, reason: str) -> None:
@@ -725,7 +775,6 @@ class ReplicatedRuntime:
         replicates over every row on its device (register on every
         partition). Idempotent, like the vnode's dets check
         (``src/lasp_vnode.erl:283-291``)."""
-        self._refuse_across("register", 9)
         if name in self._programs:
             return name
         program = program_cls(*args, **kwargs)
@@ -740,8 +789,9 @@ class ReplicatedRuntime:
         named by ``replica``, whose local view it reads and writes; the
         write spreads to the population by gossip. Deliver all events for
         one logical key to the same row: remove-then-add programs (the 2i
-        index) read their own earlier writes from the local row."""
-        self._refuse_across("process", 9)
+        index) read their own earlier writes from the local row. Across
+        processes every process runs the callbacks (SPMD): the row's reads
+        are pulled from its owner, its writes land by owner."""
         if not 0 <= replica < self.n_replicas:
             raise IndexError(
                 f"replica {replica} out of range for {self.n_replicas}"
@@ -764,7 +814,6 @@ class ReplicatedRuntime:
         accumulator (``src/lasp_execute_coverage_fsm.erl:57-94``). A replica
         list is the preflist-quorum variant (``src/lasp_execute_fsm.erl:
         135-148``): the join of just those rows."""
-        self._refuse_across("execute", 9)
         program = self._programs[name]
         session = self._session()
         # save/restore: a program's process callback may call execute
@@ -812,10 +861,11 @@ class ReplicatedRuntime:
         over the axes that separate the processes (the canonical joint
         axis, or ``"replicas"`` of a flat mesh), and each process keeps its
         run of shards' rows of every population and frees the rest. Such a
-        runtime stays on its process group: it re-shards only onto the
-        same rows."""
+        runtime stays on its process group, where a population that splits
+        over it gives each process the same rows on any of its meshes;
+        after a membership change ``shard`` is applied again as in JAX."""
         from ..device import same_device
-        from .comm import local_shards, population_sharding
+        from .comm import population_sharding
         from .shard_gossip import axis_extent, partition_tables
 
         if not same_device(mesh.device, self.device):
@@ -862,23 +912,13 @@ class ReplicatedRuntime:
             )
         layout = None
         if mesh.cross_process:
-            if self.debug_actors:
-                self._refuse_across_layout("debug_actors", 12)
             if self._aae_dirty is not None:
                 self._refuse_across_layout("an AAE forest", 8)
-            if self._programs:
-                self._refuse_across_layout("programs", 9)
-            first, count = local_shards(mesh, part_axis)
-            block = self.n_replicas // axis_extent(mesh, part_axis)
-            layout = {"mesh": mesh, "axis": part_axis, "first": first,
-                      "count": count, "lo": first * block,
-                      "hi": (first + count) * block}
-        if self._dist is not None and (
-                layout is None
-                or (layout["lo"], layout["hi"]) != (self._dist["lo"], self._dist["hi"])):
+            layout = self._layout(mesh, part_axis, self.n_replicas)
+        if self._dist is not None and layout is None:
             raise NotImplementedError(
-                "a runtime sharded across processes re-shards only onto its "
-                "process's rows of the same process group (ROADMAP A5c)"
+                "a runtime sharded across processes re-shards only onto a "
+                "mesh of its process group (ROADMAP A5c)"
             )
         plan = self._plan_partition(mesh, part_axis) if partition else None
         if plan is not None:
@@ -966,14 +1006,26 @@ class ReplicatedRuntime:
             keys.append((var.id, ("lane", len(var.actors) + fresh_offset)))
         return keys
 
+    def _site(self, r) -> int:
+        """The guard's write site of row ``r``: the row itself, or inside
+        an owner window (a write across processes) the replica row that the
+        window position ``r`` stands for — a negative row named by the row
+        it wraps to."""
+        r, win = int(r), self._window
+        if win is None:
+            return r
+        t = win.rows.size
+        return int(win.rows[r]) if 0 <= r < t else (r - t + win.n if r >= t else r)
+
     def _guard_actor_check(self, var, replica: int, actor) -> list:
         """The guard's check half: raise at an actor's second write site;
         return the registry keys for :meth:`_guard_actor_commit`, which runs
         only once the write applied (a failed write registers no site)."""
         keys = self._actor_guard_keys(var, actor)
+        site = self._site(replica)
         for key in keys:
             prev = self._actor_sites.get(key)
-            if prev is not None and prev != int(replica):
+            if prev is not None and prev != site:
                 if prev < 0:
                     raise ActorCollisionError(
                         f"actor {actor!r} departed with a crashed row "
@@ -985,16 +1037,17 @@ class ReplicatedRuntime:
                 raise ActorCollisionError(
                     f"actor {actor!r} already minted lane events for "
                     f"{var.id!r} at replica {prev}; writing from replica "
-                    f"{int(replica)} would collide its per-actor lane "
+                    f"{site} would collide its per-actor lane "
                     "(vclock dots / counter lanes merge by max: silent "
                     "element loss or lost increments). Use one actor per "
                     "writing replica."
                 )
         return keys
 
-    def _guard_actor_commit(self, keys, replica: int) -> None:
+    def _guard_actor_commit(self, keys, site: int) -> None:
+        """Register ``site`` (:meth:`_site`) for every key of a write."""
         for key in keys:
-            self._actor_sites.setdefault(key, int(replica))
+            self._actor_sites.setdefault(key, site)
 
     @staticmethod
     def _op_mints_lane(var, op: tuple) -> bool:
@@ -1053,7 +1106,8 @@ class ReplicatedRuntime:
             if guarded:
                 # keys re-derived after the apply interned the actor (its
                 # ("lane", idx) alias); a non-inflation mints nothing
-                self._guard_actor_commit(self._actor_guard_keys(var, actor), replica)
+                self._guard_actor_commit(self._actor_guard_keys(var, actor),
+                                         self._site(replica))
             self._mark_dirty_rows(var_id, [replica])
         # a non-inflation is silently ignored (the bind rule); new terms
         # fold into the edge tables
@@ -1169,11 +1223,12 @@ class ReplicatedRuntime:
                 if var.actors is not None and actor not in var.actors:
                     fresh.setdefault(actor, len(fresh))
                 off = fresh.get(actor, 0)
+                site = self._site(r)
                 for key in self._actor_guard_keys(var, actor, off):
                     prev = self._actor_sites.get(key, staged.get(key))
                     if prev is None:
-                        staged[key] = int(r)
-                    elif prev != int(r):
+                        staged[key] = site
+                    elif prev != site:
                         raise ActorCollisionError(
                             f"update_batch({var_id!r}): actor {actor!r} "
                             + ("departed with a crashed row and may "
@@ -1181,13 +1236,13 @@ class ReplicatedRuntime:
                                "name for the new incarnation)"
                                if prev < 0 else
                                f"mints lane events at replicas {prev} "
-                               f"and {int(r)}")
+                               f"and {site}")
                             + " — one actor per writing replica "
                             "(see debug_actors/_guard_actor_check)"
                         )
             # sites register at finalize, only for the ops that applied
             guard_actors = [
-                (actor, int(r), k)
+                (actor, self._site(r), k)
                 for k, (r, op, actor) in enumerate(ops)
                 if self._op_mints_lane(var, op)
             ]
@@ -1653,12 +1708,13 @@ class ReplicatedRuntime:
         population of their own, the same on every process: every host
         read of device rows across processes goes through here. Each owner
         reads its rows and one ``all_gather`` a leaf gives every process the
-        owners' copies (the processes hold equal runs of rows, in order)."""
+        owners' copies (process ``p``'s run of rows starts at ``p ·
+        stride``, :meth:`_layout`)."""
         idx = np.asarray(rows, dtype=np.int64)
         d = self._dist
         lo, hi = d["lo"], d["hi"]
         local = self._index(np.where((idx >= lo) & (idx < hi), idx - lo, 0))
-        owner = self._index(idx // (hi - lo))
+        owner = self._index(idx // (d["count"] * d["block"]))
         slot = self._index(np.arange(idx.size))
 
         def one(x):
@@ -1677,11 +1733,12 @@ class ReplicatedRuntime:
         out — a failing write included, whose applied prefix persists —
         each process lands the window's rows it owns into its blocks and
         the marks into the frontiers. The callers pass rows as window
-        positions (``win.compact``)."""
+        positions (``win.compact``); the actor guard names them by their
+        replica rows (:meth:`_site`). A map whose write admitted fields
+        grew its window: every process grows its own block alike (the
+        grown spec is host state), then lands its rows."""
         for v in var_ids:
             self._population(v)  # a late-declared variable, replicated
-            if self.store.variable(v).type_name == "riak_dt_map":
-                self._refuse_across("writes to a riak_dt_map", 12)
         d, n, plan = self._dist, self.n_replicas, self._plan
         blocks = {v: self.states[v] for v in var_ids}
         fronts = {v: self._frontier_mask_of(v).copy() for v in var_ids}
@@ -1689,11 +1746,18 @@ class ReplicatedRuntime:
         for v in var_ids:
             self.states[v] = self._pull_rows(blocks[v], win.rows)
             self._frontier[v] = np.zeros(t, dtype=bool)
-        self._dist, self.n_replicas = None, t
+        self._dist, self.n_replicas, self._window = None, t, win
         try:
             yield
         finally:
-            self._dist, self.n_replicas, self._plan = d, n, plan
+            self._dist, self.n_replicas, self._plan, self._window = d, n, plan, None
+            for v in var_ids:
+                var = self.store.variable(v)
+                if var.type_name == "riak_dt_map":
+                    grown = CrdtMap.grow(var.spec, blocks[v])
+                    if grown is not blocks[v]:
+                        # the window's re-layout dropped the plan in there
+                        blocks[v], self._plan = grown, None
             lo, hi = d["lo"], d["hi"]
             own = (win.rows >= lo) & (win.rows < hi)
             at = self._index(win.rows[own] - lo)
@@ -2160,14 +2224,15 @@ class ReplicatedRuntime:
             staged = {}
             for lane, row in zip(np.asarray(lanes).ravel().tolist(),
                                  np.asarray(rows).ravel().tolist()):
+                site = self._site(row)
                 for key in self._actor_guard_keys(var, ("lane", int(lane))):
                     prev = self._actor_sites.get(key, staged.get(key))
                     if prev is None:
-                        staged[key] = int(row)
-                    elif prev != int(row):
+                        staged[key] = site
+                    elif prev != site:
                         raise ActorCollisionError(
                             f"seed_increments({var_id!r}): lane {lane} "
-                            f"written from replicas {prev} and {int(row)}"
+                            f"written from replicas {prev} and {site}"
                             " — one actor lane, one writing replica"
                         )
         rows_np = np.asarray(rows, dtype=np.int64).ravel()
@@ -3608,7 +3673,8 @@ class ReplicatedRuntime:
             return join_all(codec, spec, pop)
         from .shard_gossip import sharded_join_all
 
-        return sharded_join_all(codec, spec, pop, d["mesh"], axis=d["axis"])
+        return sharded_join_all(codec, spec, pop, d["mesh"], axis=d["axis"],
+                                block=d["block"])
 
     def coverage_value(self, var_id: str):
         """Global join + decode — the coverage query
@@ -3842,8 +3908,12 @@ class ReplicatedRuntime:
         ``_handoff_guard`` when one is set; ``graceful=False`` models a
         crash: departing state is lost unless it already gossiped. The
         topology is re-supplied (``new_neighbors: int[new_n, K]``, checked
-        by :meth:`_validate_topology`) and the membership epoch advances."""
-        self._refuse_across("resize", 5)
+        by :meth:`_validate_topology`) and the membership epoch advances.
+
+        Across processes the departing rows and their targets are pulled to
+        every process, folded there as on one process and the targets land
+        by owner; then the rows move to the new population's layout
+        (:meth:`_relayout`)."""
         new_neighbors = self._validate_topology(new_n, new_neighbors)
         old_n = self.n_replicas
         actor_targets = None
@@ -3854,20 +3924,31 @@ class ReplicatedRuntime:
             if self._handoff_guard is not None:
                 self._handoff_guard(sources, targets)
             actor_targets = {int(s): int(t) for s, t in zip(sources, targets)}
-        for v in self.var_ids:
-            codec, spec = self._mesh_meta(v)
-            st = self.states[v]
-            if new_n < old_n:
-                head = tree_map(lambda x: x[:new_n].clone(), st)
-                if graceful:
-                    self._handoff(codec, spec, head,
-                                  tree_map(lambda x: x[new_n:], st), targets)
-                self.states[v] = head
-            elif new_n > old_n:
-                fresh = replicate(codec.new(spec, device=self.device), new_n - old_n)
-                self.states[v] = tree_map(
-                    lambda a, b: torch.cat([a, b], dim=0), st, fresh
-                )
+        if self._dist is not None:
+            if targets is not None:
+                tails = {v: self._pull_rows(self.states[v], sources) for v in self.var_ids}
+                win = _RowWindow(targets, old_n)
+                with self._owner_window(self.var_ids, win):
+                    for v in self.var_ids:
+                        codec, spec = self._mesh_meta(v)
+                        self._handoff(codec, spec, self.states[v], tails[v],
+                                      win.compact(targets))
+            self._relayout(new_n)
+        else:
+            for v in self.var_ids:
+                codec, spec = self._mesh_meta(v)
+                st = self.states[v]
+                if new_n < old_n:
+                    head = tree_map(lambda x: x[:new_n].clone(), st)
+                    if graceful:
+                        self._handoff(codec, spec, head,
+                                      tree_map(lambda x: x[new_n:], st), targets)
+                    self.states[v] = head
+                elif new_n > old_n:
+                    fresh = replicate(codec.new(spec, device=self.device), new_n - old_n)
+                    self.states[v] = tree_map(
+                        lambda a, b: torch.cat([a, b], dim=0), st, fresh
+                    )
         if new_n > old_n:
             kind = "join"
         elif new_n < old_n:
@@ -3885,7 +3966,6 @@ class ReplicatedRuntime:
         (``membership.plan.changed_delivery_rows``) scopes the frontier
         degrade to the rows whose delivery changed; None keeps the blanket
         all-dirty."""
-        self._refuse_across("membership_grow", 5)
         new_neighbors = self._validate_topology(new_n, new_neighbors)
         old_n = self.n_replicas
         if new_n <= old_n:
@@ -3893,12 +3973,15 @@ class ReplicatedRuntime:
                 f"membership_grow: new_n={new_n} must exceed the current "
                 f"{old_n}-replica population"
             )
-        for v in self.var_ids:
-            codec, spec = self._mesh_meta(v)
-            fresh = replicate(codec.new(spec, device=self.device), new_n - old_n)
-            self.states[v] = tree_map(
-                lambda a, b: torch.cat([a, b], dim=0), self.states[v], fresh
-            )
+        if self._dist is not None:
+            self._relayout(new_n)
+        else:
+            for v in self.var_ids:
+                codec, spec = self._mesh_meta(v)
+                fresh = replicate(codec.new(spec, device=self.device), new_n - old_n)
+                self.states[v] = tree_map(
+                    lambda a, b: torch.cat([a, b], dim=0), self.states[v], fresh
+                )
         self._finish_membership(
             "join_staged", old_n, new_n, new_neighbors,
             dirty_rows=dirty_rows, actor_targets=None,
@@ -3913,7 +3996,6 @@ class ReplicatedRuntime:
         received its handoff (missing entries retire to ``-1``);
         ``dirty_rows`` scopes the frontier degrade; None keeps the
         blanket."""
-        self._refuse_across("membership_drop_tail", 5)
         new_neighbors = self._validate_topology(new_n, new_neighbors)
         old_n = self.n_replicas
         if new_n >= old_n:
@@ -3921,8 +4003,11 @@ class ReplicatedRuntime:
                 f"membership_drop_tail: new_n={new_n} must be below the "
                 f"current {old_n}-replica population"
             )
-        for v in self.var_ids:
-            self.states[v] = tree_map(lambda x: x[:new_n].clone(), self.states[v])
+        if self._dist is not None:
+            self._relayout(new_n)
+        else:
+            for v in self.var_ids:
+                self.states[v] = tree_map(lambda x: x[:new_n].clone(), self.states[v])
         self._finish_membership(
             kind, old_n, new_n, new_neighbors,
             dirty_rows=dirty_rows, actor_targets=actor_targets,

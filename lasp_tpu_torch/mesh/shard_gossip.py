@@ -167,20 +167,27 @@ def ring_gossip_rounds(codec, spec, states, mesh: Mesh, n_rounds: int,
     return out, _changed_any(codec, spec, states, out, mesh)
 
 
-def sharded_join_all(codec, spec, states, mesh: Mesh, axis: str = "replicas"):
+def sharded_join_all(codec, spec, states, mesh: Mesh, axis: str = "replicas",
+                     block: "int | None" = None):
     """Coverage / quorum merge of a block-sharded population (this
     process's blocks): each shard folds its block to one state, ONE gather
     moves the S partials (one row a shard, not the population) and a fold
     joins them in shard order, so every process gets the same bits. Equal
-    to :func:`.gossip.join_all`."""
+    to :func:`.gossip.join_all`. ``block``: a shard's rows, where the
+    population does not divide over the shards (the last runs are short or
+    empty; an empty shard's partial is the lattice bottom)."""
     n_dev = axis_extent(mesh, axis)
     _first, n_loc = local_shards(mesh, axis)
-    r = tree_leaves(states)[0].shape[0]
-    if r % n_loc:
-        raise ValueError(f"{r} replicas do not divide over {n_loc} shards")
-    b = r // n_loc
+    lead = tree_leaves(states)[0]
+    r = lead.shape[0]
+    if block is None:
+        if r % n_loc:
+            raise ValueError(f"{r} replicas do not divide over {n_loc} shards")
+        block = r // n_loc
+    b = block
     tops = [
         join_all(codec, spec, tree_map(lambda x, s=s: x[s * b:(s + 1) * b], states))
+        if s * b < r else codec.new(spec, device=lead.device)
         for s in range(n_loc)
     ]
     gathered = tree_map(lambda *xs: comm.all_gather(torch.stack(xs), mesh), *tops)

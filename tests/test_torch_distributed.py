@@ -114,6 +114,7 @@ def _worker(rank: int, init: str, out_dir: str) -> None:
     from lasp_tpu_torch.mesh import shard_gossip as sg
     from lasp_tpu_torch.mesh.topology import locality_order, scale_free
     from lasp_tpu_torch.ops import PackedORSet, PackedORSetSpec
+    from lasp_tpu_torch.programs import ExampleKeylistProgram
     from lasp_tpu_torch.store import Store
 
     assert comm.init_distributed(init, 2, rank), "a cluster must join"
@@ -146,7 +147,7 @@ def _worker(rank: int, init: str, out_dir: str) -> None:
         ("resize", lambda: rt.resize(R, ring(R, 2))),
         ("join_rows", lambda: rt.join_rows(c, [0], [rt._row_of(c, 40)])),
         ("read_until", lambda: rt.read_until(0, c)),
-        ("register", lambda: rt.register("p", object)),
+        ("register", lambda: rt.register("p", ExampleKeylistProgram)),
         ("frontier_step", rt.frontier_step),
     ):
         try:
@@ -431,13 +432,13 @@ def test_sharded_scenarios_equal_the_one_process_run(ranks):
 
 
 def test_verbs_outside_the_slice_refuse_across_processes(ranks):
-    """The serving verbs run across processes now; the gather path's
-    frontier round, ``HashForest`` and ``save_runtime`` refuse for parity,
-    naming the reference's own failure there; membership and programs
-    refuse as queued ROADMAP A5c items."""
+    """The serving verbs, ``resize`` and ``register`` run across processes
+    now; the gather path's frontier round, ``HashForest`` and
+    ``save_runtime`` refuse for parity, naming the reference's own failure
+    there."""
     for res in ranks:
         got = res["refused"]
-        for verb in ("apply_batch", "join_rows", "read_until"):
+        for verb in ("apply_batch", "join_rows", "read_until", "resize", "register"):
             assert got[verb] is None, (verb, got[verb])
         for verb, item in (("frontier_step", 2), ("HashForest", 8), ("save_runtime", 10)):
             msg = got[verb]
@@ -446,9 +447,6 @@ def test_verbs_outside_the_slice_refuse_across_processes(ranks):
                 "non-addressable" in msg, (verb, msg)
         assert got["HashForest"].startswith("NotImplementedError")
         assert got["frontier_step"].startswith("RuntimeError")
-        for verb, item in (("resize", 5), ("register", 9)):
-            assert got[verb].startswith("NotImplementedError"), verb
-            assert f"not ported yet (ROADMAP A5c.{item}:" in got[verb], (verb, got[verb])
 
 
 if __name__ == "__main__":

@@ -14,12 +14,12 @@ against the same drive on one process of ``lasp_tpu`` in this process,
 which the workers never import.
 
 Beside them: the verbs still refused across processes (the gather path's
-frontier round, ``HashForest``, ``save_runtime`` for parity with the
-reference; membership, programs and map writes queued), and a test that
-pins the parity claim by running ``lasp_tpu`` itself across two
-processes, where those three verbs raise, and where a small frontier's
-sparse arm runs: the port's frontier refusal is wider than the
-reference's failure.
+frontier round, ``HashForest``, ``save_runtime``, for parity with the
+reference; membership, programs and map writes run, held in
+``tests/test_torch_distributed_membership.py``), and a test that pins the
+parity claim by running ``lasp_tpu`` itself across two processes, where
+those three verbs raise, and where a small frontier's sparse arm runs:
+the port's frontier refusal is wider than the reference's failure.
 
 The workers are this file run as a script (``__main__`` below)."""
 
@@ -346,6 +346,7 @@ def _refusals(rt, out_dir) -> dict:
     """What a cross-process gather-path runtime still refuses, by verb."""
     from lasp_tpu_torch.aae import HashForest
     from lasp_tpu_torch.chaos import ChaosRuntime, nemesis
+    from lasp_tpu_torch.programs import ExampleKeylistProgram
     from lasp_tpu_torch.serve import ServeFrontend, ServeLoop
     from lasp_tpu_torch.store.checkpoint import save_runtime
 
@@ -360,7 +361,7 @@ def _refusals(rt, out_dir) -> dict:
          .soak(mode="frontier")),
         ("ServeLoop", lambda: ServeLoop(ServeFrontend(rt, clock=lambda: 0.0)).start()),
         ("resize", lambda: rt.resize(R, rt._host_neighbors)),
-        ("register", lambda: rt.register("p", object)),
+        ("register", lambda: rt.register("p", ExampleKeylistProgram)),
     ):
         try:
             call()
@@ -720,9 +721,9 @@ def test_serve_across_processes_needs_a_shared_clock(runs):
 
 
 def test_refusals_across_processes_name_their_reason(runs):
-    """The parity refusals name the reference's own failure; the queued
-    ones name their ROADMAP item; a frontier soak and ``ServeLoop`` refuse
-    before anything runs."""
+    """The parity refusals name the reference's own failure; ``resize``
+    and ``register`` run; a frontier soak and ``ServeLoop`` refuse before
+    anything runs."""
     _want, ranks = runs
     for res in ranks:
         got = res["refused"]
@@ -731,8 +732,7 @@ def test_refusals_across_processes_name_their_reason(runs):
             assert got[verb] is not None and REFERENCE_FAILURE in got[verb], verb
             assert f"A5c.{item}" in got[verb] and "parity" in got[verb], verb
         assert "refused whole" in got["frontier_step"] and "sparse arm" in got["frontier_step"]
-        assert "not ported yet (ROADMAP A5c.5" in got["resize"]
-        assert "not ported yet (ROADMAP A5c.9" in got["register"]
+        assert got["resize"] is None and got["register"] is None
         assert got["ServeLoop"].startswith("RuntimeError: ServeLoop runs cycles")
 
 
