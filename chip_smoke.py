@@ -268,7 +268,18 @@ Phases, each of which fails the run on any error:
                replica rows; each held against a one-process run (shard
                hashes, rounds, values, messages), K1 launched on each rank
                and its widest launch held against its plain version;
-               within 150 s.
+               within 150 s; then (f) the gather path's sparse frontier:
+               the engine's population plus two OR-SWOTs (A=4, E=8 and
+               A=E=64) at 100,000 replicas, 64 writes a variable,
+               ``frontier_step`` while every reach stays under the
+               crossover, the round past it refused for parity with every
+               shard hash and frontier unchanged, ``run_to_convergence(
+               mode="auto")``, then writes at 2% of the rows and ``auto``
+               again; each held against a one-process run (shard hashes,
+               every residual, rounds, rows touched, coverage), each arm's
+               rounds, bytes carried and seconds recorded, K2 and K3
+               launched on each rank and every kernel's widest launch of
+               (d)-(f) held against its plain version; within 90 s.
 
 Prints the card's name and power limit, one JSON line of kernels, and as
 the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -670,7 +681,10 @@ def _parity_k3_paths(torch, cg, gen) -> int:
     return cases
 
 
-def _engine(torch, n, nbrs):
+def _engine(torch, n, nbrs, orswots=()):
+    """The engine population (packed OR-Set 64 x 16 x 4 and G-Counter, 16
+    writers) on ``nbrs``, with an OR-SWOT ``(id, n_elems, n_actors)`` of
+    ``orswots`` each declared beside them."""
     from lasp_tpu_torch.dataflow import Graph
     from lasp_tpu_torch.mesh import ReplicatedRuntime
     from lasp_tpu_torch.store import Store
@@ -679,6 +693,8 @@ def _engine(torch, n, nbrs):
     ads = store.declare(id="ads", type="lasp_orset", n_elems=64, n_actors=16,
                         tokens_per_actor=4)
     views = store.declare(id="views", type="riak_dt_gcounter", n_actors=16)
+    for vid, n_elems, n_actors in orswots:
+        store.declare(id=vid, type="riak_dt_orswot", n_elems=n_elems, n_actors=n_actors)
     rt = ReplicatedRuntime(store, Graph(store), n, nbrs, packed=True)
     writers = np.random.RandomState(5).choice(n, 16, replace=False)
     expected = set()
@@ -2924,11 +2940,7 @@ def _check_serving(r: int, got: dict, twins: dict, quorum: dict) -> None:
     if (serve != one or bad or not serve["report"]["no_write_lost"]
             or not serve["report"]["threshold_parity"]["parity"]):
         raise RuntimeError(f"distributed (d) serve: rank {r} {serve}, one process {one}")
-    if got["launches"]["gossip_round_dense"] < 1:
-        raise RuntimeError(f"distributed (d): rank {r} never launched K1")
-    chk = got["kernel_checks"].get("gossip_round_dense")
-    if chk is None or chk["max_abs_err"] != 0:
-        raise RuntimeError(f"distributed (d): rank {r}'s widest K1 launch: {chk}")
+    _check_segment_kernels("d", r, got, ("gossip_round_dense",))
 
 
 #: its segment (e), membership, Lasp's programs, ``Session``, the map and the
@@ -3187,11 +3199,174 @@ def _check_membership_e(r: int, got: dict, twins: dict) -> None:
                 if not hs or any(theirs[v][k] != h for k, h in hs.items()):
                     raise RuntimeError(f"distributed (e) {part} {step or ''}: rank {r}'s "
                                        f"shards of {v} differ from the one-process run's")
-    if got["launches"]["gossip_round_dense"] < 1:
-        raise RuntimeError(f"distributed (e): rank {r} never launched K1")
-    chk = got["kernel_checks"].get("gossip_round_dense")
-    if chk is None or chk["max_abs_err"] != 0:
-        raise RuntimeError(f"distributed (e): rank {r}'s widest K1 launch: {chk}")
+    _check_segment_kernels("e", r, got, ("gossip_round_dense",))
+
+
+def _check_segment_kernels(seg: str, r: int, got: dict, needed) -> None:
+    """Rank ``r``'s segment ``seg`` launched each kernel of ``needed``, and
+    each kernel it launched was held at its widest launch against its plain
+    version at max_abs_err 0."""
+    for name in needed:
+        if got["launches"][name] < 1:
+            raise RuntimeError(f"distributed ({seg}): rank {r} never launched {name}")
+    launched = {name for name, c in got["launches"].items() if c}
+    if not launched <= set(got["kernel_checks"]):
+        raise RuntimeError(f"distributed ({seg}): rank {r} launched {sorted(launched)}, "
+                           f"held {sorted(got['kernel_checks'])}")
+    for name, chk in got["kernel_checks"].items():
+        if chk["max_abs_err"] != 0:
+            raise RuntimeError(f"distributed ({seg}): rank {r}'s widest {name} launch "
+                               f"disagrees with its plain version: {chk}")
+
+
+#: its segment (f), the gather path's sparse frontier across the ranks: the
+#: engine's population (``_engine`` on ``random_regular(100_000, 3,
+#: seed=0)``) plus two OR-SWOTs, ``many_vars``' narrow rows (A=4, E=8) and
+#: the rebalance phase's (A=E=64), so that K2 and K3 both launch; 64 writes
+#: a variable, then writes at 2% of the rows a variable (``frontier_sparse``'s
+#: share). No cut
+_FRONTIER_F = {"n_replicas": 100_000, "writes": 64, "share": 0.02, "limit_s": 90}
+
+#: each (f) variable's universe: (element prefix, or None for the counter,
+#: elements, actors); the engine's writers fill ``ads``' 64 elements and
+#: both its variables' 16 actors
+_F_UNIVERSE = {"ads": ("ad", 64, 16), "views": (None, 0, 16), "narrow": ("x", 8, 4),
+               "wide": ("y", 64, 64)}
+
+
+def _frontier_writes(rt, rng, k: int) -> None:
+    """Client writes at ``k`` rows of each variable drawn from ``rng``:
+    row ``r`` adds element ``r % elements`` (increments the counter) as
+    actor ``w{r % actors}``, so actors write at many rows, as in
+    ``many_vars``."""
+    for v in rt.var_ids:
+        name, n_elems, n_actors = _F_UNIVERSE[v]
+        rows = [int(r) for r in rng.choice(rt.n_replicas, k, replace=False)]
+        op = (lambda r: ("increment", 1)) if name is None else (
+            lambda r: ("add", f"{name}{r % n_elems}"))
+        rt.update_batch(v, [(r, op(r), f"w{r % n_actors}") for r in rows])
+
+
+def _frontier_f(torch, shard) -> dict:
+    """Segment (f)'s drive with ``shard`` applied to its runtime (a rank's)
+    or not (the parent's one-process twin): 64 writes a variable;
+    ``frontier_step`` while no variable's reach passes the crossover (the
+    sparse arm); across the ranks the round past it must refuse for parity
+    (ROADMAP A5c.2, C9) and leave every shard hash and frontier as it was;
+    ``run_to_convergence(mode="auto")`` to quiescence; writes at 2% of the
+    rows a variable and ``auto`` again. Returns each stage's shard hashes,
+    every round's residual, the explicit rounds' ``[residual,
+    frontier_rows_last, dense falls]``, ``auto``'s rounds, the coverage
+    values, the row bytes and each arm's rounds, bytes carried and
+    seconds (the dense arm: the gather step ``auto`` takes across the
+    ranks for a round past the crossover)."""
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, comm, random_regular
+
+    n = _FRONTIER_F["n_replicas"]
+    rt, _ids, _expected, _total = _engine(
+        torch, n, random_regular(n, 3, seed=0), orswots=(("narrow", 8, 4), ("wide", 64, 64)))
+    rt = shard(rt)
+    arms = {arm: {"rounds": 0, "bytes": 0, "seconds": 0.0} for arm in ("sparse", "dense")}
+
+    def timed(arm, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), comm.carried_bytes()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            arms[arm]["rounds"] += 1
+            arms[arm]["seconds"] += time.perf_counter() - t0
+            arms[arm]["bytes"] += comm.carried_bytes() - c0
+            return out
+        return run
+
+    # every round of the drive by arm (instance attributes over the methods
+    # that run_to_convergence calls)
+    rt.frontier_step = timed("sparse", rt.frontier_step)
+    rt._gather_step_exact = timed("dense", rt._gather_step_exact)
+    rng = np.random.RandomState(31)
+    out = {"hashes": {}, "residuals": {}, "rounds": {}, "seconds": {}, "sparse": []}
+    _frontier_writes(rt, rng, _FRONTIER_F["writes"])
+    n0, t0 = len(rt.round_residuals), time.perf_counter()
+    while rt._frontier_dense_arm(None) is None:
+        res = rt.frontier_step()
+        out["sparse"].append([res, rt.frontier_rows_last, rt.frontier_dense_falls_last])
+        if not res:
+            break
+    torch.cuda.synchronize()
+    out["seconds"]["sparse"] = time.perf_counter() - t0
+    out["residuals"]["sparse"] = rt.round_residuals[n0:]
+    out["hashes"]["sparse"] = _e_hashes(rt)
+    if rt._dist is not None:
+        frontiers = {v: rt._frontier[v].copy() for v in rt.var_ids}
+        try:
+            ReplicatedRuntime.frontier_step(rt)
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        if refused is None or "past the crossover" not in refused or "A5c.2" not in refused:
+            raise RuntimeError(f"distributed (f): the round past the crossover: {refused}")
+        if _e_hashes(rt) != out["hashes"]["sparse"] or any(
+                not np.array_equal(rt._frontier[v], f) for v, f in frontiers.items()):
+            raise RuntimeError("distributed (f): the refused round moved a state or frontier")
+        out["refused"] = refused
+    for stage, k in (("auto", 0), ("auto_2pct", int(_FRONTIER_F["share"] * n))):
+        if k:
+            _frontier_writes(rt, rng, k)
+        n0 = len(rt.round_residuals)
+        out["rounds"][stage], out["seconds"][stage] = _timed_step(
+            torch, lambda: rt.run_to_convergence(mode="auto"))
+        out["residuals"][stage] = rt.round_residuals[n0:]
+        out["hashes"][stage] = _e_hashes(rt)
+    out["coverage"] = {v: sorted(x) if isinstance(x, (set, frozenset)) else x
+                       for v, x in ((v, rt.coverage_value(v)) for v in rt.var_ids)}
+    out["row_bytes"] = {v: rt._row_bytes(v) for v in rt.var_ids}
+    out["arms"] = arms
+    return out
+
+
+def _frontier_worker(torch, cg, mesh) -> dict:
+    """Segment (f) on one rank, on the gather path of the same mesh: its
+    K1 / K2 / K3 launches counted and each one's widest launch held
+    against its plain version."""
+    import lasp_tpu_torch.mesh.gossip as gossip_mod
+
+    def shard(rt):
+        rt.shard(mesh)
+        if rt._dist is None or rt._partition is not None:
+            raise RuntimeError("distributed (f): the runtime is not on the gather path")
+        return rt
+
+    kept, undo = _widest_calls(torch, cg)
+    # the gather path calls K1 by the name mesh.gossip imported
+    inner = gossip_mod.gossip_round_dense
+    gossip_mod.gossip_round_dense = cg.gossip_round_dense
+    cg.reset_launches()
+    try:
+        out = _frontier_f(torch, shard)
+        out["launches"] = dict(cg.LAUNCHES)  # the drive's, before the check
+    finally:
+        gossip_mod.gossip_round_dense = inner
+        undo()
+    out["kernel_checks"] = _check_widest(torch, cg, kept)
+    return out
+
+
+def _check_frontier_f(r: int, got: dict, twin: dict) -> None:
+    """Hold rank ``r``'s segment (f) against the one-process twin; raise on
+    any difference."""
+    for key in ("sparse", "residuals", "rounds", "coverage", "row_bytes"):
+        if got[key] != twin[key]:
+            raise RuntimeError(f"distributed (f): rank {r}'s {key} {got[key]}, one "
+                               f"process {twin[key]}")
+    for stage, by_var in got["hashes"].items():
+        for v, hs in by_var.items():
+            if not hs or any(twin["hashes"][stage][v][k] != h for k, h in hs.items()):
+                raise RuntimeError(f"distributed (f) {stage}: rank {r}'s shards of {v} "
+                                   "differ from the one-process run's")
+    if not got["sparse"] or any(falls for _res, _rows, falls in got["sparse"]):
+        raise RuntimeError(f"distributed (f): rank {r}'s explicit rounds {got['sparse']}")
+    _check_segment_kernels("f", r, got, ("gossip_round_rows", "gossip_round_rows_vclock"))
 
 
 def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
@@ -3218,8 +3393,11 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
     ``Session``, the map and the actor guard on the gather path
     (:func:`_membership_worker`), is held against this process's
     one-process twins by :func:`_check_membership_e` and must end within
-    ``_MEMBERSHIP_E["limit_s"]``. A worker that fails or overruns fails the
-    phase, with the tail of its stderr."""
+    ``_MEMBERSHIP_E["limit_s"]``. Then segment (f), the gather path's
+    sparse frontier (:func:`_frontier_worker`), is held against this
+    process's one-process twin by :func:`_check_frontier_f` and must end
+    within ``_FRONTIER_F["limit_s"]``. A worker that fails or overruns
+    fails the phase, with the tail of its stderr."""
     import os
 
     out_dir = tempfile.mkdtemp(prefix="lasp-dist-")
@@ -3238,9 +3416,13 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
         t_twins = time.perf_counter()
         etwins = _membership_parts(torch, lambda rt: rt)
         etwins["seconds"]["all"] = time.perf_counter() - t_twins
+        t_twins = time.perf_counter()
+        ftwin = _frontier_f(torch, lambda rt: rt)
+        ftwin["seconds"]["all"] = time.perf_counter() - t_twins
         # as the workers' files hold them (tuples as lists, keys as text)
         twins = json.loads(json.dumps(twins, default=str))
         etwins = json.loads(json.dumps(etwins, default=str))
+        ftwin = json.loads(json.dumps(ftwin, default=str))
         for r, p in enumerate(procs):
             left = _DIST["timeout_s"] - (time.perf_counter() - t0)
             try:
@@ -3316,6 +3498,7 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
             raise RuntimeError(f"distributed: rank {r} held {sorted(res['kernel_checks'])}")
         _check_serving(r, res["serving"], twins, quorum)
         _check_membership_e(r, res["membership_e"], etwins)
+        _check_frontier_f(r, res["frontier_f"], ftwin)
     line = {"seconds": secs, "world": _DIST["world"], "backend": ranks[0]["backend"],
             "ranks": [{
                 "rank": res["rank"], "device": res["device"],
@@ -3358,18 +3541,23 @@ def phase_distributed(torch, reference: dict, quorum: dict) -> dict:
                     "session": {k: v for k, v in res["membership_e"]["session"].items()
                                 if k != "hashes"},
                 },
+                "frontier_f": {k: v for k, v in res["frontier_f"].items()
+                               if k not in ("hashes", "residuals", "coverage")},
             } for res in ranks],
-            "serving_twins_s": twins["seconds"], "membership_e_twins_s": etwins["seconds"]}
+            "serving_twins_s": twins["seconds"], "membership_e_twins_s": etwins["seconds"],
+            "frontier_f_twin": {k: ftwin[k] for k in ("seconds", "arms", "rounds")}}
     _log_line("distributed", line)
-    limit = _DIST["limit_s"] + _SERVING["limit_s"] + _MEMBERSHIP_E["limit_s"]
+    limit = (_DIST["limit_s"] + _SERVING["limit_s"] + _MEMBERSHIP_E["limit_s"]
+             + _FRONTIER_F["limit_s"])
     if secs > limit:
         raise RuntimeError(f"distributed: the phase took {secs:.1f} s, over {limit} s")
-    for res in ranks:  # (a)-(c)'s own bound: the phase less this rank's (d), (e)
-        abc = secs - res["seconds"]["d"] - res["seconds"]["e"]
+    for res in ranks:  # (a)-(c)'s own bound: the phase less this rank's (d)-(f)
+        abc = secs - res["seconds"]["d"] - res["seconds"]["e"] - res["seconds"]["f"]
         if abc > _DIST["limit_s"]:
             raise RuntimeError(f"distributed (a)-(c): rank {res['rank']} took {abc:.1f} s, "
                                f"over {_DIST['limit_s']} s")
-    for seg, lim in (("d", _SERVING["limit_s"]), ("e", _MEMBERSHIP_E["limit_s"])):
+    for seg, lim in (("d", _SERVING["limit_s"]), ("e", _MEMBERSHIP_E["limit_s"]),
+                     ("f", _FRONTIER_F["limit_s"])):
         took = max(res["seconds"][seg] for res in ranks)
         if took > lim:
             raise RuntimeError(f"distributed ({seg}): took {took:.1f} s, over {lim} s")
@@ -3538,13 +3726,19 @@ def distributed_worker(out_dir: str) -> int:
     t0 = time.perf_counter()
     res["membership_e"] = segment(lambda: _membership_worker(torch, cg, mesh))
     res["seconds"]["e"] = time.perf_counter() - t0
+    # (f) the gather path's sparse frontier, there too
+    t0 = time.perf_counter()
+    res["frontier_f"] = segment(lambda: _frontier_worker(torch, cg, mesh))
+    res["seconds"]["f"] = time.perf_counter() - t0
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res, default=str))
     print(json.dumps({"rank": rank, "launches": res["launches"],
                       "serving_launches": res["serving"]["launches"],
                       "membership_e_launches": res["membership_e"]["launches"],
+                      "frontier_f_launches": res["frontier_f"]["launches"],
                       "seconds": res["seconds"],
                       "serving_seconds": res["serving"]["seconds"],
-                      "membership_e_seconds": res["membership_e"]["seconds"]}), flush=True)
+                      "membership_e_seconds": res["membership_e"]["seconds"],
+                      "frontier_f_seconds": res["frontier_f"]["seconds"]}), flush=True)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -4554,9 +4748,16 @@ def main() -> int:
         # and in its segment (e), membership, programs and Session
         k["launches_distributed_membership_by_rank"] = [
             r["membership_e"]["launches"][k["name"]] for r in dist_line["ranks"]]
-    kernels[0]["distributed_membership_max_abs_err"] = max(
-        r["membership_e"]["kernel_checks"]["gossip_round_dense"]["max_abs_err"]
-        for r in dist_line["ranks"])
+        # and in its segment (f), the gather path's sparse frontier
+        k["launches_distributed_frontier_by_rank"] = [
+            r["frontier_f"]["launches"][k["name"]] for r in dist_line["ranks"]]
+        # each rank's widest launch of (d)-(f) against the plain version
+        # (None: the kernel did not launch in that segment)
+        k["distributed_segment_max_abs_err"] = {
+            seg: max((r[key]["kernel_checks"][k["name"]]["max_abs_err"]
+                      for r in dist_line["ranks"]
+                      if k["name"] in r[key]["kernel_checks"]), default=None)
+            for seg, key in (("d", "serving"), ("e", "membership_e"), ("f", "frontier_f"))}
     kernels[0]["adcounter_shapes"] = k1_adcounter
     # the partitioned path's K1 shapes: a shard's [block | received] source
     kernels[0]["shard_shapes"] = k1_shard

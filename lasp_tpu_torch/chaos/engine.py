@@ -51,6 +51,7 @@ import torch
 from ..bridge_state import to_numpy
 from ..lattice.base import tree_leaves, tree_map, tree_unflatten
 from ..mesh.gossip import join_all, rows_traffic_bytes
+from ..mesh.runtime import _across_reason
 from ..ops.fused import window_masks
 from ..telemetry import counter, events as tel_events, gauge, span
 from ..telemetry.convergence import get_monitor
@@ -419,11 +420,13 @@ class ChaosRuntime:
         rows across it. Returns the step's residual (the engine
         contract). Deterministic in ``(seed, schedule, state)``."""
         rnd = self.round
-        if mode == "frontier" and self.rt._dist is not None:
+        if mode == "frontier" and self.rt._gather_across():
             # refused before the round's actions run: nothing moves
-            reason = self.rt._frontier_unsupported()
-            if reason is not None:
-                raise RuntimeError(f"frontier chaos rounds unavailable: {reason}")
+            raise RuntimeError(
+                "frontier chaos rounds unavailable: a fault window's change "
+                "degrades every frontier to all-dirty, the dense arm, which "
+                f"across processes is {_across_reason(2)}"
+            )
         self.sync_membership()
         self._apply_actions(rnd)
         if self.aae is not None:

@@ -477,13 +477,14 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _from_wire(torch.cat(outs), x)
 
 
-def all_to_all(x: torch.Tensor, mesh: Mesh, splits=None) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, mesh: Mesh, splits=None, recv=None) -> torch.Tensor:
     """Rows for every process, in process order (``splits[p]`` rows for
     process ``p``) -> the rows every process sent this one, in process
     order. Without ``splits`` every process sends every process the same
     share of an ``x`` of the same rows everywhere (the exchanges' SPMD
-    buffers); with them the processes first swap their counts. One
-    process: ``x``."""
+    buffers); with them the processes first swap their counts, unless
+    ``recv`` gives the rows this process takes from each (a plan every
+    process computed alike). One process: ``x``."""
     if not mesh.cross_process:
         return x
     dist = _dist()
@@ -498,10 +499,12 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, splits=None) -> torch.Tensor:
         if sum(splits) != n or len(splits) != world:
             raise ValueError(
                 f"splits {splits} do not cover {n} rows of {world} processes")
-        counts = torch.tensor(splits, dtype=torch.int64)
-        recv_counts = torch.empty_like(counts)
-        dist.all_to_all_single(recv_counts, counts)
-        recv = recv_counts.tolist()
+        if recv is None:
+            counts = torch.tensor(splits, dtype=torch.int64)
+            recv_counts = torch.empty_like(counts)
+            dist.all_to_all_single(recv_counts, counts)
+            recv = recv_counts.tolist()
+        recv = [int(r) for r in recv]
     wire = _to_wire(x)
     out = torch.empty((sum(recv),) + tuple(wire.shape[1:]), dtype=wire.dtype,
                       device=wire.device)

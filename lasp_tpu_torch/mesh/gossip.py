@@ -50,22 +50,24 @@ def chunk_rows(x) -> int:
 
 def changed_rows(codec, spec, a, b) -> torch.Tensor:
     """0-d ``int32``: the replica rows where populations ``a`` and ``b``
-    differ by ``codec.equal`` (a round's residual), counted a block of
-    :func:`chunk_rows` rows at a time."""
+    differ by ``codec.equal`` (a round's residual)."""
+    return torch.sum(changed_flags(codec, spec, a, b), dtype=torch.int32)
+
+
+def changed_flags(codec, spec, a, b) -> torch.Tensor:
+    """``bool[R]``: which replica rows of populations ``a`` and ``b``
+    differ by ``codec.equal``, compared a block of :func:`chunk_rows` rows
+    at a time."""
     leaves = tree_leaves(a)
     n = leaves[0].shape[0]
     step = min(chunk_rows(x) for x in leaves)
     if step >= n:
-        return torch.sum(~codec.equal(spec, a, b), dtype=torch.int32)
-    total = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
-    for s in range(0, n, step):
-        rows = slice(s, s + step)
-        total += torch.sum(
-            ~codec.equal(spec, tree_map(lambda x: x[rows], a),
-                         tree_map(lambda x: x[rows], b)),
-            dtype=torch.int32,
-        )
-    return total
+        return ~codec.equal(spec, a, b)
+    return torch.cat([
+        ~codec.equal(spec, tree_map(lambda x: x[s:s + step], a),
+                     tree_map(lambda x: x[s:s + step], b))
+        for s in range(0, n, step)
+    ])
 
 
 def _tree_where(pred, a, b):

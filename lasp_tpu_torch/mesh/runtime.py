@@ -112,10 +112,17 @@ whose owner changed to the new layout (``comm.all_to_all``); a population
 that does not divide over the S shards gives shard ``i`` the rows ``[i·b,
 min((i+1)·b, R))``, ``b = ceil(R / S)`` (``_layout``), where JAX lays it
 out replicated or tiled: the states are the same. The gather path's
-frontier scheduler, AAE and checkpoints refuse for parity with the
-reference, which fails on them across processes (``_refuse_across``,
-ROADMAP A5c, C9); the frontier scheduler's refusal is wider than the
-reference's failure, which comes only at its dense arm.
+frontier scheduler runs its sparse arm: each process joins the reachable
+rows it holds with K2 / K3 over a compact source of the rows the round
+reads, the neighbour rows it does not hold moved from their owners by one
+``comm.all_to_all`` a leaf, and every process's changed flags
+all-gathered, so the host frontiers stay the same everywhere
+(``_rows_round_across``). A frontier round in which a variable's reach
+passes the crossover (the dense arm), AAE and checkpoints refuse for
+parity with the reference, which fails on them across processes
+(``_refuse_across``, ROADMAP A5c, C9); ``run_to_convergence(mode="auto")``
+takes the gather path's dense step for such a round instead, with exact
+changed rows as the next frontier.
 """
 
 from __future__ import annotations
@@ -150,7 +157,7 @@ from . import gossip as gossip_mod
 from . import ingest as ingest_mod
 from .gossip import (
     _word_planes,
-    changed_rows,
+    changed_flags,
     divergence,
     frontier_reach,
     gossip_round,
@@ -169,17 +176,13 @@ _PACKABLE = ("lasp_orset", "lasp_orset_gbtree")
 _CONVERGE_BLOCK = 8
 
 #: what a runtime sharded across processes does not carry because the
-#: reference cannot either, by its
-#: ROADMAP A5c item (closed as a deliberate parity, ROADMAP C9): each reads
-#: a population that spans processes on the host, which JAX refuses with
-#: :data:`_REFERENCE_FAILURE`. Item 2's refusal is wider than the
-#: reference's failure: JAX fails only at the dense arm, and its sparse arm
-#: (a reach under the crossover) runs across processes
+#: reference cannot either, by its ROADMAP A5c item (closed as a deliberate
+#: parity, ROADMAP C9): each reads a population that spans processes on the
+#: host, which JAX refuses with :data:`_REFERENCE_FAILURE`
 _ACROSS_PARITY = {
-    2: "the gather path's frontier scheduler, refused whole, though JAX "
-       "fails only at its dense arm (a reach past the crossover reads the "
-       "population's changed rows on the host); its sparse arm runs across "
-       "processes in JAX and is queued here after A5c.12",
+    2: "the gather path's frontier round at its dense arm (a variable whose "
+       "reach passes the crossover: JAX reads the population's changed rows "
+       "on the host); its sparse arm runs across processes",
     8: "AAE (JAX's HashForest hashes the population on the host)",
     10: "checkpoints (JAX's save_runtime reads the population on the host)",
 }
@@ -2667,13 +2670,15 @@ class ReplicatedRuntime:
         out.update({v: self._from_dense_row(v, x) for v, x in dense.items()})
         return out
 
-    def _dense_round(self, edge_mask, tables) -> torch.Tensor:
+    def _dense_round(self, edge_mask, tables, flags=None) -> torch.Tensor:
         """One step: the local round (with dataflow edges or triggers),
         then one gossip round over every variable. Returns the per-var
         residual vector — rows whose state changed from before the local
         round to after the gossip, by ``codec.equal`` — as an int32 device
         tensor, without a host sync (across processes, the sum of every
-        process's rows: one ``all_reduce`` a round)."""
+        process's rows: one ``all_reduce`` a round). A ``flags`` dict takes
+        each variable's per-row changed flags (``bool`` over the rows this
+        process holds)."""
         part = self._partition
         if part is not None and edge_mask is not None:
             # the boundary exchange bakes its row plan; masked edges need
@@ -2701,7 +2706,10 @@ class ReplicatedRuntime:
                 new = self._gather_round(codec, spec, swept.pop(v), mask)
             else:
                 new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
-            res.append(changed_rows(codec, spec, prev[v], new))
+            changed = changed_flags(codec, spec, prev[v], new)
+            if flags is not None:
+                flags[v] = changed
+            res.append(torch.sum(changed, dtype=torch.int32))
             self.states[v] = new
         if not res:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
@@ -2747,6 +2755,30 @@ class ReplicatedRuntime:
             self.part_process_bytes_total += comm.carried_bytes() - c0
         residual = int(res_vec.sum())
         self._frontier_after_dense(res_vec.numpy())
+        self._emit_step_telemetry(res_vec, residual, elapsed)
+        return residual
+
+    def _gather_step_exact(self, edge_mask) -> int:
+        """:meth:`step` across processes on the gather path, leaving each
+        variable's frontier at its exact changed rows where ``step`` leaves
+        it all-dirty: every process's per-row flags, one byte a row,
+        all-gathered. The dense round of ``run_to_convergence(mode=
+        "auto")`` there, so that the next round can take the sparse arm."""
+        tables = self._ensure_step()
+        self._frontier_sync_mask(edge_mask)
+        flags: dict = {}
+        with span("gossip.round", annotate=True):
+            t0 = time.perf_counter()
+            res_vec = self._dense_round(edge_mask, tables, flags).cpu()
+            every = self._gather_whole(
+                torch.stack([flags[v] for v in self.var_ids], dim=1)
+            ).cpu().numpy()  # [R, V]
+            elapsed = time.perf_counter() - t0
+        residual = int(res_vec.sum())
+        for i, v in enumerate(self.var_ids):
+            self._frontier[v] = every[:, i].copy()
+            if res_vec[i]:
+                self._aae_mark(v, np.flatnonzero(every[:, i]))
         self._emit_step_telemetry(res_vec, residual, elapsed)
         return residual
 
@@ -2963,20 +2995,14 @@ class ReplicatedRuntime:
         if mode not in ("dense", "frontier", "auto"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode != "dense":
-            reason = self._frontier_unsupported()
+            key, reason = self._frontier_unsupported_key()
             if reason is None:
-                return self._frontier_convergence(max_rounds, edge_mask)
+                return self._frontier_convergence(max_rounds, edge_mask,
+                                                  auto=mode == "auto")
             if mode == "frontier":
                 raise RuntimeError(f"frontier gossip unavailable here: {reason}")
             # auto degraded to dense, observably
-            key = "dataflow"
-            counter(
-                "gossip_frontier_dense_fallbacks_total",
-                help="dense rounds/runs taken where frontier scheduling "
-                     "was requested, by reason",
-                reason=key,
-            ).inc()
-            tel_events.emit("frontier_skip", fallback=key, mode="auto")
+            self._count_dense_fallback(key)
         if block > 1:
             rounds = 0
             while rounds < max_rounds:
@@ -3068,17 +3094,55 @@ class ReplicatedRuntime:
         self._population(var_id)
         return int(self._frontier[var_id].sum())
 
-    def _frontier_unsupported(self) -> "str | None":
-        """None when the frontier engine can schedule this runtime, else
-        the reason the dense sweep is required."""
+    def _frontier_unsupported_key(self) -> tuple:
+        """``(reason_key, reason)`` when this runtime needs the dense sweep
+        (the key labels ``gossip_frontier_dense_fallbacks_total``), ``(None,
+        None)`` when the frontier engine can schedule it."""
         if self.graph.edges or self._triggers:
-            return (
+            return "dataflow", (
                 "dataflow edges / triggers sweep every replica row locally "
                 "(a row can change from its own state)"
             )
-        if self._dist is not None and self._partition is None:
-            return ("the gather path across processes runs dense rounds, "
-                    + _across_reason(2))
+        return None, None
+
+    def _frontier_unsupported(self) -> "str | None":
+        """None when the frontier engine can schedule this runtime, else
+        the reason the dense sweep is required."""
+        return self._frontier_unsupported_key()[1]
+
+    @staticmethod
+    def _count_dense_fallback(key: str) -> None:
+        """A dense round or run taken where ``mode="auto"`` asked for the
+        frontier scheduler, counted and logged by its reason."""
+        counter(
+            "gossip_frontier_dense_fallbacks_total",
+            help="dense rounds/runs taken where frontier scheduling "
+                 "was requested, by reason",
+            reason=key,
+        ).inc()
+        tel_events.emit("frontier_skip", fallback=key, mode="auto")
+
+    def _gather_across(self) -> bool:
+        """Sharded across processes on the gather path (no partition)."""
+        return self._dist is not None and self._partition is None
+
+    def _frontier_dense_arm(self, edge_mask) -> "tuple | None":
+        """``(var_id, reach)`` of the first variable whose frontier round
+        under ``edge_mask`` would take the dense arm, or None: decided, as
+        the round would decide it, from host state every process holds
+        (the frontiers as the round's mask sync leaves them), and changing
+        none of it."""
+        fresh = edge_mask is not self._frontier_mask_ref
+        thresh = self.frontier_crossover * self.n_replicas
+        for v in self.var_ids:
+            f = self._frontier.get(v)
+            if fresh or f is None or f.shape[0] != self.n_replicas:
+                f = np.ones(self.n_replicas, dtype=bool)
+            if not f.any():
+                continue
+            n = int(self._frontier_reach_rows(f, edge_mask).size)
+            if n > thresh:
+                return v, n
         return None
 
     def frontier_step(self, edge_mask=None) -> int:
@@ -3090,10 +3154,22 @@ class ReplicatedRuntime:
         Under the dispatch plan (``plan="auto"``) the sparse rounds of a
         group's active members share one kernel launch. Returns the total
         (replica, variable) states changed — the :meth:`step` contract,
-        with identical per-round states."""
+        with identical per-round states. Across processes on the gather
+        path the sparse rounds run by :meth:`_rows_round_across`, and a
+        round in which a variable would take the dense arm raises before
+        anything moves, for parity with the reference (ROADMAP C9)."""
         reason = self._frontier_unsupported()
         if reason is not None:
             raise RuntimeError(f"frontier_step unavailable: {reason}")
+        hot = self._frontier_dense_arm(edge_mask) if self._gather_across() else None
+        if hot is not None:
+            # every process decides this alike, before anything moves
+            raise RuntimeError(
+                f"frontier_step unavailable: {hot[0]!r} reaches {hot[1]} of "
+                f"{self.n_replicas} rows, past the crossover "
+                f"({self.frontier_crossover}), and the dense arm across "
+                f"processes is {_across_reason(2)}"
+            )
         self._frontier_sync_mask(edge_mask)
         if not self._round_traffic:
             self._round_traffic = self._traffic_estimate()
@@ -3228,8 +3304,14 @@ class ReplicatedRuntime:
         host, valid slots only."""
         _host, mask = self._masks(edge_mask)
         t0 = time.perf_counter()
-        changed = self._rows_round(var_ids, self._index(rows_mat), mask)
-        changed = changed.cpu().numpy() & valid  # the dispatch's sync
+        if self._gather_across():
+            changed = np.zeros(valid.shape, dtype=bool)
+            reach = [r[ok] for r, ok in zip(rows_mat, valid)]
+            for i, ch in enumerate(self._rows_round_across(var_ids, reach, edge_mask)):
+                changed[i, : ch.size] = ch
+        else:
+            changed = self._rows_round(var_ids, self._index(rows_mat), mask)
+            changed = changed.cpu().numpy() & valid  # the dispatch's sync
         family = self._kernel_family(var_ids[0], mask is not None, rows=True)
         self._ledger_record_var(
             "cuda_rows" if family == "cuda_rows" else "grouped_rows",
@@ -3263,6 +3345,116 @@ class ReplicatedRuntime:
         for ms, j in zip(leaves, joined):
             cuda_gossip.scatter_rows(ms, row_idx, j)
         return changed
+
+    def _rows_round_across(self, var_ids, reach, edge_mask) -> list:
+        """The row-sparse round of same-signature members ``var_ids``
+        across processes on the gather path, over each member's reachable
+        rows ``reach`` (sorted replica rows). Each process joins the rows
+        of ``reach`` it holds: K2 or K3 (the plain per-member round for a
+        codec with no kernel plan) over a compact source ``[the rows of its
+        block the round reads | the neighbour rows it does not hold]``,
+        with a local ``int32[N, K]`` table into it, ``N`` the members'
+        reachable rows it holds. The neighbour rows come from their owners
+        by one ``comm.all_to_all`` a leaf: each owner sends each process
+        only the rows that process's live edges read, and every process
+        computes every process's need from the host neighbour table and
+        reach, the same everywhere, so no request round precedes it. The
+        source is built before any joined row lands in a block. Returns
+        each member's ``changed: bool[len(reach[g])]``, every process's
+        flags for its rows all-gathered (one byte a row, padded to the
+        largest process's count): the same on every process."""
+        d = self._dist
+        lo, hi, me = d["lo"], d["hi"], comm.process_index()
+        stride, n = d["count"] * d["block"], self.n_replicas
+        runs = [(min(q * stride, n), min((q + 1) * stride, n))
+                for q in range(comm.process_count())]
+        host, _dev = self._masks(edge_mask)
+        nbrs = self._host_neighbors
+        union = reach[0] if len(reach) == 1 else np.unique(np.concatenate(reach))
+        # reach is sorted and every process holds a run: its rows of the
+        # union are a slice of it, and so is each member's reach
+        cuts = np.searchsorted(union, [a for a, _b in runs] + [n])
+        needs = []  # the rows each process's live edges read off its run
+        for q, (a, b) in enumerate(runs):
+            slots = union[cuts[q]:cuts[q + 1]]
+            read = np.unique(nbrs[slots] if host is None else nbrs[slots][host[slots]])
+            needs.append(read[(read < a) | (read >= b)])
+        sent = [need[(need >= lo) & (need < hi)] for need in needs]
+        ext = needs[me]
+        recv = [int(np.count_nonzero((ext >= a) & (ext < b))) for a, b in runs]
+        # the compact source: the held slot rows, the other held rows they
+        # read, then the received rows (in process order = sorted)
+        mine = union[cuts[me]:cuts[me + 1]]
+        nb = nbrs[mine].astype(np.int64)
+        live = None if host is None else host[mine]
+        read = nb if live is None else nb[live]
+        other = np.setdiff1d(read[(read >= lo) & (read < hi)], mine)
+        held = np.concatenate([mine, other]) - lo
+        src = np.concatenate([mine, other, ext])
+        order = np.argsort(src, kind="stable")
+        pos = order[np.minimum(np.searchsorted(src[order], nb), max(src.size - 1, 0))]
+        if live is not None:
+            # a dead edge is a load the kernels never issue: any row will do
+            pos = np.where(live, pos, np.arange(mine.size)[:, None])
+        leaves = [tree_leaves(self.states[v]) for v in var_ids]
+        send_idx = self._index(np.concatenate(sent) - lo)
+        held_idx = self._index(held)
+        compact = [[] for _ in var_ids]
+        for i in range(len(leaves[0])):
+            got = comm.all_to_all(
+                torch.stack([ls[i].index_select(0, send_idx) for ls in leaves], dim=1),
+                d["mesh"], [r.size for r in sent], recv=recv,
+            )
+            for g, ls in enumerate(leaves):
+                compact[g].append(torch.cat([ls[i].index_select(0, held_idx), got[:, g]]))
+        # each member's slots: positions of its held reach rows in ``mine``
+        own = [np.searchsorted(mine, r[(r >= lo) & (r < hi)]) for r in reach]
+        flags = [torch.zeros(0, dtype=torch.bool, device=self.device)] * len(var_ids)
+        active = [g for g, o in enumerate(own) if o.size]
+        if active:
+            width = max(own[g].size for g in active)
+            bucket = max(self._frontier_bucket(width), width)
+            slots = np.zeros((len(active), bucket), dtype=np.int64)
+            for j, g in enumerate(active):
+                slots[j, :] = own[g][0]
+                slots[j, : own[g].size] = own[g]
+            table = torch.as_tensor(pos.astype(np.int32), device=self.device)
+            mask = None if live is None else torch.as_tensor(live, device=self.device)
+            slot_idx, block_idx = self._index(slots), self._index(held[slots])
+            codec, spec = self._mesh_meta(var_ids[0])
+            plan = cuda_gossip.rows_plan_of(codec, spec, self.states[var_ids[0]])
+            if plan is None:
+                changed = []
+                for j, g in enumerate(active):
+                    v = var_ids[g]
+                    new, ch = gossip_round_rows(
+                        codec, spec, tree_unflatten(self.states[v], compact[g]),
+                        table, slot_idx[j], mask)
+                    self.states[v] = tree_map(
+                        lambda x, y, j=j: x.index_copy(
+                            0, block_idx[j], y.index_select(0, slot_idx[j])),
+                        self.states[v], new)
+                    changed.append(ch)
+            else:
+                per_leaf = [[compact[g][i] for g in active] for i in range(len(leaves[0]))]
+                joined, changed = cuda_gossip.rows_round(plan, per_leaf, table,
+                                                         slot_idx, mask)
+                for i, jn in enumerate(joined):
+                    cuda_gossip.scatter_rows([leaves[g][i] for g in active], block_idx, jn)
+            for j, g in enumerate(active):
+                flags[g] = changed[j][: own[g].size]
+        # every process's flags, in process order, member by member
+        counts = np.array([[np.count_nonzero((r >= a) & (r < b)) for r in reach]
+                           for a, b in runs])  # [P, G]
+        width = int(counts.sum(axis=1).max())
+        mine_flags = torch.cat(flags)
+        mine_flags = torch.cat([mine_flags, mine_flags.new_zeros(width - mine_flags.numel())])
+        every = comm.all_gather(mine_flags.unsqueeze(0), d["mesh"]).cpu().numpy()
+        offsets = np.concatenate([np.zeros((len(runs), 1), dtype=np.int64),
+                                  np.cumsum(counts, axis=1)], axis=1)
+        return [np.concatenate([every[q, offsets[q, g]:offsets[q, g + 1]]
+                                for q in range(len(runs))])
+                for g in range(len(var_ids))]
 
     # -- sharded frontier: sparse boundary exchange on the partitioned mesh ---
     def _part_groups(self, plan):
@@ -3597,9 +3789,12 @@ class ReplicatedRuntime:
             padded[: rows.size] = rows
         _host, mask = self._masks(edge_mask)
         t0 = time.perf_counter()
-        changed = self._rows_round((var_id,), self._index(padded)[None], mask)[0]
         out = np.zeros(self.n_replicas, dtype=bool)
-        out[rows[changed[: rows.size].cpu().numpy()]] = True  # the sync
+        if self._gather_across():
+            out[rows[self._rows_round_across((var_id,), [rows], edge_mask)[0]]] = True
+        else:
+            changed = self._rows_round((var_id,), self._index(padded)[None], mask)[0]
+            out[rows[changed[: rows.size].cpu().numpy()]] = True  # the sync
         self._ledger_record_var(
             self._kernel_family(var_id, mask is not None, rows=True), var_id,
             time.perf_counter() - t0, rows=int(padded.size),
@@ -3625,9 +3820,21 @@ class ReplicatedRuntime:
             )
         return out
 
-    def _frontier_convergence(self, max_rounds: int, edge_mask) -> int:
+    def _frontier_convergence(self, max_rounds: int, edge_mask,
+                              auto: bool = False) -> int:
+        """Frontier rounds to the fixed point. Across processes on the
+        gather path, ``auto`` takes the dense step
+        (:meth:`_gather_step_exact`) for a round that would take the dense
+        arm, which the reference fails on there: the same states and
+        residuals, rounds touching other rows."""
+        across = auto and self._gather_across()
         for i in range(max_rounds):
-            if self.frontier_step(edge_mask) == 0:
+            if across and self._frontier_dense_arm(edge_mask) is not None:
+                self._count_dense_fallback("dense_arm_across_processes")
+                residual = self._gather_step_exact(edge_mask)
+            else:
+                residual = self.frontier_step(edge_mask)
+            if residual == 0:
                 return self._record_quiescence(i + 1)
         raise RuntimeError(f"no convergence within {max_rounds} rounds")
 

@@ -148,7 +148,8 @@ def _worker(rank: int, init: str, out_dir: str) -> None:
         ("join_rows", lambda: rt.join_rows(c, [0], [rt._row_of(c, 40)])),
         ("read_until", lambda: rt.read_until(0, c)),
         ("register", lambda: rt.register("p", ExampleKeylistProgram)),
-        ("frontier_step", rt.frontier_step),
+        # every row dirty: the dense arm, which the reference fails on
+        ("frontier_step_all_dirty", lambda: (rt.mark_dirty(), rt.frontier_step())),
     ):
         try:
             call()
@@ -166,6 +167,13 @@ def _worker(rank: int, init: str, out_dir: str) -> None:
         except NotImplementedError as exc:
             refused[verb] = f"{type(exc).__name__}: {exc}"
     res["refused"] = refused
+    # the JAX worker's sparse drive: one dirty row on ring(64, 2)
+    rt = RT(store, Graph(store), R, ring(R, 2))
+    rt.shard(mesh)
+    rt.update_batch(c, [(5, ("increment", 3), "a")])
+    res["frontier_step_sparse"] = [
+        [rt.frontier_step(), rt.frontier_rows_last, rt.frontier_dense_falls_last]
+        for _ in range(2)]
 
     # the ring slabs across the process boundary
     flat = comm.Mesh(mesh.devices.reshape(-1), ("replicas",))
@@ -432,21 +440,26 @@ def test_sharded_scenarios_equal_the_one_process_run(ranks):
 
 
 def test_verbs_outside_the_slice_refuse_across_processes(ranks):
-    """The serving verbs, ``resize`` and ``register`` run across processes
-    now; the gather path's frontier round, ``HashForest`` and
-    ``save_runtime`` refuse for parity, naming the reference's own failure
-    there."""
+    """The serving verbs, ``resize``, ``register`` and the gather path's
+    sparse frontier rounds run across processes now (the JAX worker's
+    one-row drive: ``[[2, 2, 0], [2, 3, 0]]``); a frontier round past the
+    crossover (every row dirty), ``HashForest`` and ``save_runtime``
+    refuse for parity, naming the reference's own failure there."""
     for res in ranks:
         got = res["refused"]
         for verb in ("apply_batch", "join_rows", "read_until", "resize", "register"):
             assert got[verb] is None, (verb, got[verb])
-        for verb, item in (("frontier_step", 2), ("HashForest", 8), ("save_runtime", 10)):
+        assert res["frontier_step_sparse"] == [[2, 2, 0], [2, 3, 0]]
+        for verb, item in (("frontier_step_all_dirty", 2), ("HashForest", 8),
+                           ("save_runtime", 10)):
             msg = got[verb]
             assert msg is not None and f"A5c.{item}" in msg, (verb, msg)
             assert "parity" in msg and "Fetching value for `jax.Array` that spans " \
                 "non-addressable" in msg, (verb, msg)
         assert got["HashForest"].startswith("NotImplementedError")
-        assert got["frontier_step"].startswith("RuntimeError")
+        assert got["frontier_step_all_dirty"].startswith(
+            "RuntimeError: frontier_step unavailable")
+        assert "past the crossover" in got["frontier_step_all_dirty"]
 
 
 if __name__ == "__main__":

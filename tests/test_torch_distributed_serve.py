@@ -14,12 +14,13 @@ against the same drive on one process of ``lasp_tpu`` in this process,
 which the workers never import.
 
 Beside them: the verbs still refused across processes (the gather path's
-frontier round, ``HashForest``, ``save_runtime``, for parity with the
-reference; membership, programs and map writes run, held in
-``tests/test_torch_distributed_membership.py``), and a test that pins the
-parity claim by running ``lasp_tpu`` itself across two processes, where
-those three verbs raise, and where a small frontier's sparse arm runs:
-the port's frontier refusal is wider than the reference's failure.
+frontier round past the crossover, ``HashForest``, ``save_runtime``, for
+parity with the reference; membership, programs and map writes run, held
+in ``tests/test_torch_distributed_membership.py``; the sparse frontier
+rounds run, held in ``tests/test_torch_distributed_frontier.py``), and a
+test that pins the parity claim by running ``lasp_tpu`` itself across two
+processes, where those three verbs raise, and where a small frontier's
+sparse arm runs, as the port's does.
 
 The workers are this file run as a script (``__main__`` below)."""
 
@@ -351,10 +352,15 @@ def _refusals(rt, out_dir) -> dict:
     from lasp_tpu_torch.store.checkpoint import save_runtime
 
     got = {}
-    # a one-row frontier, which the reference runs on its sparse arm
+    # a one-row frontier on a quiescent population: the sparse arm runs
+    rt.run_to_convergence()
     rt.update_batch("c", [(0, ("increment", 1), "a")])
+    got["frontier_step_sparse"] = [
+        [rt.frontier_step(), rt.frontier_rows_last, rt.frontier_dense_falls_last]
+        for _ in range(2)]
     for verb, call in (
-        ("frontier_step", rt.frontier_step),
+        # every row dirty: the dense arm, which the reference fails on
+        ("frontier_step_all_dirty", lambda: (rt.mark_dirty(), rt.frontier_step())),
         ("HashForest", lambda: HashForest(rt)),
         ("save_runtime", lambda: save_runtime(rt, os.path.join(out_dir, "rt.lasp"))),
         ("soak_frontier", lambda: ChaosRuntime(rt, nemesis("ring-cut", R, rt._host_neighbors))
@@ -721,17 +727,23 @@ def test_serve_across_processes_needs_a_shared_clock(runs):
 
 
 def test_refusals_across_processes_name_their_reason(runs):
-    """The parity refusals name the reference's own failure; ``resize``
-    and ``register`` run; a frontier soak and ``ServeLoop`` refuse before
-    anything runs."""
+    """The parity refusals name the reference's own failure; ``resize``,
+    ``register`` and the sparse frontier rounds from a one-row frontier
+    run; a frontier round past the crossover (every row dirty) refuses; a
+    frontier soak and ``ServeLoop`` refuse before anything runs."""
     _want, ranks = runs
     for res in ranks:
         got = res["refused"]
-        for verb, item in (("frontier_step", 2), ("HashForest", 8), ("save_runtime", 10),
-                           ("soak_frontier", 2)):
+        for verb, item in (("frontier_step_all_dirty", 2), ("HashForest", 8),
+                           ("save_runtime", 10), ("soak_frontier", 2)):
             assert got[verb] is not None and REFERENCE_FAILURE in got[verb], verb
             assert f"A5c.{item}" in got[verb] and "parity" in got[verb], verb
-        assert "refused whole" in got["frontier_step"] and "sparse arm" in got["frontier_step"]
+        assert "past the crossover" in got["frontier_step_all_dirty"]
+        assert "all-dirty" in got["soak_frontier"]
+        sparse = got["frontier_step_sparse"]
+        assert len(sparse) == 2 and all(res > 0 and rows > 0 and falls == 0
+                                        for res, rows, falls in sparse), sparse
+        assert got["frontier_step_sparse"] == ranks[0]["refused"]["frontier_step_sparse"]
         assert got["resize"] is None and got["register"] is None
         assert got["ServeLoop"].startswith("RuntimeError: ServeLoop runs cycles")
 
@@ -747,8 +759,8 @@ def test_reference_fails_on_the_parity_verbs_across_processes(tmp_path):
     devices joined by ``comm.init_distributed``, raises on the gather
     path's frontier round (at its dense arm, an all-dirty frontier),
     ``HashForest`` and ``save_runtime``. Its sparse arm runs: from a
-    one-row frontier it takes two rounds with no dense fall, where the
-    port refuses (``test_refusals_across_processes_name_their_reason``)."""
+    one-row frontier it takes two rounds with no dense fall, as the port's
+    does (``tests/test_torch_distributed_frontier.py``)."""
     port = _free_port()
 
     def env(pid):
