@@ -141,7 +141,8 @@ Phases, each of which fails the run on any error:
                join, a leave and a down under rolling-crash and ring-cut,
                with quorum writes (no acked write lost, replay identical)
                and with direct writes (bit-equal to the static twin), at
-               100,000 replicas on ``random_regular(., 3)``;
+               25,000 replicas on ``random_regular(., 3)`` (cut from
+               100,000 for the script's time);
 18. serve   — ``bench_scenarios.serve_load`` at 100,000 replicas with JAX's
                scenario parameters (10,000 clients, 40 ticks, 1,200 arrivals
                a tick, a x5 burst, 10,000 seed watches, 100,000 parity
@@ -189,9 +190,9 @@ Phases, each of which fails the run on any error:
 22. scenarios — run between phases 3 and 4, before the runtimes that
                the kernels phase replays (about 12 GiB) are resident:
                ``frontier_sparse(n_replicas=100_000)``, ``many_vars(
-               n_replicas=100_000, n_vars=128)``, ``packed_vs_dense()`` at
-               JAX's 1,048,576 replicas (its dense arm peaks near 68 GiB;
-               the peak reported) and
+               n_replicas=100_000, n_vars=128, reps=1)``,
+               ``packed_vs_dense(blocks=2)`` at JAX's 1,048,576 replicas
+               (its dense arm peaks near 68 GiB; the peak reported) and
                ``roofline_workload()``, each with its
                own check, their K1 / K2 / K3 probes held at max_abs_err 0;
 23. cli     — ``python -m lasp_tpu_torch.cli`` in subprocesses on the card:
@@ -233,7 +234,14 @@ Phases, each of which fails the run on any error:
                ring: the timed run's windows 9 rounds, the profiled twin's
                window equal round for round to a third build's unfused
                ``step`` residuals, states bit-equal; ``measure_overhead``'s
-               arms against JAX's 5% budget (reported, never failing);
+               arms against JAX's 5% budget (reported, never failing), PR
+               17's figure beside each; then the parity drive
+               (``telemetry_drive``: every telemetry site at 2,048 replicas
+               of the engine's widths, the tests' drive) on the card and
+               again with ``device="cpu"`` through the plain versions, the
+               two transcripts (metric families, labels, counts, events,
+               span order) equal, K1, K2 and K3 launched, each one's
+               widest call held against its plain version;
 27. shard   — run after the cli phase, before the adcounter: 8 virtual
                shards of the card, (a) ``partitioned_gossip()``, (b)
                ``mesh_scale(1 << 20)``, (c) the membership variables at
@@ -1378,9 +1386,13 @@ def phase_dataflow(torch, cg) -> dict:
         t = out["timing"]
         _log_line("dataflow", {
             "scenario": out["scenario"], "rounds": out["rounds"],
-            "fused_speedup": out["fused_speedup"], **{
-                arm: {k: t[arm][k] for k in ("seconds", "seconds_each", "sweeps",
-                                             "host_syncs")}
+            # on the engine's dataflow_propagate_seconds clock (JAX's), and
+            # on the wall time of the whole propagate (earlier runs' clock)
+            "fused_speedup": out["fused_speedup"],
+            "fused_speedup_wall": t["per_edge"]["propagate_seconds"]
+            / t["fused"]["propagate_seconds"], **{
+                arm: {k: t[arm][k] for k in ("roundloop_seconds", "propagate_seconds",
+                                             "seconds_each", "sweeps", "host_syncs")}
                 for arm in ("per_edge", "fused")},
             "groups": out["plan"]["groups"],
             "edges_stacked": out["plan"]["edges_stacked"],
@@ -1744,7 +1756,7 @@ def phase_chaos(torch, cg, captured: dict, sources: dict, n: int = _CHAOS_REPLIC
                 _capture_rows_inputs(cg, rt, source, captured)
                 sources[source] = rt
             ch = ChaosRuntime(rt, nemesis(preset, n, rt._host_neighbors, seed=9))
-            rt.round_residuals.clear()
+            rt.trace.rounds.clear()
             plan_time = _HostTime()
             undo = plan_time.wrap(rtmod, "compile_plan", "compile_plan")
             mode_before = dict(cg.LAUNCHES)
@@ -1972,13 +1984,20 @@ def _harness_runs(torch, cg, h: int, device=None) -> dict:
     return out
 
 
-def phase_rebalance(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS) -> dict:
+#: the membership harness's replicas in the rebalance phase: cut from
+#: 100,000, the phase's host-bound part, when the whole script took 1,134.9
+#: and 1,162.5 s of its 1,200 s on slow hosts (PERF.md section 4)
+_HARNESS_REPLICAS = 25_000
+
+
+def phase_rebalance(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS,
+                    h: int = _HARNESS_REPLICAS) -> dict:
     """(a) ``bench_scenarios.elastic_rebalance`` at ``n`` -> ``3n/2`` ->
     ``n`` (the membership phase's extents) on ``random_regular(., 3)``,
     ``per_cycle = n/8`` (JAX's 4 transfer cycles for the joining rows): it
     asserts the staged and legacy grown populations bit-equal, no cycle
     over the cap and the staged transfer wire <= the full-resync wire. (b)
-    ``_harness_runs`` at ``n``."""
+    ``_harness_runs`` at ``h``."""
     from lasp_tpu_torch.bench_scenarios import elastic_rebalance
 
     cg.reset_launches()
@@ -1988,10 +2007,10 @@ def phase_rebalance(torch, cg, captured: dict, n: int = _CHAOS_REPLICAS) -> dict
             n_replicas=n, grow_to=n * 3 // 2, per_cycle=n // 8,
             topology="random_regular"))
         el_launches = dict(cg.LAUNCHES)
-        harness = _harness_runs(torch, cg, n)
+        harness = _harness_runs(torch, cg, h)
         for preset, rec in harness.items():
             _log_line("rebalance", {"part": "harness", "preset": preset,
-                                    "replicas": n, **rec})
+                                    "replicas": h, **rec})
     finally:
         undo()
     launches, shapes = dict(cg.LAUNCHES), _shape_counts(cg)
@@ -2379,9 +2398,10 @@ def phase_scenarios(torch, cg, captured: dict) -> dict:
     """The scenarios this slice ports, each with its own check:
     ``frontier_sparse(n_replicas=100_000)`` (dense and frontier fixed points
     bit-identical, K2 held against its plain version), ``many_vars(
-    n_replicas=100_000, n_vars=128)`` (``plan="off"`` and ``"auto"``:
-    residuals and states identical), ``packed_vs_dense()`` at JAX's
-    1,048,576 replicas (one value; the peak memory of the two arms),
+    n_replicas=100_000, n_vars=128, reps=1)`` (``plan="off"`` and
+    ``"auto"``: residuals and states identical), ``packed_vs_dense(
+    blocks=2)`` at JAX's 1,048,576 replicas (one value; the peak memory of
+    the two arms),
     and ``roofline_workload()`` (its K1 and K2 / K3
     probes held at max_abs_err 0, the ledger's ``cuda_*`` families). The
     sharded scenarios run in the ``shard`` phase."""
@@ -2395,8 +2415,10 @@ def phase_scenarios(torch, cg, captured: dict) -> dict:
     try:
         for name, fn in (
                 ("frontier_sparse", lambda: frontier_sparse(n_replicas=100_000)),
-                ("many_vars", lambda: many_vars(n_replicas=100_000, n_vars=128)),
-                ("packed_vs_dense", packed_vs_dense)):
+                # one timed replay an arm and 16 timed rounds (JAX: 3 and
+                # 32): cuts of depth for the script's time
+                ("many_vars", lambda: many_vars(n_replicas=100_000, n_vars=128, reps=1)),
+                ("packed_vs_dense", lambda: packed_vs_dense(blocks=2))):
             before = dict(cg.LAUNCHES)
             torch.cuda.reset_peak_memory_stats()
             rec, secs = _timed_step(torch, fn)
@@ -3912,15 +3934,256 @@ def north_star_flight(torch, ad: dict) -> dict:
     return line
 
 
+#: the telemetry parity drive's replicas on the card: the CPU twin's cut,
+#: the largest power of two at which its drive through the plain versions
+#: takes at most 20 s on the card's host (PERF.md section 4)
+_PARITY_REPLICAS = 2048
+
+
+def telemetry_drive(m, n: int, deep: bool, dev: dict,
+                    kernel_neutral: bool = False) -> dict:
+    """One seeded drive of every telemetry site, through the package whose
+    classes ``m`` carries (``Store``, ``Graph``, ``ReplicatedRuntime``,
+    ``random_regular``, ``ActorCollisionError``, ``telemetry``), constructed
+    with ``dev`` (``{"device": "cpu"}`` off the card). The engine
+    population's widths (packed OR-Set 64 x 16 x 4, G-Counter, OR-SWOT with
+    64 elements and 64 actors) and a map with an OR-Set field on
+    ``random_regular(n, 3)``: grouped ``update_batch`` and the map's per-op
+    fallback, ``update_at`` on every kind, an actor-guard refusal, dense
+    steps, ``frontier_step``, ``converge_on_device`` with its flight ring,
+    ``read_until`` / ``read_any_until`` host-probed and a parked read, a
+    ``resize``; then a store-level map -> filter -> union -> product chain
+    propagated fused, per edge and fused again from the cache, with a
+    parked store read fired by a write. Returns :func:`telemetry_transcript`
+    of the run (the registry reset and the event and span rings cleared
+    first; ``deep`` sets the deep tier for the run) with the drive's own
+    checks under ``"checks"``."""
+    tel = m.telemetry
+    tel.reset()
+    tel.clear_spans()
+    tel.events.clear()
+    tel.events.set_deep(deep)
+    try:
+        store = m.Store(n_actors=16, **dev)
+        ads = store.declare(id="ads", type="lasp_orset", n_elems=64, n_actors=16,
+                            tokens_per_actor=4)
+        views = store.declare(id="views", type="riak_dt_gcounter", n_actors=16)
+        sw = store.declare(id="sw", type="riak_dt_orswot", n_elems=64, n_actors=64)
+        kv = store.declare(id="kv", type="riak_dt_map", n_actors=16,
+                           fields=[("o", "lasp_orset", {"n_elems": 4})])
+        rt = m.ReplicatedRuntime(store, m.Graph(store), n, m.random_regular(n, 3, seed=0),
+                                 packed=True, debug_actors=True, **dev)
+        w = [int(r) for r in np.random.RandomState(5).choice(n, 16, replace=False)]
+        rt.update_batch(ads, [(r, ("add_all", [f"ad{(a * 4 + j) % 64}" for j in range(4)]),
+                               f"w{a}") for a, r in enumerate(w)])
+        rt.update_batch(views, [(r, ("increment", a + 1), f"w{a}") for a, r in enumerate(w)])
+        rt.update_batch(sw, [(r, ("add", f"e{a}"), f"s{a}") for a, r in enumerate(w)])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the per-op fallback's warning
+            rt.update_batch(kv, [(w[a], ("update", "o", ("add", f"k{a}")), f"w{a}")
+                                 for a in range(3)])
+        rt.update_at(w[1], ads, ("remove", "ad4"), "w1")
+        rt.update_at(w[2], views, ("increment", 3), "w2")
+        rt.update_at(w[3], sw, ("add", "e40"), "s3")
+        rt.update_at(w[4], kv, ("update", "o", ("add", "k9")), "w4")
+        refused = 0
+        try:
+            rt.update_at(w[5], views, ("increment",), "w2")
+        except m.ActorCollisionError:
+            refused += 1
+        # the writes' rows and their neighbours: row-sparse rounds (K2, K3)
+        residuals = [rt.frontier_step() for _ in range(3)]
+        residuals += [rt.step() for _ in range(2)]  # dense (K1)
+        rt.update_at(w[6], ads, ("add", "ad50"), "w6")
+        rt.update_at(w[7], sw, ("add", "e50"), "s7")
+        residuals.append(rt.frontier_step())
+        rounds = rt.converge_on_device(max_rounds=256)
+        total = sum(range(1, 17)) + 3
+        far = (w[0] + n // 2) % n
+        rt.update_at(w[0], views, ("increment", 2), "w0")
+        rt.read_until(far, views, total + 1, on_device=False)
+        rt.update_at(w[8], views, ("increment", 2), "w8")
+        rt.read_any_until(far, [(views, total + 10**6), (views, total + 3)], on_device=False)
+        rt.update_at(w[9], views, ("increment", 2), "w9")
+        rt.read_until(far, views, total + 5)  # parked on the device
+        grown = n + n // 8
+        rt.resize(grown, m.random_regular(grown, 3, seed=1))
+        residuals.append(rt.step())
+        rounds_after = rt.converge_on_device(max_rounds=256)
+
+        ds = m.Store(n_actors=2, **dev)
+        g = m.Graph(ds)
+        a = ds.declare(id="a", type="lasp_orset", n_elems=8, n_actors=2, tokens_per_actor=4)
+        b = ds.declare(id="b", type="lasp_orset", n_elems=16, n_actors=2, tokens_per_actor=4)
+        c = ds.declare(id="c", type="lasp_orset", n_elems=4, n_actors=2, tokens_per_actor=4)
+        cnt = ds.declare(id="cnt", type="riak_dt_gcounter", n_actors=2)
+        mapped = g.map(a, lambda x: x * 10, dst="m", dst_elems=16)
+        kept = g.filter(mapped, lambda x: x % 20 == 0, dst="f")
+        joined = g.union(kept, b, dst="u")
+        g.product(joined, c, dst="p")
+        watch = ds.read(cnt, 4)  # parked until the counter reaches 4
+        prop = []
+        for step, mode in enumerate(("fused", "per_edge", "auto")):
+            ds.update(a, ("add", step + 1), "x")
+            ds.update(b, ("add", 100 + step), "x")
+            ds.update(c, ("add", f"c{step}"), "y")
+            ds.update(cnt, ("increment", 2), "x")
+            prop.append(g.propagate(mode=mode))
+        ds.update(a, ("remove", 1), "x")
+        prop.append(g.propagate())
+    finally:
+        tel.events.set_deep(False)
+    out = telemetry_transcript(tel, kernel_neutral)
+    out["checks"] = {"refused": refused, "residuals": residuals, "rounds": rounds,
+                     "rounds_after": rounds_after, "propagate_rounds": prop,
+                     "watch_fired": bool(watch.done), "p": sorted(ds.value("p")),
+                     "views": rt.coverage_value(views), "n": rt.n_replicas}
+    return out
+
+
+def _plain(x):
+    """A transcript value as plain, comparable data: tuples for lists,
+    sorted item tuples for dicts."""
+    if isinstance(x, dict):
+        return tuple(sorted((k, _plain(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_plain(v) for v in x)
+    return x
+
+
+#: a gauge set from measured seconds (achieved bandwidth): its series
+#: count, its values do not
+_RATE_GAUGES = ("roofline_achieved_GBps",)
+#: achieved bandwidth over the capability row's peak, which JAX measures
+#: on a CPU host once asked and the port has for a card only: left out
+_PEAK_GAUGES = ("roofline_frac",)
+
+
+def telemetry_transcript(tel, kernel_neutral: bool = False) -> dict:
+    """What a drive emitted, without its seconds: every metric family with
+    its type and each series' labels with its value (a counter or gauge)
+    or its observation count (a histogram; a gauge of measured rates keeps
+    only its labels, a share of a peak is left out); every causal event as
+    ``(etype, var, replica, round, attrs)`` with ``seconds`` dropped from
+    the attributes; every span name in order of completion; the events the
+    ring dropped. ``kernel_neutral`` leaves out what names the kernel that
+    ran (the ledger's signatures are ``cuda_*`` on the card and the plain
+    arms' off it): the rate gauge and the ledger's sample spans."""
+    metrics = []
+    for name, fam in sorted(tel.get_registry().snapshot().items()):
+        if name in _PEAK_GAUGES or (kernel_neutral and name in _RATE_GAUGES):
+            continue
+        series = sorted(
+            (_plain(s["labels"]),
+             s["count"] if fam["type"] == "histogram"
+             else None if name in _RATE_GAUGES else s["value"])
+            for s in fam["series"])
+        metrics.append((name, fam["type"], tuple(series)))
+    events = [
+        (r["etype"], r.get("var"), r.get("replica"), r["round"],
+         _plain({k: v for k, v in r.get("attrs", {}).items() if k != "seconds"}))
+        for r in tel.events.events()]
+    return {"metrics": metrics, "events": events,
+            "spans": [r["name"] for r in tel.span_events()
+                      if not (kernel_neutral and r["name"] == "gossip.ledger_sample")],
+            "dropped": tel.events.stats()["dropped"]}
+
+
+def _port_modules():
+    """The port's classes for :func:`telemetry_drive`."""
+    import types
+
+    from lasp_tpu_torch import telemetry
+    from lasp_tpu_torch.dataflow import Graph
+    from lasp_tpu_torch.mesh import ReplicatedRuntime, random_regular
+    from lasp_tpu_torch.mesh.runtime import ActorCollisionError
+    from lasp_tpu_torch.store import Store
+
+    return types.SimpleNamespace(
+        Store=Store, Graph=Graph, ReplicatedRuntime=ReplicatedRuntime,
+        random_regular=random_regular, ActorCollisionError=ActorCollisionError,
+        telemetry=telemetry)
+
+
+def _telemetry_parity(torch, cg) -> dict:
+    """The telemetry parity drive (:func:`telemetry_drive`) at
+    ``_PARITY_REPLICAS`` on the card, then its twin with ``device="cpu"``
+    through the plain versions: their transcripts (the kernel-naming ledger
+    gauges and sample spans left out) must be equal. K1, K2 and K3 must each
+    launch in the card's drive, and each one's widest call is held against
+    its plain version at max_abs_err 0. Returns the part's line, with the
+    card drive's launches under ``"launches"``."""
+    from lasp_tpu_torch.mesh import gossip as gmod
+
+    m = _port_modules()
+    cg.reset_launches()
+    widest, undo = _widest_calls(torch, cg)
+    # the dense round calls K1 by the name it imported: through the wrapper
+    k1 = gmod.gossip_round_dense
+    gmod.gossip_round_dense = lambda *a, **kw: cg.gossip_round_dense(*a, **kw)
+    t0 = time.perf_counter()
+    try:
+        card = telemetry_drive(m, _PARITY_REPLICAS, False, {}, kernel_neutral=True)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        gmod.gossip_round_dense = k1
+    t_card = time.perf_counter() - t0
+    launches = dict(cg.LAUNCHES)
+    t0 = time.perf_counter()
+    twin = telemetry_drive(m, _PARITY_REPLICAS, False, {"device": "cpu"},
+                           kernel_neutral=True)
+    t_cpu = time.perf_counter() - t0
+    m.telemetry.reset()
+    held = _check_widest(torch, cg, widest)
+    diffs = [k for k in ("checks", "metrics", "events", "spans", "dropped")
+             if card[k] != twin[k]]
+    line = {
+        "part": "parity", "replicas": _PARITY_REPLICAS,
+        "card_seconds": t_card, "cpu_twin_seconds": t_cpu,
+        "launches": launches, "widest": held,
+        "families": len(card["metrics"]), "events": len(card["events"]),
+        "spans": len(card["spans"]), "dropped": card["dropped"],
+        "checks": card["checks"], "differs": diffs,
+    }
+    if diffs:
+        for k in diffs:
+            if isinstance(card[k], list):
+                first = next((i for i, (a, b) in enumerate(zip(card[k], twin[k])) if a != b),
+                             min(len(card[k]), len(twin[k])))
+                line[f"first_{k}_diff"] = [card[k][first:first + 3], twin[k][first:first + 3]]
+        _log_line("telemetry", line)
+        raise RuntimeError(f"telemetry: the card's transcript differs from the CPU twin's "
+                           f"in {diffs}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        _log_line("telemetry", line)
+        raise RuntimeError(f"telemetry: the parity drive never launched {missing}")
+    if set(held) != set(launches) or any(h["max_abs_err"] for h in held.values()):
+        _log_line("telemetry", line)
+        raise RuntimeError(f"telemetry: a widest launch disagrees with plain: {held}")
+    return line
+
+
+#: ``measure_overhead``'s arms in this script's run before the port's
+#: propagate emission became JAX's (NVIDIA H100 80GB HBM3, 700.00 W),
+#: printed beside this run's
+_OVERHEAD_BEFORE = {"emission": 0.0959, "frontier": 0.0174, "ledger_dense": 0.0262,
+                  "ledger_frontier": 0.0034, "dataflow": 0.0049, "aae": 0.0545,
+                  "flight": 0.0731}
+
+
 def phase_telemetry(torch, cg, kind: str, peak_gbps: float, widest: dict,
-                    flight: dict) -> None:
+                    flight: dict) -> dict:
     """The ledger, the capability row and the flight ring on the card: the
     capability record names the card; the kernel cost ledger's families and
     records after every earlier phase; its bytes for K1, K2 and K3 at their
     widest shapes beside the kernels phase's gather model; its achieved
     share of peak beside the kernels phase's; the north star's flight line;
     ``measure_overhead``'s arms against JAX's 5% budget (an arm over it is a
-    finding, not a failure)."""
+    finding, not a failure), the earlier run's figure beside each; last, the parity
+    drive (:func:`_telemetry_parity`), which resets the registry and the
+    ledger. Returns the parity drive's launches."""
     from lasp_tpu_torch.telemetry import device_capability, get_ledger, kernel_traffic
     from lasp_tpu_torch.telemetry import device as tdev
     from lasp_tpu_torch.telemetry.overhead import measure_overhead
@@ -3980,9 +4243,12 @@ def phase_telemetry(torch, cg, kind: str, peak_gbps: float, widest: dict,
     _log_line("telemetry", {"part": "ledger", "families": families,
                             "summary": summary, "kernels": kernels_ledger})
     _log_line("telemetry", {"part": "flight", **flight, "log": log})
-    _log_line("telemetry", {"part": "overhead", "arms": arms,
+    _log_line("telemetry", {"part": "overhead", "arms": arms, "arms_before": _OVERHEAD_BEFORE,
                             "over_budget": sorted(a for a, x in arms.items() if x >= 0.05),
                             "report": over})
+    parity = _telemetry_parity(torch, cg)
+    _log_line("telemetry", parity)
+    return parity["launches"]
 
 
 def adcounter_profile(torch, ad: dict) -> None:
@@ -4713,7 +4979,8 @@ def main() -> int:
     adcounter_profile(torch, ad)
     # 26. telemetry: the capability row, the ledger, the flight ring -----------
     flight = north_star_flight(torch, ad)
-    phase_telemetry(torch, cg, kind, peak_gbps, widest, flight)
+    launches["telemetry"] = phase_telemetry(torch, cg, kind, peak_gbps, widest, flight)
+    _log_launches("telemetry", launches["telemetry"])
 
     def total_launches(name):
         return sum(c[name] for c in launches.values())
@@ -4791,6 +5058,9 @@ def main() -> int:
             k["max_abs_err_all_shapes"] for k in kernels[1:]):
         raise RuntimeError(f"kernel disagrees with plain at the main-path shape: {kernels}")
     run_dir.cleanup()
+    _log("timing", f"whole script {time.perf_counter() - _T0:.1f} s "
+                   "(963.4 s of command before the parity part); each phase's seconds: the "
+                   "[launches] lines")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -542,7 +542,7 @@ class ChaosRuntime:
         # masks varied inside the block: even a zero tail only proves a
         # MASKED fixed point — degrade (the opaque-block rule)
         rt._frontier_after_opaque(False)
-        rt.round_residuals.append(int(totals[-1]))
+        rt.trace.record_round(int(totals[-1]), elapsed)
         rt._record_rounds(n_rounds)
         # flight drain: the window's [T, V] residual rows are its record
         # (T rows, no modulo; quiescent=None — a masked zero round proves

@@ -52,7 +52,6 @@ def cmd_status(args) -> int:
 
 
 def cmd_simulate(args) -> int:
-    from lasp_tpu_torch.bench_scenarios import _timed
     from lasp_tpu_torch.dataflow import Graph
     from lasp_tpu_torch.mesh import (
         ReplicatedRuntime,
@@ -88,15 +87,15 @@ def cmd_simulate(args) -> int:
     )
     from lasp_tpu_torch.config import get_config
 
-    rounds, secs = _timed(dev, lambda: rt.run_to_convergence(
+    rounds = rt.run_to_convergence(
         max_rounds=args.max_rounds, block=get_config().fused_block
-    ))
+    )
     out = {
         "replicas": args.replicas,
         "topology": args.topology,
         "rounds_to_convergence": rounds,
-        "seconds": round(secs, 4),
-        "residual_path": list(rt.round_residuals),
+        "seconds": round(rt.trace.total_seconds, 4),
+        "residual_path": [r["residual"] for r in rt.trace.rounds],
         "device": str(dev),
     }
     # set-like types report a cardinality; the G-Counter reports its

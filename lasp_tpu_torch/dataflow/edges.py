@@ -90,6 +90,13 @@ class Edge:
         changed = self._refresh(store)
         if changed:
             self._tables_cache = None
+            from ..telemetry import counter
+
+            counter(
+                "dataflow_edge_refreshes_total",
+                help="edge table rebuilds after interner growth, by kind",
+                kind=self.kind,
+            ).inc()
         return changed
 
     def _refresh(self, store) -> bool:

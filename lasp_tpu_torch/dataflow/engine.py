@@ -397,6 +397,9 @@ class Graph:
             raise ValueError(
                 f"unknown propagate mode {mode!r} (expected auto/fused/per_edge)"
             )
+        from ..telemetry import span
+        from ..utils.metrics import Timer
+
         self.refresh()
         if self._round_fn is None:
             self._build()
@@ -404,15 +407,25 @@ class Graph:
         states = {v: self.store.state(v) for v in self._var_ids}
         limit = max_rounds if max_rounds is not None else len(self.edges) + 1
         dirty = self.store.dirty_since(self._dirty_cursor) & set(self._var_ids)
-        #: sweeps each edge was evaluated in by this propagate
-        self._runs = [0] * len(self.edges)
-        rounds = None
-        if mode != "per_edge":
-            rounds = self._propagate_fused(
-                states, tables, dirty, limit, strict=(mode == "fused")
-            )
-        if rounds is None:
-            rounds = self._propagate_per_edge(states, tables, dirty, limit)
+        #: the run's accounting, filled by whichever body ran; the emission
+        #: in ``finally`` lands for the non-convergence raise too
+        stats = {
+            "rounds": 0, "executed": 0, "runs": [0] * len(self.edges),
+            "fused": False, "changed_by_dst": None, "flight": None,
+        }
+        t = Timer()
+        try:
+            with t, span("dataflow.propagate", edges=len(self.edges)):
+                done = False
+                if mode != "per_edge":
+                    done = self._propagate_fused(
+                        states, tables, dirty, limit, stats,
+                        strict=(mode == "fused"),
+                    )
+                if not done:
+                    self._propagate_per_edge(states, tables, dirty, limit, stats)
+        finally:
+            self._emit_propagate_telemetry(stats, t.elapsed)
         pre_ingest = self.store.mutations
         writes = self.store.ingest(states)
         if self.store.mutations == pre_ingest + writes:
@@ -423,35 +436,102 @@ class Graph:
         else:
             # a watch callback wrote during ingest; stay dirty
             self._clean_mark = None
-        self._emit_deep_provenance()
-        return rounds
+        return stats["rounds"]
 
-    def _emit_deep_provenance(self) -> None:
-        """The deep tier of JAX's propagate record
-        (``lasp_tpu/dataflow/engine.py:733-739``): per edge, its sources,
-        destination and the sweeps it ran, the trail the CLI's ``trace
-        --var --deep`` reconstructs values from. (JAX's coarse
-        ``propagate`` event and per-kind counters are not carried.)"""
+    def _emit_propagate_telemetry(self, stats, elapsed: float) -> None:
+        """The propagate run's whole emission path (JAX's, name for name),
+        factored out so the overhead guard (``telemetry.overhead``) prices
+        it exactly: the counters, the per-kind recompute and skip counts,
+        the coarse ``propagate`` record (the fused path's carries the
+        per-dst changed-sweep counts), one ``propagate_sweep`` per flight
+        record, ``frontier_skip``, and the deep tier's per-edge
+        ``edge_recompute`` provenance (the trail ``trace --var --deep``
+        reconstructs values from)."""
+        from ..telemetry import counter, histogram
         from ..telemetry import events as tel_events
 
-        if not tel_events.deep_enabled():
-            return
+        executed = stats["executed"]
+        runs = stats["runs"]
+        counter(
+            "dataflow_rounds_total",
+            help="jitted dataflow sweeps executed",
+        ).inc(executed)
+        histogram(
+            "dataflow_propagate_seconds",
+            help="wall time of a propagate-to-fixpoint run",
+        ).observe(elapsed)
+        # an edge recomputes only in sweeps where it was scheduled; the
+        # evaluations the frontier skipped are counted too
+        by_kind: dict = {}
+        skipped_by_kind: dict = {}
         for i, e in enumerate(self.edges):
-            d = e.describe()
-            tel_events.emit_deep(
-                "edge_recompute", var=d["dst"], kind=d["kind"],
-                srcs=d["srcs"], sweeps=self._runs[i],
+            by_kind[e.kind] = by_kind.get(e.kind, 0) + runs[i]
+            skipped_by_kind[e.kind] = (
+                skipped_by_kind.get(e.kind, 0) + executed - runs[i]
             )
+        for kind, n in by_kind.items():
+            if n:
+                counter(
+                    "dataflow_edge_recomputes_total",
+                    help="edge contribution evaluations, by combinator kind",
+                    kind=kind,
+                ).inc(n)
+        total_skipped = 0
+        for kind, n in skipped_by_kind.items():
+            if n:
+                total_skipped += n
+                counter(
+                    "dataflow_edges_skipped_total",
+                    help="edge evaluations skipped by frontier "
+                         "scheduling (source set clean), by kind",
+                    kind=kind,
+                ).inc(n)
+        attrs = {
+            "rounds": stats["rounds"], "sweeps": executed,
+            "edges": len(self.edges), "fused": stats["fused"],
+        }
+        if stats["changed_by_dst"] is not None:
+            attrs["changed_by_dst"] = stats["changed_by_dst"]
+        tel_events.emit("propagate", **attrs)
+        # the fused window's per-sweep records (overwritten sweeps stay
+        # collapsed: the modulo ring kept the last K only)
+        flight = stats.get("flight")
+        if flight is not None:
+            for i, rec in enumerate(flight["records"]):
+                tel_events.emit(
+                    "propagate_sweep",
+                    sweep=flight["overwritten"] + i,
+                    changed=int(sum(rec)),
+                    by_dst={
+                        d: int(c)
+                        for d, c in zip(flight["dst_order"], rec) if c
+                    },
+                    fused=True,
+                )
+        if total_skipped:
+            tel_events.emit(
+                "frontier_skip", skipped=int(total_skipped),
+                sweeps=executed, edges=len(self.edges),
+            )
+        if tel_events.deep_enabled():
+            for i, e in enumerate(self.edges):
+                d = e.describe()
+                tel_events.emit_deep(
+                    "edge_recompute", var=d["dst"], kind=d["kind"],
+                    srcs=d["srcs"], sweeps=runs[i],
+                )
 
-    def _propagate_fused(self, states, tables, dirty, limit, strict: bool):
+    def _propagate_fused(self, states, tables, dirty, limit, stats,
+                         strict: bool) -> bool:
         """The fused body: build (or fetch) the dirty closure's entry and
-        run the whole fixed point. Updates ``states`` in place and returns
-        the productive rounds, or None to fall back to the per-edge loop
-        (only before any state was replaced: the entry is functional)."""
+        run the whole fixed point. Updates ``states`` and ``stats`` in
+        place; returns True when it handled the propagate, False to fall
+        back to the per-edge loop (only before any state was replaced: the
+        entry is functional)."""
         idx = dplan.closure_edges(self.edges, self._edge_ran, dirty)
         if not idx:
             self.last_propagate = {"path": "fused", "sweeps": 0, "host_syncs": 0}
-            return 0  # empty frontier: no edge can move
+            return True  # empty frontier: no edge can move (0 rounds)
         key = ("fused", idx)
         ent = self._cache.get(key)
         if ent is dplan.POISON:
@@ -460,7 +540,7 @@ class Graph:
                     "fused propagate for this dirty pattern previously "
                     "failed to build; mode='fused' refuses the fallback"
                 )
-            return None
+            return False
         from ..telemetry import counter
 
         t0 = time.perf_counter()
@@ -488,14 +568,25 @@ class Graph:
                 RuntimeWarning,
                 stacklevel=3,
             )
-            return None
+            return False
         secs = time.perf_counter() - t0
-        new_states, _counts, sweeps, pending = out[:4]
-        self._drain_propagate(ent, idx, out[4] if len(out) > 4 else None,
-                              sweeps, pending, secs)
+        # the per-dst counts are host tensors: the block syncs brought the
+        # flags they sum over to the host already
+        new_states, counts, sweeps, pending = out[:4]
+        stats["flight"] = self._drain_propagate(
+            ent, idx, out[4] if len(out) > 4 else None, sweeps, pending, secs)
         for i in idx:
             self._edge_ran[i] = True
-            self._runs[i] = sweeps
+            stats["runs"][i] = sweeps
+        stats["executed"] = sweeps
+        stats["fused"] = True
+        stats["changed_by_dst"] = {
+            d: int(c) for d, c in zip(ent.dst_order, counts.tolist())
+        }
+        # productive sweeps: the loop stops right after its first
+        # unproductive sweep (the convergence check), so rounds = sweeps -
+        # 1, unless the budget ran out with every sweep productive
+        stats["rounds"] = sweeps if pending else max(sweeps - 1, 0)
         self.last_propagate = {
             "path": "fused", "sweeps": sweeps,
             "host_syncs": -(-sweeps // fused_ops.DATAFLOW_BLOCK),
@@ -506,24 +597,27 @@ class Graph:
                 f"dataflow did not converge within {limit} "
                 "rounds (cyclic graph? raise max_rounds)"
             )
-        # the loop stops right after its first unproductive sweep (the
-        # convergence check), so rounds = sweeps - 1
-        return max(sweeps - 1, 0)
+        return True
 
     @staticmethod
     def _drain_propagate(ent, idx, ring, sweeps: int, pending: bool,
-                         secs: float) -> None:
+                         secs: float) -> "dict | None":
         """The fused propagate's flight drain and ledger row: the per-sweep
         changed-flag ring into the window log (``dataflow_fused``) and one
         ``dataflow_fused`` ledger record, its joins the exact (dst, sweep)
-        inflations when the ring kept every sweep."""
+        inflations when the ring kept every sweep. Returns the decoded
+        records for the ``propagate_sweep`` events (None without a ring or
+        with telemetry off)."""
         from ..telemetry import device as tel_flight
         from ..telemetry import registry as tel_registry
         from ..telemetry.roofline import get_ledger
 
         joins = len(idx) * sweeps
+        flight = None
         if ring is not None and tel_registry.enabled():
             records, overwritten = tel_flight.decode_ring(ring, sweeps)
+            flight = {"records": records, "overwritten": overwritten,
+                      "dst_order": ent.dst_order}
             if not overwritten:
                 joins = sum(sum(r) for r in records)
             tel_flight.record_window(tel_flight.FlightWindow(
@@ -542,14 +636,14 @@ class Graph:
             bytes_moved=ent.sweep_bytes * sweeps,
             joins=joins, n_vars=len(idx),
         )
+        return flight
 
-    def _propagate_per_edge(self, states, tables, dirty, limit) -> int:
+    def _propagate_per_edge(self, states, tables, dirty, limit, stats) -> None:
         """Each sweep runs ONLY the edges whose sources moved — seeded from
         the store's dirty set, then from the dsts the previous sweep
-        changed. Updates ``states`` in place; returns the productive
-        rounds."""
+        changed. Updates ``states`` and ``stats`` in place."""
         cur = states
-        rounds = sweeps = 0
+        sweeps = 0
         for _ in range(limit):
             eligible = tuple(
                 i
@@ -561,13 +655,14 @@ class Graph:
             fn, dst_order = self._subset_round(eligible)
             cur, changed = fn(cur, tables)
             sweeps += 1
+            stats["executed"] += 1
             for i in eligible:
                 self._edge_ran[i] = True
-                self._runs[i] += 1
+                stats["runs"][i] += 1
             dirty = {d for d, c in zip(dst_order, changed) if c}
             if not dirty:
                 break
-            rounds += 1
+            stats["rounds"] += 1
         else:
             raise RuntimeError(
                 f"dataflow did not converge within {limit} "
@@ -577,7 +672,6 @@ class Graph:
             "path": "per_edge", "sweeps": sweeps, "host_syncs": sweeps,
         }
         states.update(cur)
-        return rounds
 
 
 __all__ = ["Graph", "PairUniverse"]

@@ -31,6 +31,7 @@ import warnings
 import torch
 
 from ..lattice.base import tree_leaves, tree_map
+from ..telemetry.registry import counter
 
 #: cache sentinel: this key failed to build or run; callers go straight to
 #: the per-edge path instead of retrying the build every propagate
@@ -64,7 +65,8 @@ class PropagateCache:
     """The one keyed, FIFO-bounded cache of a graph's built propagate
     entries: per-edge subset rounds (``("subset", idx)``) and fused
     entries (``("fused", idx)``; the round budget is an argument, never
-    part of the key)."""
+    part of the key). Hits and builds export under
+    ``dataflow_plan_cache_*`` by kind."""
 
     def __init__(self, capacity: int = 64):
         self.capacity = capacity
@@ -74,13 +76,28 @@ class PropagateCache:
         return len(self._entries)
 
     def get(self, key):
-        return self._entries.get(key)
+        ent = self._entries.get(key)
+        if ent is not None and ent is not POISON:
+            # a POISON lookup is not a hit: nothing built is reused
+            counter(
+                "dataflow_plan_cache_hits_total",
+                help="propagate executable-cache hits (subset round fns "
+                     "+ fused megakernels share one FIFO-bounded cache)",
+                kind=key[0],
+            ).inc()
+        return ent
 
     def put(self, key, value) -> None:
         if len(self._entries) >= self.capacity:
             # FIFO eviction (dicts keep insertion order)
             self._entries.pop(next(iter(self._entries)))
         self._entries[key] = value
+        counter(
+            "dataflow_plan_cache_built_total",
+            help="propagate executables built into the shared cache, "
+                 "by kind (subset round fn / fused megakernel)",
+            kind=key[0],
+        ).inc()
 
     def poison(self, key) -> None:
         """Mark a fused key failed until the next graph rebuild, so later
@@ -180,8 +197,9 @@ def guard_groups(edges, groups, states, tables) -> list:
     """The per-group guard: every multi-edge group must evaluate stacked.
     JAX checks shapes with ``eval_shape``; here one trial call on the
     group's real inputs (functional: it writes nothing). A group that
-    fails is demoted to singletons with a ``RuntimeWarning`` and its
-    edges are marked non-stackable, so later compiles skip the attempt."""
+    fails is demoted to singletons loudly (counter + ``RuntimeWarning``)
+    and its edges are marked non-stackable, so later compiles skip the
+    attempt."""
     out: list = []
     for g in groups:
         if len(g) == 1:
@@ -194,6 +212,15 @@ def guard_groups(edges, groups, states, tables) -> list:
             for i in g:
                 edges[i].stackable = False
             e0 = edges[g[0]]
+            counter(
+                "dataflow_plan_fallbacks_total",
+                help="fused-propagate fallbacks, by reason: `stack` = a "
+                     "same-signature group failed to trace stacked and "
+                     "was demoted to per-edge evaluation; `dispatch` = "
+                     "a fused megakernel failed to build or run and the "
+                     "propagate fell back to the per-edge path",
+                reason="stack",
+            ).inc()
             warnings.warn(
                 f"dataflow fusion: group {tuple(g)} "
                 f"({type(e0).__name__}/{e0.kind}) cannot stack — demoted "

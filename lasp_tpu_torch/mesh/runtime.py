@@ -93,7 +93,7 @@ unchanged.
 Across processes (``shard`` onto a process group's mesh, ``comm.
 init_distributed``): every process runs the same host program (SPMD), and
 the host bookkeeping — the store, the graph, the interners, the dispatch
-and partition plans, the frontiers, ``round_residuals`` — stays the same
+and partition plans, the frontiers, ``rt.trace`` — stays the same
 on every process, while each process keeps only its run of shards' rows
 ``[lo, hi)`` of every population. The gather path all-gathers a
 population and joins its rows; the partitioned paths exchange through
@@ -152,6 +152,7 @@ from ..telemetry import registry as tel_registry
 from ..telemetry.convergence import get_monitor, record_membership
 from ..telemetry.roofline import get_ledger
 from ..utils.interning import CapacityError
+from ..utils.metrics import StepTrace, Timer
 from . import comm
 from . import gossip as gossip_mod
 from . import ingest as ingest_mod
@@ -334,7 +335,8 @@ class _PendingBatch:
     the bookkeeping inputs gather here until ``_batch_finalize``."""
 
     __slots__ = ("var", "var_id", "tn", "ops", "states", "cap_err",
-                 "guard_actors", "table", "err", "marks", "encode_failed")
+                 "guard_actors", "table", "err", "marks", "encode_failed",
+                 "seconds")
 
     def __init__(self, var, var_id, tn, ops, states, cap_err, guard_actors):
         self.var = var
@@ -352,6 +354,8 @@ class _PendingBatch:
         #: (superset marking)
         self.marks = None
         self.encode_failed = False
+        #: host wall time of the batch's encode / dispatch / group share
+        self.seconds = 0.0
 
 
 class FusedBlockHandle:
@@ -396,7 +400,7 @@ class FusedBlockHandle:
         elapsed = time.perf_counter() - self._t0
         block = self._block
         rt._frontier_after_opaque(first_zero >= 0)
-        rt.round_residuals.append(-1 if first_zero < 0 else 0)
+        rt.trace.record_round(-1 if first_zero < 0 else 0, elapsed)
         rt._record_rounds(block)  # the block runs every one of its rounds
         # the flight drain rides the sync above: real per-round residual
         # records, and the exact changed-state tally for the ledger
@@ -446,6 +450,8 @@ class ReplicatedRuntime:
         #: (var_id, actor identity) -> home replica
         self.debug_actors = debug_actors
         self._actor_sites: dict = {}
+        #: set while update_batch's per-op fallback runs update_at
+        self._suppress_op_events = False
         self.states: dict = {}
         self._packed_specs: dict[str, FlatORSetSpec] = {}
         #: per-var dirty-replica frontier masks (host ``np.bool_[R]``)
@@ -456,10 +462,11 @@ class ReplicatedRuntime:
         self._mask_views = (None, None, None)
         #: reachable-row share above which a frontier round runs dense
         self.frontier_crossover = 0.25
-        #: one entry per round, the JAX ``StepTrace`` residual convention:
-        #: the changed-state count of a step / frontier step, and per fused
-        #: block -1 (no quiescent round in it) or 0
-        self.round_residuals: list[int] = []
+        #: one row per step, frontier step or fused dispatch (residual and
+        #: seconds): the changed-state count of a step / frontier step, and
+        #: per fused block or on-device wait -1 (no quiescent round in it)
+        #: or 0
+        self.trace = StepTrace()
         self.frontier_rows_last = 0
         #: rows every frontier round so far touched (frontier_sparse's
         #: crossover autotune reads its deltas)
@@ -471,6 +478,9 @@ class ReplicatedRuntime:
         self.plan_mode = plan
         #: the compiled DispatchPlan, or None until the next stepping call
         self._plan = None
+        #: set where JAX drops its compiled step: the next dense stepping
+        #: call compiles the plan, as JAX's step rebuild does
+        self._step_stale = True
         #: reactive rules run in every step: ``(fn, touches | None, builder)``
         self._triggers: list = []
         #: edge count the round function was built for (-1: never)
@@ -670,6 +680,7 @@ class ReplicatedRuntime:
             self._aae_tree_epoch += 1
         elif reason != "restore":
             self._aae_state_epoch += 1
+            self._step_stale = True
         # boundary halos are exact only while frontier knowledge is: the
         # next sparse round after any of these events resyncs the full cut
         self._part_halo.clear()
@@ -762,6 +773,7 @@ class ReplicatedRuntime:
         self._triggers.append(
             (fn, frozenset(touches) if touches is not None else None, builder)
         )
+        self._step_stale = True
 
     # -- mesh-level programs (L5 over L2, src/lasp_vnode.erl:276-366) ----------
     def _session(self):
@@ -1029,6 +1041,7 @@ class ReplicatedRuntime:
         for key in keys:
             prev = self._actor_sites.get(key)
             if prev is not None and prev != site:
+                self._count_guard_rejection()
                 if prev < 0:
                     raise ActorCollisionError(
                         f"actor {actor!r} departed with a crashed row "
@@ -1051,6 +1064,13 @@ class ReplicatedRuntime:
         """Register ``site`` (:meth:`_site`) for every key of a write."""
         for key in keys:
             self._actor_sites.setdefault(key, site)
+
+    @staticmethod
+    def _count_guard_rejection() -> None:
+        counter(
+            "actor_guard_rejections_total",
+            help="writes refused by the debug_actors collision guard",
+        ).inc()
 
     @staticmethod
     def _op_mints_lane(var, op: tuple) -> bool:
@@ -1079,8 +1099,16 @@ class ReplicatedRuntime:
         if self._dist is not None:
             win = _RowWindow([replica], self.n_replicas)
             with self._owner_window((var_id,), win):
-                self.update_at(int(win.compact(replica)), var_id, op, actor)
+                self._update_row(int(win.compact(replica)), var_id, op, actor,
+                                 replica)
             return
+        self._update_row(replica, var_id, op, actor, replica)
+
+    def _update_row(self, replica: int, var_id: str, op: tuple, actor,
+                    named: int) -> None:
+        """:meth:`update_at`'s body on row ``replica`` of the populations
+        (a compact window row across processes); its events name the
+        caller's replica ``named``."""
         var = self.store.variable(var_id)
         if var.type_name == "riak_dt_map":
             # sync a late-declared map's population before any spec growth
@@ -1101,8 +1129,17 @@ class ReplicatedRuntime:
         wire_row = tree_map(lambda x: x[replica], pop)
         row = self._to_dense_row(var_id, wire_row)
         candidate = self.store._apply_op(var, row, op, actor)
-        merged = var.codec.merge(var.spec, row, candidate)
-        if bool(var.codec.is_inflation(var.spec, row, merged)):
+        with span(f"merge.{var.type_name}"):
+            # times the merge's launch, as JAX times its dispatch
+            with Timer() as mt:
+                merged = var.codec.merge(var.spec, row, candidate)
+        histogram(
+            "merge_seconds",
+            help="host-path CRDT merge wall time by type",
+            type=var.type_name,
+        ).observe(mt.elapsed)
+        inflated = bool(var.codec.is_inflation(var.spec, row, merged))
+        if inflated:
             new_row = self._from_dense_row(var_id, merged)
             for x, r in zip(tree_leaves(pop), tree_leaves(new_row)):
                 x[replica] = r
@@ -1112,8 +1149,19 @@ class ReplicatedRuntime:
                 self._guard_actor_commit(self._actor_guard_keys(var, actor),
                                          self._site(replica))
             self._mark_dirty_rows(var_id, [replica])
-        # a non-inflation is silently ignored (the bind rule); new terms
-        # fold into the edge tables
+        # a non-inflation is silently ignored (the bind rule)
+        if not self._suppress_op_events:
+            # inside update_batch's per-op fallback the batch owns both
+            # tiers (one coarse record and the deep per-op loop)
+            tel_events.emit(
+                "update", var=var_id, replica=named, op=str(op[0]),
+                inflated=inflated,
+            )
+            tel_events.emit_deep(
+                "merge", var=var_id, replica=named, type=var.type_name,
+                seconds=round(mt.elapsed, 9),
+            )
+        # new terms fold into the edge tables
         self.graph.refresh()
 
     def update_batch(self, var_id: str, ops) -> None:
@@ -1232,6 +1280,7 @@ class ReplicatedRuntime:
                     if prev is None:
                         staged[key] = site
                     elif prev != site:
+                        self._count_guard_rejection()
                         raise ActorCollisionError(
                             f"update_batch({var_id!r}): actor {actor!r} "
                             + ("departed with a crashed row and may "
@@ -1307,10 +1356,13 @@ class ReplicatedRuntime:
         for p in pendings:
             if self.plan_mode != "auto":
                 continue
+            bt = Timer()
+            bt.__enter__()
             try:
-                p.table, enc_err = ingest_mod.encode_batch(
-                    self, p.var, p.tn, p.states, p.ops
-                )
+                with span("mesh.update_batch", type=p.tn, ops=len(p.ops)):
+                    p.table, enc_err = ingest_mod.encode_batch(
+                        self, p.var, p.tn, p.states, p.ops
+                    )
                 if enc_err is not None:
                     p.err = enc_err
             except Exception as exc:
@@ -1322,20 +1374,36 @@ class ReplicatedRuntime:
                 p.err, p.table, p.encode_failed = exc, None, True
                 self._batch_finalize(p)
                 raise
+            finally:
+                bt.__exit__()
+                p.seconds += bt.elapsed
             if p.table is not None:
                 tabled.append(p)
         # the per-variable arm: plan="off", or a type with no op table
         for p in pendings:
             if p.table is not None or p.encode_failed:
                 continue
+            if self.plan_mode == "auto":
+                counter(
+                    "ingest_fallback_total",
+                    help="ingest batches routed to the per-var arm "
+                         "(no tensorized op-table encode for the type)",
+                    type=p.tn,
+                ).inc()
+            bt = Timer()
+            bt.__enter__()
             try:
-                self._dispatch_batch(p.var, p.tn, p.states, p.ops)
+                with span("mesh.update_batch", type=p.tn, ops=len(p.ops)):
+                    self._dispatch_batch(p.var, p.tn, p.states, p.ops)
             except Exception as exc:
                 p.err = exc
             except BaseException as exc:
                 p.err = exc
                 self._batch_finalize(p)
                 raise
+            finally:
+                bt.__exit__()
+                p.seconds += bt.elapsed
         report = self._ingest_apply_groups(tabled)
         for p in pendings:
             self._batch_finalize(p)
@@ -1383,21 +1451,24 @@ class ReplicatedRuntime:
         n_groups = slots = padded = 0
         for (_sig, kind), members in groups.items():
             tables = [p.table for p in members]
-            t0 = time.perf_counter()
-            try:
-                changed = ingest_mod.apply_group(
-                    kind, [self.states[p.var_id] for p in members], tables,
-                    self.n_replicas,
-                )
-            except Exception as exc:
-                for p in members:
-                    p.err = exc
-                continue
+            g = len(members)
+            with span("gossip.ingest_apply", kind=kind, vars=g):
+                with Timer() as t:
+                    try:
+                        changed = ingest_mod.apply_group(
+                            kind, [self.states[p.var_id] for p in members],
+                            tables, self.n_replicas,
+                        )
+                    except Exception as exc:
+                        for p in members:
+                            p.err = exc
+                        continue
             for p, ch in zip(members, changed):
                 p.marks = np.flatnonzero(ch)
+                p.seconds += t.elapsed / g
             buckets, pad_slots = ingest_mod.table_buckets(tables)
             self._ledger_record_var(
-                "ingest_apply", members[0].var_id, time.perf_counter() - t0,
+                "ingest_apply", members[0].var_id, t.elapsed,
                 rows=max((b for _n, b in buckets), default=0),
                 g_active=len(members),
             )
@@ -1437,16 +1508,27 @@ class ReplicatedRuntime:
         (the group apply's exact rows, else every row the batch touched — a
         superset), the edge tables' refresh (a failed batch's persisted
         prefix interned terms too), the actor guard's site commits for the
-        ops that applied."""
+        ops that applied; the timing and the coarse causal record (one per
+        batch, the hot-path rule; the deep tier adds one per op)."""
+        histogram(
+            "update_batch_seconds",
+            help="batched client-op dispatch wall time by type",
+            type=p.tn,
+        ).observe(p.seconds)
         counter(
             "update_batch_ops_total",
             help="client ops submitted through update_batch",
         ).inc(len(p.ops))
-        # one coarse causal record per batch (the hot-path rule)
         tel_events.emit(
             "update", var=p.var_id, ops=len(p.ops), type=p.tn,
             failed=p.err is not None,
         )
+        if tel_events.deep_enabled():
+            for r, op, actor in p.ops:
+                tel_events.emit_deep(
+                    "update", var=p.var_id, replica=r, op=str(op[0]),
+                    actor=repr(actor),
+                )
         if p.marks is not None:
             if len(p.marks):
                 self._mark_dirty_rows(p.var_id, p.marks)
@@ -1522,8 +1604,14 @@ class ReplicatedRuntime:
                 "not for population-scale seeding)",
                 stacklevel=3,
             )
-            for r, op, actor in ops:
-                self.update_at(r, var.id, op, actor)
+            # the batch's finalize logs the one coarse record this
+            # dispatch owes; per-op records stay the deep tier's
+            self._suppress_op_events = True
+            try:
+                for r, op, actor in ops:
+                    self.update_at(r, var.id, op, actor)
+            finally:
+                self._suppress_op_events = False
         else:
             raise ValueError(f"update_batch: unsupported type {tn!r}")
 
@@ -2233,6 +2321,7 @@ class ReplicatedRuntime:
                     if prev is None:
                         staged[key] = site
                     elif prev != site:
+                        self._count_guard_rejection()
                         raise ActorCollisionError(
                             f"seed_increments({var_id!r}): lane {lane} "
                             f"written from replicas {prev} and {site}"
@@ -2336,6 +2425,30 @@ class ReplicatedRuntime:
         self._tel_cache = (gen, self.var_ids, kinds, inst)
         return inst
 
+    @property
+    def round_residuals(self) -> list:
+        """Every ``rt.trace`` row's residual, in order (a fresh list: the
+        trace is the one record of rounds)."""
+        return [r["residual"] for r in self.trace.rounds]
+
+    def _observe_opaque_block(self, rounds: int, quiescent: "bool | None",
+                              elapsed: float) -> None:
+        """Convergence-observatory feed for the on-device entry points
+        whose per-round residual vectors never reach the host: advance the
+        monitor's round clock and log one delivery event per dispatch."""
+        if self._instruments() is None:  # telemetry disabled
+            return
+        mon = get_monitor()
+        mon.observe_opaque_rounds(rounds, quiescent)
+        tel_events.set_round(mon.round)
+        tel_events.emit(
+            "delivery",
+            rounds=int(rounds),
+            quiescent=quiescent,
+            seconds=round(elapsed, 6),
+            n_replicas=self.n_replicas,
+        )
+
     def _record_rounds(self, n: int) -> None:
         """Registry bookkeeping for ``n`` executed gossip rounds — the one
         emission point of every dense stepping entry."""
@@ -2407,7 +2520,7 @@ class ReplicatedRuntime:
         """The whole per-step host-side emission (factored out so the
         overhead guard times exactly this path): the residual trace always
         records; registry, monitor and events no-op when disabled."""
-        self.round_residuals.append(residual)
+        self.trace.record_round(residual, elapsed)
         self._record_rounds(1)
         self._ledger_record_store("step", elapsed, 1)
         tel = self._instruments()
@@ -2500,7 +2613,7 @@ class ReplicatedRuntime:
         :meth:`_emit_step_telemetry`: the same trace row and monitor feed,
         bytes scaled by the rows actually gathered, per-var gauges set only
         when their value moved."""
-        self.round_residuals.append(total)
+        self.trace.record_round(total, elapsed)
         tel = self._instruments()
         if tel is None:
             return
@@ -2584,6 +2697,12 @@ class ReplicatedRuntime:
         anew (client writes grow the interners the tables index)."""
         if self._n_edges != len(self.graph.edges):
             self._sync_graph()
+        if self._step_stale:
+            # JAX compiles the dispatch plan with each rebuild of its step
+            # (after a census, shape or trigger change): plan_compile_total
+            # counts alike
+            self._ensure_plan()
+            self._step_stale = False
         # the per-round wire estimate behind gossip_bytes_exchanged_total and
         # the whole-store ledger rows (metadata only)
         self._round_traffic = self._traffic_estimate()
@@ -2907,7 +3026,7 @@ class ReplicatedRuntime:
             elapsed = time.perf_counter() - t0
         self._frontier_after_opaque(signed > 0)
         # 0 = reached the fixed point; -1 = the budget ran out
-        self.round_residuals.append(0 if signed > 0 else -1)
+        self.trace.record_round(0 if signed > 0 else -1, elapsed)
         self._record_rounds(abs(signed))
         joins = None
         if ring is not None:
@@ -2963,7 +3082,7 @@ class ReplicatedRuntime:
                 self.states[v] = st
         # opaque: frontiers degrade or clear, the halos drop
         self._frontier_after_opaque(signed > 0)
-        self.round_residuals.append(0 if signed > 0 else -1)
+        self.trace.record_round(0 if signed > 0 else -1, elapsed)
         self._record_rounds(abs(signed))
         joins = None
         if len(out) > 2:
@@ -3188,7 +3307,9 @@ class ReplicatedRuntime:
             elif plan is None:
                 stats = self._frontier_round_pervar(edge_mask)
             else:
-                stats = self._frontier_round_planned(plan, edge_mask)
+                with span("gossip.plan_round", annotate=True,
+                          groups=len(plan.groups)):
+                    stats = self._frontier_round_planned(plan, edge_mask)
             elapsed = time.perf_counter() - t0
         total = sum(stats["per_var_changed"])
         self.frontier_rows_last = stats["rows_touched"]
@@ -4272,6 +4393,12 @@ class ReplicatedRuntime:
         self._partition = None
         self._frontier_shards = None
         self.membership_epoch += 1
+        gauge(
+            "membership_epoch",
+            help="monotone membership epoch of the replica population "
+                 "(advanced by every resize / staged commit; consumers "
+                 "holding population-relative indices fence on it)",
+        ).set(self.membership_epoch)
         # the replica extent is part of every grouping signature
         self._invalidate_plan("resize")
 
@@ -4385,6 +4512,7 @@ class ReplicatedRuntime:
                 )
         saved = list(self._triggers)
         self._triggers = []
+        self._step_stale = True
         body_ok = False
         try:
             self.run_to_convergence(
@@ -4406,6 +4534,7 @@ class ReplicatedRuntime:
                 except Exception as exc:  # reported below
                     failures.append((b, exc))
             self._triggers = rebuilt + self._triggers
+            self._step_stale = True
             if failures:
                 # a failed builder's old closure holds pre-compaction
                 # indices: the trigger is dropped. Raising here would mask
@@ -4480,6 +4609,10 @@ class ReplicatedRuntime:
             max_rounds, edge_mask, block,
         )
         if row is not None:
+            tel_events.emit(
+                "threshold_fire", var=var_id, replica=replica,
+                rounds=rounds, verb="read_until",
+            )
             return row
         raise TimeoutError(
             f"threshold not met at replica {replica} within {rounds} rounds"
@@ -4542,6 +4675,10 @@ class ReplicatedRuntime:
 
         hit, rounds, quiescent = self._step_until(probe, max_rounds, edge_mask, block)
         if hit is not None:
+            tel_events.emit(
+                "threshold_fire", var=hit[0], replica=replica,
+                rounds=rounds, verb="read_any_until",
+            )
             return hit
         raise TimeoutError(
             f"no threshold met at replica {replica} within {rounds} rounds"
@@ -4603,6 +4740,7 @@ class ReplicatedRuntime:
         n_reads = len(resolved)
         states_in = dict(self.states)
         rounds = 0
+        t0 = time.perf_counter()
         try:
             status = int(self._wait_status(
                 replica, metas, torch.zeros((), dtype=torch.bool, device=self.device)
@@ -4615,12 +4753,19 @@ class ReplicatedRuntime:
             self._restore_states(states_in)
             raise
         code = 0 if status < n_reads else (2 if status == n_reads else 1)
+        elapsed = time.perf_counter() - t0
         if rounds > 0 or code == 2:
             self._frontier_after_opaque(code == 2)
-        self.round_residuals.append(0 if code == 0 else -1)
+        self.trace.record_round(0 if code == 0 else -1, elapsed)
+        self._record_rounds(rounds)
+        self._observe_opaque_block(rounds, True if code == 2 else None, elapsed)
         verb = "read_until" if n_reads == 1 else "read_any_until"
         if code == 0:
             var_id, thr = resolved[status]
+            tel_events.emit(
+                "threshold_fire", var=var_id, replica=replica,
+                rounds=rounds, verb=verb,
+            )
             row = self.read_at(replica, var_id, thr)
             if row is None:
                 # met on the device must be met on the host

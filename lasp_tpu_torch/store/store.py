@@ -46,8 +46,9 @@ from ..lattice import (
 )
 from ..lattice.map import CrdtMap, MapState, map_subs
 from ..telemetry import events as tel_events
-from ..telemetry.registry import CounterGroup, counter
+from ..telemetry.registry import CounterGroup, counter, histogram
 from ..utils.interning import CapacityError, Interner
+from ..utils.metrics import Timer
 
 DEFAULT_SPECS = {
     "lasp_ivar": lambda **kw: IVarSpec(),
@@ -524,7 +525,9 @@ class Store:
             # grow the field axis for keys this op names first, before
             # reading var.state (growth migrates it)
             self.admit_map_fields(var, op)
-        return self.bind(id, self._apply_op(var, var.state, op, actor))
+        state = self._apply_op(var, var.state, op, actor)
+        tel_events.emit("update", var=id, op=str(op[0]))
+        return self.bind(id, state)
 
     def bind(self, id: str, state) -> Any:
         """Merge + inflation gate + write (``src/lasp_core.erl:291-312``);
@@ -535,7 +538,16 @@ class Store:
         if bool(var.codec.equal(var.spec, var.state, state)):
             tel_events.emit("bind", var=id, outcome="noop")
             return var.state
-        merged = var.codec.merge(var.spec, var.state, state)
+        with Timer() as t:
+            merged = var.codec.merge(var.spec, var.state, state)
+        histogram(
+            "merge_seconds",
+            help="host-path CRDT merge wall time by type",
+            type=var.type_name,
+        ).observe(t.elapsed)
+        tel_events.emit_deep(
+            "merge", var=id, type=var.type_name, seconds=round(t.elapsed, 9),
+        )
         if bool(var.codec.is_inflation(var.spec, var.state, merged)):
             self.metrics["inflations"] += 1
             counter("store_inflations_total", help="binds that inflated").inc()
@@ -588,6 +600,7 @@ class Store:
             if watch.done:
                 continue  # retired by a sibling's callback mid-loop
             if bool(var.codec.threshold_met(var.spec, var.state, watch.threshold)):
+                tel_events.emit("threshold_fire", var=var.id, kind=watch.kind)
                 watch.fire((var.id, var.type_name, var.state))
             else:
                 still.append(watch)

@@ -20,6 +20,9 @@ the device flight ring.
 - :mod:`.device` — the flight ring every fused path carries on the card
   and the host's log of drained windows.
 - :mod:`.overhead` — what the always-on emission costs a step.
+- ``profile`` / ``profile_capture`` / ``capture_scenario`` — the
+  ``torch.profiler`` block tracer and the whole-scenario capture hook,
+  each writing a Chrome trace into the directory it is given.
 
 Registry, sink, spans, events and export are copies of the JAX package's
 pure-Python modules; the same emissions render the same text and records
@@ -32,7 +35,13 @@ from . import convergence, device, events
 from .capability import device_capability, peak_gbps_for_kind
 from .convergence import ConvergenceMonitor, get_monitor
 from .export import dump_jsonl, metric_events, render_prometheus
-from .roofline import KernelLedger, get_ledger, kernel_traffic
+from .roofline import (
+    KernelLedger,
+    capture_scenario,
+    get_ledger,
+    kernel_traffic,
+    profile_capture,
+)
 from .registry import (
     DEFAULT_BUCKETS,
     Counter,
@@ -51,6 +60,7 @@ from .registry import (
 from .spans import clear as clear_spans
 from .spans import configure, current_path, span
 from .spans import events as span_events
+from ..utils.metrics import profile
 
 __all__ = [
     "ConvergenceMonitor",
@@ -67,6 +77,7 @@ __all__ = [
     "counter",
     "current_path",
     "device",
+    "capture_scenario",
     "device_capability",
     "dump_jsonl",
     "enabled",
@@ -79,6 +90,8 @@ __all__ = [
     "kernel_traffic",
     "peak_gbps_for_kind",
     "metric_events",
+    "profile",
+    "profile_capture",
     "render_prometheus",
     "reset",
     "set_enabled",

@@ -24,7 +24,6 @@ JAX's budget is 5% an arm; the port measures it on the card
 from __future__ import annotations
 
 import time
-import types
 
 import numpy as np
 
@@ -197,14 +196,15 @@ def _measure_frontier(step_samples: int, emission_samples: int, dev,
 
 def _measure_dataflow(step_samples: int, emission_samples: int, dev,
                       depth: int = 6) -> dict:
-    """Fused-propagate arm: one ``Graph.propagate`` in fused mode against
-    its emission path — the ``dataflow.propagate`` span and the drain of
-    its flight ring plus its one ``dataflow_fused`` ledger record
-    (``Graph._drain_propagate``), over an OR-Set filter chain whose every
-    timed propagate runs a real (depth+1)-sweep fixed point."""
+    """Fused-propagate arm, JAX's: one ``Graph.propagate`` in fused mode
+    against its emission path — the ``dataflow.propagate`` span,
+    ``Graph._emit_propagate_telemetry`` (counters, per-kind accounting, the
+    ``propagate`` event with its per-dst changed counts) on a stats dict
+    shaped like a real run's, and the propagate's one ``dataflow_fused``
+    ledger record — over an OR-Set filter chain whose every timed propagate
+    runs a real (depth+1)-sweep fixed point."""
     from ..dataflow import Graph
     from ..store import Store
-    from .device import flight_rounds, ring_init, ring_write
 
     prev = _registry.enabled()
     store = Store(n_actors=2, device=dev)
@@ -217,15 +217,18 @@ def _measure_dataflow(step_samples: int, emission_samples: int, dev,
     store.update(src, ("add", "x"), "w")
     g.propagate()  # build and warm the fused entry
 
-    sweeps = depth + 1
-    ent = types.SimpleNamespace(dst_order=tuple(f"f{i}" for i in range(depth)),
-                                sweep_bytes=2048)
-    ring = ring_init(flight_rounds(), depth)
-    for i in range(sweeps):
-        ring_write(ring, i, [int(j >= i) for j in range(depth)])
-    idx = tuple(range(depth))
+    stats = {
+        "rounds": depth, "executed": depth + 1,
+        "runs": [depth + 1] * len(g.edges), "fused": True,
+        "changed_by_dst": {f"f{i}": depth - i for i in range(depth)},
+    }
+    ledger = _roofline.get_ledger()
+    rec = dict(n_replicas=1, fanout=depth, seconds=1e-6, row_bytes=2048,
+               window=depth + 1, rounds=depth + 1,
+               bytes_moved=2048 * (depth + 1), joins=depth * (depth + 1),
+               n_vars=depth)
     # consume the signature's compile-bucket slot outside the clock
-    g._drain_propagate(ent, idx, ring, sweeps, False, 1e-6)
+    ledger.record("dataflow_fused", "OverheadProbe", **rec)
 
     def emission_pass(flag: bool) -> float:
         _registry.set_enabled(flag)
@@ -234,7 +237,8 @@ def _measure_dataflow(step_samples: int, emission_samples: int, dev,
             for _ in range(emission_samples):
                 with span("dataflow.propagate", annotate=True):
                     pass
-                g._drain_propagate(ent, idx, ring, sweeps, False, 1e-6)
+                g._emit_propagate_telemetry(stats, 1e-6)
+                ledger.record("dataflow_fused", "OverheadProbe", **rec)
             return (time.perf_counter() - t0) / emission_samples
         finally:
             _registry.set_enabled(prev)
@@ -255,7 +259,7 @@ def _measure_dataflow(step_samples: int, emission_samples: int, dev,
         "propagate_seconds": round(prop_s, 6),
         "overhead_frac": round(cost / prop_s if prop_s > 0 else 0.0, 4),
         "edges": len(g.edges),
-        "sweeps_per_propagate": sweeps,
+        "sweeps_per_propagate": depth + 1,
         "emission_samples": emission_samples,
     }
 

@@ -37,8 +37,10 @@ reset()`` and ``registry.scratch_registry()`` detach it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+import time
 
 from . import registry as _registry
 from .capability import device_capability
@@ -551,3 +553,34 @@ def get_ledger() -> KernelLedger:
             _ledger = KernelLedger()
             _ledger_gen = gen
         return _ledger
+
+
+# ---------------------------------------------------------------------------
+# profiler capture hook
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def profile_capture(log_dir: str = "./profile_capture"):
+    """Wrap a region in a ``torch.profiler`` trace, the whole-scenario
+    capture hook (``with profile_capture("/tmp/t"): scenario()``): a Chrome
+    trace lands in the directory (open it in Perfetto). Yields the trace
+    directory."""
+    from ..utils.metrics import profile
+
+    with profile(str(log_dir)):
+        yield str(log_dir)
+
+
+def capture_scenario(fn, log_dir: str = "./profile_capture", **kwargs):
+    """Run ``fn(**kwargs)`` under :func:`profile_capture`; returns
+    ``(result, trace_dir)``, the one-call form for scenario callables
+    (``capture_scenario(frontier_sparse)``)."""
+    t0 = time.perf_counter()
+    with profile_capture(log_dir) as d:
+        out = fn(**kwargs)
+    _registry.histogram(
+        "profile_capture_seconds",
+        help="wall time of whole-scenario profiler captures",
+    ).observe(time.perf_counter() - t0)
+    return out, d

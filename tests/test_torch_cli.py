@@ -467,9 +467,12 @@ def test_cli_trace_unknown_var(tmp_path, capsys):
 
 def test_cli_trace_rounds_match_jax(tmp_path, capsys):
     """The unfused trace of the observed mesh: the port's delivery records
-    (round, residual) and summary equal JAX's."""
+    (round, residual) and summary equal JAX's, its causal history's event
+    count too."""
     jtelemetry.reset()
     JE.clear()
+    telemetry.reset()
+    E.clear()
     jp, tp = str(tmp_path / "jax.json"), str(tmp_path / "torch.json")
     argv = ["trace", "--var", "seen_ads", "--replicas", "16", "--export"]
     assert jcli.main(argv + [jp]) == 0
@@ -477,4 +480,5 @@ def test_cli_trace_rounds_match_jax(tmp_path, capsys):
     assert _main(argv + [tp]) == 0
     got = json.loads(capsys.readouterr().out)
     assert got["lineage"] == want["lineage"]
+    assert got["events"] == want["events"]
     assert _delivery_rounds(tp) == _delivery_rounds(jp)

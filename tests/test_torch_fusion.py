@@ -423,6 +423,13 @@ def test_dataflow_chain_matches_jax():
     assert got["plan"]["groups"] == want["plan"]["groups"]
     assert got["plan"]["edges_stacked"] == want["plan"]["edges_stacked"]
     assert got["timing"]["fused"]["host_syncs"] == 1
+    # each arm on JAX's clock (the engine's dataflow_propagate_seconds),
+    # the whole call's wall time beside it
+    for arm in ("per_edge", "fused"):
+        assert {"roundloop_seconds", "propagate_seconds", "seconds_each",
+                "rounds"} <= set(got["timing"][arm])
+        assert got["impl_block_seconds"][arm] == got["timing"][arm]["roundloop_seconds"]
+        assert 0 < got["timing"][arm]["roundloop_seconds"] <= got["timing"][arm]["propagate_seconds"]
     assert got["timing"]["per_edge"]["host_syncs"] == got["timing"]["per_edge"]["sweeps"]
     # the wave's final states, bit for bit, against JAX's fused propagate
     (js, jg), (ts, tg) = j_chains(3, 3), t_chains(3, 3, device="cpu")

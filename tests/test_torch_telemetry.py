@@ -40,6 +40,18 @@ torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "telemetry", "golden_prometheus.txt")
 
 
+@pytest.fixture(autouse=True)
+def _reset_on_exit():
+    """Both packages' registry and event ring end each test fresh: the ring
+    bound test drops events, and ``events_dropped_total`` lives in the
+    process-global registry that a later file on the same worker reads
+    (``tests/telemetry/test_events.py::test_ring_bounds_and_counts_drops``)."""
+    yield
+    for tel in (jtel, ttel):
+        tel.events.clear()
+        tel.reset()
+
+
 def _emit(reg_mod, reg):
     """One emission sequence, routed into ``reg`` through the package's
     module-level helpers (the emitters' path)."""
@@ -260,11 +272,14 @@ def test_probe_equal_jax():
 
 
 def test_module_surfaces_match_jax():
-    """Every name the port's telemetry exports exists in JAX's with the same
-    kind of object (the ledger, the device flight ring and the overhead
-    harness are not ported)."""
+    """The port's telemetry exports JAX's names and JAX's exports the
+    port's, each the same kind of object."""
     for name in ttel.__all__:
         assert hasattr(jtel, name), name
+    for name in jtel.__all__:
+        assert hasattr(ttel, name), name
+        assert callable(getattr(ttel, name)) == callable(getattr(jtel, name)), name
+    assert set(ttel.__all__) == set(jtel.__all__)
     assert tevents.DEFAULT_RING_SIZE == jevents.DEFAULT_RING_SIZE
     assert tspans.DEFAULT_RING_SIZE == jspans.DEFAULT_RING_SIZE
     assert treg.DEFAULT_BUCKETS == jreg.DEFAULT_BUCKETS
