@@ -3952,7 +3952,8 @@ def telemetry_drive(m, n: int, deep: bool, dev: dict,
     fallback, ``update_at`` on every kind, an actor-guard refusal, dense
     steps, ``frontier_step``, ``converge_on_device`` with its flight ring,
     ``read_until`` / ``read_any_until`` host-probed and a parked read, a
-    ``resize``; then a store-level map -> filter -> union -> product chain
+    ``resize``, a frontier convergence, a ``replica_value`` and a dense
+    round under a trigger; then a store-level map -> filter -> union -> product chain
     propagated fused, per edge and fused again from the cache, with a
     parked store read fired by a write. Returns :func:`telemetry_transcript`
     of the run (the registry reset and the event and span rings cleared
@@ -4010,6 +4011,11 @@ def telemetry_drive(m, n: int, deep: bool, dev: dict,
         rt.resize(grown, m.random_regular(grown, 3, seed=1))
         residuals.append(rt.step())
         rounds_after = rt.converge_on_device(max_rounds=256)
+        # the frontier loop, a read, and a dense round with a trigger
+        rounds_after = [rounds_after, rt.run_to_convergence(mode="auto")]
+        read = rt.replica_value(views, far)
+        rt.register_trigger(lambda dense: {}, touches=[views])
+        residuals.append(rt.step())
 
         ds = m.Store(n_actors=2, **dev)
         g = m.Graph(ds)
@@ -4037,7 +4043,8 @@ def telemetry_drive(m, n: int, deep: bool, dev: dict,
     out["checks"] = {"refused": refused, "residuals": residuals, "rounds": rounds,
                      "rounds_after": rounds_after, "propagate_rounds": prop,
                      "watch_fired": bool(watch.done), "p": sorted(ds.value("p")),
-                     "views": rt.coverage_value(views), "n": rt.n_replicas}
+                     "views": rt.coverage_value(views), "read": read,
+                     "n": rt.n_replicas}
     return out
 
 

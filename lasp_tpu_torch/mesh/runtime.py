@@ -151,6 +151,7 @@ from ..telemetry import events as tel_events
 from ..telemetry import registry as tel_registry
 from ..telemetry.convergence import get_monitor, record_membership
 from ..telemetry.roofline import get_ledger
+from ..telemetry.spans import ranged
 from ..utils.interning import CapacityError
 from ..utils.metrics import StepTrace, Timer
 from . import comm
@@ -1321,15 +1322,21 @@ class ReplicatedRuntime:
         Across processes every process passes the same cycle; the rows it
         touches are pulled to every process and land by owner
         (:meth:`_owner_window`)."""
-        items = ops_by_var.items() if hasattr(ops_by_var, "items") else ops_by_var
-        if self._dist is not None:
+        with span("mesh.ingest_cycle"):
+            items = ops_by_var.items() if hasattr(ops_by_var, "items") else ops_by_var
+            if self._dist is None:
+                return self._ingest_cycle(items, isolate_errors)
             items = [(v, self._normalize_ops(ops)) for v, ops in items]
             win = _RowWindow([r for _v, ops in items for r, _op, _a in ops],
                              self.n_replicas)
             moved = [(v, [(int(c), op, a) for c, (_r, op, a) in zip(
                 win.compact([r for r, _op, _a in ops]), ops)]) for v, ops in items]
             with self._owner_window(tuple(dict.fromkeys(v for v, _o in items)), win):
-                return self.ingest_cycle(moved, isolate_errors)
+                return self._ingest_cycle(moved, isolate_errors)
+
+    def _ingest_cycle(self, items, isolate_errors: bool) -> dict:
+        """:meth:`ingest_cycle` over ``(var_id, ops)`` pairs of rows this
+        process indexes."""
         pendings: list = []
         errors: dict = {}
         seen: set = set()
@@ -1415,6 +1422,10 @@ class ReplicatedRuntime:
         report["fallback_vars"] = [
             p.var_id for p in pendings if p.table is None and not p.encode_failed
         ]
+        counter(
+            "ingest_cycle_ops_total",
+            help="client ops ingest_cycle took into a batch, both arms",
+        ).inc(report["ops"])
         if tabled or report["ops"]:
             self._observe_ingest(report)
         if errors and not isolate_errors:
@@ -2368,6 +2379,12 @@ class ReplicatedRuntime:
             "rounds": reg.counter(
                 "gossip_rounds_total", help="gossip rounds executed"
             ),
+            "rounds_run": reg.counter(
+                "gossip_rounds_run_total",
+                help="gossip rounds run, the no-op rounds a fused loop runs "
+                     "past the fixed point included (gossip_rounds_total "
+                     "counts the exact rounds)",
+            ),
             "bytes": reg.counter(
                 "gossip_bytes_exchanged_total",
                 help="estimated bytes moved by gossip gathers (see "
@@ -2400,6 +2417,11 @@ class ReplicatedRuntime:
             "frontier_rounds": reg.counter(
                 "gossip_frontier_rounds_total",
                 help="frontier-scheduled gossip rounds executed",
+            ),
+            "frontier_dense_rounds": reg.counter(
+                "gossip_frontier_dense_rounds_total",
+                help="frontier rounds in which at least one variable took "
+                     "the dense arm",
             ),
             "plan_vars_per_dispatch": reg.gauge(
                 "gossip_plan_vars_per_dispatch",
@@ -2520,11 +2542,13 @@ class ReplicatedRuntime:
         """The whole per-step host-side emission (factored out so the
         overhead guard times exactly this path): the residual trace always
         records; registry, monitor and events no-op when disabled."""
-        self.trace.record_round(residual, elapsed)
-        self._record_rounds(1)
-        self._ledger_record_store("step", elapsed, 1)
-        tel = self._instruments()
-        if tel is not None:
+        with span("telemetry.emit"):
+            self.trace.record_round(residual, elapsed)
+            self._record_rounds(1)
+            self._ledger_record_store("step", elapsed, 1)
+            tel = self._instruments()
+            if tel is None:
+                return
             res_list = [int(r) for r in res_vec.tolist()]
             res_last = tel["residual_last"]
             for i, (g, r) in enumerate(zip(tel["residual"], res_list)):
@@ -2613,68 +2637,71 @@ class ReplicatedRuntime:
         :meth:`_emit_step_telemetry`: the same trace row and monitor feed,
         bytes scaled by the rows actually gathered, per-var gauges set only
         when their value moved."""
-        self.trace.record_round(total, elapsed)
-        tel = self._instruments()
-        if tel is None:
-            return
-        tel["rounds"].inc(1)
-        frac = rows_touched / max(self.n_replicas * len(self.var_ids), 1)
-        tel["bytes"].inc(int(self._round_traffic * frac))
-        for c, edges_of_kind in tel["edge_recomputes"]:
-            c.inc(edges_of_kind)
-        tel["frontier_rounds"].inc()
-        if dense_falls:
-            counter(
-                "gossip_frontier_dense_fallbacks_total",
-                help="dense rounds/runs taken where frontier "
-                     "scheduling was requested, by reason",
-                reason="crossover",
-            ).inc(dense_falls)
-        res_last, f_last = tel["residual_last"], tel["frontier_last"]
-        for i, c in enumerate(per_var_changed):
-            c = int(c)
-            if res_last[i] != c:
-                tel["residual"][i].set(c)
-                res_last[i] = c
-            # the post-round frontier IS the round's changed mask
-            if f_last[i] != c:
-                tel["frontier_rows"][i].set(c)
-                f_last[i] = c
-        if dispatches and self._plan is not None:
-            tel["plan_vars_per_dispatch"].set(
-                round((len(self.var_ids) - skipped) / dispatches, 3)
-            )
-        if self._frontier_shards and self.var_ids:
-            from .shard_gossip import shard_frontier_counts
+        with span("telemetry.emit"):
+            self.trace.record_round(total, elapsed)
+            tel = self._instruments()
+            if tel is None:
+                return
+            tel["rounds"].inc(1)
+            tel["rounds_run"].inc(1)
+            frac = rows_touched / max(self.n_replicas * len(self.var_ids), 1)
+            tel["bytes"].inc(int(self._round_traffic * frac))
+            for c, edges_of_kind in tel["edge_recomputes"]:
+                c.inc(edges_of_kind)
+            tel["frontier_rounds"].inc()
+            if dense_falls:
+                tel["frontier_dense_rounds"].inc()
+                counter(
+                    "gossip_frontier_dense_fallbacks_total",
+                    help="dense rounds/runs taken where frontier "
+                         "scheduling was requested, by reason",
+                    reason="crossover",
+                ).inc(dense_falls)
+            res_last, f_last = tel["residual_last"], tel["frontier_last"]
+            for i, c in enumerate(per_var_changed):
+                c = int(c)
+                if res_last[i] != c:
+                    tel["residual"][i].set(c)
+                    res_last[i] = c
+                # the post-round frontier IS the round's changed mask
+                if f_last[i] != c:
+                    tel["frontier_rows"][i].set(c)
+                    f_last[i] = c
+            if dispatches and self._plan is not None:
+                tel["plan_vars_per_dispatch"].set(
+                    round((len(self.var_ids) - skipped) / dispatches, 3)
+                )
+            if self._frontier_shards and self.var_ids:
+                from .shard_gossip import shard_frontier_counts
 
-            union = np.zeros(self.n_replicas, bool)
-            for v in self.var_ids:
-                union |= self._frontier[v]
-            for s, n in enumerate(
-                shard_frontier_counts(union, self._frontier_shards)
-            ):
-                gauge(
-                    "gossip_frontier_shard_rows",
-                    help="dirty rows per contiguous shard block "
-                         "(union over vars)",
-                    shard=s,
-                ).set(int(n))
-        tel["round_seconds"].observe(elapsed)
-        mon = get_monitor()
-        mon.observe_round(self.var_ids, per_var_changed, elapsed, self.n_replicas)
-        mon.observe_frontier(self.var_ids, per_var_changed)
-        tel_events.set_round(mon.round)
-        tel_events.emit(
-            "delivery",
-            residual=int(total),
-            seconds=round(elapsed, 6),
-            n_replicas=self.n_replicas,
-            frontier_rows=int(rows_touched),
-        )
-        if skipped:
+                union = np.zeros(self.n_replicas, bool)
+                for v in self.var_ids:
+                    union |= self._frontier[v]
+                for s, n in enumerate(
+                    shard_frontier_counts(union, self._frontier_shards)
+                ):
+                    gauge(
+                        "gossip_frontier_shard_rows",
+                        help="dirty rows per contiguous shard block "
+                             "(union over vars)",
+                        shard=s,
+                    ).set(int(n))
+            tel["round_seconds"].observe(elapsed)
+            mon = get_monitor()
+            mon.observe_round(self.var_ids, per_var_changed, elapsed, self.n_replicas)
+            mon.observe_frontier(self.var_ids, per_var_changed)
+            tel_events.set_round(mon.round)
             tel_events.emit(
-                "frontier_skip", skipped=int(skipped), of=len(self.var_ids),
+                "delivery",
+                residual=int(total),
+                seconds=round(elapsed, 6),
+                n_replicas=self.n_replicas,
+                frontier_rows=int(rows_touched),
             )
+            if skipped:
+                tel_events.emit(
+                    "frontier_skip", skipped=int(skipped), of=len(self.var_ids),
+                )
 
     def _kernel_family(self, var_id: str, masked: bool, rows: bool) -> str:
         """The ledger family of one dispatch of ``var_id``: the CUDA
@@ -2745,27 +2772,28 @@ class ReplicatedRuntime:
         ``gossip.CHUNK_BYTES`` into new populations (every part of it is
         replica-local), so it holds one block's dense views and
         temporaries, not the whole population's."""
-        needed = self._needed()
-        row = sum(
-            x.numel() * x.element_size()
-            for v in needed for x in tree_leaves(self.store.variable(v).state)
-        )
-        n_rows = self._block_rows()
-        if row * n_rows <= gossip_mod.SWEEP_BYTES:
-            return self._local_rows(states, tables, needed)
-        step = max(1, gossip_mod.CHUNK_BYTES // row)
-        out = dict(states)
-        for v in needed:
-            out[v] = tree_map(torch.empty_like, states[v])
-        for s in range(0, n_rows, step):
-            part = self._local_rows(
-                {v: tree_map(lambda x: x[s:s + step], states[v]) for v in needed},
-                tables, needed,
+        with span("dataflow.sweep"):
+            needed = self._needed()
+            row = sum(
+                x.numel() * x.element_size()
+                for v in needed for x in tree_leaves(self.store.variable(v).state)
             )
+            n_rows = self._block_rows()
+            if row * n_rows <= gossip_mod.SWEEP_BYTES:
+                return self._local_rows(states, tables, needed)
+            step = max(1, gossip_mod.CHUNK_BYTES // row)
+            out = dict(states)
             for v in needed:
-                for dst, src in zip(tree_leaves(out[v]), tree_leaves(part[v])):
-                    dst[s:s + step] = src
-        return out
+                out[v] = tree_map(torch.empty_like, states[v])
+            for s in range(0, n_rows, step):
+                part = self._local_rows(
+                    {v: tree_map(lambda x: x[s:s + step], states[v]) for v in needed},
+                    tables, needed,
+                )
+                for v in needed:
+                    for dst, src in zip(tree_leaves(out[v]), tree_leaves(part[v])):
+                        dst[s:s + step] = src
+            return out
 
     def _local_rows(self, states: dict, tables, needed) -> dict:
         """:meth:`_local_round` over the rows ``states`` holds."""
@@ -2775,16 +2803,19 @@ class ReplicatedRuntime:
         if self.graph.edges:
             flow = {v: dense[v] for v in self.graph._var_ids}
             dense.update(self.graph._round_fn(flow, tables))
-        for trig, _touch, _b in self._triggers:
-            for v, cand in _vmap_rows(trig, dense).items():
-                if v not in dense:
-                    raise KeyError(f"trigger wrote {v!r} outside its declared touches")
-                var = self.store.variable(v)
-                codec, spec = var.codec, var.spec
-                merged = codec.merge(spec, dense[v], cand)
-                ok = codec.is_inflation(spec, dense[v], merged)
-                # bind rule: non-inflations silently ignored
-                dense[v] = tree_select(ok, merged, dense[v])
+        if self._triggers:
+            with ranged("dataflow.trigger"):
+                for trig, _touch, _b in self._triggers:
+                    for v, cand in _vmap_rows(trig, dense).items():
+                        if v not in dense:
+                            raise KeyError(
+                                f"trigger wrote {v!r} outside its declared touches")
+                        var = self.store.variable(v)
+                        codec, spec = var.codec, var.spec
+                        merged = codec.merge(spec, dense[v], cand)
+                        ok = codec.is_inflation(spec, dense[v], merged)
+                        # bind rule: non-inflations silently ignored
+                        dense[v] = tree_select(ok, merged, dense[v])
         out = dict(states)
         out.update({v: self._from_dense_row(v, x) for v, x in dense.items()})
         return out
@@ -2797,7 +2828,7 @@ class ReplicatedRuntime:
         tensor, without a host sync (across processes, the sum of every
         process's rows: one ``all_reduce`` a round). A ``flags`` dict takes
         each variable's per-row changed flags (``bool`` over the rows this
-        process holds)."""
+        process holds). Counted in ``gossip_rounds_run_total``."""
         part = self._partition
         if part is not None and edge_mask is not None:
             # the boundary exchange bakes its row plan; masked edges need
@@ -2807,29 +2838,33 @@ class ReplicatedRuntime:
                 "failure injection"
             )
         _host, mask = self._masks(edge_mask)
+        tel = self._instruments()
+        if tel is not None:
+            tel["rounds_run"].inc()
         prev = dict(self.states)
         swept = (
             self._local_round(prev, tables)
             if self.graph.edges or self._triggers else dict(prev)
         )
         res = []
-        for v in self.var_ids:
-            codec, spec = self._mesh_meta(v)
-            # the swept state is dropped once gossiped: at most one of them
-            # is live beside the round's inputs and outputs
-            if part is not None:
-                new = self._part_round_fn(codec, spec)(
-                    swept.pop(v), part["send_idx"], part["idx"]
-                )
-            elif self._dist is not None:
-                new = self._gather_round(codec, spec, swept.pop(v), mask)
-            else:
-                new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
-            changed = changed_flags(codec, spec, prev[v], new)
-            if flags is not None:
-                flags[v] = changed
-            res.append(torch.sum(changed, dtype=torch.int32))
-            self.states[v] = new
+        with span("gossip.pull"):
+            for v in self.var_ids:
+                codec, spec = self._mesh_meta(v)
+                # the swept state is dropped once gossiped: at most one of
+                # them is live beside the round's inputs and outputs
+                if part is not None:
+                    new = self._part_round_fn(codec, spec)(
+                        swept.pop(v), part["send_idx"], part["idx"]
+                    )
+                elif self._dist is not None:
+                    new = self._gather_round(codec, spec, swept.pop(v), mask)
+                else:
+                    new = gossip_round(codec, spec, swept.pop(v), self.neighbors, mask)
+                changed = changed_flags(codec, spec, prev[v], new)
+                if flags is not None:
+                    flags[v] = changed
+                res.append(torch.sum(changed, dtype=torch.int32))
+                self.states[v] = new
         if not res:
             return torch.zeros((0,), dtype=torch.int32, device=self.device)
         if self._dist is None:
@@ -2864,7 +2899,7 @@ class ReplicatedRuntime:
         CHANGED (0 on the quiescent round)."""
         tables = self._ensure_step()
         self._frontier_sync_mask(edge_mask)
-        with span("gossip.round", annotate=True):
+        with span("gossip.round"):
             t0 = time.perf_counter()
             c0 = comm.carried_bytes()
             # the host read of the residual vector closes the timing window
@@ -2886,7 +2921,7 @@ class ReplicatedRuntime:
         tables = self._ensure_step()
         self._frontier_sync_mask(edge_mask)
         flags: dict = {}
-        with span("gossip.round", annotate=True):
+        with span("gossip.round"):
             t0 = time.perf_counter()
             res_vec = self._dense_round(edge_mask, tables, flags).cpu()
             every = self._gather_whole(
@@ -3006,7 +3041,7 @@ class ReplicatedRuntime:
         self._frontier_sync_mask(edge_mask)
         rounds = 0
         signed = None
-        with span("gossip.converge", annotate=True):
+        with span("gossip.converge"):
             t0 = time.perf_counter()
             # the flight ring records the rounds JAX's while loop runs, in
             # its order: a block's no-op rounds after the fixed point are
@@ -3058,17 +3093,19 @@ class ReplicatedRuntime:
             self._round_traffic = self._traffic_estimate()
         groups = self._part_groups(self._ensure_plan())
         part = self._partition
+        tel = self._instruments()
         fn = partitioned_converge_fn(
             tuple((g.codec, g.spec, len(g.var_ids)) for g in groups),
             part["mesh"], part["plan"], axis=part["axis"], mode=part["mode"],
             window=window,
             flight_rounds=(tel_flight.flight_rounds()
                            if tel_registry.enabled() else 0),
+            count_rounds=None if tel is None else tel["rounds_run"].inc,
         )
         member_states = tuple(
             tuple(self.states[v] for v in g.var_ids) for g in groups
         )
-        with span("gossip.converge", annotate=True):
+        with span("gossip.converge"):
             t0 = time.perf_counter()
             c0 = comm.carried_bytes()
             # the rounds build new populations: a failure leaves the
@@ -3294,7 +3331,7 @@ class ReplicatedRuntime:
             self._round_traffic = self._traffic_estimate()
         plan = self._ensure_plan()
         skipped = sum(not self._frontier_mask_of(v).any() for v in self.var_ids)
-        with span("gossip.frontier_round", annotate=True):
+        with span("gossip.frontier_round"):
             t0 = time.perf_counter()
             if self._partition is not None:
                 if edge_mask is not None:
@@ -3302,13 +3339,12 @@ class ReplicatedRuntime:
                         "partitioned sharded gossip does not support "
                         "edge_mask failure injection"
                     )
-                with span("gossip.shard_frontier_round", annotate=True):
+                with span("gossip.shard_frontier_round"):
                     stats = self._frontier_round_partitioned(plan)
             elif plan is None:
                 stats = self._frontier_round_pervar(edge_mask)
             else:
-                with span("gossip.plan_round", annotate=True,
-                          groups=len(plan.groups)):
+                with span("gossip.plan_round", groups=len(plan.groups)):
                     stats = self._frontier_round_planned(plan, edge_mask)
             elapsed = time.perf_counter() - t0
         total = sum(stats["per_var_changed"])
@@ -3340,7 +3376,9 @@ class ReplicatedRuntime:
         through bit-unchanged; the dense crossover is decided per member, so
         one hot member promotes only itself. Singleton groups take the
         per-variable round. Per-member states and residuals are those of
-        the per-variable round."""
+        the per-variable round. Spans: ``frontier.reach`` (a group's reach
+        loop), ``frontier.dispatch`` (a launch, from its row matrix to its
+        host sync), ``frontier.reseed`` (the masks and the AAE marks)."""
         changed_of: dict = {}
         rows_touched = dense_falls = dispatches = 0
         for group in plan.groups:
@@ -3354,48 +3392,55 @@ class ReplicatedRuntime:
                 dispatches += touched > 0
                 continue
             active = []  # (var_id, reachable rows)
-            for v in group.var_ids:
-                f = self._frontier_mask_of(v)
-                if not f.any():
-                    continue
-                rows = self._frontier_reach_rows(f, edge_mask)
-                if rows.size == 0:
-                    self._frontier[v] = np.zeros(self.n_replicas, bool)
-                    continue
-                active.append((v, rows))
+            with span("frontier.reach"):
+                for v in group.var_ids:
+                    f = self._frontier_mask_of(v)
+                    if not f.any():
+                        continue
+                    rows = self._frontier_reach_rows(f, edge_mask)
+                    if rows.size == 0:
+                        self._frontier[v] = np.zeros(self.n_replicas, bool)
+                        continue
+                    active.append((v, rows))
             thresh = self.frontier_crossover * self.n_replicas
             dense_subset = [(v, r) for v, r in active if r.size > thresh]
             sparse_subset = [(v, r) for v, r in active if r.size <= thresh]
             dense_ids = [v for v, _r in dense_subset]
             dispatches += bool(dense_ids) + bool(sparse_subset)
-            for v, mask in zip(dense_ids, self._plan_dense_round(dense_ids, edge_mask)):
-                self._frontier[v] = mask
-                changed_of[v] = int(mask.sum())
-                if changed_of[v]:
-                    self._aae_mark(v, np.flatnonzero(mask))
+            if dense_ids:
+                with span("frontier.dispatch"):
+                    masks = self._plan_dense_round(dense_ids, edge_mask)
+                with span("frontier.reseed"):
+                    for v, mask in zip(dense_ids, masks):
+                        self._frontier[v] = mask
+                        changed_of[v] = int(mask.sum())
+                        if changed_of[v]:
+                            self._aae_mark(v, np.flatnonzero(mask))
             dense_falls += len(dense_subset)
             rows_touched += self.n_replicas * len(dense_subset)
             if sparse_subset:
-                max_rows = max(r.size for _v, r in sparse_subset)
-                bucket = max(self._frontier_bucket(max_rows), max_rows)
-                rows_mat = np.zeros((len(sparse_subset), bucket), dtype=np.int64)
-                valid = np.zeros((len(sparse_subset), bucket), dtype=bool)
-                for i, (_v, rows) in enumerate(sparse_subset):
-                    rows_mat[i, : rows.size] = rows
-                    rows_mat[i, rows.size:] = rows[0]
-                    valid[i, : rows.size] = True
-                    rows_touched += int(rows.size)
-                changed = self._plan_sparse_round(
-                    [v for v, _r in sparse_subset], rows_mat, valid, edge_mask
-                )
-                for i, (v, rows) in enumerate(sparse_subset):
-                    mask = np.zeros(self.n_replicas, dtype=bool)
-                    ch = changed[i, : rows.size]
-                    mask[rows[ch]] = True
-                    self._frontier[v] = mask
-                    changed_of[v] = int(mask.sum())
-                    if changed_of[v]:
-                        self._aae_mark(v, rows[ch])
+                with span("frontier.dispatch"):
+                    max_rows = max(r.size for _v, r in sparse_subset)
+                    bucket = max(self._frontier_bucket(max_rows), max_rows)
+                    rows_mat = np.zeros((len(sparse_subset), bucket), dtype=np.int64)
+                    valid = np.zeros((len(sparse_subset), bucket), dtype=bool)
+                    for i, (_v, rows) in enumerate(sparse_subset):
+                        rows_mat[i, : rows.size] = rows
+                        rows_mat[i, rows.size:] = rows[0]
+                        valid[i, : rows.size] = True
+                        rows_touched += int(rows.size)
+                    changed = self._plan_sparse_round(
+                        [v for v, _r in sparse_subset], rows_mat, valid, edge_mask
+                    )
+                with span("frontier.reseed"):
+                    for i, (v, rows) in enumerate(sparse_subset):
+                        mask = np.zeros(self.n_replicas, dtype=bool)
+                        ch = changed[i, : rows.size]
+                        mask[rows[ch]] = True
+                        self._frontier[v] = mask
+                        changed_of[v] = int(mask.sum())
+                        if changed_of[v]:
+                            self._aae_mark(v, rows[ch])
         return {
             "per_var_changed": [changed_of.get(v, 0) for v in self.var_ids],
             "rows_touched": rows_touched,
@@ -3870,24 +3915,27 @@ class ReplicatedRuntime:
 
     def _frontier_round_onevar(self, v: str, edge_mask) -> tuple:
         """One variable's frontier round: ``(changed_count, rows_touched,
-        dense_falls)``."""
+        dense_falls)``, in the spans of :meth:`_frontier_round_planned`."""
         f = self._frontier_mask_of(v)
         if not f.any():
             return 0, 0, 0
-        rows = self._frontier_reach_rows(f, edge_mask)
+        with span("frontier.reach"):
+            rows = self._frontier_reach_rows(f, edge_mask)
         if rows.size == 0:
             # dirty rows whose every out-edge is dead deliver nothing
             self._frontier[v] = np.zeros(self.n_replicas, bool)
             return 0, 0, 0
-        if rows.size > self.frontier_crossover * self.n_replicas:
-            changed_mask = self._frontier_dense_round(v, edge_mask)
-            touched, dense = self.n_replicas, 1
-        else:
-            changed_mask = self._frontier_sparse_round(v, rows, edge_mask)
-            touched, dense = int(rows.size), 0
-        self._frontier[v] = changed_mask
-        if changed_mask.any():
-            self._aae_mark(v, np.flatnonzero(changed_mask))
+        with span("frontier.dispatch"):
+            if rows.size > self.frontier_crossover * self.n_replicas:
+                changed_mask = self._frontier_dense_round(v, edge_mask)
+                touched, dense = self.n_replicas, 1
+            else:
+                changed_mask = self._frontier_sparse_round(v, rows, edge_mask)
+                touched, dense = int(rows.size), 0
+        with span("frontier.reseed"):
+            self._frontier[v] = changed_mask
+            if changed_mask.any():
+                self._aae_mark(v, np.flatnonzero(changed_mask))
         return int(changed_mask.sum()), touched, dense
 
     def _frontier_bucket(self, n: int) -> int:
@@ -3949,14 +3997,15 @@ class ReplicatedRuntime:
         arm, which the reference fails on there: the same states and
         residuals, rounds touching other rows."""
         across = auto and self._gather_across()
-        for i in range(max_rounds):
-            if across and self._frontier_dense_arm(edge_mask) is not None:
-                self._count_dense_fallback("dense_arm_across_processes")
-                residual = self._gather_step_exact(edge_mask)
-            else:
-                residual = self.frontier_step(edge_mask)
-            if residual == 0:
-                return self._record_quiescence(i + 1)
+        with span("gossip.frontier_converge"):
+            for i in range(max_rounds):
+                if across and self._frontier_dense_arm(edge_mask) is not None:
+                    self._count_dense_fallback("dense_arm_across_processes")
+                    residual = self._gather_step_exact(edge_mask)
+                else:
+                    residual = self.frontier_step(edge_mask)
+                if residual == 0:
+                    return self._record_quiescence(i + 1)
         raise RuntimeError(f"no convergence within {max_rounds} rounds")
 
     # -- reads ------------------------------------------------------------------
@@ -4024,9 +4073,10 @@ class ReplicatedRuntime:
         return tree_map(lambda x: x[0], self._pull_rows(pop, [r % self.n_replicas]))
 
     def replica_value(self, var_id: str, replica: int):
-        var = self.store.variable(var_id)
-        row = self._row_of(var_id, replica)
-        return self.store._decode_value(var, self._to_dense_row(var_id, row))
+        with span("mesh.replica_value"):
+            var = self.store.variable(var_id)
+            row = self._row_of(var_id, replica)
+            return self.store._decode_value(var, self._to_dense_row(var_id, row))
 
     def quorum_value(self, var_id: str, replicas):
         """R-of-N quorum read: join the given replica rows and decode."""

@@ -822,7 +822,8 @@ def partitioned_frontier_round_fn(codec, spec, mesh: Mesh, plan: dict,
 
 def partitioned_converge_fn(groups, mesh: Mesh, plan: dict,
                             axis="replicas", mode: str = "gather",
-                            window: int = 8, flight_rounds: int = 0):
+                            window: int = 8, flight_rounds: int = 0,
+                            count_rounds=None):
     """The sharded ``converge_on_device``: boundary-exchange rounds to the
     store-wide fixed point with quiescence found by a HIERARCHICAL
     residual reduction. Each round every shard's per-member changed-row
@@ -839,7 +840,9 @@ def partitioned_converge_fn(groups, mesh: Mesh, plan: dict,
     (member_states, signed_rounds)`` (positive = exact rounds to
     quiescence, negative = budget exhausted after ``-rounds``), and with
     ``flight_rounds=K > 0`` also the ``int32[K, V]`` flight ring of the
-    global per-member rows of the rounds that count."""
+    global per-member rows of the rounds that count. ``count_rounds``, if
+    given, is called with the number of rounds each window ran, the
+    no-op rounds past the fixed point included."""
     if window < 1:
         raise ValueError("window must be >= 1")
     _check_plan(plan, mesh, axis)
@@ -876,6 +879,8 @@ def partitioned_converge_fn(groups, mesh: Mesh, plan: dict,
                     new_sts.append(new)
                 sts = new_sts
                 partials[i] = torch.stack(per, dim=1)
+            if count_rounds is not None:
+                count_rounds(t)
             # the psum: this process's shards, then one all_reduce a window
             totals = comm.all_reduce(partials.sum(1, dtype=torch.int32), mesh)
             _moved("psum", S * window, n_members * 4)

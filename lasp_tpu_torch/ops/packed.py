@@ -19,6 +19,7 @@ import torch
 from ..device import resolve_device
 from ..lattice.base import all_trailing
 from ..lattice.orset import ORSetSpec, ORSetState
+from ..telemetry.spans import ranged
 
 WORD_MASK = 0xFFFFFFFF
 
@@ -44,21 +45,24 @@ def pack_bits(flat: torch.Tensor, n_words: int) -> torch.Tensor:
     """bool[..., N] -> int32[..., n_words], bit ``i`` at word ``i // 32``,
     position ``i % 32`` (the JAX packing order). Built a byte at a time
     (two bytes of scratch a bit) and read as little-endian words."""
-    lead = tuple(flat.shape[:-1])
-    padded = torch.zeros(lead + (n_words * 32,), dtype=torch.uint8, device=flat.device)
-    padded[..., : flat.shape[-1]] = flat
-    weighted = padded.reshape(lead + (n_words * 4, 8)) * _byte_bits(flat.device)
-    return weighted.sum(dim=-1, dtype=torch.uint8).view(torch.int32)
+    with ranged("packed.pack"):
+        lead = tuple(flat.shape[:-1])
+        padded = torch.zeros(lead + (n_words * 32,), dtype=torch.uint8,
+                             device=flat.device)
+        padded[..., : flat.shape[-1]] = flat
+        weighted = padded.reshape(lead + (n_words * 4, 8)) * _byte_bits(flat.device)
+        return weighted.sum(dim=-1, dtype=torch.uint8).view(torch.int32)
 
 
 def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
     """int32[..., W] -> bool[..., n_bits] (inverse of :func:`pack_bits`),
     read a byte at a time from the little-endian words (one byte of
     scratch a bit)."""
-    lead = tuple(words.shape[:-1])
-    octets = words.contiguous().view(torch.uint8)
-    bits = (octets.unsqueeze(-1) & _byte_bits(words.device)) != 0
-    return bits.reshape(lead + (words.shape[-1] * 32,))[..., :n_bits]
+    with ranged("packed.unpack"):
+        lead = tuple(words.shape[:-1])
+        octets = words.contiguous().view(torch.uint8)
+        bits = (octets.unsqueeze(-1) & _byte_bits(words.device)) != 0
+        return bits.reshape(lead + (words.shape[-1] * 32,))[..., :n_bits]
 
 
 @dataclasses.dataclass(frozen=True)

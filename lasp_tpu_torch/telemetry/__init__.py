@@ -7,8 +7,11 @@ the device flight ring.
   registry (see :mod:`.registry`); ``set_enabled(False)`` flips them to
   no-ops.
 - ``span`` — nested timing regions into a bounded ring + optional JSONL
-  log (see :mod:`.spans`); ``annotate=True`` adds a
-  ``torch.profiler.record_function`` range.
+  log (see :mod:`.spans`), each a ``torch.profiler.record_function``
+  range while a profiler records (``spans.ranged``: that range alone, for
+  the regions that run once a chunk or a codec call); ``spans.PORT_ONLY``
+  names the spans, ranges and metrics the port emits and ``lasp_tpu``
+  does not.
 - ``events`` — the typed, bounded causal event log (see :mod:`.events`).
 - ``get_monitor()`` — the process-global :class:`ConvergenceMonitor`
   (see :mod:`.convergence`).

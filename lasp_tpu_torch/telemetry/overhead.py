@@ -74,7 +74,7 @@ def _measure(n_replicas: int, step_samples: int, emission_samples: int,
         try:
             t0 = time.perf_counter()
             for _ in range(emission_samples):
-                with span("gossip.round", annotate=True):
+                with span("gossip.round"):
                     pass
                 rt._emit_step_telemetry(res_vec, 0, 1e-6)
             return (time.perf_counter() - t0) / emission_samples
@@ -170,7 +170,7 @@ def _measure_frontier(step_samples: int, emission_samples: int, dev,
         try:
             t0 = time.perf_counter()
             for k in range(emission_samples):
-                with span("gossip.plan_round", annotate=True):
+                with span("gossip.plan_round"):
                     pass
                 rt._emit_frontier_telemetry(vecs[k & 1], hot, hot, 0, 0, 1e-6,
                                             dispatches=dispatches)
@@ -235,7 +235,7 @@ def _measure_dataflow(step_samples: int, emission_samples: int, dev,
         try:
             t0 = time.perf_counter()
             for _ in range(emission_samples):
-                with span("dataflow.propagate", annotate=True):
+                with span("dataflow.propagate"):
                     pass
                 g._emit_propagate_telemetry(stats, 1e-6)
                 ledger.record("dataflow_fused", "OverheadProbe", **rec)

@@ -14,26 +14,46 @@ other's lineage. Finished spans land in
   var; write failures disable the sink loudly once rather than breaking
   the traced operation.
 
-``annotate=True`` additionally wraps the region in a
-``torch.profiler.record_function`` while a profiler records, so spans show
-up as named ranges in a ``torch.profiler`` trace.
+While a ``torch.profiler`` records, every span also opens a
+``torch.profiler.record_function`` range of its own name, so the spans sit
+on the device trace's clock; an idle profiler costs one check a span.
+A region that runs once a chunk of a sweep or once a codec call (tens of
+thousands of times a converge at 10M replicas) is a :class:`ranged`
+region instead: the profiler's range alone, no ring record, so it never
+pushes the whole operations out of the ring.
 
 Span taxonomy (documented in docs/OBSERVABILITY.md): ``gossip.round``,
 ``gossip.converge``, ``merge.<crdt_type>``, ``mesh.update_batch``,
-``dataflow.propagate``, ``bridge.<verb>``.
+``dataflow.propagate``, ``bridge.<verb>``, and the port's own
+(:data:`PORT_ONLY`, lasp_tpu_torch/telemetry/PORT_ONLY.md).
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import threading
 import time
+
+import torch
 
 from . import registry as _registry
 from .sink import JsonlSink
 
 DEFAULT_RING_SIZE = 2048
+
+#: the port's :class:`ranged` regions: profiler ranges with no ring record
+RANGES = frozenset({"dataflow.trigger", "packed.pack", "packed.unpack"})
+
+#: the span, range and metric names the port emits and ``lasp_tpu`` does
+#: not (ROADMAP C13): the converge step's and the frontier round's parts,
+#: the whole operations around them, and the counters the benchmark reads
+PORT_ONLY = RANGES | frozenset({
+    "dataflow.sweep", "gossip.pull", "frontier.reach", "frontier.dispatch",
+    "frontier.reseed", "gossip.frontier_converge", "telemetry.emit",
+    "mesh.ingest_cycle", "mesh.replica_value",
+    "gossip_rounds_run_total", "gossip_frontier_dense_rounds_total",
+    "ingest_cycle_ops_total",
+})
 
 _local = threading.local()
 _lock = threading.Lock()
@@ -73,55 +93,88 @@ def _emit(rec: dict) -> None:
     _sink.append(rec)
 
 
-@contextlib.contextmanager
-def span(name: str, annotate: bool = False, **attrs):
-    """Time a region as one span event. Nesting is tracked per thread
-    (``path`` joins enclosing span names with ``>``); duration is
-    recorded whether or not the body raises (a failed round's timing is
-    exactly the one you want on a dashboard), with ``error`` set to the
-    exception type when it does."""
-    if not _registry.enabled():
-        yield
-        return
-    stack = getattr(_local, "stack", None)
-    if stack is None:
-        stack = _local.stack = []
-    path = ">".join(stack + [name])
-    stack.append(name)
-    ann = None
-    if annotate:
-        import torch
+class span:
+    """Time a region as one span event (``with span(name, **attrs):``).
+    Nesting is tracked per thread (``path`` joins enclosing span names
+    with ``>``); duration is recorded whether or not the body raises (a
+    failed round's timing is exactly the one you want on a dashboard),
+    with ``error`` set to the exception type when it does. While a
+    profiler records, the region is also a ``record_function`` range of
+    the same name. A class, not a generator: the frontier round's parts
+    are spans, thousands a burst, so their cost with tracing off is kept
+    to the bookkeeping."""
 
-        # only while a profiler records (JAX's annotates only once jax is
-        # imported): an idle ``record_function`` costs ~10 µs a span
+    __slots__ = ("name", "attrs", "_ann", "_stack", "_path", "_ts", "_t0")
+
+    def __init__(self, name: str, **attrs):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self) -> None:
+        if not _registry.enabled():
+            self._stack = None
+            return
+        name = self.name
+        # only while a profiler records (an idle ``record_function`` costs
+        # ~10 µs a span); the range holds the span's own bookkeeping too,
+        # so the host time a span costs lies under its name on the trace
+        self._ann = None
         if torch._C._autograd._profiler_enabled():
-            ann = torch.profiler.record_function(name)
-            ann.__enter__()
-    ts = time.time()
-    t0 = time.perf_counter()
-    err: "str | None" = None
-    try:
-        yield
-    except BaseException as exc:
-        err = type(exc).__name__
-        raise
-    finally:
-        dt = time.perf_counter() - t0
-        if ann is not None:
-            ann.__exit__(None, None, None)
+            self._ann = torch.profiler.record_function(name)
+            self._ann.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(name)
+        self._stack = stack
+        self._path = ">".join(stack)
+        self._ts = time.time()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        stack = self._stack
+        if stack is None:
+            return False
+        dt = time.perf_counter() - self._t0
         stack.pop()
         rec = {
             "kind": "span",
-            "name": name,
-            "path": path,
-            "ts": round(ts, 6),
+            "name": self.name,
+            "path": self._path,
+            "ts": round(self._ts, 6),
             "seconds": dt,
         }
-        if err is not None:
-            rec["error"] = err
-        if attrs:
-            rec["attrs"] = attrs
+        if exc_type is not None:
+            rec["error"] = exc_type.__name__
+        if self.attrs:
+            rec["attrs"] = self.attrs
         _emit(rec)
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
+        return False
+
+
+class ranged:
+    """A ``record_function`` range of ``name`` while telemetry is on and a
+    profiler records, and nothing else: no ring record, no JSONL line, no
+    place on the nesting path (:data:`RANGES`). For the regions that run
+    once a chunk of a sweep or once a codec call; otherwise two checks."""
+
+    __slots__ = ("name", "_ann")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._ann = None
+        if _registry.enabled() and torch._C._autograd._profiler_enabled():
+            self._ann = torch.profiler.record_function(self.name)
+            self._ann.__enter__()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
+        return False
 
 
 def current_path() -> str:

@@ -1,8 +1,8 @@
 """The port's telemetry core against ``lasp_tpu.telemetry``: the same
 emissions render the same Prometheus text, metric events and JSONL lines,
 and the same causal event records (timestamps aside); the registry's typing
-rules, the span ring (with a ``torch.profiler`` range under
-``annotate=True``), the event log's bounds and deep tier, and the
+rules, the span ring (with a ``torch.profiler`` range while a profiler
+records), the event log's bounds and deep tier, and the
 ``ConvergenceMonitor``'s feeds, alerts and population probe. Tolerance
 zero."""
 
@@ -194,13 +194,13 @@ def test_spans_nest_record_errors_and_annotate(tmp_path):
     try:
         with tspans.span("chaos.soak", mode="dense"):
             assert tspans.current_path() == "chaos.soak"
-            with tspans.span("chaos.fused_window", annotate=True, rounds=8):
+            with tspans.span("chaos.fused_window", rounds=8):
                 assert tspans.current_path() == "chaos.soak>chaos.fused_window"
         with pytest.raises(KeyError):
             with tspans.span("quorum.step", round=1):
                 raise KeyError("x")
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            with tspans.span("annotated", annotate=True):
+            with tspans.span("annotated"):
                 torch.ones(4).sum()
     finally:
         tspans.configure(jsonl_path="")

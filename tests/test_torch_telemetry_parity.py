@@ -6,7 +6,9 @@ three blocking reads, a resize, a map -> filter -> union -> product chain
 propagated fused and per edge) runs through both packages, and the two
 transcripts — metric families, labels, counter and gauge values, histogram
 counts, causal events without their seconds, span names in order — are
-equal with the deep tier off and on. Beside it: every literal metric, span
+equal with the deep tier off and on, once the port's own names
+(``PORT_ONLY``, ROADMAP C13, each of the ring and the registry asserted
+on the drive) are left out. Beside it: every literal metric, span
 and event name of ``lasp_tpu`` exists in the port (JAX's Pallas race
 counter excepted, ROADMAP C12); twins of
 ``tests/telemetry/test_integration_gossip.py``, of the propagate records
@@ -44,6 +46,21 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 #: the one JAX name the port does not emit: the winners of JAX's race
 #: between its XLA and Pallas arms (ROADMAP C12)
 NOT_CARRIED = {"gossip_pallas_race_total"}
+#: the names the port emits and JAX does not (ROADMAP C13): the spans of
+#: the converge step's and the frontier round's parts and of the whole
+#: operations around them, the profiler ranges of a sweep's chunk and of
+#: the codec (never in the ring), and the counters the benchmark reads
+PORT_ONLY_SPANS = {
+    "dataflow.sweep", "gossip.pull", "frontier.reach", "frontier.dispatch",
+    "frontier.reseed", "gossip.frontier_converge", "telemetry.emit",
+    "mesh.ingest_cycle", "mesh.replica_value",
+}
+PORT_ONLY_RANGES = {"dataflow.trigger", "packed.pack", "packed.unpack"}
+PORT_ONLY_METRICS = {
+    "gossip_rounds_run_total", "gossip_frontier_dense_rounds_total",
+    "ingest_cycle_ops_total",
+}
+PORT_ONLY = PORT_ONLY_SPANS | PORT_ONLY_RANGES | PORT_ONLY_METRICS
 
 
 @pytest.fixture(autouse=True)
@@ -85,6 +102,16 @@ def _modules(port: bool):
 def test_transcript_equals_jax(deep):
     want = chip_smoke.telemetry_drive(_modules(False), 32, deep, {})
     got = chip_smoke.telemetry_drive(_modules(True), 32, deep, {"device": "cpu"})
+    assert ttel.spans.PORT_ONLY == PORT_ONLY
+    assert ttel.spans.RANGES == PORT_ONLY_RANGES
+    # every port-only name of the ring and the registry is on the drive,
+    # no range is in the ring, and only those names are dropped
+    assert {m[0] for m in got["metrics"]} >= PORT_ONLY_METRICS
+    assert set(got["spans"]) >= PORT_ONLY_SPANS
+    assert not set(got["spans"]) & PORT_ONLY_RANGES
+    assert not PORT_ONLY & ({m[0] for m in want["metrics"]} | set(want["spans"]))
+    got["metrics"] = [m for m in got["metrics"] if m[0] not in PORT_ONLY]
+    got["spans"] = [n for n in got["spans"] if n not in PORT_ONLY]
     assert got["checks"] == want["checks"]
     assert got["metrics"] == want["metrics"]
     assert got["events"] == want["events"]
